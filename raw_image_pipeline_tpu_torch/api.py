@@ -7,13 +7,14 @@ frames ([B, H, W]) behave like a frame-by-frame loop. Built pipelines are
 cached per (shape, encoding); the loaders invalidate the cache.
 
 `use_gpu` keeps the reference's meaning: the reference's CUDA *semantics*
-(the MHT demosaic and the BT.709 gamma), not "run on the GPU". Those are not
-ported yet, so use_gpu=True raises. Where the tensors live is chosen with
+(the MHT demosaic with no R<->B swap, and the BT.709 table for the "default"
+gamma method), not "run on the GPU". Where the tensors live is chosen with
 `device=` ("cpu", or "cuda" for the hand-written kernels).
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -39,17 +40,18 @@ class RawImagePipeline:
         color_calibration_path: str = "",
         device="cpu",
     ):
-        if use_gpu:
-            raise NotImplementedError(
-                "use_gpu=True (the reference's CUDA semantics: MHT demosaic "
-                "and BT.709 gamma); choose the device with device="
-            )
         self._device = _resolve_device(device)
         self._state = None
         self._cache: Dict[Tuple, BuiltPipeline] = {}
         self._last_outputs: Dict[str, torch.Tensor] = {}
+        base = cfg.PipelineConfig()
+        if use_gpu:
+            base = base.replace(
+                debayer=replace(base.debayer, algorithm="mht"),
+                gamma_correction=replace(base.gamma_correction, gpu=True),
+            )
         self._config = cfg.load_pipeline_params(
-            params_path or cfg.DEFAULT_PARAMS_PATH, cfg.PipelineConfig()
+            params_path or cfg.DEFAULT_PARAMS_PATH, base
         )
         if calibration_path:
             self.load_camera_calibration(calibration_path)
@@ -61,6 +63,9 @@ class RawImagePipeline:
         if config_updates:
             self._config = self._config.replace(**config_updates)
         self._cache.clear()
+
+    def _set_module(self, name: str, **kw) -> None:
+        self._invalidate(**{name: replace(getattr(self._config, name), **kw)})
 
     def _with_state(self) -> bool:
         wb = self._config.white_balance
@@ -111,6 +116,19 @@ class RawImagePipeline:
                 file_path, self._config.color_calibration
             )
         )
+
+    def set_gpu(self, use_gpu: bool) -> None:
+        """The reference's CUDA semantics on or off: the MHT demosaic and the
+        GPU backend's BT.709 "default" gamma (the device stays as chosen)."""
+        self._set_module("debayer", algorithm="mht" if use_gpu else "bilinear")
+        self._set_module("gamma_correction", gpu=use_gpu)
+
+    def set_undistortion_interpolation(self, mode: str) -> None:
+        """Which OpenCV-build remap arithmetic to replicate: "lerp" (x86/IPP,
+        the default) | "fixed32" (ARM/Jetson) | "float" (quantization-free)."""
+        if mode not in ("lerp", "fixed32", "float"):
+            raise ValueError(f"unknown remap interpolation [{mode}]")
+        self._set_module("undistortion", interpolation=mode)
 
     def reset_white_balance_temporal_consistency(self) -> None:
         self._state = None

@@ -2,9 +2,10 @@
 counts.
 
 The sources live in `raw_image_pipeline_tpu_torch/csrc/*.cu`. At first use
-they are compiled by nvcc for sm_90a (Hopper) into one shared library with
-a plain C interface, `build/kernels/libisp_kernels_<hash>.so` at the root of
-the checkout, and loaded with ctypes. The hash covers the sources and the
+they are compiled by nvcc for sm_90a (Hopper), one nvcc process per source,
+all started together, and linked into one shared library with a plain C
+interface, `build/kernels/libisp_kernels_<hash>.so` at the root of the
+checkout, which is loaded with ctypes. The hash covers the sources and the
 flags, so an edited source is rebuilt. Nothing is built or loaded when this
 module is imported: the CPU tests import every module and never reach a
 kernel.
@@ -29,10 +30,11 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu")
+SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
+           "remap_float.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -44,6 +46,8 @@ _SIGNATURES = {
     "isp_debayer_bilinear": (_P, _P, _I, _I, _I, _I, _P),
     "isp_ccc_histogram": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P),
     "isp_ccc_response": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "isp_debayer_mht": (_P, _P, _I, _I, _I, _I, _P),
+    "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -67,16 +71,28 @@ class _Library:
 
         if CUDA_HOME is None:
             raise RuntimeError("no CUDA toolkit found: nvcc is needed to build the kernels")
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+        objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+        os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = [(src, p.communicate()[0], p.returncode) for src, p in zip(SOURCES, procs)]
+        failed = [f"{src} ({rc}):\n{log}" for src, log, rc in logs if rc != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         self.build_seconds = time.perf_counter() - t0
 
@@ -136,7 +152,17 @@ CCC_RESPONSE = Kernel(
     "raw_image_pipeline_tpu_torch/csrc/ccc_response.cu",
     "raw_image_pipeline_tpu/ops/ccc.py:280",
 )
-ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE)
+DEBAYER_MHT = Kernel(
+    "debayer_mht", "isp_debayer_mht",
+    "raw_image_pipeline_tpu_torch/csrc/debayer_mht.cu",
+    "raw_image_pipeline_tpu/ops/debayer_pallas.py:229",
+)
+REMAP_FLOAT = Kernel(
+    "remap_float", "isp_remap_float",
+    "raw_image_pipeline_tpu_torch/csrc/remap_float.cu",
+    "raw_image_pipeline_tpu/ops/remap_blend_pallas.py:42",
+)
+ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT)
 
 
 def reset_launch_counts() -> None:

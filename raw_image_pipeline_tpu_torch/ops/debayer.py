@@ -1,11 +1,17 @@
-"""Bilinear Bayer demosaic, bit-exact vs cv::demosaicing (PyTorch port of
-the bilinear half of raw_image_pipeline_tpu/ops/debayer.py).
+"""8-bit Bayer demosaic (PyTorch port of raw_image_pipeline_tpu/ops/debayer.py).
 
-`debayer_bilinear` is the plain version (zero-padded shifted views, phase
-masks, then cv::demosaicing's 1-px border replication), op for op the
-reference package's. `debayer_planes` is what the pipeline calls: on a CUDA
-tensor it launches kernel A (csrc/debayer.cu), on a CPU tensor it runs the
-plain version.
+Two algorithms, each a plain version and a hand-written kernel:
+
+- bilinear, bit-exact vs cv::demosaicing: `debayer_bilinear` (zero-padded
+  shifted views, phase masks, then cv::demosaicing's 1-px border
+  replication), op for op the reference package's; kernel A
+  (csrc/debayer.cu);
+- MHT, the Malvar-He-Cutler 5x5 stencil of the reference's CUDA backend
+  (cv::cuda::demosaicing): `debayer_mht`, the full stencil over a
+  clamp-to-edge mosaic; kernel D (csrc/debayer_mht.cu).
+
+`debayer_planes` is what the pipeline calls: on a CUDA tensor it launches
+the algorithm's kernel, on a CPU tensor it runs the plain version.
 
 Phase convention: OpenCV's COLOR_BayerXX2BGR codes define the CFA phase from
 pixel (1,1), so e.g. ``bayer_bggr8`` (ROS: top-left pixel Blue) maps to a
@@ -71,7 +77,7 @@ def _site_masks(h: int, w: int, phase: str, device) -> Tuple[torch.Tensor, ...]:
 
 
 def phase_kinds(phase: str) -> int:
-    """Kernel A's packed phase table: for parity cell (row&1)*2 + (col&1),
+    """Kernels A's and D's packed phase table: for parity cell (row&1)*2 + (col&1),
     bits [2*cell, 2*cell+2) hold 0 R site, 1 G in an R row, 2 G in a B row,
     3 B site."""
     packed = 0
@@ -131,15 +137,90 @@ def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     return out
 
 
-def debayer_planes(bayer: torch.Tensor, encoding: str, plain: bool = False):
+def _desc8(v: torch.Tensor) -> torch.Tensor:
+    """v/16 with round-half-even (= rint of the float stencil value); v is
+    int32 and may be negative (>> is an arithmetic shift)."""
+    q = (v + 8) >> 4
+    return q - (((v & 15) == 8) & ((q & 1) == 1)).to(v.dtype)
+
+
+def debayer_mht(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+    """Plain Malvar-He-Cutler demosaic: [B, H, W] uint8 -> [B, 3, H, W]
+    uint8 planar BGR, equal to the reference package's debayer_mht for any
+    H, W >= 1 (no R<->B swap: this is the reference's GPU algorithm).
+
+    The full 5x5 stencil with x16 integer filters is evaluated at every
+    pixel over a 2-px clamp-to-edge padded mosaic (the CUDA kernel's
+    cudaAddressModeClamp texture reads); the padding is an index gather on
+    the int32 mosaic."""
+    h, w = bayer.shape[-2], bayer.shape[-1]
+    dev = bayer.device
+    rows = torch.clamp(torch.arange(-2, h + 2, device=dev), 0, h - 1)
+    cols = torch.clamp(torch.arange(-2, w + 2, device=dev), 0, w - 1)
+    p = bayer.to(torch.int32).index_select(-2, rows).index_select(-1, cols)
+
+    def sh(dy: int, dx: int) -> torch.Tensor:
+        return p[..., 2 + dy:2 + dy + h, 2 + dx:2 + dx + w]
+
+    c = sh(0, 0)
+    n1, s1, w1, e1 = sh(-1, 0), sh(1, 0), sh(0, -1), sh(0, 1)
+    n2, s2, w2, e2 = sh(-2, 0), sh(2, 0), sh(0, -2), sh(0, 2)
+    diag4 = sh(-1, -1) + sh(-1, 1) + sh(1, -1) + sh(1, 1)
+    cross4 = n1 + s1 + w1 + e1
+    axial4 = n2 + s2 + w2 + e2
+
+    g_at_rb = _desc8(8 * c + 4 * cross4 - 2 * axial4)
+    rb_at_g_h = _desc8(10 * c + 8 * (w1 + e1) - 2 * diag4 - 2 * (w2 + e2) + (n2 + s2))
+    rb_at_g_v = _desc8(10 * c + 8 * (n1 + s1) - 2 * diag4 - 2 * (n2 + s2) + (w2 + e2))
+    rb_at_br = _desc8(12 * c + 4 * diag4 - 3 * axial4)
+
+    r_site, g_r_row, g_b_row, b_site = _site_masks(h, w, phase, dev)
+    g = torch.where(g_r_row | g_b_row, c, g_at_rb)
+    r = torch.where(r_site, c, torch.where(g_r_row, rb_at_g_h,
+                                           torch.where(g_b_row, rb_at_g_v, rb_at_br)))
+    b = torch.where(b_site, c, torch.where(g_b_row, rb_at_g_h,
+                                           torch.where(g_r_row, rb_at_g_v, rb_at_br)))
+    return torch.clamp(torch.stack([b, g, r], dim=-3), 0, 255).to(torch.uint8)
+
+
+def debayer_mht_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+    """Kernel D: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
+    equal to debayer_mht for any H, W >= 1."""
+    kernels.check_cuda(bayer, "bayer", torch.uint8)
+    if bayer.dim() != 3 or bayer.shape[1] < 1 or bayer.shape[2] < 1:
+        raise ValueError(f"bayer: expected [B, H, W] with H, W >= 1, got {tuple(bayer.shape)}")
+    b, h, w = bayer.shape
+    kernels.check_batch(b, "bayer")
+    out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=bayer.device)
+    if b:
+        with torch.cuda.device(bayer.device):
+            kernels.DEBAYER_MHT.launch(
+                bayer.data_ptr(), out.data_ptr(), b, h, w, phase_kinds(phase),
+                kernels.stream_handle(bayer),
+            )
+    return out
+
+
+_ALGORITHMS = {
+    "bilinear": (debayer_bilinear, debayer_bilinear_cuda),
+    "mht": (debayer_mht, debayer_mht_cuda),
+}
+
+
+def debayer_planes(bayer: torch.Tensor, encoding: str, algorithm: str = "bilinear",
+                   plain: bool = False):
     """Demosaic a [B, H, W] uint8 batch straight to three [B, H, W] planes
-    (c0, c1, c2) in cv2's BGR order. A CUDA tensor goes through kernel A,
-    a CPU tensor (or plain=True) through the plain version."""
+    (c0, c1, c2) in cv2's BGR order, by "bilinear" or "mht". A CUDA tensor
+    goes through the algorithm's kernel (A or D), a CPU tensor (or
+    plain=True) through the plain version."""
     if encoding not in ENCODING_TO_CV_CODE:
         raise NotImplementedError(f"debayer of encoding [{encoding}]")
+    if algorithm not in _ALGORITHMS:
+        raise NotImplementedError(f"the [{algorithm}] demosaic algorithm")
+    plain_fn, cuda_fn = _ALGORITHMS[algorithm]
     phase = phase_for_encoding(encoding)
     if plain or bayer.device.type == "cpu":
-        out = debayer_bilinear(bayer, phase)
+        out = plain_fn(bayer, phase)
     else:
-        out = debayer_bilinear_cuda(bayer.contiguous(), phase)
+        out = cuda_fn(bayer.contiguous(), phase)
     return out[:, 0], out[:, 1], out[:, 2]

@@ -8,10 +8,17 @@ of `remap_precompute`, which factors the remap into one anchor index and the
 per-pixel weights; tests/test_torch_ops.py holds them equal to the
 originals.
 
-Device remap — `remap_lerp_planes`, cv::remap(INTER_LINEAR,
-BORDER_CONSTANT=0) in the x86/IPP "lerp" arithmetic: per pixel two x-lerps
-and one y-lerp, each a single-rounding fma (Dekker-emulated in plain f32
-ops), reading the four taps straight from the planes.
+Device remap — cv::remap(INTER_LINEAR, BORDER_CONSTANT=0) in the three
+arithmetics `remap_precompute` factors, each reading the four taps straight
+from the planes (`remap_planes` picks by mode):
+
+- `remap_lerp_planes`, the x86/IPP "lerp": per pixel two x-lerps and one
+  y-lerp, each a single-rounding fma (Dekker-emulated in plain f32 ops);
+- `remap_float_planes`, "float": the plain two-rounding blend
+  ((t0*w0 + t1*w1) + t2*w2) + t3*w3, then rint; on a CUDA tensor kernel E
+  (csrc/remap_float.cu) computes it;
+- `remap_fixed32_planes`, "fixed32": the 2^15-scaled integer blend, exact
+  in f32.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from raw_image_pipeline_tpu_torch import kernels
 from raw_image_pipeline_tpu_torch.ops.common import fma_f32, round_u8
 
 
@@ -454,3 +462,103 @@ def remap_lerp_planes(planes, base: torch.Tensor, weights: torch.Tensor,
     b = lerp_x(v10, v11)
     out = round_u8(fma_f32(fy, b - t, t))  # [B, N, C]
     return out.reshape(out.shape[0], ho, wo, out.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Device remap (float and fixed32 modes)
+# ---------------------------------------------------------------------------
+
+
+def _anchor_taps(planes, base: torch.Tensor):
+    """The four [B, N, C] f32 taps of remap_precompute(..., mode="float" or
+    "fixed32"): flat positions base + {0, 1, w, w+1} (no pack margin; fully
+    out-of-image pixels carry base 0 and four zero weights). A position
+    outside [0, h*w) reads 0, as the reference package's zero-padded pack
+    does for degenerate maps."""
+    h, w = planes[0].shape[-2], planes[0].shape[-1]
+    src = torch.stack([p.reshape(p.shape[0], h * w) for p in planes], dim=-1)  # [B, HW, C]
+    base = base.long()
+    taps = []
+    for off in (0, 1, w, w + 1):
+        idx = base + off
+        inside = ((idx >= 0) & (idx < h * w))[None, :, None]
+        t = src.index_select(1, torch.clamp(idx, 0, h * w - 1)).float()
+        taps.append(torch.where(inside, t, 0.0))
+    return taps
+
+
+def remap_float_planes(planes, base: torch.Tensor, weights: torch.Tensor,
+                       out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain cv::remap in float mode over a tuple of [B, H, W] u8 planes
+    with remap_precompute(..., mode="float")'s base [N] int32 and weights
+    [4, N] f32. Returns [B, Ho, Wo, C] u8.
+
+    The reference package's sealed blend: every product and sum is its own
+    eager f32 op, so each rounds once ((t0*w0 + t1*w1) + t2*w2) + t3*w3 —
+    no addcmul, no f64, no compiler that could contract them into fmas —
+    then rint half-to-even and saturate."""
+    t = _anchor_taps(planes, base)
+    p = [t[k] * weights[k][None, :, None] for k in range(4)]
+    acc = ((p[0] + p[1]) + p[2]) + p[3]
+    out = round_u8(acc)
+    return out.reshape(out.shape[0], *out_hw, out.shape[-1])
+
+
+def remap_fixed32_planes(planes, base: torch.Tensor, weights: torch.Tensor,
+                         out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv::remap in fixed32 mode (OpenCV's non-IPP integer blend) with
+    remap_precompute(..., mode="fixed32")'s base [N] int32 and 2^15-scaled
+    integer weights [4, N] f32. Every intermediate is an exact integer in
+    f32, then floor((acc + 2^14) * 2^-15), saturated. Returns
+    [B, Ho, Wo, C] u8."""
+    t = _anchor_taps(planes, base)
+    acc = sum(t[k] * weights[k][None, :, None] for k in range(4))
+    v = torch.floor((acc + float(1 << (_REMAP_COEF_BITS - 1))) * (1.0 / _REMAP_COEF_SCALE))
+    out = torch.clamp(v, 0, 255).to(torch.uint8)
+    return out.reshape(out.shape[0], *out_hw, out.shape[-1])
+
+
+def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
+                     out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Kernel E: remap_float_planes for three contiguous [B, H, W] u8 CUDA
+    planes, base [Ho*Wo] int32 and weights [4, Ho*Wo] f32 on the same card.
+    Returns [B, Ho, Wo, 3] u8."""
+    if len(planes) != 3:
+        raise ValueError(f"planes: expected 3, got {len(planes)}")
+    shape = tuple(planes[0].shape)
+    if len(shape) != 3:
+        raise ValueError(f"planes: expected [B, H, W], got {shape}")
+    for i, p in enumerate(planes):
+        kernels.check_cuda(p, f"planes[{i}]", torch.uint8, shape)
+    b, h, w = shape
+    ho, wo = out_hw
+    n = ho * wo
+    kernels.check_cuda(base, "base", torch.int32, (n,))
+    kernels.check_cuda(weights, "weights", torch.float32, (4, n))
+    kernels.check_batch(b, "planes")
+    out = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=planes[0].device)
+    if b and n:
+        with torch.cuda.device(out.device):
+            kernels.REMAP_FLOAT.launch(
+                planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
+                base.data_ptr(), weights.data_ptr(), out.data_ptr(), b, h, w, n,
+                kernels.stream_handle(out),
+            )
+    return out
+
+
+def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
+                 out_hw: Tuple[int, int], mode: str, plain: bool = False) -> torch.Tensor:
+    """The remap stage in `mode` ("lerp" | "float" | "fixed32"; base and
+    weights from remap_precompute in the same mode). Float mode on CUDA
+    planes goes through kernel E, on CPU planes (or plain=True) through
+    remap_float_planes; lerp and fixed32 are plain torch ops."""
+    if mode == "lerp":
+        return remap_lerp_planes(planes, base, weights, out_hw)
+    if mode == "fixed32":
+        return remap_fixed32_planes(planes, base, weights, out_hw)
+    if mode != "float":
+        raise ValueError(f"unknown remap mode [{mode}]")
+    if plain or planes[0].device.type == "cpu":
+        return remap_float_planes(planes, base, weights, out_hw)
+    return remap_float_cuda(tuple(p.contiguous() for p in planes), base, weights, out_hw)

@@ -6,18 +6,20 @@ raw_image_pipeline_tpu/pipeline.py, planar path).
 
 The chain runs eagerly on planar [B, H, W] u8 planes in B, G, R order, in
 the reference's fixed stage order: flip (hoisted onto the mosaic for even
-frame sizes) -> bilinear debayer (kernel A on CUDA) -> CCC white balance
-(resize, histogram = kernel B, response = kernel C, argmax, Kalman, gains)
--> colour calibration -> gamma -> vignetting -> HSV enhancer -> fisheye
-undistortion (lerp remap). Numeric parameters live in `IspParams`, tensors
-on the pipeline's device; every small table is its exact host table,
-applied as a gather.
+frame sizes) -> debayer (bilinear = kernel A, or the GPU-parity MHT =
+kernel D, on CUDA) -> CCC white balance (resize, histogram = kernel B,
+response = kernel C, argmax, Kalman, gains) -> colour calibration -> gamma
+(the k table, or the GPU backend's BT.709 table) -> vignetting -> HSV
+enhancer -> fisheye undistortion (lerp, float = kernel E on CUDA, or
+fixed32 remap). Numeric parameters live in `IspParams`, tensors on the
+pipeline's device; every small table is its exact host table, applied as
+a gather.
 
 The slice ported so far is the flagship chain and any enabled subset of its
-stages. Everything else raises NotImplementedError with its name: debug
-mode, microbatch, n_cameras > 1, the mht algorithm, encodings other than
-8-bit Bayer, the white-balance methods other than ccc, the GPU BT.709
-gamma and the remap modes other than lerp.
+stages, with either demosaic algorithm, either gamma and any remap mode.
+Everything else raises NotImplementedError with its name: debug mode,
+microbatch, n_cameras > 1, encodings other than 8-bit Bayer and the
+white-balance methods other than ccc.
 """
 
 from __future__ import annotations
@@ -39,12 +41,12 @@ from raw_image_pipeline_tpu_torch.ops.colorspace import _GAMMA_TAB
 from raw_image_pipeline_tpu_torch.ops.debayer import BAYER_ENCODINGS, debayer_planes
 from raw_image_pipeline_tpu_torch.ops.flip import flip as flip_op
 from raw_image_pipeline_tpu_torch.ops.flip import flipped_bayer_encoding
-from raw_image_pipeline_tpu_torch.ops.gamma import apply_lut, build_gamma_lut
+from raw_image_pipeline_tpu_torch.ops.gamma import apply_lut, build_bt709_lut, build_gamma_lut
 from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
 from raw_image_pipeline_tpu_torch.ops.undistortion import (
     estimate_new_camera_matrix,
     init_undistort_rectify_map,
-    remap_lerp_planes,
+    remap_planes,
     remap_precompute,
 )
 from raw_image_pipeline_tpu_torch.ops.vignetting import (
@@ -66,14 +68,20 @@ class IspParams:
 
     color_matrix: torch.Tensor  # [3, 3] f32
     color_bias: torch.Tensor  # [3] f32
-    gamma_lut: torch.Tensor  # [256] u8, the reference gamma LUT
-    # [256] int32 Lab linearize table of the vignetting forward: the gamma
-    # LUT composed in when gamma is on (it then feeds vignetting only)
+    # [256] u8, the gamma table: the reference's k LUT, or the GPU
+    # backend's BT.709 table (gamma_correction.gpu with method "default")
+    gamma_lut: torch.Tensor
+    # [256] int32 Lab linearize table of the vignetting forward: the k LUT
+    # composed in when the k gamma is on (it then feeds vignetting only);
+    # the plain sRGB linearize table otherwise
     lab_gamma_tab: torch.Tensor
     enhancer_tables: torch.Tensor  # [3, 256] u8 exact (H, S, V) gain tables
     vignetting_mask: Optional[torch.Tensor]  # [H, W] f32 (post-flip dims)
-    remap_base: Optional[torch.Tensor]  # [Ho*Wo] int32 (lerp convention)
-    remap_weights: Optional[torch.Tensor]  # [6, Ho*Wo] f32
+    # remap_precompute's factors in the configured mode: base [Ho*Wo] int32
+    # (lerp: with the pack margin), weights [6, Ho*Wo] f32 in lerp mode,
+    # [4, Ho*Wo] f32 in float and fixed32 modes
+    remap_base: Optional[torch.Tensor]
+    remap_weights: Optional[torch.Tensor]
     ccc_filt_dft_re: Optional[torch.Tensor]  # [256, 256] f32
     ccc_filt_dft_im: Optional[torch.Tensor]
     ccc_bias: Optional[torch.Tensor]
@@ -102,22 +110,22 @@ def _uses_ccc(config: PipelineConfig) -> bool:
     return wb.enabled and wb.method == "ccc"
 
 
+def _uses_bt709(config: PipelineConfig) -> bool:
+    """The GPU backend's "default" gamma: the fixed BT.709 table."""
+    gc = config.gamma_correction
+    return gc.gpu and gc.method == "default"
+
+
 def _check_slice(config: PipelineConfig, encoding: str) -> None:
     """Raise NotImplementedError, with its name, for what the port does not
     run yet."""
     if encoding not in BAYER_ENCODINGS:
         raise NotImplementedError(f"encoding [{encoding}] (8-bit Bayer only)")
-    if config.debayer.algorithm != "bilinear":
+    if config.debayer.algorithm not in ("bilinear", "mht"):
         raise NotImplementedError(f"the [{config.debayer.algorithm}] demosaic algorithm")
     wb = config.white_balance
     if wb.enabled and wb.method != "ccc":
         raise NotImplementedError(f"white-balance method [{wb.method}]")
-    gc = config.gamma_correction
-    if gc.enabled and gc.gpu and gc.method == "default":
-        raise NotImplementedError("GPU BT.709 gamma")
-    mode = config.undistortion.interpolation
-    if _runs_undistortion(config) and mode != "lerp":
-        raise NotImplementedError(f"remap mode [{mode}]")
 
 
 def _host_fields(config: PipelineConfig, frame_hw: Tuple[int, int]) -> Dict[str, np.ndarray]:
@@ -162,8 +170,8 @@ def params_from_numpy(fields, config: PipelineConfig, device="cpu") -> IspParams
     package's IspParams fields (a mapping, or an object with those
     attributes, e.g. the reference's params after jax.tree.map(np.asarray)),
     so that both sides compute from the same numbers. The exact tables
-    (gamma, composed Lab linearize, enhancer gains, exp) come from config
-    and the uv0 field."""
+    (gamma or BT.709, composed Lab linearize, enhancer gains, exp) come
+    from config and the uv0 field."""
     if not isinstance(fields, Mapping):
         fields = vars(fields)
     dev = torch.device(device)
@@ -177,8 +185,11 @@ def params_from_numpy(fields, config: PipelineConfig, device="cpu") -> IspParams
     use_ccc = _uses_ccc(config)
     undist = _runs_undistortion(config)
     gc = config.gamma_correction
-    gamma_lut = build_gamma_lut(gc.k)
-    lab_tab = composed_gamma_lab_table(gc.k) if gc.enabled else _GAMMA_TAB
+    bt709 = _uses_bt709(config)
+    # BT.709 is its own stage (the reference package composes only the k
+    # LUT into the vignetting forward), so vignetting then linearizes plain
+    gamma_lut = build_bt709_lut(gc.k <= 1.0) if bt709 else build_gamma_lut(gc.k)
+    lab_tab = composed_gamma_lab_table(gc.k) if gc.enabled and not bt709 else _GAMMA_TAB
     ce = config.color_enhancer
     uv0 = float(np.float32(fields["ccc_uv0"])) if use_ccc else 0.0
     return IspParams(
@@ -232,6 +243,7 @@ def make_isp_fn(
     encoding: str,
     with_state: bool,
     keep_intermediates: bool = True,
+    *,
     temporal_mode: str = "cameras",
     remap_src_hw: Optional[Tuple[int, int]] = None,
     debug: bool = False,
@@ -242,6 +254,7 @@ def make_isp_fn(
     (outputs, new_state). pixels: [B, H, W] uint8 on the params' device.
     On CUDA the chain launches the hand-written kernels; plain=True runs
     every op on its plain version instead (the card's reference chain).
+    The parameters after keep_intermediates are keyword-only.
 
     outputs["processed"] is [B, Ho, Wo, 3] u8 BGR; with keep_intermediates
     also "debayered" (post-flip) and "dist_color" (pre-undistort).
@@ -263,6 +276,11 @@ def make_isp_fn(
     vig = config.vignetting_correction
     calib = config.calibration
     flip_angle = config.flip.angle if config.flip.enabled else 0
+    algorithm = config.debayer.algorithm
+    # the k LUT feeds only vignetting when both are on: it is composed into
+    # the vignetting forward's linearize table (params.lab_gamma_tab); the
+    # BT.709 table runs as its own stage, as in the reference package
+    run_gamma = gc.enabled and (_uses_bt709(config) or not vig.enabled)
 
     def fn(params: IspParams, pixels: torch.Tensor, state: Optional[IspState]):
         if pixels.dim() != 3 or pixels.dtype != torch.uint8:
@@ -281,9 +299,12 @@ def make_isp_fn(
             hoist = hoist_enc is not None and img.shape[-1] % 2 == 0 and img.shape[-2] % 2 == 0
             if hoist:
                 img = flip_op(img, flip_angle, spatial_axes=(-2, -1))
-            planes = debayer_planes(img, hoist_enc if hoist else encoding, plain=plain)
-            # the reference CPU path's R<->B swap quirk (debayer.cpp:49-52)
-            planes = planes[::-1]
+            planes = debayer_planes(img, hoist_enc if hoist else encoding, algorithm,
+                                    plain=plain)
+            # the reference CPU path's R<->B swap quirk (debayer.cpp:49-52);
+            # the GPU-parity MHT has none
+            if algorithm != "mht":
+                planes = planes[::-1]
             if config.flip.enabled and not hoist:
                 planes = tuple(flip_op(p, config.flip.angle, spatial_axes=(-2, -1))
                                for p in planes)
@@ -315,9 +336,7 @@ def make_isp_fn(
         if config.color_calibration.enabled:
             with stage("isp_color_calibration"):
                 planes = color_correct_planes(*planes, params.color_matrix, params.color_bias)
-        # gamma feeds only vignetting when both are on: its LUT is composed
-        # into the vignetting forward's linearize table (params.lab_gamma_tab)
-        if gc.enabled and not vig.enabled:
+        if run_gamma:
             with stage("isp_gamma"):
                 planes = tuple(apply_lut(p, params.gamma_lut) for p in planes)
         if vig.enabled:
@@ -339,9 +358,10 @@ def make_isp_fn(
                         f"remap precomputed for source {tuple(remap_src_hw)} but got "
                         f"frame {hw}; rebuild the pipeline for this frame size"
                     )
-                outputs["processed"] = remap_lerp_planes(
+                outputs["processed"] = remap_planes(
                     planes, params.remap_base, params.remap_weights,
                     (calib.image_height, calib.image_width),
+                    config.undistortion.interpolation, plain=plain,
                 )
             else:
                 outputs["processed"] = torch.stack(planes, dim=-1)
@@ -393,7 +413,7 @@ def build_pipeline(
     if frame_hw is None:
         frame_hw = (config.calibration.image_height, config.calibration.image_width)
     fn = make_isp_fn(
-        config, encoding, with_state, keep_intermediates, temporal_mode,
+        config, encoding, with_state, keep_intermediates, temporal_mode=temporal_mode,
         remap_src_hw=_post_flip_shape(
             *frame_hw, config.flip.angle if config.flip.enabled else 0
         ),

@@ -17,20 +17,34 @@ per source, into build/kernels/), then:
                        1079x1439 and 3x5 (B=4);
        E float remap — 0 mismatching bytes on the float chain's fisheye
                        maps at 1920x1080 (B=4);
-  2. drives four chains through build_pipeline(config, "bayer_gbrg8",
-     with_state=True, temporal_mode="sequence", device="cuda"), 8 seeded
-     frames in 2 calls with the Kalman state carried, each at 1920x1080:
+  2. drives each chain through build_pipeline(config, encoding,
+     with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
+     state carried across the calls, at 1920x1080:
        flagship   — flagship_config(h, w), also at 1440x1080 (A, B, C);
        gpu_parity — MHT demosaic and the BT.709 gamma, the reference's
                     use_gpu=True semantics, also at 1440x1080 (D, B, C);
        float      — the float remap (A, B, C, E);
        fixed32    — the fixed32 remap, plain torch ops (A, B, C);
+         (each 8 seeded frames in 2 calls)
+       wb_simple, wb_grey_world, wb_pca, wb_learned — BASELINE config 2:
+                    debayer, flip 90 and the statistical white balance,
+                    128 frames made on the card in 2 calls of B=64 (A);
+       pointwise_bgr8 — BASELINE config 4: colour calibration, vignetting
+                    and the HSV enhancer on 512 bgr8 frames in one call
+                    with microbatch=128 (no kernel), its peak device
+                    memory printed;
      the launch counts are set to 0 just before each chain's 1920x1080 run
      and read just after, and each kernel of that chain must have launched;
      `processed` and the state must equal, byte for byte, the same chain
      with every op on its plain version on the card; frames/s is printed;
+     then the flagship at B=70 with microbatch=32 must equal the unchunked
+     chain, bytes and Kalman state;
   3. runs each chain at 96x128 on the card and on the CPU (plain versions)
-     and requires equal bytes and Kalman state.
+     and requires equal bytes and Kalman state, the flagship in debug mode
+     (every stage's dump), plus mono8, rgb8 and 16-bit Bayer input; then
+     the RawImagePipeline API on the card against the API on the CPU:
+     process with a grey-world WB, apply on a bgr8 buffer, and use_gpu=True
+     with pca (D).
 
 It prints the card's name and power limit, the build time, one line per
 check, a JSON line of the kernels and, last, {"ok": true, "device": ...}.
@@ -51,10 +65,24 @@ SEED = 0
 N_TIMED = 20
 FRAMES, CALLS = 8, 2
 SMALL = (96, 128)
+MICROBATCH_CHECK = (70, 32)  # frames, microbatch
+
+
+class Chain:
+    """One chain of phase 2 and 3: its config for (h, w), the full sizes,
+    the kernels it runs, its encoding, its input ("bayer", "color", "mono"
+    or "bayer16"), the frames and calls of a phase-2 run, its microbatch,
+    and how many timed runs give the median."""
+
+    def __init__(self, config, sizes, kernels, encoding="bayer_gbrg8", kind="bayer",
+                 frames=FRAMES, calls=CALLS, microbatch=None, reps=5, small_only=False):
+        self.config, self.sizes, self.kernels = config, sizes, kernels
+        self.encoding, self.kind, self.frames, self.calls = encoding, kind, frames, calls
+        self.microbatch, self.reps, self.small_only = microbatch, reps, small_only
 
 
 def _chains(tp):
-    """name -> (config for (h, w), sizes (h, w), the kernels the chain runs)."""
+    """name -> Chain."""
     import dataclasses
 
     def gpu_parity(h, w):
@@ -72,16 +100,110 @@ def _chains(tp):
                                                               interpolation=mode))
         return config
 
+    def config2(method):
+        # BASELINE config 2 (tests/test_baseline_configs.py): debayer, flip
+        # 90 and a statistical white balance
+        def config(h, w):
+            c = tp.PipelineConfig()
+            return c.replace(
+                flip=dataclasses.replace(c.flip, enabled=True, angle=90),
+                white_balance=dataclasses.replace(c.white_balance, enabled=True, method=method,
+                                                  clipping_percentile=20.0,
+                                                  saturation_bright_thr=0.8),
+            )
+        return config
+
+    def config4(h, w):
+        # BASELINE config 4: colour calibration, vignetting and the HSV
+        # enhancer on bgr8 frames
+        c = tp.PipelineConfig()
+        return c.replace(
+            color_calibration=dataclasses.replace(
+                c.color_calibration, enabled=True,
+                matrix=(1.3, 0.1, -0.1, 0.05, 1.1, -0.05, -0.1, -0.1, 1.4),
+                bias=(2.0, 0.0, -1.0)),
+            vignetting_correction=dataclasses.replace(c.vignetting_correction, enabled=True,
+                                                      scale=1.5, a2=1e-3, a4=1e-6),
+            color_enhancer=dataclasses.replace(c.color_enhancer, enabled=True,
+                                               saturation_gain=1.2),
+        )
+
+    def bayer16(h, w):
+        c = tp.flagship_config(h, w)
+        return c.replace(debayer=dataclasses.replace(c.debayer, bayer16="scale8"))
+
     full = ((1080, 1920), (1080, 1440))
-    return {
-        "flagship": (tp.flagship_config, full,
-                     ("debayer_bilinear", "ccc_histogram", "ccc_response")),
-        "gpu_parity": (gpu_parity, full, ("debayer_mht", "ccc_histogram", "ccc_response")),
-        "float": (remap("float"), full[:1],
-                  ("debayer_bilinear", "ccc_histogram", "ccc_response", "remap_float")),
-        "fixed32": (remap("fixed32"), full[:1],
-                    ("debayer_bilinear", "ccc_histogram", "ccc_response")),
+    ccc = ("ccc_histogram", "ccc_response")
+    chains = {
+        "flagship": Chain(tp.flagship_config, full, ("debayer_bilinear",) + ccc),
+        "gpu_parity": Chain(gpu_parity, full, ("debayer_mht",) + ccc),
+        "float": Chain(remap("float"), full[:1], ("debayer_bilinear",) + ccc + ("remap_float",)),
+        "fixed32": Chain(remap("fixed32"), full[:1], ("debayer_bilinear",) + ccc),
     }
+    for method, wb in (("simple", "simple"), ("grey_world", "grey_world"), ("pca", "pca"),
+                       ("learned", "learned")):
+        chains[f"wb_{method}"] = Chain(config2(wb), full[:1], ("debayer_bilinear",),
+                                       frames=128, calls=2, reps=3)
+    chains["pointwise_bgr8"] = Chain(config4, full[:1], (), encoding="bgr8", kind="color",
+                                     frames=512, calls=1, microbatch=128, reps=3)
+    # phase 3 only: the other inputs on the flagship configuration (mono
+    # frames run its flip, gamma and remap, here the float remap = E on one
+    # plane), 16-bit Bayer
+    chains["mono8_float"] = Chain(remap("float"), (), (), encoding="mono8", kind="mono",
+                                  small_only=True)
+    chains["rgb8_float"] = Chain(remap("float"), (), (), encoding="rgb8", kind="color",
+                                 small_only=True)
+    chains["bayer16"] = Chain(bayer16, (), (), encoding="bayer_gbrg16", kind="bayer16",
+                              small_only=True)
+    return chains
+
+
+def _card_frames(torch, kind: str, n: int, h: int, w: int, seed: int):
+    """n seeded [h, w] frames made on the card, each with its own colour
+    cast (a per-frame, per-channel gain), so that every white-balance method
+    finds different gains per frame: "color" [n, h, w, 3] BGR, "bayer"
+    [n, h, w] bayer_gbrg8 mosaics of such frames."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    yy = torch.linspace(0, 1, h, device="cuda")[:, None]
+    xx = torch.linspace(0, 1, w, device="cuda")[None, :] * (w / h)
+    out = torch.empty((n, h, w, 3) if kind == "color" else (n, h, w), dtype=torch.uint8,
+                      device="cuda")
+    for s in range(0, n, 32):
+        m = min(32, n - s)
+        phase = torch.rand((m, 1, 1), generator=g, device="cuda") * 6
+        base = 40 + 200 * (0.5 + 0.5 * torch.sin(7 * xx + 5 * yy + phase))
+        cast = 0.4 + 1.3 * torch.rand((m, 1, 1, 3), generator=g, device="cuda")
+        noise = 0.8 + 0.4 * torch.rand((m, h, w, 3), generator=g, device="cuda")
+        img = (base[..., None] * cast * noise).clamp(0, 255).to(torch.uint8)
+        out[s:s + m] = img if kind == "color" else _mosaic_gbrg(img)
+    return out
+
+
+def _mosaic_gbrg(bgr):
+    """[..., H, W, 3] BGR -> [..., H, W] bayer_gbrg8 ((0,0)=G (0,1)=B (1,0)=R)."""
+    out = bgr[..., 1].clone()
+    out[..., 0::2, 1::2] = bgr[..., 0::2, 1::2, 0]
+    out[..., 1::2, 0::2] = bgr[..., 1::2, 0::2, 2]
+    return out
+
+
+def _small_frames(np, kind: str, n: int, h: int, w: int, seed: int):
+    """n seeded small numpy frames of `kind`, each with its own colour cast."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    bgr = []
+    for _ in range(n):
+        base = 40 + 200 * (0.5 + 0.5 * np.sin(7 * xx + rng.uniform(0, 6) + 5 * yy))
+        img = base[..., None] * rng.uniform(0.4, 1.7, 3) * rng.uniform(0.8, 1.2, (h, w, 3))
+        bgr.append(np.clip(img, 0, 255).astype(np.uint8))
+    bgr = np.stack(bgr)
+    mosaic = bgr[..., 1].copy()
+    mosaic[..., 0::2, 1::2] = bgr[..., 0::2, 1::2, 0]
+    mosaic[..., 1::2, 0::2] = bgr[..., 1::2, 0::2, 2]
+    return {"color": bgr, "mono": bgr[..., 1].copy(), "bayer": mosaic,
+            "bayer16": (mosaic.astype(np.uint16) * 257
+                        + rng.integers(0, 257, mosaic.shape)).astype(np.uint16)}[kind]
 
 
 def _fail(msg: str) -> int:
@@ -182,7 +304,7 @@ def check_kernels(tp, torch, rng):
     rows["D"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
     print(f"kernel D time B=4 1080x1920: {ms:.4f} ms, plain {plain_ms:.4f} ms")
 
-    config = _chains(tp)["float"][0](1080, 1920)
+    config = _chains(tp)["float"].config(1080, 1920)
     params = tp.make_params(config, (1080, 1920), dev)
     base, weights = params.remap_base, params.remap_weights
     got = undistortion.remap_float_cuda(planes, base, weights, (1080, 1920))
@@ -202,97 +324,196 @@ def check_kernels(tp, torch, rng):
     return rows
 
 
-def _run_chain(call, frames, state):
-    """FRAMES frames in CALLS calls of call(pixels, state), the state carried
+def _run_chain(call, frames, state, calls=CALLS):
+    """The frames in `calls` calls of call(pixels, state), the state carried
     across them."""
     outs = []
-    per = frames.shape[0] // CALLS
-    for c in range(CALLS):
+    per = frames.shape[0] // calls
+    for c in range(calls):
         out, state = call(frames[c * per:(c + 1) * per], state)
         outs.append(out["processed"])
     return outs, state
 
 
+def _same_state(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in ("x", "p", "initialized"))
+
+
+def _out_hw(config, h: int, w: int):
+    """processed's [H, W]: the calibration size when the remap runs, else
+    the frame after the flip."""
+    from raw_image_pipeline_tpu_torch.pipeline import _post_flip_shape, _runs_undistortion
+
+    if _runs_undistortion(config):
+        return config.calibration.image_height, config.calibration.image_width
+    return _post_flip_shape(h, w, config.flip.angle if config.flip.enabled else 0)
+
+
 def check_chains(tp, torch, rng):
     """Phase 2: each chain at full size, kernels vs plain. Returns
     {kernel name: launches in the 1920x1080 run of the first chain that runs
-    it} and {(chain, size): (frames/s, plain frames/s)}."""
+    it}, {(chain, size): (frames/s, plain frames/s)} and {chain: peak device
+    bytes of its 1920x1080 run}."""
     from raw_image_pipeline_tpu_torch import kernels
-    from raw_image_pipeline_tpu_torch.pipeline import make_isp_fn
+    from raw_image_pipeline_tpu_torch.pipeline import _chunked_fn, make_isp_fn
 
-    launches, fps = {}, {}
-    for name, (make_config, sizes, path_kernels) in _chains(tp).items():
-        for (h, w) in sizes:
-            config = make_config(h, w)
-            pipe = tp.build_pipeline(config, "bayer_gbrg8", frame_hw=(h, w), with_state=True,
-                                     temporal_mode="sequence", device="cuda")
-            plain_fn = make_isp_fn(config, "bayer_gbrg8", True, False,
-                                   temporal_mode="sequence", remap_src_hw=(h, w), plain=True)
+    launches, fps, peak = {}, {}, {}
+    for name, ch in _chains(tp).items():
+        if ch.small_only:
+            continue
+        for (h, w) in ch.sizes:
+            config = ch.config(h, w)
+            pipe = tp.build_pipeline(config, ch.encoding, frame_hw=(h, w), with_state=True,
+                                     temporal_mode="sequence", device="cuda",
+                                     microbatch=ch.microbatch)
+            plain_fn = make_isp_fn(config, ch.encoding, True, False, temporal_mode="sequence",
+                                   plain=True)
+            if ch.microbatch:
+                plain_fn = _chunked_fn(plain_fn, ch.microbatch)
             plain = lambda px, st: plain_fn(pipe.params, px, st)  # noqa: E731
-            frames = torch.as_tensor(rng.integers(0, 256, (FRAMES, h, w), dtype="uint8"),
-                                     device="cuda")
+            if ch.kind == "bayer" and name in ("flagship", "gpu_parity", "float", "fixed32"):
+                frames = torch.as_tensor(rng.integers(0, 256, (ch.frames, h, w), dtype="uint8"),
+                                         device="cuda")
+            else:
+                frames = _card_frames(torch, ch.kind, ch.frames, h, w, SEED + len(name))
             label = f"chain {name} {w}x{h}"
             main_run = (h, w) == (1080, 1920)
-            if main_run:
-                kernels.reset_launch_counts()
-            outs, state = _run_chain(pipe, frames, tp.init_state((), "cuda"))
             torch.cuda.synchronize()
             if main_run:
+                kernels.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+            outs, state = _run_chain(pipe, frames, tp.init_state((), "cuda"), ch.calls)
+            torch.cuda.synchronize()
+            if main_run:
+                peak[name] = torch.cuda.max_memory_allocated()
                 counts = {k.name: k.launches for k in kernels.ALL}
                 print(f"{label} kernel launches: {counts}")
-                if not all(counts[k] > 0 for k in path_kernels):
+                if not all(counts[k] > 0 for k in ch.kernels):
                     raise AssertionError(f"{label}: a kernel of the path was not launched: "
-                                         f"{counts}, expected {path_kernels}")
-                for k in path_kernels:
+                                         f"{counts}, expected {ch.kernels}")
+                for k in ch.kernels:
                     launches.setdefault(k, counts[k])
-            ref, ref_state = _run_chain(plain, frames, tp.init_state((), "cuda"))
+            ref, ref_state = _run_chain(plain, frames, tp.init_state((), "cuda"), ch.calls)
+            want = (ch.frames // ch.calls, *_out_hw(config, h, w), 3)
             for o in outs:
-                if o.shape != (FRAMES // CALLS, h, w, 3) or o.dtype != torch.uint8:
-                    raise AssertionError(f"{label} processed: shape {tuple(o.shape)} {o.dtype}")
+                if tuple(o.shape) != want or o.dtype != torch.uint8:
+                    raise AssertionError(f"{label} processed: shape {tuple(o.shape)} {o.dtype}, "
+                                         f"expected {want} uint8")
             bad = sum(int((a != b).sum()) for a, b in zip(outs, ref))
-            same_state = (torch.equal(state.x, ref_state.x)
-                          and torch.equal(state.p, ref_state.p)
-                          and torch.equal(state.initialized, ref_state.initialized))
-            print(f"{label} B={FRAMES} in {CALLS} calls: {bad} mismatching bytes vs "
-                  f"the plain chain; Kalman state equal: {same_state} "
-                  f"(x={state.x.tolist()}, p={float(state.p)})")
-            if bad or not same_state:
+            same_state = _same_state(torch, state, ref_state)
+            moved = sum(int((o != f).sum()) for o, f in zip(outs, frames.split(want[0]))
+                        ) if ch.kind == "color" else None
+            print(f"{label} B={ch.frames} in {ch.calls} calls"
+                  + (f" (microbatch {ch.microbatch})" if ch.microbatch else "")
+                  + f": {bad} mismatching bytes vs the plain chain; Kalman state equal: "
+                  f"{same_state} (x={state.x.tolist()}, p={float(state.p)})"
+                  + (f"; {moved} bytes changed from the input" if moved is not None else ""))
+            if bad or not same_state or moved == 0:
                 raise AssertionError(f"{label} differs from the plain chain")
+            del outs, ref
 
             def timed(call):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                _run_chain(call, frames, tp.init_state((), "cuda"))
+                _run_chain(call, frames, tp.init_state((), "cuda"), ch.calls)
                 torch.cuda.synchronize()
-                return FRAMES / (time.perf_counter() - t0)
+                return ch.frames / (time.perf_counter() - t0)
 
-            k_fps = statistics.median(timed(pipe) for _ in range(5))
-            p_fps = statistics.median(timed(plain) for _ in range(5))
+            k_fps = statistics.median(timed(pipe) for _ in range(ch.reps))
+            p_fps = statistics.median(timed(plain) for _ in range(ch.reps))
             fps[(name, f"{w}x{h}")] = (k_fps, p_fps)
-            print(f"{label} frames/s: {k_fps:.2f} (plain ops: {p_fps:.2f}), "
-                  f"host clock around 2 calls of B={FRAMES // CALLS}, median of 5")
-    return launches, fps
+            print(f"{label} frames/s: {k_fps:.2f} (plain ops: {p_fps:.2f}), host clock around "
+                  f"{ch.calls} calls of B={ch.frames // ch.calls}, median of {ch.reps}"
+                  + (f"; peak device memory {peak[name] / 2**30:.2f} GiB" if main_run else ""))
+            del frames
+            torch.cuda.empty_cache()
+    return launches, fps, peak
 
 
-def check_small(tp, torch, rng):
-    """Phase 3: each chain on the card equals it on the CPU at a small size."""
+def check_microbatch(tp, torch, rng):
+    """Phase 2: the flagship at B=70 with microbatch=32 (two chunks and a
+    remainder of 6) equals the unchunked chain, bytes and Kalman state."""
+    from raw_image_pipeline_tpu_torch import kernels
+
+    n, mb = MICROBATCH_CHECK
+    h, w = 1080, 1920
+    frames = _card_frames(torch, "bayer", n, h, w, SEED + 70)
+    res = {}
+    for chunk in (mb, None):
+        pipe = tp.build_pipeline(tp.flagship_config(h, w), "bayer_gbrg8", frame_hw=(h, w),
+                                 with_state=True, temporal_mode="sequence", device="cuda",
+                                 microbatch=chunk)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out, st = pipe(frames, tp.init_state((), "cuda"))
+        torch.cuda.synchronize()
+        res[chunk] = (out["processed"], st, {k.name: k.launches for k in kernels.ALL})
+    bad = int((res[mb][0] != res[None][0]).sum())
+    same_state = _same_state(torch, res[mb][1], res[None][1])
+    print(f"microbatch flagship 1920x1080 B={n}, microbatch {mb}: {bad} mismatching bytes vs "
+          f"unchunked; Kalman state equal: {same_state}; launches {res[mb][2]} "
+          f"(unchunked {res[None][2]})")
+    if bad or not same_state or res[mb][2]["debayer_bilinear"] != -(-n // mb):
+        raise AssertionError("microbatch differs from the unchunked chain")
+
+
+def check_small(tp, torch, np):
+    """Phase 3: each chain on the card equals it on the CPU at a small size;
+    also the flagship in debug mode, every dump compared."""
     h, w = SMALL
-    frames = rng.integers(0, 256, (4, h, w), dtype="uint8")
-    for name, (make_config, _, _) in _chains(tp).items():
+    for name, ch in _chains(tp).items():
+        frames = _small_frames(np, ch.kind, 4, h, w, SEED + len(name))
+        debug = name == "flagship"
         res = {}
         for dev in ("cuda", "cpu"):
-            pipe = tp.build_pipeline(make_config(h, w), "bayer_gbrg8", frame_hw=(h, w),
+            pipe = tp.build_pipeline(ch.config(h, w), ch.encoding, frame_hw=(h, w),
                                      with_state=True, keep_intermediates=True,
-                                     temporal_mode="sequence", device=dev)
+                                     temporal_mode="sequence", device=dev, debug=debug,
+                                     microbatch=3 if ch.microbatch else None)
             out, st = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), dev))
             res[dev] = ({k: v.cpu() for k, v in out.items()}, st)
+        if set(res["cuda"][0]) != set(res["cpu"][0]):
+            raise AssertionError(f"chain {name}: different outputs {sorted(res['cuda'][0])}")
         bad = sum(int((res["cuda"][0][k] != res["cpu"][0][k]).sum()) for k in res["cpu"][0])
-        same_state = all(torch.equal(getattr(res["cuda"][1], f).cpu(), getattr(res["cpu"][1], f))
-                         for f in ("x", "p", "initialized"))
-        print(f"chain {name} {w}x{h} on the card vs on the CPU: {bad} mismatching bytes, "
+        same_state = _same_state(torch, res["cuda"][1], res["cpu"][1])
+        print(f"chain {name} ({ch.encoding}) {w}x{h} on the card vs on the CPU: "
+              f"{bad} mismatching bytes in {len(res['cpu'][0])} outputs, "
               f"Kalman state equal: {same_state}")
         if bad or not same_state:
             raise AssertionError(f"chain {name}: the card's chain differs from the CPU chain")
+
+
+def check_api(tp, torch, np):
+    """The API on the card against the API on the CPU: the shipped params
+    (read without PyYAML where it is missing) with a grey-world WB, process
+    on a Bayer frame, apply on a bgr8 buffer, and use_gpu=True with pca
+    (kernel D)."""
+    from raw_image_pipeline_tpu_torch import kernels
+
+    bgr = _small_frames(np, "color", 1, 540, 720, SEED + 5)[0]
+    bayer = _small_frames(np, "bayer", 1, 540, 720, SEED + 6)[0]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        p = tp.RawImagePipeline(device=dev)
+        p.set_white_balance_method("grey_world")
+        a = p.process(bayer, "bayer_gbrg8")
+        buf = bgr.copy()
+        p.apply(buf, "bgr8")
+        g = tp.RawImagePipeline(use_gpu=True, device=dev)
+        g.set_white_balance(True)
+        g.set_white_balance_method("pca")
+        c = g.process(bayer, "bayer_gbrg8")
+        res[dev] = (a, buf, c, {k.name: k.launches for k in kernels.ALL})
+    bad = [int((x != y).sum()) for x, y in zip(res["cuda"][:3], res["cpu"][:3])]
+    counts = res["cuda"][3]
+    print(f"API on the card vs on the CPU (process grey_world, apply bgr8, use_gpu pca): "
+          f"{bad} mismatching bytes; launches {counts}")
+    if any(bad) or counts["debayer_bilinear"] < 1 or counts["debayer_mht"] < 1:
+        raise AssertionError("the API on the card differs from the API on the CPU")
+    if np.array_equal(res["cuda"][1], bgr) or np.array_equal(res["cuda"][0], res["cuda"][2]):
+        raise AssertionError("the API's calls left the frames unchanged")
 
 
 def main() -> int:
@@ -325,8 +546,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     try:
         rows = check_kernels(tp, torch, rng)
-        launches, fps = check_chains(tp, torch, rng)
-        check_small(tp, torch, rng)
+        launches, fps, peak = check_chains(tp, torch, rng)
+        check_microbatch(tp, torch, rng)
+        check_small(tp, torch, np)
+        check_api(tp, torch, np)
     except Exception as e:  # the smoke test's boundary: report and fail
         import traceback
 
@@ -337,7 +560,8 @@ def main() -> int:
              "C": kernels.CCC_RESPONSE, "D": kernels.DEBAYER_MHT, "E": kernels.REMAP_FLOAT}
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
-        for (name, size), (a, b) in fps.items()]}))
+        for (name, size), (a, b) in fps.items()],
+        "peak_device_bytes_1920x1080": peak}))
     # launches: the count in the 1920x1080 run of the first chain that runs
     # the kernel (A, B, C: flagship; D: gpu_parity; E: float)
     print(json.dumps({"kernels": [

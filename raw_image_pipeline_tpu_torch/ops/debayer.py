@@ -1,6 +1,7 @@
-"""8-bit Bayer demosaic (PyTorch port of raw_image_pipeline_tpu/ops/debayer.py).
+"""Bayer demosaic (PyTorch port of raw_image_pipeline_tpu/ops/debayer.py).
 
-Two algorithms, each a plain version and a hand-written kernel:
+Two algorithms for 8-bit frames, each a plain version and a hand-written
+kernel:
 
 - bilinear, bit-exact vs cv::demosaicing: `debayer_bilinear` (zero-padded
   shifted views, phase masks, then cv::demosaicing's 1-px border
@@ -11,7 +12,9 @@ Two algorithms, each a plain version and a hand-written kernel:
   clamp-to-edge mosaic; kernel D (csrc/debayer_mht.cu).
 
 `debayer_planes` is what the pipeline calls: on a CUDA tensor it launches
-the algorithm's kernel, on a CPU tensor it runs the plain version.
+the algorithm's kernel, on a CPU tensor it runs the plain version. 16-bit
+frames (an extension of the reference) go through `debayer_bilinear16`,
+plain int32 ops on any device.
 
 Phase convention: OpenCV's COLOR_BayerXX2BGR codes define the CFA phase from
 pixel (1,1), so e.g. ``bayer_bggr8`` (ROS: top-left pixel Blue) maps to a
@@ -48,6 +51,11 @@ ENCODING_TO_CV_CODE = {
 
 BAYER_ENCODINGS = tuple(ENCODING_TO_CV_CODE)
 
+# 16-bit patterns: listed by the reference but unimplemented there (it
+# throws); demosaiced by debayer_bilinear16 when DebayerConfig.bayer16 is
+# "scale8"
+BAYER16_ENCODINGS = ("bayer_bggr16", "bayer_gbrg16", "bayer_grbg16", "bayer_rggb16")
+
 # Which parity cell holds (R site, G in an R row, G in a B row, B site),
 # per phase; cells are ee/eo/oe/oo = (row&1, col&1) of (0,0)/(0,1)/(1,0)/(1,1).
 _CELLS = {
@@ -60,8 +68,11 @@ _CELL_INDEX = {"ee": 0, "eo": 1, "oe": 2, "oo": 3}
 
 
 def phase_for_encoding(encoding: str) -> str:
-    """Physical CFA phase (channel of sample (0,0) etc.) for a ROS encoding,
-    under OpenCV's interpretation of the matching COLOR_Bayer code."""
+    """Physical CFA phase (channel of sample (0,0) etc.) for a ROS encoding
+    (8- or 16-bit), under OpenCV's interpretation of the matching
+    COLOR_Bayer code."""
+    if encoding in BAYER16_ENCODINGS:
+        encoding = encoding[:-2] + "8"
     return _CV_PHASE[ENCODING_TO_CV_CODE[encoding]]
 
 
@@ -93,11 +104,11 @@ def _replicate_border(img: torch.Tensor) -> torch.Tensor:
     return torch.cat([img[..., :, 1:2], img[..., :, 1:-1], img[..., :, -2:-1]], dim=-1)
 
 
-def debayer_bilinear(bayer: torch.Tensor, phase: str) -> torch.Tensor:
-    """Plain bilinear demosaic: [B, H, W] uint8 -> [B, 3, H, W] uint8 planar
-    BGR (the channel order cv2 produces), bit-exact vs cv::demosaicing."""
-    h, w = bayer.shape[-2], bayer.shape[-1]
-    p = F.pad(bayer, (1, 1, 1, 1)).to(torch.int16)
+def _bilinear_stencil(p: torch.Tensor, phase: str, hi: int) -> torch.Tensor:
+    """The bilinear stencil over a zero-padded, widened mosaic p [B, H+2,
+    W+2]: [B, 3, H, W] BGR in p's dtype, clamped to [0, hi], with
+    cv::demosaicing's 1-px border replication."""
+    h, w = p.shape[-2] - 2, p.shape[-1] - 2
     x = p[..., 1:-1, 1:-1]
     n, s = p[..., :-2, 1:-1], p[..., 2:, 1:-1]
     wv, e = p[..., 1:-1, :-2], p[..., 1:-1, 2:]
@@ -109,14 +120,31 @@ def debayer_bilinear(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     n4 = avg4(n, s, wv, e)
     d4 = avg4(nw, ne, sw, se)
 
-    r_site, g_r_row, g_b_row, b_site = _site_masks(h, w, phase, bayer.device)
+    r_site, g_r_row, g_b_row, b_site = _site_masks(h, w, phase, p.device)
     g_site = g_r_row | g_b_row
 
     g = torch.where(g_site, x, n4)
     r = torch.where(r_site, x, torch.where(g_r_row, h2, torch.where(g_b_row, v2, d4)))
     b = torch.where(b_site, x, torch.where(g_b_row, h2, torch.where(g_r_row, v2, d4)))
-    out = torch.clamp(torch.stack([b, g, r], dim=-3), 0, 255).to(torch.uint8)
-    return _replicate_border(out)
+    return _replicate_border(torch.clamp(torch.stack([b, g, r], dim=-3), 0, hi))
+
+
+def debayer_bilinear(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+    """Plain bilinear demosaic: [B, H, W] uint8 -> [B, 3, H, W] uint8 planar
+    BGR (the channel order cv2 produces), bit-exact vs cv::demosaicing."""
+    p = F.pad(bayer, (1, 1, 1, 1)).to(torch.int16)
+    return _bilinear_stencil(p, phase, 255).to(torch.uint8)
+
+
+def debayer_bilinear16(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+    """Bilinear demosaic of 16-bit frames (the reference package's
+    debayer_bilinear16, an extension: the reference lists these patterns
+    and throws): [B, H, W] uint16 (or any integer dtype holding 16-bit
+    values) -> [B, 3, H, W] int32 BGR in [0, 65535], the 8-bit stencil
+    and rounding in int32. The frame is widened to int32 first: uint16
+    tensors support few ops."""
+    p = F.pad(bayer.to(torch.int32), (1, 1, 1, 1))
+    return _bilinear_stencil(p, phase, 65535)
 
 
 def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:

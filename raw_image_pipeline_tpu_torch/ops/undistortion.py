@@ -561,4 +561,7 @@ def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"unknown remap mode [{mode}]")
     if plain or planes[0].device.type == "cpu":
         return remap_float_planes(planes, base, weights, out_hw)
-    return remap_float_cuda(tuple(p.contiguous() for p in planes), base, weights, out_hw)
+    planes = tuple(p.contiguous() for p in planes)
+    if len(planes) == 1:  # mono: kernel E blends three planes, keep one
+        return remap_float_cuda(planes * 3, base, weights, out_hw)[..., :1]
+    return remap_float_cuda(planes, base, weights, out_hw)

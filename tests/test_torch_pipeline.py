@@ -3,7 +3,7 @@ the flagship chain (and subsets of its stages) through the reference's
 build_pipeline and the port's make_isp_fn, from the same parameters
 (params_from_numpy / state_from_numpy) and the same seeded frames, over a
 sequence of frames in two calls with the Kalman state carried. Also the
-API, what the slice refuses, and that the port runs with jax blocked."""
+API, what the port refuses, and that the port runs with jax blocked."""
 
 import dataclasses
 import os
@@ -202,25 +202,11 @@ def test_stage_subsets_equal_reference(name, hw):
         assert int((po[key] != jo[key]).sum()) == 0, key
 
 
-@pytest.mark.parametrize("change", [
-    "debug", "microbatch", "n_cameras", "rgb8", "bayer_gbrg16", "grey_world",
-])
+@pytest.mark.parametrize("change", ["n_cameras"])
 def test_out_of_slice_raises(change):
     c = tp.flagship_config(24, 32)
-    build = lambda cfg, **kw: tp.build_pipeline(cfg, kw.pop("enc", "bayer_gbrg8"),  # noqa: E731
-                                                (24, 32), **kw)
     with pytest.raises(NotImplementedError):
-        if change == "debug":
-            build(c, debug=True)
-        elif change == "microbatch":
-            build(c, microbatch=2)
-        elif change == "n_cameras":
-            tp.make_isp_fn(c, "bayer_gbrg8", True, n_cameras=2)
-        elif change in ("rgb8", "bayer_gbrg16"):
-            build(c, enc=change)
-        else:
-            build(c.replace(white_balance=dataclasses.replace(c.white_balance,
-                                                              method="grey_world")))
+        tp.make_isp_fn(c, "bayer_gbrg8", True, n_cameras=2)
 
 
 def test_cuda_device_without_card_raises():

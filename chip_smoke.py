@@ -36,7 +36,9 @@ per source, into build/kernels/), then:
      the launch counts are set to 0 just before each chain's 1920x1080 run
      and read just after, and each kernel of that chain must have launched;
      `processed` and the state must equal, byte for byte, the same chain
-     with every op on its plain version on the card; frames/s is printed;
+     with every op on its plain version on the card; the first 3 frames of
+     each wb_* chain and the first 128-frame chunk of pointwise_bgr8 must
+     also equal the chain on the CPU, byte for byte; frames/s is printed;
      then the flagship at B=70 with microbatch=32 must equal the unchunked
      chain, bytes and Kalman state;
   3. runs each chain at 96x128 on the card and on the CPU (plain versions)
@@ -72,13 +74,16 @@ class Chain:
     """One chain of phase 2 and 3: its config for (h, w), the full sizes,
     the kernels it runs, its encoding, its input ("bayer", "color", "mono"
     or "bayer16"), the frames and calls of a phase-2 run, its microbatch,
-    and how many timed runs give the median."""
+    how many timed runs give the median, and how many of its first
+    1920x1080 frames phase 2 also runs on the CPU."""
 
     def __init__(self, config, sizes, kernels, encoding="bayer_gbrg8", kind="bayer",
-                 frames=FRAMES, calls=CALLS, microbatch=None, reps=5, small_only=False):
+                 frames=FRAMES, calls=CALLS, microbatch=None, reps=5, small_only=False,
+                 cpu_frames=0):
         self.config, self.sizes, self.kernels = config, sizes, kernels
         self.encoding, self.kind, self.frames, self.calls = encoding, kind, frames, calls
         self.microbatch, self.reps, self.small_only = microbatch, reps, small_only
+        self.cpu_frames = cpu_frames
 
 
 def _chains(tp):
@@ -143,9 +148,10 @@ def _chains(tp):
     for method, wb in (("simple", "simple"), ("grey_world", "grey_world"), ("pca", "pca"),
                        ("learned", "learned")):
         chains[f"wb_{method}"] = Chain(config2(wb), full[:1], ("debayer_bilinear",),
-                                       frames=128, calls=2, reps=3)
+                                       frames=128, calls=2, reps=3, cpu_frames=3)
     chains["pointwise_bgr8"] = Chain(config4, full[:1], (), encoding="bgr8", kind="color",
-                                     frames=512, calls=1, microbatch=128, reps=3)
+                                     frames=512, calls=1, microbatch=128, reps=3,
+                                     cpu_frames=128)
     # phase 3 only: the other inputs on the flagship configuration (mono
     # frames run its flip, gamma and remap, here the float remap = E on one
     # plane), 16-bit Bayer
@@ -411,6 +417,8 @@ def check_chains(tp, torch, rng):
                   + (f"; {moved} bytes changed from the input" if moved is not None else ""))
             if bad or not same_state or moved == 0:
                 raise AssertionError(f"{label} differs from the plain chain")
+            if ch.cpu_frames and main_run:
+                check_on_cpu(tp, torch, label, config, ch, frames, outs[0])
             del outs, ref
 
             def timed(call):
@@ -429,6 +437,23 @@ def check_chains(tp, torch, rng):
             del frames
             torch.cuda.empty_cache()
     return launches, fps, peak
+
+
+def check_on_cpu(tp, torch, label, config, ch, frames, card_out):
+    """Phase 2: the first ch.cpu_frames frames of a full-size run through
+    the same chain on the CPU (in chunks of 32 frames) equal the card's
+    output, byte for byte. These chains carry no state across frames."""
+    n = ch.cpu_frames
+    pipe = tp.build_pipeline(config, ch.encoding, frame_hw=tuple(frames.shape[1:3]),
+                             with_state=True, temporal_mode="sequence", device="cpu",
+                             microbatch=32)
+    t0 = time.perf_counter()
+    out, _ = pipe(frames[:n].cpu(), tp.init_state((), "cpu"))
+    bad = int((out["processed"] != card_out[:n].cpu()).sum())
+    print(f"{label}: the first {n} frames on the CPU ({time.perf_counter() - t0:.1f} s): "
+          f"{bad} mismatching bytes vs the card")
+    if bad:
+        raise AssertionError(f"{label}: the card's chain differs from the CPU chain")
 
 
 def check_microbatch(tp, torch, rng):
@@ -486,7 +511,7 @@ def check_small(tp, torch, np):
 
 def check_api(tp, torch, np):
     """The API on the card against the API on the CPU: the shipped params
-    (read without PyYAML where it is missing) with a grey-world WB, process
+    with a grey-world WB, process
     on a Bayer frame, apply on a bgr8 buffer, and use_gpu=True with pca
     (kernel D)."""
     from raw_image_pipeline_tpu_torch import kernels

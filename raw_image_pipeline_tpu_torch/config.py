@@ -1,8 +1,7 @@
 """Configuration layer (PyTorch port; a verbatim copy of
 raw_image_pipeline_tpu/config.py held equal by tests/test_torch_ops.py,
-except that the YAML loaders read through `_read_yaml` — PyYAML where it is
-installed, else a reader of the small YAML subset the configuration files
-use — and `flagship_config` at the end).
+except that PyYAML is imported inside the YAML loaders only, and
+`flagship_config` at the end).
 
 Frozen dataclasses mirroring the reference's YAML parameter schema 1:1, plus
 loaders for the three reference file formats so existing files work verbatim:
@@ -32,7 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import re
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
@@ -239,98 +237,6 @@ class PipelineConfig:
 # YAML loaders
 # ---------------------------------------------------------------------------
 
-# PyYAML's (YAML 1.1) resolvers for the scalar forms the subset reader
-# accepts: decimal ints, floats with a dot (so "1e-3" stays a string, as in
-# PyYAML), .inf/.nan, booleans and nulls
-_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
-_YAML_FLOAT = re.compile(
-    r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?$|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?$"
-)
-_YAML_BOOL = {**{t: True for t in ("true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON")},
-              **{t: False for t in ("false", "False", "FALSE", "no", "No", "NO",
-                                    "off", "Off", "OFF")}}
-
-
-def _yaml_scalar(token: str):
-    t = token.strip()
-    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
-        return t[1:-1]
-    if t in _YAML_BOOL:
-        return _YAML_BOOL[t]
-    if t in ("", "~", "null", "Null", "NULL"):
-        return None
-    if _YAML_INT.match(t):
-        return int(t.replace("_", ""))
-    if _YAML_FLOAT.match(t):
-        return float(t.replace("_", ""))
-    if t.lstrip("+-") in (".inf", ".Inf", ".INF"):
-        return float(t.replace(".", "").lower())
-    if t in (".nan", ".NaN", ".NAN"):
-        return float("nan")
-    return t
-
-
-def _strip_yaml_comment(line: str) -> str:
-    """line without a # comment (a # at the start or after a blank, outside
-    quotes)."""
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            quote = None if ch == quote else quote
-        elif ch in "'\"":
-            quote = ch
-        elif ch == "#" and (i == 0 or line[i - 1].isspace()):
-            return line[:i]
-    return line
-
-
-def _parse_yaml_subset(text: str) -> dict:
-    """The YAML subset of the configuration files: block mappings nested by
-    indentation, scalar values, flow lists of scalars and # comments. Raise
-    ValueError on anything else."""
-    root: dict = {}
-    stack = [(-1, root)]
-    for raw in text.splitlines():
-        line = _strip_yaml_comment(raw).rstrip()
-        if not line.strip():
-            continue
-        indent = len(line) - len(line.lstrip())
-        key, colon, rest = line.strip().partition(":")
-        if not colon or key.startswith(("-", "[", "{")):
-            raise ValueError(f"unsupported YAML line (install PyYAML): {raw!r}")
-        while indent <= stack[-1][0]:
-            stack.pop()
-        parent = stack[-1][1]
-        key, rest = _yaml_scalar(key), rest.strip()
-        if not rest:
-            parent[key] = {}
-            stack.append((indent, parent[key]))
-        elif rest.startswith("["):
-            if not rest.endswith("]"):
-                raise ValueError(f"unsupported YAML line (install PyYAML): {raw!r}")
-            items = rest[1:-1]
-            parent[key] = [_yaml_scalar(x) for x in items.split(",")] if items.strip() else []
-        else:
-            parent[key] = _yaml_scalar(rest)
-
-    def nulls(node):  # a key with no value and no block is null
-        return {k: (None if v == {} else nulls(v) if isinstance(v, dict) else v)
-                for k, v in node.items()}
-
-    return nulls(root)
-
-
-def _read_yaml(path: str) -> dict:
-    """The YAML file as PyYAML's safe_load gives it ({} when empty)."""
-    with open(path) as f:
-        text = f.read()
-    try:
-        import yaml
-    except ImportError:  # e.g. a GPU host without PyYAML
-        return _parse_yaml_subset(text) or {}
-    return yaml.safe_load(text) or {}
-
-
 def load_pipeline_params(path: str, base: Optional[PipelineConfig] = None) -> PipelineConfig:
     """Load the reference pipeline-params YAML (raw_image_pipeline.cpp:44-165).
 
@@ -346,7 +252,10 @@ def load_pipeline_params(path: str, base: Optional[PipelineConfig] = None) -> Pi
         # whatever modules existed (raw_image_pipeline.cpp:163-164).
         return base
 
-    node = _read_yaml(path)
+    import yaml  # only the YAML loaders need PyYAML
+
+    with open(path) as f:
+        node = yaml.safe_load(f) or {}
 
     deb = node.get("debayer")
     flip = node.get("flip")
@@ -425,7 +334,10 @@ def load_camera_calibration(path: str) -> CameraCalibration:
         # reference fallback values: undistortion.cpp:178-195
         return CameraCalibration(calibration_available=False)
 
-    node = _read_yaml(path)
+    import yaml  # only the YAML loaders need PyYAML
+
+    with open(path) as f:
+        node = yaml.safe_load(f) or {}
 
     def mat_data(key, n, default):
         sub = node.get(key)
@@ -459,7 +371,10 @@ def load_color_calibration(path: str, base: Optional[ColorCalibrationConfig] = N
     if not os.path.exists(path):
         return replace(base, calibration_available=False)
 
-    node = _read_yaml(path)
+    import yaml  # only the YAML loaders need PyYAML
+
+    with open(path) as f:
+        node = yaml.safe_load(f) or {}
 
     mat = _get(node.get("matrix"), "data", None)
     bias = _get(node.get("bias"), "data", None)

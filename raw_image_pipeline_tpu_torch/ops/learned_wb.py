@@ -73,6 +73,12 @@ def _load_model():
     return fi, tv, lv
 
 
+@functools.lru_cache(maxsize=None)
+def _model_tensors(device: torch.device):
+    """_load_model's arrays on `device`, copied there once."""
+    return tuple(torch.as_tensor(a, device=device) for a in _load_model())
+
+
 def _first_index(cond: torch.Tensor) -> torch.Tensor:
     """Index of the first True along the last axis (the axis length if
     none)."""
@@ -182,7 +188,7 @@ def extract_features(planes: Planes, thresh255: int) -> torch.Tensor:
 def predict_illuminant(features: torch.Tensor) -> torch.Tensor:
     """[B, 4, 2] features -> [B, 2] illuminant (u, v): tree descent,
     consensus per set, upper median."""
-    fi, tv, lv = (torch.as_tensor(a, device=features.device) for a in _load_model())
+    fi, tv, lv = _model_tensors(features.device)
     nb = features.shape[0]
     ar = torch.arange(160, device=features.device)
     # tree t = s*8 + i*2 + k predicts component k of feature i in set s

@@ -19,6 +19,8 @@ The rule that governs them is exactness, on every device:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -68,6 +70,13 @@ _SIMPLE_BETA32 = (
 ).astype(np.float32)  # [p1, span] -> f32(-p1 * alpha64)
 
 
+@functools.lru_cache(maxsize=None)
+def _simple_tables(device: torch.device):
+    """(alpha [257], beta [256, 257]) f32 on `device`, copied there once."""
+    return (torch.as_tensor(_SIMPLE_ALPHA32, device=device),
+            torch.as_tensor(_SIMPLE_BETA32, device=device))
+
+
 def balance_white_simple(planes: Planes, p: float) -> Planes:
     """cv::xphoto::SimpleWB (setP(p)), 8u, default ranges. Per channel: walk
     the 256-bin histogram from each end while the cumulative count is
@@ -86,8 +95,9 @@ def balance_white_simple(planes: Planes, p: float) -> Planes:
     p1 = torch.clamp(p1, 0, 255)
     p2 = torch.clamp(p2, 0, 255)
     span = torch.clamp(p2 + 1 - p1, min=1)
-    alpha = torch.as_tensor(_SIMPLE_ALPHA32, device=dev)[span]  # [B, 3]
-    beta = torch.as_tensor(_SIMPLE_BETA32, device=dev)[p1, span]
+    alpha32, beta32 = _simple_tables(dev)
+    alpha = alpha32[span]  # [B, 3]
+    beta = beta32[p1, span]
     x = torch.arange(256, dtype=torch.float32, device=dev)
     lut = round_u8(fma_f32(x[None, None, :], alpha[..., None], beta[..., None]))  # [B, 3, 256]
     return tuple(_lut_apply(pl, lut[:, c]) for c, pl in enumerate(planes))

@@ -538,9 +538,11 @@ def build_pipeline(
     make_isp_fn. temporal_mode and debug: see make_isp_fn.
 
     microbatch: process the batch as sequential chunks of this many frames,
-    which bounds the peak device memory at about one chunk's working set
-    (e.g. 512 1080p frames of a pointwise chain); equal to the unchunked
-    chain, the Kalman track included. A remainder runs as one more chunk."""
+    which bounds the stages' intermediates at one chunk's (e.g. 512 1080p
+    frames of a pointwise chain); the whole input and the chunks' outputs
+    stay on the device, and their concatenation at the end holds the
+    output twice. Equal to the unchunked chain, the Kalman track included.
+    A remainder runs as one more chunk."""
     dev = _resolve_device(device)
     if frame_hw is None:
         frame_hw = (config.calibration.image_height, config.calibration.image_width)

@@ -4,7 +4,6 @@ against the JAX package on the CPU, with 0 mismatching bytes as the
 tolerance; and the API's arrays sharing no memory with its cache."""
 
 import dataclasses
-import glob
 import inspect
 import os
 from unittest import mock
@@ -14,7 +13,6 @@ import jax
 import numpy as np
 import pytest
 import torch
-import yaml
 
 import raw_image_pipeline_tpu_torch as tp
 from raw_image_pipeline_tpu import RawImagePipeline as JaxRawImagePipeline
@@ -382,20 +380,6 @@ def test_state_files_load_across_packages(tmp_path):
         got, want = np.asarray(getattr(back, f)), np.asarray(getattr(js, f))
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
-
-
-# --- the YAML reader for hosts without PyYAML -----------------------------------
-
-
-@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml"))))
-def test_yaml_subset_reader_equals_pyyaml(path):
-    text = open(path).read()
-    assert pcfg._parse_yaml_subset(text) == yaml.safe_load(text)
-    with mock.patch.dict("sys.modules", {"yaml": None}):  # PyYAML missing
-        no_yaml = (pcfg.load_pipeline_params(path), pcfg.load_camera_calibration(path),
-                   pcfg.load_color_calibration(path))
-    assert no_yaml == (pcfg.load_pipeline_params(path), pcfg.load_camera_calibration(path),
-                       pcfg.load_color_calibration(path))
 
 
 # --- on the card ----------------------------------------------------------------

@@ -7,12 +7,20 @@ It builds the hand-written kernels from csrc/ (nvcc, sm_90a, one process
 per source, into build/kernels/), then:
 
   1. holds each kernel against its plain PyTorch version on the card, at the
-     shapes the chains give it, and times both (median of 20 runs, CUDA
-     events):
+     shapes the chains give it, and times both on the device
+     (tools/measure.device_ms), beside its bound (tools/measure.bound: the
+     larger of its bytes over 3.35 TB/s and its f32 operations over
+     67 TFLOP/s; for C the operations of real-input FFTs, the fewest known
+     for its function, and beside it the bound of the twelve DFT products
+     that C computes) and, for B, torch.bincount of the same bin indices:
        A debayer     — 0 mismatching bytes at 1080x1920 and 1080x1440 (B=4)
                        and at an odd size;
-       B histogram   — 0 mismatching counts;
-       C response    — equal argmax, max |diff| <= 1e-4 * max |resp|;
+       B histogram   — the f32 histogram equal value for value at B=4 and
+                       B=1 270x360 and at B=3 135x241;
+       C response    — equal argmax, max |diff| <= 1e-4 * max |resp|, on the
+                       seeded frames' histograms (B=4) and on a two-peak
+                       histogram whose response's two peaks differ by 1e-5
+                       of max |resp| (tools/workloads.two_peak_histogram);
        D MHT debayer — 0 mismatching bytes at 1080x1920, 1080x1440,
                        1079x1439 and 3x5 (B=4);
        E float remap — 0 mismatching bytes on the float chain's fisheye
@@ -49,7 +57,8 @@ per source, into build/kernels/), then:
      with pca (D).
 
 It prints the card's name and power limit, the build time, one line per
-check, a JSON line of the kernels and, last, {"ok": true, "device": ...}.
+check, a JSON line of the kernels (with each one's launches on the main
+path and per flagship call) and, last, {"ok": true, "device": ...}.
 Any failure, and a machine without a CUDA device, exits non-zero without
 the last line. It imports no JAX.
 """
@@ -63,135 +72,8 @@ import subprocess
 import sys
 import time
 
-SEED = 0
-N_TIMED = 20
-FRAMES, CALLS = 8, 2
 SMALL = (96, 128)
 MICROBATCH_CHECK = (70, 32)  # frames, microbatch
-
-
-class Chain:
-    """One chain of phase 2 and 3: its config for (h, w), the full sizes,
-    the kernels it runs, its encoding, its input ("bayer", "color", "mono"
-    or "bayer16"), the frames and calls of a phase-2 run, its microbatch,
-    how many timed runs give the median, and how many of its first
-    1920x1080 frames phase 2 also runs on the CPU."""
-
-    def __init__(self, config, sizes, kernels, encoding="bayer_gbrg8", kind="bayer",
-                 frames=FRAMES, calls=CALLS, microbatch=None, reps=5, small_only=False,
-                 cpu_frames=0):
-        self.config, self.sizes, self.kernels = config, sizes, kernels
-        self.encoding, self.kind, self.frames, self.calls = encoding, kind, frames, calls
-        self.microbatch, self.reps, self.small_only = microbatch, reps, small_only
-        self.cpu_frames = cpu_frames
-
-
-def _chains(tp):
-    """name -> Chain."""
-    import dataclasses
-
-    def gpu_parity(h, w):
-        c = tp.flagship_config(h, w)
-        return c.replace(
-            debayer=dataclasses.replace(c.debayer, algorithm="mht"),
-            gamma_correction=dataclasses.replace(c.gamma_correction, gpu=True,
-                                                 method="default"),
-        )
-
-    def remap(mode):
-        def config(h, w):
-            c = tp.flagship_config(h, w)
-            return c.replace(undistortion=dataclasses.replace(c.undistortion,
-                                                              interpolation=mode))
-        return config
-
-    def config2(method):
-        # BASELINE config 2 (tests/test_baseline_configs.py): debayer, flip
-        # 90 and a statistical white balance
-        def config(h, w):
-            c = tp.PipelineConfig()
-            return c.replace(
-                flip=dataclasses.replace(c.flip, enabled=True, angle=90),
-                white_balance=dataclasses.replace(c.white_balance, enabled=True, method=method,
-                                                  clipping_percentile=20.0,
-                                                  saturation_bright_thr=0.8),
-            )
-        return config
-
-    def config4(h, w):
-        # BASELINE config 4: colour calibration, vignetting and the HSV
-        # enhancer on bgr8 frames
-        c = tp.PipelineConfig()
-        return c.replace(
-            color_calibration=dataclasses.replace(
-                c.color_calibration, enabled=True,
-                matrix=(1.3, 0.1, -0.1, 0.05, 1.1, -0.05, -0.1, -0.1, 1.4),
-                bias=(2.0, 0.0, -1.0)),
-            vignetting_correction=dataclasses.replace(c.vignetting_correction, enabled=True,
-                                                      scale=1.5, a2=1e-3, a4=1e-6),
-            color_enhancer=dataclasses.replace(c.color_enhancer, enabled=True,
-                                               saturation_gain=1.2),
-        )
-
-    def bayer16(h, w):
-        c = tp.flagship_config(h, w)
-        return c.replace(debayer=dataclasses.replace(c.debayer, bayer16="scale8"))
-
-    full = ((1080, 1920), (1080, 1440))
-    ccc = ("ccc_histogram", "ccc_response")
-    chains = {
-        "flagship": Chain(tp.flagship_config, full, ("debayer_bilinear",) + ccc),
-        "gpu_parity": Chain(gpu_parity, full, ("debayer_mht",) + ccc),
-        "float": Chain(remap("float"), full[:1], ("debayer_bilinear",) + ccc + ("remap_float",)),
-        "fixed32": Chain(remap("fixed32"), full[:1], ("debayer_bilinear",) + ccc),
-    }
-    for method, wb in (("simple", "simple"), ("grey_world", "grey_world"), ("pca", "pca"),
-                       ("learned", "learned")):
-        chains[f"wb_{method}"] = Chain(config2(wb), full[:1], ("debayer_bilinear",),
-                                       frames=128, calls=2, reps=3, cpu_frames=3)
-    chains["pointwise_bgr8"] = Chain(config4, full[:1], (), encoding="bgr8", kind="color",
-                                     frames=512, calls=1, microbatch=128, reps=3,
-                                     cpu_frames=128)
-    # phase 3 only: the other inputs on the flagship configuration (mono
-    # frames run its flip, gamma and remap, here the float remap = E on one
-    # plane), 16-bit Bayer
-    chains["mono8_float"] = Chain(remap("float"), (), (), encoding="mono8", kind="mono",
-                                  small_only=True)
-    chains["rgb8_float"] = Chain(remap("float"), (), (), encoding="rgb8", kind="color",
-                                 small_only=True)
-    chains["bayer16"] = Chain(bayer16, (), (), encoding="bayer_gbrg16", kind="bayer16",
-                              small_only=True)
-    return chains
-
-
-def _card_frames(torch, kind: str, n: int, h: int, w: int, seed: int):
-    """n seeded [h, w] frames made on the card, each with its own colour
-    cast (a per-frame, per-channel gain), so that every white-balance method
-    finds different gains per frame: "color" [n, h, w, 3] BGR, "bayer"
-    [n, h, w] bayer_gbrg8 mosaics of such frames."""
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    yy = torch.linspace(0, 1, h, device="cuda")[:, None]
-    xx = torch.linspace(0, 1, w, device="cuda")[None, :] * (w / h)
-    out = torch.empty((n, h, w, 3) if kind == "color" else (n, h, w), dtype=torch.uint8,
-                      device="cuda")
-    for s in range(0, n, 32):
-        m = min(32, n - s)
-        phase = torch.rand((m, 1, 1), generator=g, device="cuda") * 6
-        base = 40 + 200 * (0.5 + 0.5 * torch.sin(7 * xx + 5 * yy + phase))
-        cast = 0.4 + 1.3 * torch.rand((m, 1, 1, 3), generator=g, device="cuda")
-        noise = 0.8 + 0.4 * torch.rand((m, h, w, 3), generator=g, device="cuda")
-        img = (base[..., None] * cast * noise).clamp(0, 255).to(torch.uint8)
-        out[s:s + m] = img if kind == "color" else _mosaic_gbrg(img)
-    return out
-
-
-def _mosaic_gbrg(bgr):
-    """[..., H, W, 3] BGR -> [..., H, W] bayer_gbrg8 ((0,0)=G (0,1)=B (1,0)=R)."""
-    out = bgr[..., 1].clone()
-    out[..., 0::2, 1::2] = bgr[..., 0::2, 1::2, 0]
-    out[..., 1::2, 0::2] = bgr[..., 1::2, 0::2, 2]
-    return out
 
 
 def _small_frames(np, kind: str, n: int, h: int, w: int, seed: int):
@@ -217,30 +99,16 @@ def _fail(msg: str) -> int:
     return 1
 
 
-def _time_ms(fn, n: int = N_TIMED) -> float:
-    """Median device time of fn() over n runs, by CUDA events (after one
-    warm-up run)."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def check_kernels(tp, torch, rng):
     """Phase 1: each kernel against its plain version on the card."""
+    import numpy as np
+
     from raw_image_pipeline_tpu_torch import kernels
     from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
     from raw_image_pipeline_tpu_torch.ops import ccc, debayer, undistortion
     from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, ccc_response_work, device_ms
 
     dev = torch.device("cuda")
     rows = {}
@@ -254,10 +122,12 @@ def check_kernels(tp, torch, rng):
         if bad:
             raise AssertionError(f"kernel A: {bad} mismatching bytes at {h}x{w}")
         if (h, w) == (1080, 1920):
-            ms = _time_ms(lambda: debayer.debayer_bilinear_cuda(bayer, phase))
-            plain_ms = _time_ms(lambda: debayer.debayer_bilinear(bayer, phase))
+            ms = device_ms(lambda: debayer.debayer_bilinear_cuda(bayer, phase))
+            plain_ms = device_ms(lambda: debayer.debayer_bilinear(bayer, phase))
             planes = [got[:, c] for c in (2, 1, 0)]  # R<->B swap, as the chain
-    rows["A"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+            moved = bayer.numel() * 4  # [4, h, w] in, [4, 3, h, w] out
+    rows["A"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                     **bound(bytes_=moved, ops=0))
     print(f"kernel A time B=4 1080x1920: {ms:.4f} ms, plain {plain_ms:.4f} ms")
 
     cfg = tp.flagship_config(1080, 1920).white_balance
@@ -265,35 +135,59 @@ def check_kernels(tp, torch, rng):
             float(torch.tensor(255.0 * cfg.saturation_dark_thr, dtype=torch.float32)),
             float(torch.tensor(cfg.ccc_uv0, dtype=torch.float32)))
     small = [resize_linear_u8_plane(p, ccc.SMALL_H, ccc.SMALL_W).contiguous() for p in planes]
-    got = ccc.log_chroma_counts_cuda(*small, *cuts)
-    want = ccc.log_chroma_counts_plain(*small, *cuts)
-    bad = int((got != want).sum())
-    print(f"kernel B histogram B=4 270x360: {bad} mismatching counts "
-          f"({int(want.sum())} pixels counted)")
-    if bad:
-        raise AssertionError(f"kernel B: {bad} mismatching counts")
-    ms = _time_ms(lambda: ccc.log_chroma_counts_cuda(*small, *cuts))
-    plain_ms = _time_ms(lambda: ccc.log_chroma_counts_plain(*small, *cuts))
-    rows["B"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
-    print(f"kernel B time: {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    odd = [torch.as_tensor(rng.integers(1, 256, (3, 135, 241), dtype="uint8"), device=dev)
+           for _ in range(3)]
+    for label, bgr in (("B=4 270x360", small), ("B=1 270x360", [p[:1] for p in small]),
+                       ("B=3 135x241", odd)):
+        got = ccc.log_chroma_histogram_cuda(*bgr, *cuts)
+        want = ccc.log_chroma_histogram_plain(*bgr, *cuts)
+        bad = int((got != want).sum())
+        print(f"kernel B histogram {label}: {bad} mismatching f32 values "
+              f"({int(torch.count_nonzero(want))} bins filled)")
+        if bad:
+            raise AssertionError(f"kernel B: {bad} mismatching values at {label}")
+    bins = ccc.log_chroma_bins(*small, *cuts)
+    ms = device_ms(lambda: ccc.log_chroma_histogram_cuda(*small, *cuts))
+    plain_ms = device_ms(lambda: ccc.log_chroma_histogram_plain(*small, *cuts))
+    library_ms = device_ms(lambda: torch.bincount(bins, minlength=4 * ccc.HIST_N ** 2))
+    rows["B"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     **bound(bytes_=3 * small[0].numel() + ccc.LOG_TAB.nbytes
+                             + small[0].shape[0] * ccc.HIST_N ** 2 * 4, ops=0))
+    print(f"kernel B time B=4 270x360: {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount "
+          f"of the {bins.numel()} bin indices {library_ms:.4f} ms")
 
     model = load_ccc_model(cfg.ccc_model_path)
     wr, wi, bias = (torch.as_tensor(a, device=dev) for a in
                     (model.filt_dft_re, model.filt_dft_im, model.bias))
     hist = ccc.log_chroma_histogram(*small, *cuts)
-    got = ccc.ccc_response_cuda(hist, wr, wi, bias)
-    want = ccc.ccc_response_plain(hist, wr, wi, bias)
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    same_argmax = bool(torch.equal(ccc.response_argmax(got), ccc.response_argmax(want)))
-    print(f"kernel C response B=4: max |diff| {err:.3e} (limit {1e-4 * scale:.3e}), "
-          f"argmax equal: {same_argmax}")
-    if not (err <= 1e-4 * scale and same_argmax):
-        raise AssertionError("kernel C disagrees with its plain version")
-    ms = _time_ms(lambda: ccc.ccc_response_cuda(hist, wr, wi, bias))
-    plain_ms = _time_ms(lambda: ccc.ccc_response_plain(hist, wr, wi, bias))
-    rows["C"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    print(f"kernel C time: {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    two_peak, gap, peaks = workloads.two_peak_histogram(model.filt_dft_re, model.filt_dft_im,
+                                                        model.bias)
+    err = 0.0
+    for label, x in (("B=4 seeded frames", hist),
+                     (f"two-peak fixture (peaks {peaks}, relative gap {gap:.3e})",
+                      torch.as_tensor(two_peak[None], device=dev))):
+        got = ccc.ccc_response_cuda(x, wr, wi, bias)
+        want = ccc.ccc_response_plain(x, wr, wi, bias)
+        e = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        same_argmax = bool(torch.equal(ccc.response_argmax(got), ccc.response_argmax(want)))
+        print(f"kernel C response {label}: max |diff| {e:.3e} (limit {1e-4 * scale:.3e}), "
+              f"argmax equal: {same_argmax}")
+        if not (e <= 1e-4 * scale and same_argmax):
+            raise AssertionError(f"kernel C disagrees with its plain version on {label}")
+        err = max(err, e)
+    ms = device_ms(lambda: ccc.ccc_response_cuda(hist, wr, wi, bias))
+    plain_ms = device_ms(lambda: ccc.ccc_response_plain(hist, wr, wi, bias))
+    # the bound of C's function (real-input FFTs: bytes bound it), and
+    # beside it that of the twelve DFT products that C computes
+    work = ccc_response_work(hist.shape[0], ccc.HIST_N)
+    as_products = bound(bytes_=work["dft_bytes"], ops=work["dft_products_ops"])
+    rows["C"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                     **bound(bytes_=work["bytes"], ops=work["least_ops"]),
+                     dft_products_bound_ms=as_products["bound_ms"])
+    print(f"kernel C time B=4: {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{rows['C']['bound_ms']:.5f} ms ({rows['C']['bound_by']}), as twelve DFT products "
+          f"{as_products['bound_ms']:.5f} ms")
 
     for (h, w) in ((1080, 1920), (1080, 1440), (1079, 1439), (3, 5)):
         bayer = torch.as_tensor(rng.integers(0, 256, (4, h, w), dtype="uint8"), device=dev)
@@ -304,13 +198,15 @@ def check_kernels(tp, torch, rng):
         if bad:
             raise AssertionError(f"kernel D: {bad} mismatching bytes at {h}x{w}")
         if (h, w) == (1080, 1920):
-            ms = _time_ms(lambda: debayer.debayer_mht_cuda(bayer, phase))
-            plain_ms = _time_ms(lambda: debayer.debayer_mht(bayer, phase))
+            ms = device_ms(lambda: debayer.debayer_mht_cuda(bayer, phase))
+            plain_ms = device_ms(lambda: debayer.debayer_mht(bayer, phase))
             planes = [got[:, c].contiguous() for c in range(3)]  # no swap under MHT
-    rows["D"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+            moved = bayer.numel() * 4
+    rows["D"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                     **bound(bytes_=moved, ops=0))
     print(f"kernel D time B=4 1080x1920: {ms:.4f} ms, plain {plain_ms:.4f} ms")
 
-    config = _chains(tp)["float"].config(1080, 1920)
+    config = workloads.chains(tp)["float"].config(1080, 1920)
     params = tp.make_params(config, (1080, 1920), dev)
     base, weights = params.remap_base, params.remap_weights
     got = undistortion.remap_float_cuda(planes, base, weights, (1080, 1920))
@@ -320,17 +216,21 @@ def check_kernels(tp, torch, rng):
           f"({int((weights == 0).all(0).sum())} of {base.numel()} pixels fully outside)")
     if bad:
         raise AssertionError(f"kernel E: {bad} mismatching bytes")
-    ms = _time_ms(lambda: undistortion.remap_float_cuda(planes, base, weights, (1080, 1920)))
-    plain_ms = _time_ms(lambda: undistortion.remap_float_planes(planes, base, weights,
+    ms = device_ms(lambda: undistortion.remap_float_cuda(planes, base, weights, (1080, 1920)))
+    plain_ms = device_ms(lambda: undistortion.remap_float_planes(planes, base, weights,
                                                                 (1080, 1920)))
-    rows["E"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+    # the planes and the maps in, [4, h, w, 3] out
+    moved = (2 * sum(p.numel() for p in planes) + base.numel() * base.element_size()
+             + weights.numel() * weights.element_size())
+    rows["E"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                     **bound(bytes_=moved, ops=0))
     print(f"kernel E time: {ms:.4f} ms, plain {plain_ms:.4f} ms")
     for k in kernels.ALL:
         k.launches = 0  # the comparisons above are not the main path's
     return rows
 
 
-def _run_chain(call, frames, state, calls=CALLS):
+def _run_chain(call, frames, state, calls):
     """The frames in `calls` calls of call(pixels, state), the state carried
     across them."""
     outs = []
@@ -359,13 +259,16 @@ def _out_hw(config, h: int, w: int):
 def check_chains(tp, torch, rng):
     """Phase 2: each chain at full size, kernels vs plain. Returns
     {kernel name: launches in the 1920x1080 run of the first chain that runs
-    it}, {(chain, size): (frames/s, plain frames/s)} and {chain: peak device
+    it}, {kernel name: grids on the device per call of the flagship at
+    1920x1080},
+    {(chain, size): (frames/s, plain frames/s)} and {chain: peak device
     bytes of its 1920x1080 run}."""
     from raw_image_pipeline_tpu_torch import kernels
     from raw_image_pipeline_tpu_torch.pipeline import _chunked_fn, make_isp_fn
+    from raw_image_pipeline_tpu_torch.tools import workloads
 
-    launches, fps, peak = {}, {}, {}
-    for name, ch in _chains(tp).items():
+    launches, per_flagship_call, fps, peak = {}, {}, {}, {}
+    for name, ch in workloads.chains(tp).items():
         if ch.small_only:
             continue
         for (h, w) in ch.sizes:
@@ -382,7 +285,8 @@ def check_chains(tp, torch, rng):
                 frames = torch.as_tensor(rng.integers(0, 256, (ch.frames, h, w), dtype="uint8"),
                                          device="cuda")
             else:
-                frames = _card_frames(torch, ch.kind, ch.frames, h, w, SEED + len(name))
+                frames = workloads.card_frames(torch, ch.kind, ch.frames, h, w,
+                                               workloads.SEED + len(name))
             label = f"chain {name} {w}x{h}"
             main_run = (h, w) == (1080, 1920)
             torch.cuda.synchronize()
@@ -400,6 +304,9 @@ def check_chains(tp, torch, rng):
                                          f"{counts}, expected {ch.kernels}")
                 for k in ch.kernels:
                     launches.setdefault(k, counts[k])
+                if name == "flagship":  # grids on the device, per call
+                    per_flagship_call = {k.name: k.launches * k.grids / ch.calls
+                                         for k in kernels.ALL}
             ref, ref_state = _run_chain(plain, frames, tp.init_state((), "cuda"), ch.calls)
             want = (ch.frames // ch.calls, *_out_hw(config, h, w), 3)
             for o in outs:
@@ -436,7 +343,7 @@ def check_chains(tp, torch, rng):
                   + (f"; peak device memory {peak[name] / 2**30:.2f} GiB" if main_run else ""))
             del frames
             torch.cuda.empty_cache()
-    return launches, fps, peak
+    return launches, per_flagship_call, fps, peak
 
 
 def check_on_cpu(tp, torch, label, config, ch, frames, card_out):
@@ -460,10 +367,11 @@ def check_microbatch(tp, torch, rng):
     """Phase 2: the flagship at B=70 with microbatch=32 (two chunks and a
     remainder of 6) equals the unchunked chain, bytes and Kalman state."""
     from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.tools import workloads
 
     n, mb = MICROBATCH_CHECK
     h, w = 1080, 1920
-    frames = _card_frames(torch, "bayer", n, h, w, SEED + 70)
+    frames = workloads.card_frames(torch, "bayer", n, h, w, workloads.SEED + 70)
     res = {}
     for chunk in (mb, None):
         pipe = tp.build_pipeline(tp.flagship_config(h, w), "bayer_gbrg8", frame_hw=(h, w),
@@ -486,9 +394,11 @@ def check_microbatch(tp, torch, rng):
 def check_small(tp, torch, np):
     """Phase 3: each chain on the card equals it on the CPU at a small size;
     also the flagship in debug mode, every dump compared."""
+    from raw_image_pipeline_tpu_torch.tools import workloads
+
     h, w = SMALL
-    for name, ch in _chains(tp).items():
-        frames = _small_frames(np, ch.kind, 4, h, w, SEED + len(name))
+    for name, ch in workloads.chains(tp).items():
+        frames = _small_frames(np, ch.kind, 4, h, w, workloads.SEED + len(name))
         debug = name == "flagship"
         res = {}
         for dev in ("cuda", "cpu"):
@@ -515,6 +425,7 @@ def check_api(tp, torch, np):
     on a Bayer frame, apply on a bgr8 buffer, and use_gpu=True with pca
     (kernel D)."""
     from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.tools.workloads import SEED
 
     bgr = _small_frames(np, "color", 1, 540, 720, SEED + 5)[0]
     bayer = _small_frames(np, "bayer", 1, 540, 720, SEED + 6)[0]
@@ -552,6 +463,7 @@ def main() -> int:
     try:
         import raw_image_pipeline_tpu_torch as tp
         from raw_image_pipeline_tpu_torch import kernels
+        from raw_image_pipeline_tpu_torch.tools import measure, workloads
     except ImportError as e:
         return _fail(f"the port is not beside this script ({e})")
 
@@ -559,7 +471,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output")
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output"
+    print(smi_line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -568,10 +481,10 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s"
           + ("" if built is not None else " (already built)"))
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(workloads.SEED)
     try:
         rows = check_kernels(tp, torch, rng)
-        launches, fps, peak = check_chains(tp, torch, rng)
+        launches, per_flagship_call, fps, peak = check_chains(tp, torch, rng)
         check_microbatch(tp, torch, rng)
         check_small(tp, torch, np)
         check_api(tp, torch, np)
@@ -587,11 +500,16 @@ def main() -> int:
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],
         "peak_device_bytes_1920x1080": peak}))
-    # launches: the count in the 1920x1080 run of the first chain that runs
-    # the kernel (A, B, C: flagship; D: gpu_parity; E: float)
+    # launches: the wrapper's count in the 1920x1080 run of the first chain
+    # that runs the kernel (A, B, C: flagship; D: gpu_parity; E: float);
+    # launches_per_flagship_call: the grids it put on the device per call
+    print(f"bound_ms against the H100 SXM's published peaks "
+          f"({measure.PEAK_BYTES_PER_S / 1e12} TB/s, {measure.PEAK_F32_FLOP_PER_S / 1e12} "
+          f"TFLOP/s f32) on this card: {smi_line}")
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": launches[k.name], **rows[key]}
+         "launches": launches[k.name], "grids_per_launch": k.grids,
+         "launches_per_flagship_call": per_flagship_call[k.name], **rows[key]}
         for key, k in names.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ outputs.
 `use_gpu` keeps the reference's meaning: the reference's CUDA *semantics*
 (the MHT demosaic with no R<->B swap, and the BT.709 table for the "default"
 gamma method), not "run on the GPU". Where the tensors live is chosen with
-`device=` ("cpu", or "cuda" for the hand-written kernels).
+`device=`: "cuda" (the default) for the hand-written kernels, or "cpu" for
+the plain versions; without a CUDA device "cuda" raises.
 """
 
 from __future__ import annotations
@@ -27,13 +28,9 @@ import numpy as np
 import torch
 
 from raw_image_pipeline_tpu_torch import config as cfg
+from raw_image_pipeline_tpu_torch.ops.common import resolve_device
 from raw_image_pipeline_tpu_torch.ops.undistortion import estimate_new_camera_matrix
-from raw_image_pipeline_tpu_torch.pipeline import (
-    BuiltPipeline,
-    _resolve_device,
-    build_pipeline,
-    init_state,
-)
+from raw_image_pipeline_tpu_torch.pipeline import BuiltPipeline, build_pipeline, init_state
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -50,9 +47,9 @@ class RawImagePipeline:
         params_path: str = "",
         calibration_path: str = "",
         color_calibration_path: str = "",
-        device="cpu",
+        device="cuda",
     ):
-        self._device = _resolve_device(device)
+        self._device = resolve_device(device)
         self._debug = False
         self._state = None
         self._cache: Dict[Tuple, BuiltPipeline] = {}

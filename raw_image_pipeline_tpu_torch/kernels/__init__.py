@@ -11,8 +11,9 @@ module is imported: the CPU tests import every module and never reach a
 kernel.
 
 Each kernel is a `Kernel` object: its C entry, the TPU kernel it replaces,
-and `launches`, a count that its wrapper (in ops/) raises by one where it
-launches the kernel and nowhere else.
+the grids one call of its entry puts on the device, and `launches`, a count
+that its wrapper (in ops/) raises by one where it launches the kernel and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ _F = ctypes.c_float
 # never narrows a 64-bit address)
 _SIGNATURES = {
     "isp_debayer_bilinear": (_P, _P, _I, _I, _I, _I, _P),
-    "isp_ccc_histogram": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P),
+    "isp_ccc_histogram": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
     "isp_ccc_response": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "isp_debayer_mht": (_P, _P, _I, _I, _I, _I, _P),
     "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -119,11 +120,12 @@ LIBRARY = _Library()
 class Kernel:
     """One hand-written kernel and its launch count."""
 
-    def __init__(self, name: str, entry: str, source: str, replaces: str):
+    def __init__(self, name: str, entry: str, source: str, replaces: str, grids: int = 1):
         self.name = name
         self.entry = entry
         self.source = source  # path in the repository
         self.replaces = replaces  # file:line of the TPU kernel
+        self.grids = grids  # device launches (grids) of one call of the entry
         self.launches = 0
 
     def launch(self, *args) -> None:
@@ -150,7 +152,7 @@ CCC_HISTOGRAM = Kernel(
 CCC_RESPONSE = Kernel(
     "ccc_response", "isp_ccc_response",
     "raw_image_pipeline_tpu_torch/csrc/ccc_response.cu",
-    "raw_image_pipeline_tpu/ops/ccc.py:280",
+    "raw_image_pipeline_tpu/ops/ccc.py:280", grids=4,  # its four DFT stages
 )
 DEBAYER_MHT = Kernel(
     "debayer_mht", "isp_debayer_mht",

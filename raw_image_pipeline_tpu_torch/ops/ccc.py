@@ -17,10 +17,11 @@ Per frame (reference balanceWhite, ccc.cpp:91-113):
 `log` and `exp` are served as exact host tables over their 256-value
 domains (u8 pixel values; Lu/Lv are multiples of 1/64 offset by uv0), built
 with libm — the reference's std::log/std::exp — so every device computes
-the same numbers. The histogram and the response each have a plain version
-here and a hand-written CUDA kernel (kernel B, csrc/ccc_histogram.cu;
-kernel C, csrc/ccc_response.cu); `log_chroma_histogram` and `ccc_response`
-launch the kernel for a CUDA tensor and run the plain version for a CPU one.
+the same numbers; each table is uploaded once per device. The histogram and
+the response each have a plain version here and a hand-written CUDA kernel
+(kernel B, csrc/ccc_histogram.cu; kernel C, csrc/ccc_response.cu);
+`log_chroma_histogram` and `ccc_response` launch the kernel for a CUDA
+tensor and run the plain version for a CPU one.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from raw_image_pipeline_tpu_torch import kernels
-from raw_image_pipeline_tpu_torch.ops.common import round_u8
+from raw_image_pipeline_tpu_torch.ops.common import resolve_device, round_u8
 
 # Reference constants (ccc.cpp:19-33)
 SMALL_W, SMALL_H = 360, 270
@@ -74,17 +75,27 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def log_chroma_counts_plain(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
-                            bright_cut: float, dark_cut: float,
-                            uv0: float) -> torch.Tensor:
-    """Plain version of kernel B: three [B, h, w] u8 planes -> [B, 256, 256]
-    int32 counts of the valid pixels' (u, v) bins. Cuts and uv0 are the f32
-    runtime values (pre-scaled 255*threshold cuts)."""
+# kernel B counts a block's pixels in 16 bits: at most 65520 for each of
+# the 8 blocks of a frame (MAX_PIXELS in csrc/ccc_histogram.cu)
+HIST_KERNEL_MAX_PIXELS = 8 * 65520
+
+
+@functools.lru_cache(maxsize=8)
+def _log_tab_on(device: str) -> torch.Tensor:
+    """LOG_TAB on `device`, uploaded once per device."""
+    return torch.as_tensor(LOG_TAB, device=device)
+
+
+def log_chroma_bins(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
+                    bright_cut: float, dark_cut: float, uv0: float) -> torch.Tensor:
+    """The valid pixels of three [B, h, w] u8 planes as flat int64 bin
+    indices frame*256^2 + u*256 + v. Cuts and uv0 are the f32 runtime
+    values (pre-scaled 255*threshold cuts)."""
     fb, fg, fr = b.float(), g.float(), r.float()
     # the plain chain (r*.299 + g*.587) + b*.114, each op rounded in f32
     gray = (fr * _GRAY_R + fg * _GRAY_G) + fb * _GRAY_B
     include = (gray <= bright_cut) & (gray > dark_cut)
-    tab = torch.as_tensor(LOG_TAB, device=b.device)
+    tab = _log_tab_on(str(b.device))
     log_b = tab[b.long()]
     log_g = tab[g.long()]
     log_r = tab[r.long()]
@@ -94,50 +105,62 @@ def log_chroma_counts_plain(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
     v = _round_half_away((log_g - log_b - uv0) * 64.0)
     u = torch.where(valid, u, 0.0).clamp(0, HIST_N - 1).long()
     v = torch.where(valid, v, 0.0).clamp(0, HIST_N - 1).long()
+    frame = torch.arange(b.shape[0], device=b.device).view(-1, *([1] * (b.dim() - 1)))
+    return (frame * (HIST_N * HIST_N) + u * HIST_N + v)[valid]
+
+
+def _pixel_weight(h: int, w: int) -> float:
+    return float(np.float32(1.0 / (h * w)))  # narrowed as ccc.py:206
+
+
+def log_chroma_histogram_plain(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
+                               bright_cut: float, dark_cut: float,
+                               uv0: float) -> torch.Tensor:
+    """Plain version of kernel B: three [B, h, w] u8 planes -> [B, 256, 256]
+    f32 histogram, the integer counts of the valid pixels' (u, v) bins
+    times f32(1/(h*w)) once."""
     nb = b.shape[0]
-    frame = torch.arange(nb, device=b.device).view(-1, *([1] * (b.dim() - 1)))
-    flat = (frame * (HIST_N * HIST_N) + u * HIST_N + v)[valid]
-    counts = torch.bincount(flat, minlength=nb * HIST_N * HIST_N)
-    return counts.to(torch.int32).view(nb, HIST_N, HIST_N)
+    counts = torch.bincount(log_chroma_bins(b, g, r, bright_cut, dark_cut, uv0),
+                            minlength=nb * HIST_N * HIST_N)
+    return counts.float().view(nb, HIST_N, HIST_N) * _pixel_weight(*b.shape[-2:])
 
 
-def log_chroma_counts_cuda(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
-                           bright_cut: float, dark_cut: float,
-                           uv0: float) -> torch.Tensor:
-    """Kernel B: same contract as log_chroma_counts_plain, CUDA tensors."""
+def log_chroma_histogram_cuda(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
+                              bright_cut: float, dark_cut: float,
+                              uv0: float) -> torch.Tensor:
+    """Kernel B: same contract as log_chroma_histogram_plain, CUDA tensors,
+    one launch and no other stream operation."""
     for name, t in (("b", b), ("g", g), ("r", r)):
         kernels.check_cuda(t, name, torch.uint8, b.shape)
     if b.dim() != 3:
         raise ValueError(f"planes: expected [B, h, w], got {tuple(b.shape)}")
-    nb, npix = b.shape[0], b.shape[1] * b.shape[2]
+    nb, h, w = b.shape
     kernels.check_batch(nb, "planes")
-    counts = torch.zeros((nb, HIST_N, HIST_N), dtype=torch.int32, device=b.device)
-    if nb and npix:
+    if h * w > HIST_KERNEL_MAX_PIXELS:
+        raise ValueError(f"planes: kernel B takes frames of at most {HIST_KERNEL_MAX_PIXELS} "
+                         f"pixels, got {h}x{w}")
+    hist = torch.empty((nb, HIST_N, HIST_N), dtype=torch.float32, device=b.device)
+    if nb:
+        tab = _log_tab_on(str(b.device))
         with torch.cuda.device(b.device):
             kernels.CCC_HISTOGRAM.launch(
-                b.data_ptr(), g.data_ptr(), r.data_ptr(), counts.data_ptr(),
-                nb, npix, bright_cut, dark_cut, uv0,
-                LOG_TAB.ctypes.data, kernels.stream_handle(b),
+                b.data_ptr(), g.data_ptr(), r.data_ptr(), tab.data_ptr(), hist.data_ptr(),
+                nb, h * w, bright_cut, dark_cut, uv0, _pixel_weight(h, w),
+                kernels.stream_handle(b),
             )
-    return counts
+    return hist
 
 
 def log_chroma_histogram(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
                          bright_cut: float, dark_cut: float, uv0: float,
                          plain: bool = False) -> torch.Tensor:
     """[B, h, w] u8 B/G/R planes (the working resize) -> [B, 256, 256] f32
-    histogram: integer counts times f32(1/(h*w)) once. Kernel B on CUDA
-    tensors; the plain version on CPU tensors or with plain=True."""
+    histogram. Kernel B on CUDA tensors; the plain version on CPU tensors
+    or with plain=True."""
     if plain or b.device.type == "cpu":
-        counts = log_chroma_counts_plain(b, g, r, bright_cut, dark_cut, uv0)
-    else:
-        counts = log_chroma_counts_cuda(
-            b.contiguous(), g.contiguous(), r.contiguous(),
-            bright_cut, dark_cut, uv0,
-        )
-    h, w = b.shape[-2], b.shape[-1]
-    pixel_weight = float(np.float32(1.0 / (h * w)))  # narrowed as ccc.py:206
-    return counts.float() * pixel_weight
+        return log_chroma_histogram_plain(b, g, r, bright_cut, dark_cut, uv0)
+    return log_chroma_histogram_cuda(b.contiguous(), g.contiguous(), r.contiguous(),
+                                     bright_cut, dark_cut, uv0)
 
 
 # ---------------------------------------------------------------------------
@@ -164,10 +187,13 @@ def _dft_on(device: str) -> Tuple[torch.Tensor, torch.Tensor]:
 def ccc_response_plain(hist: torch.Tensor, filt_dft_re: torch.Tensor,
                        filt_dft_im: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel C: resp = Re(IDFT2(DFT2(hist) * filt_dft))
-    / 256^2 + bias, as the reference package's ten real matmuls."""
-    if hist.is_cuda:
-        # full f32 products: the argmax this feeds must match the f32 reference
-        torch.backends.cuda.matmul.allow_tf32 = False
+    / 256^2 + bias, as the reference package's twelve real matmuls. On a
+    CUDA tensor it needs full f32 products (PyTorch's default), since the
+    argmax this feeds must match the f32 reference: it raises if the
+    caller enabled TF32 and leaves that setting as it found it."""
+    if hist.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("ccc_response_plain needs f32 matmuls: "
+                           "torch.backends.cuda.matmul.allow_tf32 is True")
     Fr, Fi = _dft_on(str(hist.device))
     mm = torch.matmul
     X = hist
@@ -272,10 +298,11 @@ class KalmanState:
     initialized: torch.Tensor  # [...] bool
 
 
-def kalman_init(batch_shape=(), device="cpu") -> KalmanState:
+def kalman_init(batch_shape=(), device="cuda") -> KalmanState:
     """Fresh state (first_frame_=true): the prior (height/2, width/2) of the
     reference's statePre/statePost (ccc.cpp:185-188)."""
     batch_shape = tuple(batch_shape)
+    device = resolve_device(device)
     x = torch.tensor((HIST_N // 2, HIST_N // 2), dtype=torch.float32, device=device)
     return KalmanState(
         x=x.expand(batch_shape + (2,)).clone(),

@@ -11,6 +11,15 @@ from __future__ import annotations
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device); raises RuntimeError for a CUDA device where
+    none is available (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device [{dev}] requested but no CUDA device is available")
+    return dev
+
+
 def descale(x: torch.Tensor, n: int) -> torch.Tensor:
     """OpenCV CV_DESCALE: (x + (1 << (n-1))) >> n (round half up for x>=0)."""
     return (x + (1 << (n - 1))) >> n

@@ -39,6 +39,7 @@ from raw_image_pipeline_tpu_torch.ops import ccc as ccc_ops
 from raw_image_pipeline_tpu_torch.ops.color_calibration import color_correct_planes
 from raw_image_pipeline_tpu_torch.ops.color_enhancer import enhance_planes, gain_tables
 from raw_image_pipeline_tpu_torch.ops.colorspace import _GAMMA_TAB
+from raw_image_pipeline_tpu_torch.ops.common import resolve_device
 from raw_image_pipeline_tpu_torch.ops.debayer import (
     _ALGORITHMS,
     BAYER16_ENCODINGS,
@@ -198,7 +199,7 @@ def _host_fields(config: PipelineConfig, frame_hw: Tuple[int, int]) -> Dict[str,
     return fields
 
 
-def params_from_numpy(fields, config: PipelineConfig, device="cpu") -> IspParams:
+def params_from_numpy(fields, config: PipelineConfig, device="cuda") -> IspParams:
     """The port's parameters from numpy arrays named as the reference
     package's IspParams fields (a mapping, or an object with those
     attributes, e.g. the reference's params after jax.tree.map(np.asarray)),
@@ -207,7 +208,7 @@ def params_from_numpy(fields, config: PipelineConfig, device="cpu") -> IspParams
     from config and the uv0 field."""
     if not isinstance(fields, Mapping):
         fields = vars(fields)
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def t(name: str, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.array(fields[name]), device=dev).to(dtype).contiguous()
@@ -249,21 +250,21 @@ def params_from_numpy(fields, config: PipelineConfig, device="cpu") -> IspParams
 
 
 def make_params(config: PipelineConfig, frame_hw: Tuple[int, int],
-                device="cpu") -> IspParams:
+                device="cuda") -> IspParams:
     """Build the parameters for frames of shape frame_hw (pre-flip, i.e.
     sensor orientation) on `device`."""
     return params_from_numpy(_host_fields(config, frame_hw), config, device)
 
 
-def init_state(batch_shape: Tuple[int, ...] = (), device="cpu") -> IspState:
+def init_state(batch_shape: Tuple[int, ...] = (), device="cuda") -> IspState:
     """Fresh temporal-consistency state (the reference's first_frame_=true)."""
     return ccc_ops.kalman_init(batch_shape, device=device)
 
 
-def state_from_numpy(x, p, initialized, device="cpu") -> IspState:
+def state_from_numpy(x, p, initialized, device="cuda") -> IspState:
     """The port's Kalman state from the reference package's KalmanState
     fields as numpy arrays."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return ccc_ops.KalmanState(
         x=torch.as_tensor(np.array(x, np.float32), device=dev),
         p=torch.as_tensor(np.array(p, np.float32), device=dev),
@@ -283,7 +284,7 @@ def save_state(state: IspState, path: str) -> None:
     )
 
 
-def load_state(path: str, device="cpu") -> IspState:
+def load_state(path: str, device="cuda") -> IspState:
     """Restore a checkpoint written by save_state (of either package)."""
     d = np.load(path)
     return state_from_numpy(d["x"], d["p"], d["initialized"], device)
@@ -513,13 +514,6 @@ class BuiltPipeline:
         return self.fn(self.params, pixels, state)
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device [{dev}] requested but no CUDA device is available")
-    return dev
-
-
 def build_pipeline(
     config: PipelineConfig,
     encoding: str = "bayer_gbrg8",
@@ -527,12 +521,13 @@ def build_pipeline(
     with_state: bool = False,
     keep_intermediates: bool = False,
     temporal_mode: str = "cameras",
-    device="cpu",
+    device="cuda",
     debug: bool = False,
     microbatch: Optional[int] = None,
 ) -> BuiltPipeline:
-    """Build the ISP for one configuration on `device` ("cpu" runs every
-    op on its plain version; "cuda" launches the hand-written kernels).
+    """Build the ISP for one configuration on `device` ("cuda", the
+    default, launches the hand-written kernels and raises without a CUDA
+    device; "cpu" runs every op on its plain version).
 
     frame_hw defaults to the calibration's image size. Input pixels: see
     make_isp_fn. temporal_mode and debug: see make_isp_fn.
@@ -543,7 +538,7 @@ def build_pipeline(
     stay on the device, and their concatenation at the end holds the
     output twice. Equal to the unchunked chain, the Kalman track included.
     A remainder runs as one more chunk."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     if frame_hw is None:
         frame_hw = (config.calibration.image_height, config.calibration.image_width)
     fn = make_isp_fn(

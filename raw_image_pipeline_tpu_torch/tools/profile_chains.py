@@ -2,21 +2,28 @@
 
     python -m raw_image_pipeline_tpu_torch.tools.profile_chains [--out DIR] [CHAIN ...]
 
-Run from the root of a checkout: the chains are chip_smoke.py's phase-2
-chains at 1920x1080 (all of them when none is named), each called at its
-per-call batch (and microbatch) on frames made on the card. For each chain:
+Run from the root of a checkout: the chains are those of tools/workloads.py
+that run at 1920x1080 (chip_smoke.py's phase 2; all of them when none is
+named), each called at its per-call batch (and microbatch) on frames made
+on the card. For each chain:
 two warm-up calls, the wall of three unprofiled calls (the least), then one
 call under torch.profiler. From that call's trace:
 
   * busy: the union of the device intervals of its kernels, copies and
     sets (a time never counted twice, so never above the wall);
   * idle share: 1 - busy / wall, of the profiled and the unprofiled wall;
-  * per isp_* stage: the GPU span of its profiler range and the busy time
-    inside that span.
+  * per isp_* stage: the GPU span of its profiler range, the busy time
+    inside that span and the copies and sets (memcpy, memset) that start
+    in it; and on the host, the range's duration and the CUDA runtime and
+    driver calls that start in it (count and time per API).
 
 Prints one line per chain and, last, a JSON line of every number; writes
 each call's trace and its kernel table under --out (default
 build/profiles).
+
+This module imports nothing of the package at module level:
+compare_checkouts.py loads it beside another checkout's package and calls
+profile_chain.
 """
 
 from __future__ import annotations
@@ -29,10 +36,10 @@ import sys
 import time
 from typing import Iterable, List, Tuple
 
-_REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the trace's categories of device work; "gpu_user_annotation" (the isp_*
 # ranges on the device's timeline) is a span around work, not work
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_API = ("cuda_runtime", "cuda_driver")
 H, W = 1080, 1920
 
 
@@ -54,9 +61,12 @@ def device_time(trace: dict) -> dict:
     """From a torch.profiler chrome trace: busy us (the union of the device
     work), the sum of the work's durations, the number of kernels, the
     device window (first start to last end) and, per isp_* range, its GPU
-    span and the busy time inside it (each summed over the range's
+    span, the busy time inside it and the copies and sets that start in it,
+    its duration on the host and {API: [calls, us]} of the CUDA runtime and
+    driver calls that start in it there (each summed over the range's
     occurrences)."""
-    work, spans = [], {}
+    work, spans, moves = [], {}, {"gpu_memcpy": [], "gpu_memset": []}
+    host_spans, api = {}, []
     n_kernels = 0
     for ev in trace.get("traceEvents", []):
         if ev.get("ph") != "X":
@@ -66,11 +76,33 @@ def device_time(trace: dict) -> dict:
         if cat in DEVICE_WORK:
             work.append((s, e))
             n_kernels += cat == "kernel"
+            if cat in moves:
+                moves[cat].append(s)
         elif cat == "gpu_user_annotation" and name.startswith("isp_"):
             spans.setdefault(name, []).append((s, e))
+        elif cat == "user_annotation" and name.startswith("isp_"):
+            host_spans.setdefault(name, []).append((s, e))
+        elif cat in HOST_API:
+            api.append((s, name, e - s))
+
+    def starting_in(starts, occ):
+        return sum(s <= t < e for s, e in occ for t in starts)
+
+    def api_in(occ):
+        calls = {}
+        for t, name, dur in api:
+            if any(s <= t < e for s, e in occ):
+                n, us = calls.get(name, (0, 0.0))
+                calls[name] = [n + 1, us + dur]
+        return calls
+
     stages = {
         name: {"span_us": sum(e - s for s, e in occ),
-               "busy_us": sum(union_us(_clip(work, s, e)) for s, e in occ)}
+               "busy_us": sum(union_us(_clip(work, s, e)) for s, e in occ),
+               "copies": starting_in(moves["gpu_memcpy"], occ),
+               "sets": starting_in(moves["gpu_memset"], occ),
+               "host_us": sum(e - s for s, e in host_spans.get(name, ())),
+               "host_api": api_in(host_spans.get(name, ()))}
         for name, occ in spans.items()
     }
     return {
@@ -82,16 +114,17 @@ def device_time(trace: dict) -> dict:
     }
 
 
-def profile_chain(tp, torch, cs, name: str, out_dir: str) -> dict:
-    """One chain: its unprofiled and profiled wall and the trace's device
-    time (device_time) of one call."""
+def profile_chain(tp, torch, workloads, name: str, out_dir: str) -> dict:
+    """One chain of the package `tp`, from the table of the module
+    `workloads` (tools/workloads.py): its unprofiled and profiled wall and
+    the trace's device time (device_time) of one call."""
     from torch.profiler import ProfilerActivity, profile
 
-    ch = cs._chains(tp)[name]
+    ch = workloads.chains(tp)[name]
     batch = ch.frames // ch.calls
     pipe = tp.build_pipeline(ch.config(H, W), ch.encoding, frame_hw=(H, W), with_state=True,
                              temporal_mode="sequence", device="cuda", microbatch=ch.microbatch)
-    frames = cs._card_frames(torch, ch.kind, batch, H, W, cs.SEED + len(name))
+    frames = workloads.card_frames(torch, ch.kind, batch, H, W, workloads.SEED + len(name))
 
     def call():
         pipe(frames, tp.init_state((), "cuda"))
@@ -121,13 +154,18 @@ def profile_chain(tp, torch, cs, name: str, out_dir: str) -> dict:
             "kernels": dev["kernels"], "device_window_ms": dev["window_us"] / 1e3,
             "idle_share_profiled": 1.0 - dev["busy_us"] / prof_us,
             "idle_share_unprofiled": 1.0 - dev["busy_us"] / wall_us,
-            "stages": {k: {"span_ms": v["span_us"] / 1e3, "busy_ms": v["busy_us"] / 1e3}
+            "stages": {k: {"span_ms": v["span_us"] / 1e3, "busy_ms": v["busy_us"] / 1e3,
+                           "copies": v["copies"], "sets": v["sets"],
+                           "host_ms": v["host_us"] / 1e3,
+                           "host_api_ms": {a: [n, us / 1e3] for a, (n, us) in
+                                           v["host_api"].items()}}
                        for k, v in dev["stages"].items()}}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("chains", nargs="*", help="chip_smoke.py phase-2 chains (default: all)")
+    ap.add_argument("chains", nargs="*",
+                    help="tools/workloads.py chains that run at 1920x1080 (default: all)")
     ap.add_argument("--out", default=os.path.join("build", "profiles"))
     args = ap.parse_args(argv)
     import torch
@@ -135,20 +173,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_chains: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, _REPO_DIR)
-    import chip_smoke as cs
     import raw_image_pipeline_tpu_torch as tp
+    from raw_image_pipeline_tpu_torch.tools import workloads
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip() or "nvidia-smi: no output")
-    names = args.chains or [n for n, ch in cs._chains(tp).items() if not ch.small_only]
+    names = args.chains or [n for n, ch in workloads.chains(tp).items() if not ch.small_only]
     os.makedirs(args.out, exist_ok=True)
     rows = []
     for name in names:
-        r = profile_chain(tp, torch, cs, name, args.out)
+        r = profile_chain(tp, torch, workloads, name, args.out)
         rows.append(r)
-        stages = ", ".join(f"{k} {v['span_ms']:.3f}/{v['busy_ms']:.3f}" for k, v in
+        stages = ", ".join(f"{k} {v['span_ms']:.3f}/{v['busy_ms']:.3f} ({v['copies']} copies, "
+                           f"{v['sets']} sets, host {v['host_ms']:.3f})" for k, v in
                            sorted(r["stages"].items(), key=lambda kv: -kv[1]["span_ms"]))
         print(f"{name} B={r['batch']}: wall {r['wall_ms']:.3f} ms (profiled "
               f"{r['profiled_wall_ms']:.3f}), device busy {r['busy_ms']:.3f} ms in "

@@ -60,10 +60,10 @@ def run_both(config, encoding, frames, with_state=False, temporal_mode="sequence
     jp = jax_build_pipeline(config, encoding, frame_hw=hw, with_state=with_state,
                             keep_intermediates=True, temporal_mode=temporal_mode, **kw)
     pp = tp.build_pipeline(config, encoding, hw, with_state=with_state, keep_intermediates=True,
-                           temporal_mode=temporal_mode, **kw)
-    pp.params = tp.params_from_numpy(jax.tree.map(np.asarray, jp.params), config)
+                           temporal_mode=temporal_mode, device="cpu", **kw)
+    pp.params = tp.params_from_numpy(jax.tree.map(np.asarray, jp.params), config, device="cpu")
     js = jax_init_state(state_shape) if with_state else None
-    ps = tp.init_state(state_shape) if with_state else None
+    ps = tp.init_state(state_shape, device="cpu") if with_state else None
     jo, js = jp(frames, js)
     po, ps = pp(torch.as_tensor(frames), ps)
     return ({k: np.asarray(v) for k, v in jo.items()}, {k: v.numpy() for k, v in po.items()},
@@ -173,7 +173,7 @@ def test_api_white_balance_methods_equal_reference(pipes, method):
 def test_api_use_gpu_pca_equals_reference():
     bayer = mosaic_gbrg(crop())
     outs = []
-    for p in (JaxRawImagePipeline(use_gpu=True), tp.RawImagePipeline(use_gpu=True)):
+    for p in (JaxRawImagePipeline(use_gpu=True), tp.RawImagePipeline(use_gpu=True, device="cpu")):
         p.set_white_balance(True)
         p.set_white_balance_method("pca")
         p.set_gamma_correction(True)
@@ -198,8 +198,8 @@ def test_single_frame_rule():
 
 @pytest.mark.parametrize("setup", ["calibrated", "new_size", "uncalibrated", "setters"])
 def test_getters_equal_reference(setup):
-    pipes = [cls(False, "", CALIB if setup != "uncalibrated" else "", "")
-             for cls in (JaxRawImagePipeline, tp.RawImagePipeline)]
+    args = (False, "", CALIB if setup != "uncalibrated" else "", "")
+    pipes = [JaxRawImagePipeline(*args), tp.RawImagePipeline(*args, device="cpu")]
     for p in pipes:
         if setup == "new_size":
             p.set_undistortion_new_image_size(800, 600)
@@ -235,7 +235,7 @@ def test_load_params_and_set_debug_equal_reference(tmp_path):
                       "gamma_correction:\n  enabled: true\n  k: 0.7\n")
     img = crop(48, 64)
     outs = []
-    for p in (JaxRawImagePipeline(), tp.RawImagePipeline()):
+    for p in (JaxRawImagePipeline(), tp.RawImagePipeline(device="cpu")):
         p.load_params(str(params))
         p.set_debug(True)
         with mock.patch.dict("sys.modules", {"cv2": None}):  # no dump files
@@ -314,7 +314,7 @@ def test_bayer16_chain_equals_reference():
 
 def test_bayer16_error_mode_raises_reference_message():
     with pytest.raises(ValueError, match=r"Encoding \[bayer_rggb16\] is a valid pattern"):
-        tp.build_pipeline(tp.flagship_config(24, 32), "bayer_rggb16", (24, 32))
+        tp.build_pipeline(tp.flagship_config(24, 32), "bayer_rggb16", (24, 32), device="cpu")
 
 
 def test_debug_dumps_equal_reference():
@@ -350,11 +350,11 @@ def test_microbatch_equals_unchunked_and_reference(temporal_mode, n, state_shape
                              temporal_mode=temporal_mode, state_shape=state_shape, microbatch=3)
     assert_equal_outputs(jo, po)
     whole = tp.build_pipeline(c, "bayer_gbrg8", hw, with_state=True, keep_intermediates=True,
-                              temporal_mode=temporal_mode)
+                              temporal_mode=temporal_mode, device="cpu")
     if temporal_mode == "sequence":  # one track: the whole batch in one call
-        wo, ws = whole(torch.as_tensor(frames), tp.init_state(state_shape))
+        wo, ws = whole(torch.as_tensor(frames), tp.init_state(state_shape, device="cpu"))
     else:  # three tracks: the chunks one call at a time
-        outs, ws = [], tp.init_state(state_shape)
+        outs, ws = [], tp.init_state(state_shape, device="cpu")
         for chunk in np.split(frames, 2):
             o, ws = whole(torch.as_tensor(chunk), ws)
             outs.append(o)
@@ -371,7 +371,7 @@ def test_state_files_load_across_packages(tmp_path):
     js = js.__class__(x=js.x + np.float32(3.25), p=js.p + np.float32(0.5),
                       initialized=np.array([True, False]))
     jax_save_state(js, str(tmp_path / "jax_state.npz"))
-    ps = tp.load_state(str(tmp_path / "jax_state.npz"))
+    ps = tp.load_state(str(tmp_path / "jax_state.npz"), device="cpu")
     for f in ("x", "p", "initialized"):
         np.testing.assert_array_equal(getattr(ps, f).numpy(), np.asarray(getattr(js, f)))
     tp.save_state(ps, str(tmp_path / "port_state.npz"))

@@ -1,7 +1,10 @@
 """Parity of the PyTorch port's CCC white balance (ops/ccc.py: histogram =
 kernel B's plain version, response = kernel C's plain version, argmax,
 gains, Kalman) with the JAX package on the CPU, and of kernels B and C with
-their plain versions on a CUDA card (skipped without one).
+their plain versions on a CUDA card (skipped without one). The response's
+argmax is also held on a two-peak histogram whose response has two
+separate peaks 1e-5 of max |response| apart (tools/workloads.
+two_peak_histogram, which chip_smoke.py runs through kernel C on the card).
 
 Three places where the JAX package on the CPU computes other numbers than
 the reference's plain arithmetic are pinned here, each with its cause:
@@ -28,6 +31,7 @@ from raw_image_pipeline_tpu.ops.colorspace import bgr_to_gray_f32
 from raw_image_pipeline_tpu_torch.config import DEFAULT_CCC_MODEL_PATH
 from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model as pload
 from raw_image_pipeline_tpu_torch.ops import ccc as pccc
+from raw_image_pipeline_tpu_torch.tools import workloads
 
 F32 = np.float32
 BRIGHT, DARK, UV0 = F32(255.0 * 0.8), F32(255.0 * 0.1), F32(-1.421875)  # default cuts
@@ -152,8 +156,23 @@ def test_histogram_equals_pallas_kernel_interpret():
     want = np.asarray(jccc.log_chroma_histogram_rt(img, BRIGHT, DARK, UV0, impl="pallas"))
     got = pccc.log_chroma_histogram(*planes, float(BRIGHT), float(DARK), float(UV0))
     np.testing.assert_array_equal(_np(got), want)
-    counts = pccc.log_chroma_counts_plain(*planes, float(BRIGHT), float(DARK), float(UV0))
+    bins = pccc.log_chroma_bins(*planes, float(BRIGHT), float(DARK), float(UV0))
+    counts = torch.bincount(bins, minlength=2 * 256 * 256).view(2, 256, 256)
     np.testing.assert_array_equal(_np(counts).astype(F32) * F32(1.0 / (64 * 80)), want)
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 270, 360), (2, 61, 83)])
+def test_histogram_plain_equals_core(b, h, w):
+    # the JAX package's histogram core (einsum counts) at the working
+    # resize's size and at an odd one: 0 f32 ulps apart
+    img = _small_planes(7 + h, b=b, h=h, w=w)
+    core = jax.jit(jccc._log_chroma_histogram_core, static_argnames="impl")
+    want = np.asarray(core(img, BRIGHT, DARK, UV0, impl="einsum"))
+    got = _np(pccc.log_chroma_histogram_plain(*_port_planes(img), float(BRIGHT), float(DARK),
+                                              float(UV0)))
+    assert got.shape == want.shape == (b, 256, 256)
+    assert _ulps(got, want).max() == 0
+    assert got.sum() > 0.5 * b  # most pixels counted
 
 
 # --- response (kernel C's plain version), argmax, gains --------------------
@@ -170,6 +189,40 @@ def test_response_close_to_reference_and_argmax_equal(model):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
     np.testing.assert_array_equal(_np(pccc.response_argmax(torch.as_tensor(got))),
                                   np.asarray(jccc.response_argmax(want)))
+
+
+@pytest.fixture(scope="module")
+def two_peak(model):
+    return workloads.two_peak_histogram(model.filt_dft_re, model.filt_dft_im, model.bias)
+
+
+def test_two_peak_response_argmax_equals_reference(model, two_peak):
+    hist, gap, (high, low) = two_peak
+    # two separate peaks whose values differ by the stated relative gap
+    assert 0.5 * workloads.TWO_PEAK_GAP <= gap <= 2 * workloads.TWO_PEAK_GAP
+    assert (high[0] - low[0]) ** 2 + (high[1] - low[1]) ** 2 > 16 ** 2
+    want = np.asarray(jccc.ccc_response(hist[None], model.filt_dft_re, model.filt_dft_im,
+                                        model.bias, impl="xla"))
+    w = [torch.as_tensor(np.array(a)) for a in (model.filt_dft_re, model.filt_dft_im, model.bias)]
+    got = _np(pccc.ccc_response(torch.as_tensor(hist[None]), *w))
+    jarg = np.asarray(jccc.response_argmax(want))
+    np.testing.assert_array_equal(_np(pccc.response_argmax(torch.as_tensor(got))), jarg)
+    np.testing.assert_array_equal(jarg, [[high[1], high[0]]])  # (x=col, y=row)
+    # the f32 sums of the two packages sit far inside the gap
+    assert np.abs(got - want).max() < 0.1 * gap * np.abs(want).max()
+
+
+def test_ccc_response_plain_leaves_tf32_setting():
+    hist = torch.zeros((1, 256, 256))
+    w = [torch.zeros((256, 256)) for _ in range(3)]
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            pccc.ccc_response_plain(hist, *w)
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def test_argmax_first_occurrence():
@@ -216,7 +269,7 @@ def _kalman_oracle(meas, fused_p: bool):
 def test_kalman_scan_equals_reference():
     meas = np.random.default_rng(11).integers(0, 256, (9, 2)).astype(np.int32)
     js, juv = jccc.kalman_scan(jccc.kalman_init(()), jnp.asarray(meas))
-    ps, puv = pccc.kalman_scan(pccc.kalman_init(()), torch.as_tensor(meas))
+    ps, puv = pccc.kalman_scan(pccc.kalman_init((), device="cpu"), torch.as_tensor(meas))
     np.testing.assert_array_equal(_np(puv), np.asarray(juv))
     np.testing.assert_array_equal(_np(ps.x), np.asarray(js.x))
     assert bool(ps.initialized) and bool(js.initialized)
@@ -231,7 +284,7 @@ def test_kalman_scan_equals_reference():
 
 def test_kalman_update_cameras_equals_reference():
     rng = np.random.default_rng(12)
-    js, ps = jccc.kalman_init((4,)), pccc.kalman_init((4,))
+    js, ps = jccc.kalman_init((4,)), pccc.kalman_init((4,), device="cpu")
     for _ in range(2):  # the first step initialises, the second filters
         meas = rng.integers(0, 256, (4, 2)).astype(np.int32)
         js, juv = jccc.kalman_update(js, jnp.asarray(meas))
@@ -253,22 +306,25 @@ def _cuda():
 @pytest.mark.cuda
 def test_kernel_b_equals_plain_on_card():
     dev = _cuda()
-    planes = [p.to(dev) for p in _port_planes(_small_planes(5, b=4))]
     cuts = (float(BRIGHT), float(DARK), float(UV0))
-    assert torch.equal(pccc.log_chroma_counts_cuda(*planes, *cuts),
-                       pccc.log_chroma_counts_plain(*planes, *cuts))
+    for b, h, w in ((4, 270, 360), (1, 270, 360), (3, 61, 83)):
+        planes = [p.to(dev) for p in _port_planes(_small_planes(5, b=b, h=h, w=w))]
+        # the f32 histogram, value for value
+        assert torch.equal(pccc.log_chroma_histogram_cuda(*planes, *cuts),
+                           pccc.log_chroma_histogram_plain(*planes, *cuts))
 
 
 @pytest.mark.cuda
-def test_kernel_c_equals_plain_on_card(model):
+def test_kernel_c_equals_plain_on_card(model, two_peak):
     dev = _cuda()
     img = _small_planes(6, b=4)
     hist = pccc.log_chroma_histogram(*[p.to(dev) for p in _port_planes(img)],
                                      float(BRIGHT), float(DARK), float(UV0))
     w = [torch.as_tensor(np.array(a), device=dev)
          for a in (model.filt_dft_re, model.filt_dft_im, model.bias)]
-    got = pccc.ccc_response_cuda(hist, *w)
-    want = pccc.ccc_response_plain(hist, *w)
-    # f32 sums in another order: within 1e-4 of the response's magnitude
-    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
-    assert torch.equal(pccc.response_argmax(got), pccc.response_argmax(want))
+    for x in (hist, torch.as_tensor(two_peak[0][None], device=dev)):
+        got = pccc.ccc_response_cuda(x, *w)
+        want = pccc.ccc_response_plain(x, *w)
+        # f32 sums in another order: within 1e-4 of the response's magnitude
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        assert torch.equal(pccc.response_argmax(got), pccc.response_argmax(want))

@@ -204,12 +204,12 @@ def test_bt709_gamma_feeds_vignetting_unfolded():
     """With BT.709 the gamma table is its own stage and vignetting
     linearizes plain; with the k gamma the LUT is folded into vignetting."""
     hw = (24, 32)
-    params = tp.make_params(_chain_config("gpu_parity", hw), hw)
-    k_params = tp.make_params(tp.flagship_config(*hw), hw)
+    params = tp.make_params(_chain_config("gpu_parity", hw), hw, device="cpu")
+    k_params = tp.make_params(tp.flagship_config(*hw), hw, device="cpu")
     np.testing.assert_array_equal(_np(params.gamma_lut), jgamma.build_bt709_lut(True))
     assert not torch.equal(params.lab_gamma_tab, k_params.lab_gamma_tab)
     assert params.remap_weights.shape[0] == 6
-    float_params = tp.make_params(_chain_config("float", hw), hw)
+    float_params = tp.make_params(_chain_config("float", hw), hw, device="cpu")
     assert float_params.remap_weights.shape == (4, hw[0] * hw[1])
 
 

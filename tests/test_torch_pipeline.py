@@ -6,6 +6,7 @@ sequence of frames in two calls with the Kalman state carried. Also the
 API, what the port refuses, and that the port runs with jax blocked."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -22,6 +23,7 @@ from raw_image_pipeline_tpu import RawImagePipeline as JaxRawImagePipeline
 from raw_image_pipeline_tpu.pipeline import build_pipeline as jax_build_pipeline
 from raw_image_pipeline_tpu.pipeline import init_state as jax_init_state
 from raw_image_pipeline_tpu_torch.ops import ccc as pccc
+from raw_image_pipeline_tpu_torch.pipeline import _host_fields
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = np.float32
@@ -91,12 +93,12 @@ def _run_both(config, hw, frames, temporal_mode, with_state, calls=2):
     h, w = hw
     jp = jax_build_pipeline(config, "bayer_gbrg8", frame_hw=hw, with_state=with_state,
                             keep_intermediates=True, temporal_mode=temporal_mode)
-    params = tp.params_from_numpy(jax.tree.map(np.asarray, jp.params), config)
+    params = tp.params_from_numpy(jax.tree.map(np.asarray, jp.params), config, device="cpu")
     fn = tp.make_isp_fn(config, "bayer_gbrg8", with_state, True, temporal_mode=temporal_mode)
     n = frames.shape[0]
     shape = () if temporal_mode == "sequence" else (n // calls,)
     js = jax_init_state(shape) if with_state else None
-    ps = tp.state_from_numpy(js.x, js.p, js.initialized) if with_state else None
+    ps = tp.state_from_numpy(js.x, js.p, js.initialized, device="cpu") if with_state else None
     jouts, pouts, jstates, pstates = [], [], [], []
     with mock.patch.object(pccc, "kalman_scan", wraps=pccc.kalman_scan) as scan:
         for chunk in np.split(frames, calls):
@@ -216,6 +218,38 @@ def test_cuda_device_without_card_raises():
         tp.build_pipeline(tp.flagship_config(24, 32), "bayer_gbrg8", (24, 32), device="cuda")
 
 
+def _saved_state(path):
+    tp.save_state(tp.init_state((), device="cpu"), str(path / "state.npz"))
+    return str(path / "state.npz")
+
+
+# each public entry point that places tensors, called without `device`
+_DEFAULT_DEVICE_CALLS = {
+    "build_pipeline": lambda p: tp.build_pipeline(tp.flagship_config(24, 32), "bayer_gbrg8",
+                                                  (24, 32)),
+    "RawImagePipeline": lambda p: tp.RawImagePipeline(),
+    "make_params": lambda p: tp.make_params(tp.flagship_config(24, 32), (24, 32)),
+    "params_from_numpy": lambda p: tp.params_from_numpy(
+        _host_fields(tp.flagship_config(24, 32), (24, 32)), tp.flagship_config(24, 32)),
+    "init_state": lambda p: tp.init_state(()),
+    "state_from_numpy": lambda p: tp.state_from_numpy(np.zeros(2, np.float32), 0.0, False),
+    "load_state": lambda p: tp.load_state(_saved_state(p)),
+    "kalman_init": lambda p: pccc.kalman_init(()),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_DEFAULT_DEVICE_CALLS))
+def test_entry_point_defaults_to_cuda_and_raises_without_card(entry, tmp_path):
+    fn = {"kalman_init": pccc.kalman_init}.get(entry) or getattr(tp, entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # decided here, not at import: without a card the default raises, and
+    # nothing falls back to the CPU
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        _DEFAULT_DEVICE_CALLS[entry](tmp_path)
+
+
 def test_api_process_equals_reference():
     import cv2
 
@@ -242,9 +276,9 @@ def test_port_runs_with_jax_blocked():
         import raw_image_pipeline_tpu_torch as tp
         h, w = 24, 32
         pipe = tp.build_pipeline(tp.flagship_config(h, w), "bayer_gbrg8", (h, w),
-                                 with_state=True, temporal_mode="sequence")
+                                 with_state=True, temporal_mode="sequence", device="cpu")
         px = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (2, h, w), np.uint8))
-        out, st = pipe(px, tp.init_state(()))
+        out, st = pipe(px, tp.init_state((), device="cpu"))
         assert out["processed"].shape == (2, h, w, 3) and bool(st.initialized)
         assert not any(m == "jax" or m.startswith(("jax.", "raw_image_pipeline_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)

@@ -1,10 +1,16 @@
-"""The device-time accounting of raw_image_pipeline_tpu_torch.tools.
-profile_chains on synthetic torch.profiler traces: busy time is the union
-of the device work's intervals (never above the window it spans), and the
-isp_* ranges on the device's timeline are spans, not work."""
+"""The accounting of raw_image_pipeline_tpu_torch.tools on synthetic
+inputs: profile_chains on torch.profiler traces (busy time is the union of
+the device work's intervals, never above the window it spans; the isp_*
+ranges on the device's timeline are spans, not work; a range's host side
+counts the CUDA API calls that start in it), the kernel bound and kernel
+C's work (tools/measure), and the order of compare_checkouts' turns."""
+
+import math
 
 import pytest
 
+from raw_image_pipeline_tpu_torch.tools.compare_checkouts import TURNS, _summary
+from raw_image_pipeline_tpu_torch.tools.measure import bound, ccc_response_work
 from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time, union_us
 
 
@@ -28,8 +34,10 @@ def test_device_time_counts_work_once_and_ranges_as_spans():
     trace = {"traceEvents": [
         _ev("gpu_user_annotation", "isp_white_balance", 0, 100),
         _ev("gpu_user_annotation", "isp_debayer", 100, 50),
-        _ev("user_annotation", "isp_white_balance", 0, 300),  # host side: ignored
-        _ev("cpu_op", "aten::add", 0, 400),  # host side: ignored
+        _ev("user_annotation", "isp_white_balance", 0, 300),  # the range on the host
+        _ev("cpu_op", "aten::add", 0, 400),  # host work, not an API call
+        _ev("cuda_runtime", "cudaLaunchKernel", 5, 4),  # host side, in the range
+        _ev("cuda_runtime", "cudaLaunchKernel", 305, 4),  # after it
         _ev("kernel", "k1", 10, 30),
         _ev("kernel", "k2", 30, 20),  # overlaps k1 by 10
         _ev("gpu_memcpy", "Memcpy HtoD", 90, 20),  # straddles the two ranges
@@ -43,6 +51,75 @@ def test_device_time_counts_work_once_and_ranges_as_spans():
     assert d["work_sum_us"] == 30 + 20 + 20 + 10 + 10
     assert d["kernels"] == 3
     assert d["window_us"] == 210
-    assert d["stages"]["isp_white_balance"] == {"span_us": 140.0, "busy_us": 40 + 10 + 10}
-    assert d["stages"]["isp_debayer"] == {"span_us": 50.0, "busy_us": 10 + 10}
+    # the copy starts in the white-balance range, the set in the debayer range
+    assert d["stages"]["isp_white_balance"] == {
+        "span_us": 140.0, "busy_us": 40 + 10 + 10, "copies": 1, "sets": 0,
+        "host_us": 300.0, "host_api": {"cudaLaunchKernel": [1, 4.0]}}
+    assert d["stages"]["isp_debayer"] == {"span_us": 50.0, "busy_us": 10 + 10,
+                                          "copies": 0, "sets": 1, "host_us": 0,
+                                          "host_api": {}}
     assert d["busy_us"] <= d["window_us"]
+
+
+@pytest.mark.parametrize("bytes_, ops, want_ms, by", [
+    (3.35e9, 0, 1.0, "bytes"),  # 3.35 GB at 3.35 TB/s
+    (3.35e6, 67e9, 1.0, "operations"),  # 67 GFLOP at 67 TFLOP/s beside 1 us of bytes
+])
+def test_kernel_bound_is_the_larger_of_bytes_and_operations(bytes_, ops, want_ms, by):
+    # bound_ms against the H100 SXM's published peaks
+    got = bound(bytes_, ops)
+    assert got["bound_by"] == by
+    assert got["bound_ms"] == pytest.approx(want_ms, rel=1e-12)
+
+
+def test_host_api_counts_each_occurrence_of_a_range():
+    trace = {"traceEvents": [
+        _ev("gpu_user_annotation", "isp_white_balance", 50, 10),
+        _ev("user_annotation", "isp_white_balance", 0, 100),
+        _ev("user_annotation", "isp_white_balance", 200, 100),  # a second chunk
+        _ev("cuda_runtime", "cudaLaunchKernel", 10, 3),
+        _ev("cuda_runtime", "cudaLaunchKernel", 210, 5),
+        _ev("cuda_driver", "cuLaunchKernelEx", 220, 2),
+        _ev("cuda_runtime", "cudaMemcpyAsync", 150, 7),  # between the chunks
+    ]}
+    st = device_time(trace)["stages"]["isp_white_balance"]
+    assert st["host_us"] == 200
+    assert st["host_api"] == {"cudaLaunchKernel": [2, 8.0], "cuLaunchKernelEx": [1, 2.0]}
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_ccc_response_bound_counts_the_fewest_operations(batch):
+    n, nn = 256, 256 * 256
+    work = ccc_response_work(batch, n)
+    # X in and resp out per frame; W (two planes) and bias once; f32
+    assert work["bytes"] == (2 * batch + 3) * nn * 4
+    assert work["dft_bytes"] == work["bytes"] + 2 * nn * 4
+    # twelve real n^3 products, 402.7 MFLOP a frame
+    assert work["dft_products_ops"] == batch * 402_653_184
+    # two real 2-D FFTs, 2.5 N log2 N each, and 10 + 1 per value of the
+    # half spectrum and of the frame: far fewer operations, so bytes bound it
+    assert work["least_ops"] == batch * (5 * nn * 16 + 10 * 256 * 129 + nn)
+    assert work["least_ops"] < work["dft_products_ops"] / 70
+    got = bound(work["bytes"], work["least_ops"])
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(work["bytes"] / 3.35e9, rel=1e-12)
+    assert math.isclose(bound(work["dft_bytes"], work["dft_products_ops"])["bound_ms"],
+                        batch * 402_653_184 / 67e9, rel_tol=1e-12)
+
+
+def test_compare_turns_alternate_and_summary_reads_the_ccc_range():
+    # each build as often first as second, the parent first and last
+    assert TURNS == ("old", "new", "new", "old", "old", "new", "new", "old")
+    stage = {"span_ms": 4.0, "busy_ms": 0.8, "copies": 0, "sets": 0, "host_ms": 3.9,
+             "host_api_ms": {f"api{i}": [i, 0.1 * i] for i in range(6)}}
+    r = {"kernels": {"C": {"device_ms": 0.05, "call_ms": 0.1}},
+         "frames_per_s": {"flagship 1920x1080": 220.0},
+         "profiles": {"flagship": {"wall_ms": 18.0, "busy_ms": 15.0,
+                                   "idle_share_unprofiled": 1 / 6,
+                                   "stages": {"isp_white_balance": stage}}}}
+    s = _summary(r)
+    assert s["kernels"] == r["kernels"] and s["frames_per_s"] == r["frames_per_s"]
+    c = s["chains"]["flagship"]
+    assert (c["ccc_span_ms"], c["ccc_busy_ms"], c["ccc_host_ms"]) == (4.0, 0.8, 3.9)
+    # the four costliest API calls, costliest first
+    assert list(c["ccc_host_api_ms"]) == ["api5", "api4", "api3", "api2"]

@@ -238,7 +238,7 @@ def test_config2_chain_equals_reference(method, hw):
     config = config2(method)
     frames = mosaic_gbrg(cast_frames(sum(map(ord, method)), 3, *hw))
     jp = jax_build_pipeline(config, "bayer_gbrg8", frame_hw=hw, keep_intermediates=True)
-    params = tp.params_from_numpy(jax.tree.map(np.asarray, jp.params), config)
+    params = tp.params_from_numpy(jax.tree.map(np.asarray, jp.params), config, device="cpu")
     fn = tp.make_isp_fn(config, "bayer_gbrg8", False, True)
     jo, _ = jp(frames, None)
     po, _ = fn(params, torch.as_tensor(frames), None)
@@ -252,7 +252,7 @@ def test_config2_chain_equals_reference(method, hw):
 
 def test_unknown_method_raises_reference_message():
     config = config2("bogus")
-    pipe = tp.build_pipeline(config, "bayer_gbrg8", (24, 32))
+    pipe = tp.build_pipeline(config, "bayer_gbrg8", (24, 32), device="cpu")
     with pytest.raises(ValueError, match=r"White Balance method \[bogus\] not supported"):
         pipe(torch.zeros((1, 24, 32), dtype=torch.uint8))
 

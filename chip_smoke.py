@@ -9,20 +9,26 @@ per source, into build/kernels/), then:
   1. holds each kernel against its plain PyTorch version on the card, at the
      shapes the chains give it, and times both on the device
      (tools/measure.device_ms), beside its bound (tools/measure.bound: the
-     larger of its bytes over 3.35 TB/s and its f32 operations over
+     larger of its bytes over 3.35 TB/s and its operations over
      67 TFLOP/s; for C the operations of real-input FFTs, the fewest known
      for its function, and beside it the bound of the twelve DFT products
-     that C computes) and, for B, torch.bincount of the same bin indices:
-       A debayer     — 0 mismatching bytes at 1080x1920 and 1080x1440 (B=4)
-                       and at an odd size;
+     that C computes; for A and D the integer operations of their plain
+     formulas) and, for B, torch.bincount of the same bin indices:
+       A debayer     — 0 mismatching bytes in the four phases at every
+                       strip width V the wrapper picks: 1080x1920,
+                       1080x1440 (V=16), 1920x1080 (8), 1080x1444 (4),
+                       1079x1439, 3x5 and 3x3 (1), each at B=4 and B=1,
+                       on frames[1:] of a 1079x1439 batch and on views 1
+                       and 8 bytes past a 16-byte boundary; also timed at
+                       B=64 1920x1080 (the wb_* chains' call, ten times
+                       the L2 cache: ms_b64 beside bound_ms_b64);
        B histogram   — the f32 histogram equal value for value at B=4 and
                        B=1 270x360 and at B=3 135x241;
        C response    — equal argmax, max |diff| <= 1e-4 * max |resp|, on the
                        seeded frames' histograms (B=4) and on a two-peak
                        histogram whose response's two peaks differ by 1e-5
                        of max |resp| (tools/workloads.two_peak_histogram);
-       D MHT debayer — 0 mismatching bytes at 1080x1920, 1080x1440,
-                       1079x1439 and 3x5 (B=4);
+       D MHT debayer — as A, with 1x1 in place of 3x3;
        E float remap — 0 mismatching bytes on the float chain's fisheye
                        maps at 1920x1080 (B=4);
   2. drives each chain through build_pipeline(config, encoding,
@@ -99,6 +105,68 @@ def _fail(msg: str) -> int:
     return 1
 
 
+# (H, W) at which kernels A and D are held against their plain versions:
+# every strip width V the wrapper can pick (ops/debayer.strip_width): 16 at
+# 1920 and 1440 wide, 8 at 1080 (the wb_* chains' flipped mosaic), 4 at
+# 1444, 1 at odd widths
+DEBAYER_SHAPES = {
+    "A": ((1080, 1920), (1080, 1440), (1920, 1080), (1080, 1444), (1079, 1439), (3, 5), (3, 3)),
+    "D": ((1080, 1920), (1080, 1440), (1920, 1080), (1080, 1444), (1079, 1439), (3, 5), (1, 1)),
+}
+DEBAYER_B64 = (64, 1920, 1080)  # the wb_* chains' call: ten times the L2 cache
+PHASES = ("rggb", "grbg", "gbrg", "bggr")
+
+
+def check_debayer(torch, rng, key, algorithm, cuda_fn, plain_fn, phase):
+    """Phase 1: kernel A or D against its plain version, 0 mismatching bytes
+    in all four phases, at each of DEBAYER_SHAPES[key] at B=4 and B=1, on
+    frames[1:] of a B=4 1079x1439 batch, and on B=2 1080x1920 views 1 and 8
+    bytes past a 16-byte boundary; each line names the strip width V of its
+    launches. Then the device times at B=4 1080x1920 (and the plain
+    version's) and at DEBAYER_B64. Returns the B=4 1080x1920 output in
+    `phase` and the kernel's row."""
+    from raw_image_pipeline_tpu_torch.ops.debayer import strip_width
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, debayer_work, device_ms
+
+    def frames(*shape):
+        return torch.as_tensor(rng.integers(0, 256, shape, dtype="uint8"), device="cuda")
+
+    cases = [(f"B={b} {h}x{w}", frames(b, h, w))
+             for (h, w) in DEBAYER_SHAPES[key] for b in (4, 1)]
+    cases.append(("frames[1:] of B=4 1079x1439", frames(4, 1079, 1439)[1:]))
+    flat = frames(16 + 2 * 1080 * 1920)
+    cases += [(f"B=2 1080x1920 at {off} bytes past a 16-byte boundary",
+               flat[off:off + 2 * 1080 * 1920].view(2, 1080, 1920)) for off in (1, 8)]
+    for label, bayer in cases:
+        bad, widths = 0, set()
+        for ph in PHASES:
+            got = cuda_fn(bayer, ph)
+            bad += int((got != plain_fn(bayer, ph)).sum())
+            widths.add(strip_width(bayer.shape[2], bayer.data_ptr(), got.data_ptr()))
+        print(f"kernel {key} {label} (V={sorted(widths)}): {bad} mismatching bytes in "
+              f"{len(PHASES)} phases")
+        if bad:
+            raise AssertionError(f"kernel {key}: {bad} mismatching bytes at {label}")
+    bayer = cases[0][1]  # B=4 1080x1920
+    ms = device_ms(lambda: cuda_fn(bayer, phase))
+    plain_ms = device_ms(lambda: plain_fn(bayer, phase))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(rng.integers(1 << 31)))
+    big = torch.randint(0, 256, DEBAYER_B64, generator=g, device="cuda", dtype=torch.uint8)
+    ms_b64 = device_ms(lambda: cuda_fn(big, phase))
+    work, work_b64 = debayer_work(bayer.numel(), algorithm), debayer_work(big.numel(), algorithm)
+    del big
+    b64 = bound(bytes_=work_b64["bytes"], ops=work_b64["ops"])
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(bytes_=work["bytes"], ops=work["ops"]),
+               ms_b64=ms_b64, bound_ms_b64=b64["bound_ms"])
+    print(f"kernel {key} time B=4 1080x1920: {ms:.4f} ms (bound {row['bound_ms']:.4f}, "
+          f"{row['bound_by']}), plain {plain_ms:.4f} ms; B={DEBAYER_B64[0]} "
+          f"{DEBAYER_B64[1]}x{DEBAYER_B64[2]}: {ms_b64:.4f} ms (bound {b64['bound_ms']:.4f}, "
+          f"{b64['bound_by']})")
+    return cuda_fn(bayer, phase), row
+
+
 def check_kernels(tp, torch, rng):
     """Phase 1: each kernel against its plain version on the card."""
     import numpy as np
@@ -113,22 +181,10 @@ def check_kernels(tp, torch, rng):
     dev = torch.device("cuda")
     rows = {}
     phase = debayer.phase_for_encoding("bayer_grbg8")  # the flipped gbrg mosaic
-    for (h, w) in ((1080, 1920), (1080, 1440), (1079, 1439)):
-        bayer = torch.as_tensor(rng.integers(0, 256, (4, h, w), dtype="uint8"), device=dev)
-        got = debayer.debayer_bilinear_cuda(bayer, phase)
-        want = debayer.debayer_bilinear(bayer, phase)
-        bad = int((got != want).sum())
-        print(f"kernel A debayer B=4 {h}x{w}: {bad} mismatching bytes")
-        if bad:
-            raise AssertionError(f"kernel A: {bad} mismatching bytes at {h}x{w}")
-        if (h, w) == (1080, 1920):
-            ms = device_ms(lambda: debayer.debayer_bilinear_cuda(bayer, phase))
-            plain_ms = device_ms(lambda: debayer.debayer_bilinear(bayer, phase))
-            planes = [got[:, c] for c in (2, 1, 0)]  # R<->B swap, as the chain
-            moved = bayer.numel() * 4  # [4, h, w] in, [4, 3, h, w] out
-    rows["A"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                     **bound(bytes_=moved, ops=0))
-    print(f"kernel A time B=4 1080x1920: {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    planes, rows["A"] = check_debayer(torch, rng, "A", "bilinear",
+                                      debayer.debayer_bilinear_cuda, debayer.debayer_bilinear,
+                                      phase)
+    planes = [planes[:, c] for c in (2, 1, 0)]  # R<->B swap, as the chain
 
     cfg = tp.flagship_config(1080, 1920).white_balance
     cuts = (float(torch.tensor(255.0 * cfg.saturation_bright_thr, dtype=torch.float32)),
@@ -189,22 +245,9 @@ def check_kernels(tp, torch, rng):
           f"{rows['C']['bound_ms']:.5f} ms ({rows['C']['bound_by']}), as twelve DFT products "
           f"{as_products['bound_ms']:.5f} ms")
 
-    for (h, w) in ((1080, 1920), (1080, 1440), (1079, 1439), (3, 5)):
-        bayer = torch.as_tensor(rng.integers(0, 256, (4, h, w), dtype="uint8"), device=dev)
-        got = debayer.debayer_mht_cuda(bayer, phase)
-        want = debayer.debayer_mht(bayer, phase)
-        bad = int((got != want).sum())
-        print(f"kernel D MHT debayer B=4 {h}x{w}: {bad} mismatching bytes")
-        if bad:
-            raise AssertionError(f"kernel D: {bad} mismatching bytes at {h}x{w}")
-        if (h, w) == (1080, 1920):
-            ms = device_ms(lambda: debayer.debayer_mht_cuda(bayer, phase))
-            plain_ms = device_ms(lambda: debayer.debayer_mht(bayer, phase))
-            planes = [got[:, c].contiguous() for c in range(3)]  # no swap under MHT
-            moved = bayer.numel() * 4
-    rows["D"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                     **bound(bytes_=moved, ops=0))
-    print(f"kernel D time B=4 1080x1920: {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    planes, rows["D"] = check_debayer(torch, rng, "D", "mht", debayer.debayer_mht_cuda,
+                                      debayer.debayer_mht, phase)
+    planes = [planes[:, c].contiguous() for c in range(3)]  # no swap under MHT
 
     config = workloads.chains(tp)["float"].config(1080, 1920)
     params = tp.make_params(config, (1080, 1920), dev)

@@ -5,9 +5,9 @@ The sources live in `raw_image_pipeline_tpu_torch/csrc/*.cu`. At first use
 they are compiled by nvcc for sm_90a (Hopper), one nvcc process per source,
 all started together, and linked into one shared library with a plain C
 interface, `build/kernels/libisp_kernels_<hash>.so` at the root of the
-checkout, which is loaded with ctypes. The hash covers the sources and the
-flags, so an edited source is rebuilt. Nothing is built or loaded when this
-module is imported: the CPU tests import every module and never reach a
+checkout, which is loaded with ctypes. The hash covers the sources, their
+headers and the flags, so an edited source is rebuilt. Nothing is built or
+loaded when this module is imported: the CPU tests import every module and never reach a
 kernel.
 
 Each kernel is a `Kernel` object: its C entry, the TPU kernel it replaces,
@@ -33,6 +33,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
            "remap_float.cu")
+HEADERS = ("debayer_strip.cuh",)  # included by the sources; in the hash too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -44,10 +45,10 @@ _F = ctypes.c_float
 # C entry -> argtypes (every pointer and the stream as c_void_p, so ctypes
 # never narrows a 64-bit address)
 _SIGNATURES = {
-    "isp_debayer_bilinear": (_P, _P, _I, _I, _I, _I, _P),
+    "isp_debayer_bilinear": (_P, _P, _I, _I, _I, _I, _I, _P),
     "isp_ccc_histogram": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
     "isp_ccc_response": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    "isp_debayer_mht": (_P, _P, _I, _I, _I, _I, _P),
+    "isp_debayer_mht": (_P, _P, _I, _I, _I, _I, _I, _P),
     "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
@@ -62,7 +63,7 @@ class _Library:
 
     def path(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for name in SOURCES:
+        for name in SOURCES + HEADERS:
             with open(os.path.join(CSRC_DIR, name), "rb") as f:
                 h.update(f.read())
         return os.path.join(BUILD_DIR, f"libisp_kernels_{h.hexdigest()[:16]}.so")

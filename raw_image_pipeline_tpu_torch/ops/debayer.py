@@ -90,7 +90,8 @@ def _site_masks(h: int, w: int, phase: str, device) -> Tuple[torch.Tensor, ...]:
 def phase_kinds(phase: str) -> int:
     """Kernels A's and D's packed phase table: for parity cell (row&1)*2 + (col&1),
     bits [2*cell, 2*cell+2) hold 0 R site, 1 G in an R row, 2 G in a B row,
-    3 B site."""
+    3 B site. The kernels are instantiated for the four tables and launch
+    the one this selects."""
     packed = 0
     for kind, cell in enumerate(_CELLS[phase]):
         packed |= kind << (2 * _CELL_INDEX[cell])
@@ -147,22 +148,41 @@ def debayer_bilinear16(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     return _bilinear_stencil(p, phase, 65535)
 
 
-def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
-    """Kernel A: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
-    equal to debayer_bilinear for any H, W >= 3."""
+def strip_width(w: int, in_ptr: int, out_ptr: int) -> int:
+    """Kernels A's and D's strip width V: the widest of 16, 8 and 4 bytes
+    that divides the row width and both addresses, so that every row of the
+    mosaic and of each output plane starts on a V-byte boundary and a
+    thread reads and writes its 2 x V strip as V-byte words; else 1 (strips
+    of 2 columns, byte by byte)."""
+    for v in (16, 8, 4):
+        if w % v == 0 and in_ptr % v == 0 and out_ptr % v == 0:
+            return v
+    return 1
+
+
+def _launch_debayer(kernel: kernels.Kernel, bayer: torch.Tensor, phase: str,
+                    min_hw: int) -> torch.Tensor:
+    """Check a [B, H, W] uint8 CUDA mosaic, allocate [B, 3, H, W] and launch
+    kernel A or D on it at the strip width strip_width picks."""
     kernels.check_cuda(bayer, "bayer", torch.uint8)
-    if bayer.dim() != 3 or bayer.shape[1] < 3 or bayer.shape[2] < 3:
-        raise ValueError(f"bayer: expected [B, H, W] with H, W >= 3, got {tuple(bayer.shape)}")
+    if bayer.dim() != 3 or bayer.shape[1] < min_hw or bayer.shape[2] < min_hw:
+        raise ValueError(f"bayer: expected [B, H, W] with H, W >= {min_hw}, "
+                         f"got {tuple(bayer.shape)}")
     b, h, w = bayer.shape
     kernels.check_batch(b, "bayer")
     out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=bayer.device)
     if b:
         with torch.cuda.device(bayer.device):
-            kernels.DEBAYER_BILINEAR.launch(
-                bayer.data_ptr(), out.data_ptr(), b, h, w, phase_kinds(phase),
-                kernels.stream_handle(bayer),
-            )
+            kernel.launch(bayer.data_ptr(), out.data_ptr(), b, h, w, phase_kinds(phase),
+                          strip_width(w, bayer.data_ptr(), out.data_ptr()),
+                          kernels.stream_handle(bayer))
     return out
+
+
+def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+    """Kernel A: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
+    equal to debayer_bilinear for any H, W >= 3."""
+    return _launch_debayer(kernels.DEBAYER_BILINEAR, bayer, phase, 3)
 
 
 def _desc8(v: torch.Tensor) -> torch.Tensor:
@@ -214,19 +234,7 @@ def debayer_mht(bayer: torch.Tensor, phase: str) -> torch.Tensor:
 def debayer_mht_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     """Kernel D: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
     equal to debayer_mht for any H, W >= 1."""
-    kernels.check_cuda(bayer, "bayer", torch.uint8)
-    if bayer.dim() != 3 or bayer.shape[1] < 1 or bayer.shape[2] < 1:
-        raise ValueError(f"bayer: expected [B, H, W] with H, W >= 1, got {tuple(bayer.shape)}")
-    b, h, w = bayer.shape
-    kernels.check_batch(b, "bayer")
-    out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=bayer.device)
-    if b:
-        with torch.cuda.device(bayer.device):
-            kernels.DEBAYER_MHT.launch(
-                bayer.data_ptr(), out.data_ptr(), b, h, w, phase_kinds(phase),
-                kernels.stream_handle(bayer),
-            )
-    return out
+    return _launch_debayer(kernels.DEBAYER_MHT, bayer, phase, 1)
 
 
 _ALGORITHMS = {

@@ -10,22 +10,29 @@ checkout's tools (measure.py, workloads.py, profile_chains.py, which
 import nothing of the package) and imports the package of its own
 checkout, through functions every version of the port has:
 
-  * kernels A, B and C as the flagship calls them at 1920x1080, B=4:
-    ops.debayer.debayer_planes on a seeded mosaic, ops.ccc.
-    log_chroma_histogram on its planes' working resize (270x360) and
-    ops.ccc.ccc_response on that histogram, each with every stream
-    operation its call makes: device ms (measure.device_ms) and ms per
-    call, the host's launches included (measure.call_ms);
+  * kernels A-D as the chains call them at 1920x1080, B=4:
+    ops.debayer.debayer_planes on a seeded mosaic, bilinear (A) and "mht"
+    (D, the gpu_parity chain's), ops.ccc.log_chroma_histogram on A's
+    planes' working resize (270x360) (B) and ops.ccc.ccc_response on that
+    histogram (C), each with every stream operation its call makes: device
+    ms (measure.device_ms) and ms per call, the host's launches included
+    (measure.call_ms);
   * each chain of the flagship family in tools/workloads.py (flagship,
     gpu_parity, float, fixed32): frames/s at each of its sizes (its frames
     in its calls, the Kalman state carried; the median of 7), and one
     profiled call at 1920x1080 (profile_chains.profile_chain): wall, device
     busy time, and per isp_* range its GPU span, busy time, host time and
-    CUDA API calls.
+    CUDA API calls;
+  * frames/s of wb_pca and wb_grey_world (BASELINE config 2, kernel A at
+    B=64 on the flipped 1920x1080 mosaic), where A's share of the chain is
+    largest.
 
-Prints one line per turn and, last, a JSON line of the main numbers; writes
-every number and each turn's traces under --out (default
-build/compare).
+Prints one line per turn, then per version the median and range over its
+turns of each kernel's times, each chain's frames/s and its profile's
+wall, busy time, idle share and busy time per stage, and, last, a JSON
+line of the main numbers; writes every number and each turn's traces
+under --out (default build/compare). With --summarize, it reads such a
+compare.json and prints its medians and ranges again.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import sys
 _TOOLS_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_DIR = os.path.dirname(os.path.dirname(_TOOLS_DIR))
 FLAGSHIP_FAMILY = ("flagship", "gpu_parity", "float", "fixed32")
+FPS_ONLY = ("wb_pca", "wb_grey_world")  # frames/s, no profile
 CCC_RANGE = "isp_white_balance"
 FPS_REPS = 7
 TURNS = ("old", "new", "new", "old") * 2  # each build meets the card's drift alike
@@ -106,7 +114,8 @@ def _worker(root: str, out: str) -> dict:
     hist = ccc.log_chroma_histogram(*small, *cuts)
     calls = {"A": lambda: debayer.debayer_planes(bayer, encoding),
              "B": lambda: ccc.log_chroma_histogram(*small, *cuts),
-             "C": lambda: ccc.ccc_response(hist, wr, wi, bias)}
+             "C": lambda: ccc.ccc_response(hist, wr, wi, bias),
+             "D": lambda: debayer.debayer_planes(bayer, encoding, "mht")}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},
            "frames_per_s": {}, "profiles": {}}
@@ -115,6 +124,10 @@ def _worker(root: str, out: str) -> dict:
         for h, w in ch.sizes:
             res["frames_per_s"][f"{name} {w}x{h}"] = _fps(tp, torch, workloads, name, h, w)
         res["profiles"][name] = profile_chains.profile_chain(tp, torch, workloads, name, out)
+        torch.cuda.empty_cache()
+    for name in FPS_ONLY:
+        for h, w in workloads.chains(tp)[name].sizes:
+            res["frames_per_s"][f"{name} {w}x{h}"] = _fps(tp, torch, workloads, name, h, w)
         torch.cuda.empty_cache()
     return res
 
@@ -134,11 +147,76 @@ def _summary(r: dict) -> dict:
     return {"kernels": r["kernels"], "frames_per_s": r["frames_per_s"], "chains": ccc}
 
 
+def _stages(turns, chain: str) -> list:
+    """The isp_* ranges that chain's profile shows in any of the turns (a
+    trace may miss one)."""
+    seen = {}
+    for t in turns:
+        seen.update(dict.fromkeys(t["profiles"][chain]["stages"]))
+    return list(seen)
+
+
+def medians(turns) -> dict:
+    """{version: {"kernels": {kernel: {metric: [median, min, max]}},
+    "frames_per_s": {chain: [median, min, max]}, "profiles": {chain:
+    {"wall_ms" | "busy_ms" | "idle_share" | stage: [median, min, max]}}}}
+    over each version's turns; a profile's stage is its busy ms, over the
+    turns whose trace shows it, and "profiles" is there where the turns
+    carry them (compare.json's do)."""
+    def spread(values):
+        return [statistics.median(values), min(values), max(values)]
+
+    out = {}
+    for version in sorted({t["version"] for t in turns}):
+        mine = [t for t in turns if t["version"] == version]
+        out[version] = {
+            "kernels": {k: {m: spread([t["kernels"][k][m] for t in mine]) for m in v}
+                        for k, v in mine[0]["kernels"].items()},
+            "frames_per_s": {c: spread([t["frames_per_s"][c] for t in mine])
+                             for c in mine[0]["frames_per_s"]},
+        }
+        if "profiles" in mine[0]:
+            out[version]["profiles"] = {
+                c: {"wall_ms": spread([t["profiles"][c]["wall_ms"] for t in mine]),
+                    "busy_ms": spread([t["profiles"][c]["busy_ms"] for t in mine]),
+                    "idle_share": spread([t["profiles"][c]["idle_share_unprofiled"]
+                                          for t in mine]),
+                    **{st: spread([t["profiles"][c]["stages"][st]["busy_ms"] for t in mine
+                                   if st in t["profiles"][c]["stages"]])
+                       for st in _stages(mine, c)}}
+                for c in mine[0]["profiles"]}
+    return out
+
+
+def _print_medians(turns) -> None:
+    for version, m in medians(turns).items():
+        print(f"{version}, median (range) over {sum(t['version'] == version for t in turns)} "
+              "turns: kernels (device / per call ms) " + ", ".join(
+                  f"{k} {v['device_ms'][0]:.5f} ({v['device_ms'][1]:.5f}-{v['device_ms'][2]:.5f})"
+                  f" / {v['call_ms'][0]:.5f} ({v['call_ms'][1]:.5f}-{v['call_ms'][2]:.5f})"
+                  for k, v in m["kernels"].items())
+              + "; frames/s " + ", ".join(f"{c} {a:.2f} ({lo:.2f}-{hi:.2f})"
+                                          for c, (a, lo, hi) in m["frames_per_s"].items()),
+              flush=True)
+        for c, p in m.get("profiles", {}).items():
+            print(f"{version} {c} profile, median (range) ms: " + ", ".join(
+                f"{k} {a:.3f} ({lo:.3f}-{hi:.3f})" for k, (a, lo, hi) in p.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("old_root", help="root of the other (earlier) checkout")
+    ap.add_argument("old_root", help="root of the other (earlier) checkout, or with "
+                                     "--summarize a compare.json")
     ap.add_argument("--out", default=os.path.join("build", "compare"))
+    ap.add_argument("--summarize", action="store_true",
+                    help="print the medians of an earlier run's compare.json")
     args = ap.parse_args(argv)
+    if args.summarize:
+        with open(args.old_root) as f:
+            saved = json.load(f)
+        print(saved["card"])
+        _print_medians(saved["turns"])
+        return 0
     roots = {"old": os.path.abspath(args.old_root), "new": _REPO_DIR}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -172,6 +250,7 @@ def main(argv=None) -> int:
                   for n, c in s["chains"].items()), flush=True)
     with open(os.path.join(args.out, "compare.json"), "w") as f:
         json.dump({"card": card, "roots": roots, "turns": full}, f)
+    _print_medians(full)
     print(json.dumps({"card": card, "turns": summary}))
     return 0
 

@@ -17,14 +17,34 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
+# integer operations a pixel of kernels A's and D's functions, counted from
+# the plain formulas (ops/debayer.py; a shift or a multiply by a constant
+# is one operation, sums shared between a pixel's filters counted once).
+# Bilinear: 2 rounded averages, of 4 taps at an R or B site (5 each) and of
+# 2 at a G site (3 each): 8 on average. MHT: at an R or B site 33 (the tap
+# sums 6, g_at_rb 5, rb_at_br 8, two round-half-even descales of 5 as
+# kernel D computes them, two clamps of 2), at a G site 34 (tap sums 7,
+# the shared 10x - 2*diag4 3, each filter 5, two descales and two
+# clamps): 33.5 on average.
+DEBAYER_OPS_PER_PIXEL = {"bilinear": 8.0, "mht": 33.5}
+
 
 def bound(bytes_: float, ops: float) -> dict:
     """bound_ms, the least time the card could take for the work, and
-    bound_by: the larger of bytes over the memory rate and f32 operations
-    over the f32 rate."""
+    bound_by: the larger of bytes over the memory rate and operations (f32;
+    integer for kernels A and D) over the f32 rate."""
     by_bytes, by_ops = bytes_ / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOP_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "operations" if by_ops > by_bytes else "bytes"}
+
+
+def debayer_work(pixels: int, algorithm: str) -> dict:
+    """The work of kernel A ("bilinear") or D ("mht") on `pixels` mosaic
+    pixels: "bytes", one byte read and three written per pixel; "ops", the
+    integer operations of DEBAYER_OPS_PER_PIXEL, which bound() counts at
+    the f32 rate (the only scalar rate of the published table; an
+    instruction may do two integer operations, e.g. a three-input add)."""
+    return {"bytes": 4 * pixels, "ops": pixels * DEBAYER_OPS_PER_PIXEL[algorithm]}
 
 
 def ccc_response_work(batch: int, n: int = 256) -> dict:

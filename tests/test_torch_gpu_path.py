@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_ops import card_debayer_cases
 from test_torch_pipeline import _frames, _mosaic_gbrg, _np, _run_both, assert_states_match
 
 import raw_image_pipeline_tpu_torch as tp
@@ -38,10 +39,12 @@ def _cuda():
 # --- MHT demosaic (kernel D's plain version) --------------------------------
 
 
-@pytest.mark.parametrize("hw", [(16, 24), (17, 23), (3, 5), (1, 1)])
+@pytest.mark.parametrize("hw", [(16, 24), (17, 23), (3, 5), (1, 1), (4, 1080), (4, 36), (5, 17)])
 def test_mht_equals_reference(hw):
     # even, odd, and under 4 px (where the reference clamp-pads the whole
-    # mosaic); the four encodings through the pipeline's entry
+    # mosaic); then the widths at which kernel D changes strip width V (8
+    # at 1080, 4 at 36, 1 at 17); the four encodings through the
+    # pipeline's entry
     rng = np.random.default_rng(sum(hw))
     bayer = rng.integers(0, 256, (2,) + hw, dtype=np.uint8)
     for enc in pdeb.BAYER_ENCODINGS:
@@ -280,15 +283,14 @@ def test_api_setters_equal_reference():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(1080, 1920), (1079, 1439), (3, 5), (1, 1)])
+@pytest.mark.parametrize("hw", [(1080, 1920), (1920, 1080), (1080, 1444), (1079, 1439), (3, 5),
+                                (1, 1)])
 def test_kernel_d_equals_plain_on_card(hw):
     dev = _cuda()
-    bayer = torch.as_tensor(
-        np.random.default_rng(1).integers(0, 256, (2,) + hw, dtype=np.uint8), device=dev
-    )
-    for phase in PHASES:
-        got = pdeb.debayer_mht_cuda(bayer, phase)
-        assert torch.equal(got, pdeb.debayer_mht(bayer, phase))
+    for bayer in card_debayer_cases(hw, dev):
+        for phase in PHASES:
+            got = pdeb.debayer_mht_cuda(bayer, phase)
+            assert torch.equal(got, pdeb.debayer_mht(bayer, phase))
 
 
 @pytest.mark.cuda

@@ -5,6 +5,8 @@ host-side function the port copied equal to its original, and kernel A
 against its plain version on a CUDA card (skipped without one)."""
 
 import dataclasses
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -120,7 +122,10 @@ def test_flip_equals_reference(angle):
 # --- debayer (kernel A's plain version) ------------------------------------
 
 
-@pytest.mark.parametrize("hw", [(16, 24), (17, 23), (3, 3), (4, 9), (31, 30)])
+# the last three: the widths at which kernels A and D change strip width V
+# (8 at 1080, 4 at 36, 1 at 17 after a strip of 2), few rows each
+@pytest.mark.parametrize("hw", [(16, 24), (17, 23), (3, 3), (4, 9), (31, 30),
+                                (4, 1080), (4, 36), (5, 17)])
 def test_debayer_equals_reference(hw):
     rng = np.random.default_rng(sum(hw))
     bayer = rng.integers(0, 256, (2,) + hw, dtype=np.uint8)
@@ -149,6 +154,16 @@ def test_debayer_planes_by_encoding():
         pdeb.debayer_planes(torch.as_tensor(bayer), "bayer_gbrg16")
 
 
+def test_kernel_phase_tables_match_phase_kinds():
+    # kernels A and D are instantiated for the four packed tables named in
+    # csrc/debayer_strip.cuh, in phase order; the wrapper passes phase_kinds
+    src = open(os.path.join(os.path.dirname(pdeb.__file__), "..", "csrc",
+                            "debayer_strip.cuh")).read()
+    names = dict(re.findall(r"kKinds(\w+) = (0x[0-9A-F]+)", src))
+    assert {p: int(names[p.upper()], 16) for p in PHASES} == {p: pdeb.phase_kinds(p)
+                                                               for p in PHASES}
+
+
 def test_phase_kinds_match_site_masks():
     # kernel A's packed phase table says the same as the plain masks
     for phase in PHASES:
@@ -159,22 +174,53 @@ def test_phase_kinds_match_site_masks():
             assert bool(masks[kind][cell // 2, cell % 2])
 
 
+# width -> strip width V at 16-byte-aligned pointers, at an input 8 bytes
+# past one, and at an input 1 byte past one
+_STRIP_WIDTHS = {1920: (16, 8, 1), 1440: (16, 8, 1), 1080: (8, 8, 1), 36: (4, 4, 1),
+                 17: (1, 1, 1), 5: (1, 1, 1), 3: (1, 1, 1)}
+
+
+@pytest.mark.parametrize("offset", [0, 8, 1])
+def test_strip_width(offset):
+    # kernels A's and D's V divides the width and both addresses; the
+    # output's address counts as the input's does
+    k = (0, 8, 1).index(offset)
+    for w, want in _STRIP_WIDTHS.items():
+        assert pdeb.strip_width(w, 4096 + offset, 8192) == want[k], w
+        assert pdeb.strip_width(w, 4096, 8192 + offset) == want[k], w
+    assert pdeb.strip_width(1920, 4096 + 4, 8192) == 4
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
 
 
+def card_debayer_cases(hw, dev):
+    """Kernels A's and D's inputs on the card at hw: B=2, B=1, and the
+    batch slice frames[1:] (its data_ptr() offset by a frame); and at
+    1080x1920, views 1 and 8 bytes past a 16-byte boundary."""
+    bayer = torch.as_tensor(
+        np.random.default_rng(1).integers(0, 256, (3,) + hw, dtype=np.uint8), device=dev
+    )
+    cases = [bayer[:2], bayer[:1], bayer[1:]]
+    if hw == (1080, 1920):
+        flat = torch.as_tensor(np.random.default_rng(2).integers(0, 256, 16 + 2 * 1080 * 1920,
+                                                                 dtype=np.uint8), device=dev)
+        cases += [flat[off:off + 2 * 1080 * 1920].view(2, 1080, 1920) for off in (1, 8)]
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(1080, 1920), (1079, 1439), (3, 5)])
+@pytest.mark.parametrize("hw", [(1080, 1920), (1920, 1080), (1080, 1444), (1079, 1439), (3, 5),
+                                (3, 3)])
 def test_kernel_a_equals_plain_on_card(hw):
     dev = _cuda()
-    bayer = torch.as_tensor(
-        np.random.default_rng(1).integers(0, 256, (2,) + hw, dtype=np.uint8), device=dev
-    )
-    for phase in PHASES:
-        got = pdeb.debayer_bilinear_cuda(bayer, phase)
-        assert torch.equal(got, pdeb.debayer_bilinear(bayer, phase))
+    for bayer in card_debayer_cases(hw, dev):
+        for phase in PHASES:
+            got = pdeb.debayer_bilinear_cuda(bayer, phase)
+            assert torch.equal(got, pdeb.debayer_bilinear(bayer, phase))
 
 
 # --- resize ----------------------------------------------------------------

@@ -2,15 +2,22 @@
 inputs: profile_chains on torch.profiler traces (busy time is the union of
 the device work's intervals, never above the window it spans; the isp_*
 ranges on the device's timeline are spans, not work; a range's host side
-counts the CUDA API calls that start in it), the kernel bound and kernel
-C's work (tools/measure), and the order of compare_checkouts' turns."""
+counts the CUDA API calls that start in it), the kernel bound and kernels
+C's, A's and D's work (tools/measure), the order of compare_checkouts'
+turns, and sass_census on a listing in cuobjdump's format."""
 
 import math
 
 import pytest
 
-from raw_image_pipeline_tpu_torch.tools.compare_checkouts import TURNS, _summary
-from raw_image_pipeline_tpu_torch.tools.measure import bound, ccc_response_work
+from raw_image_pipeline_tpu_torch.tools.compare_checkouts import TURNS, _summary, medians
+from raw_image_pipeline_tpu_torch.tools.measure import (
+    DEBAYER_OPS_PER_PIXEL,
+    bound,
+    ccc_response_work,
+    debayer_work,
+)
+from raw_image_pipeline_tpu_torch.tools.sass_census import census, pixels_per_thread
 from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time, union_us
 
 
@@ -123,3 +130,75 @@ def test_compare_turns_alternate_and_summary_reads_the_ccc_range():
     assert (c["ccc_span_ms"], c["ccc_busy_ms"], c["ccc_host_ms"]) == (4.0, 0.8, 3.9)
     # the four costliest API calls, costliest first
     assert list(c["ccc_host_api_ms"]) == ["api5", "api4", "api3", "api2"]
+
+
+def test_compare_medians_per_version():
+    turns = [{"version": v, "kernels": {"A": {"device_ms": d, "call_ms": 2 * d}},
+              "frames_per_s": {"flagship 1920x1080": f}}
+             for v, d, f in (("old", 0.035, 220.0), ("new", 0.016, 224.0), ("new", 0.017, 226.0),
+                             ("old", 0.034, 230.0), ("old", 0.036, 221.0))]
+    m = medians(turns)
+    assert m["old"]["kernels"]["A"]["device_ms"] == [0.035, 0.034, 0.036]
+    assert m["new"]["kernels"]["A"]["call_ms"] == [0.033, 0.032, 0.034]
+    assert m["old"]["frames_per_s"]["flagship 1920x1080"] == [221.0, 220.0, 230.0]
+    assert m["new"]["frames_per_s"]["flagship 1920x1080"] == [225.0, 224.0, 226.0]
+    assert "profiles" not in m["new"]
+    for i, t in enumerate(turns):  # as compare.json holds them
+        t["profiles"] = {"flagship": {"wall_ms": 18.0 + i, "busy_ms": 15.0,
+                                      "idle_share_unprofiled": 0.1 * i,
+                                      "stages": {"isp_debayer": {"busy_ms": 0.05 - 0.01 * i}}}}
+    del turns[4]["profiles"]["flagship"]["stages"]["isp_debayer"]  # a trace that missed it
+    turns[3]["profiles"]["flagship"]["stages"]["isp_flip"] = {"busy_ms": 0.01}
+    p = medians(turns)["old"]["profiles"]["flagship"]
+    assert p["isp_flip"] == [0.01, 0.01, 0.01]
+    assert p["wall_ms"] == [21.0, 18.0, 22.0] and p["busy_ms"] == [15.0, 15.0, 15.0]
+    assert p["isp_debayer"] == pytest.approx([0.035, 0.02, 0.05])  # turns 0 and 3
+
+
+@pytest.mark.parametrize("algorithm", ["bilinear", "mht"])
+def test_debayer_work(algorithm):
+    # B=64 1920x1080: a byte in and three out per pixel, and the integer
+    # operations of the plain formulas
+    px = 64 * 1920 * 1080
+    w = debayer_work(px, algorithm)
+    assert w == {"bytes": 4 * px, "ops": px * DEBAYER_OPS_PER_PIXEL[algorithm]}
+    assert DEBAYER_OPS_PER_PIXEL == {"bilinear": 8.0, "mht": 33.5}
+    # at the f32 rate the operations take less than the bytes in both
+    got = bound(w["bytes"], w["ops"])
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(4 * px / 3.35e9, rel=1e-12)
+
+
+_LISTING = """
+        code for sm_90a
+                Function : _ZN12_GLOBAL__N_118debayer_mht_kernelILi78ELi16EEEvPKhPhiiii
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;           /* 0x00000a00ff017b82 */
+                                                                    /* 0x000fe20000000f00 */
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/                   SHFL.UP PT, R8, R7, 0x1, RZ ;
+        /*0030*/              @!P0 LDG.E.CONSTANT R9, desc[UR4][R2.64+-0x4] ;
+        /*0040*/                   PRMT R10, R4, 0x7770, RZ ;
+        /*0050*/                   IADD3 R11, R10, R12, R13 ;
+        /*0060*/                   IMAD R14, R10, 0xc, R11 ;
+        /*0070*/                   STG.E.128 desc[UR4][R16.64], R4 ;
+        /*0080*/                   EXIT ;
+                Function : _Z5otherv
+        /*0000*/                   FADD R1, R2, R3 ;
+"""
+
+
+def test_sass_census_counts_by_class():
+    name = "(anonymous namespace)::debayer_mht_kernel<78, 16>(...)"
+    got = census(_LISTING.splitlines(), {
+        "_ZN12_GLOBAL__N_118debayer_mht_kernelILi78ELi16EEEvPKhPhiiii": name})
+    assert got[name]["instructions"] == 9
+    assert got[name]["by_class"] == {"memory": 4, "shuffle": 1, "int_alu": 2, "imad": 1,
+                                     "control": 1}
+    assert got[name]["by_opcode"]["LDG"] == 2
+    assert got["_Z5otherv"] == {"instructions": 1, "by_class": {"other": 1},
+                                "by_opcode": {"FADD": 1}}
+    assert pixels_per_thread(name) == 32
+    assert pixels_per_thread("debayer_bilinear_kernel<228, 1>(...)") == 4
+    assert pixels_per_thread("void <unnamed>::debayer_mht_kernel<(int)27, (int)8>(...)") == 16
+    assert pixels_per_thread("ccc_response_stage") is None

@@ -17,7 +17,8 @@ per source, into build/kernels/), then:
        A debayer     — 0 mismatching bytes in the four phases at every
                        strip width V the wrapper picks: 1080x1920,
                        1080x1440 (V=16), 1920x1080 (8), 1080x1444 (4),
-                       1079x1439, 3x5 and 3x3 (1), each at B=4 and B=1,
+                       1079x1439, 3x5 and 3x3 (1), and at a height or a
+                       width of 2 (2x1920, 1080x2, 2x2), each at B=4 and B=1,
                        on frames[1:] of a 1079x1439 batch and on views 1
                        and 8 bytes past a 16-byte boundary; also timed at
                        B=64 1920x1080 (the wb_* chains' call, ten times
@@ -30,7 +31,14 @@ per source, into build/kernels/), then:
                        of max |resp| (tools/workloads.two_peak_histogram);
        D MHT debayer — as A, with 1x1 in place of 3x3;
        E float remap — 0 mismatching bytes on the float chain's fisheye
-                       maps at 1920x1080 (B=4);
+                       maps at 1920x1080 and 1440x1080 (B=4 and B=1) and
+                       at 1439x1079 and 117x91, the 1920x1080 map cropped
+                       to 1439x1079 and 117x91, on frames[1:], hostile
+                       maps at 1439x1079 and 117x91, a source of height 1,
+                       planes 1 and 8 bytes and the map 4 bytes past a
+                       16-byte boundary, and a mono plane; timed at B=4,
+                       at B=4 on planes 1 byte off (ms_unaligned) and at
+                       B=64 1920x1080 (ms_b64);
   2. drives each chain through build_pipeline(config, encoding,
      with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
      state carried across the calls, at 1920x1080:
@@ -108,9 +116,11 @@ def _fail(msg: str) -> int:
 # (H, W) at which kernels A and D are held against their plain versions:
 # every strip width V the wrapper can pick (ops/debayer.strip_width): 16 at
 # 1920 and 1440 wide, 8 at 1080 (the wb_* chains' flipped mosaic), 4 at
-# 1444, 1 at odd widths
+# 1444, 1 at odd widths; for A also a height or a width of 2, where cv's
+# border replication swaps the stencil's two rows or columns
 DEBAYER_SHAPES = {
-    "A": ((1080, 1920), (1080, 1440), (1920, 1080), (1080, 1444), (1079, 1439), (3, 5), (3, 3)),
+    "A": ((1080, 1920), (1080, 1440), (1920, 1080), (1080, 1444), (1079, 1439), (3, 5), (3, 3),
+          (2, 1920), (1080, 2), (2, 2)),
     "D": ((1080, 1920), (1080, 1440), (1920, 1080), (1080, 1444), (1079, 1439), (3, 5), (1, 1)),
 }
 DEBAYER_B64 = (64, 1920, 1080)  # the wb_* chains' call: ten times the L2 cache
@@ -167,13 +177,120 @@ def check_debayer(torch, rng, key, algorithm, cuda_fn, plain_fn, phase):
     return cuda_fn(bayer, phase), row
 
 
+REMAP_B64 = (64, 1080, 1920)  # kernel E past the L2 cache: 837.7 MB moved
+
+
+def check_remap(tp, torch, rng, planes):
+    """Phase 1: kernel E against remap_float_planes, 0 mismatching bytes, on
+    the float chain's fisheye maps at 1080x1920 and 1080x1440 (B=4 and
+    B=1) and at 1079x1439 and 91x117 (B=4), the 1080x1920 map cropped to
+    1079x1439 and 91x117 over a 1080x1920 source (staged tiles under byte
+    stores), frames[1:] of a B=4 batch, hostile maps at 1079x1439 and
+    91x117, a source of height 1 (taps leave [0, H*W)), planes 1 and 8 bytes
+    past a 16-byte boundary, the map 4 bytes past one (V=1) and one mono
+    plane; each line names the store width V of its launch. Then the device
+    times at B=4 1080x1920 on `planes` (kernel D's output, and the plain
+    version's), on copies of them 1 byte past a 16-byte boundary (every
+    tile gathers from global memory) and at REMAP_B64. Returns the
+    kernel's row."""
+    from raw_image_pipeline_tpu_torch.ops import undistortion
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, device_ms, remap_float_work
+
+    dev = torch.device("cuda")
+
+    def frames(*shape):
+        return [torch.as_tensor(rng.integers(0, 256, shape, dtype="uint8"), device=dev)
+                for _ in range(3)]
+
+    def maps(out_hw, src_hw, kind):
+        if kind == "fisheye":
+            params = tp.make_params(workloads.chains(tp)["float"].config(*out_hw), out_hw, dev)
+            return params.remap_base, params.remap_weights
+        mx, my = workloads.hostile_maps(out_hw, src_hw, out_hw[0] * out_hw[1])
+        return tuple(torch.as_tensor(a, device=dev)
+                     for a in undistortion.remap_precompute(mx, my, src_hw, mode="float"))
+
+    fisheye = {hw: maps(hw, hw, "fisheye") for hw in ((1080, 1920), (1080, 1440))}
+    base, weights = fisheye[(1080, 1920)]
+    cases = [(f"fisheye B={b} {h}x{w}", frames(b, h, w), *fisheye[(h, w)], (h, w))
+             for (h, w) in fisheye for b in (4, 1)]
+    cases.append(("fisheye frames[1:] of B=4 1080x1920",
+                  [p[1:] for p in frames(4, 1080, 1920)], base, weights, (1080, 1920)))
+    cases += [(f"fisheye B=4 {h}x{w}", frames(4, h, w), *maps((h, w), (h, w), "fisheye"), (h, w))
+              for (h, w) in ((1079, 1439), (91, 117))]
+    # the 1080x1920 map cropped: a source 16-byte aligned (staged tiles)
+    # under an odd output width (byte stores, partial 64-column tiles)
+    for (h, w), (r0, c0) in (((1079, 1439), (0, 0)), ((91, 117), (494, 901))):
+        crop = (slice(r0, r0 + h), slice(c0, c0 + w))
+        cases.append((f"fisheye B=4 1080x1920 source, its map cropped to {h}x{w} at ({r0}, {c0})",
+                      frames(4, 1080, 1920), base.view(1080, 1920)[crop].reshape(-1).contiguous(),
+                      weights.view(4, 1080, 1920)[(slice(None), *crop)].reshape(4, -1).contiguous(),
+                      (h, w)))
+    cases += [(f"hostile B=4 {h}x{w}", frames(4, h, w), *maps((h, w), (h, w), "hostile"), (h, w))
+              for (h, w) in ((1079, 1439), (91, 117))]
+    cases.append(("hostile B=4 1x128 source to 96x128", frames(4, 1, 128),
+                  *maps((96, 128), (1, 128), "hostile"), (96, 128)))
+    flat = torch.as_tensor(rng.integers(0, 256, 16 + 2 * 1080 * 1920, dtype="uint8"), device=dev)
+    cases += [(f"fisheye B=2 planes {off} bytes past a 16-byte boundary",
+               [flat[off:off + 2 * 1080 * 1920].view(2, 1080, 1920)] * 3, base, weights,
+               (1080, 1920)) for off in (1, 8)]
+    shifted = torch.empty(4 + weights.numel(), dtype=torch.float32, device=dev)
+    shifted[1:1 + weights.numel()] = weights.reshape(-1)
+    cases.append(("fisheye B=4, the weights 4 bytes past a 16-byte boundary",
+                  frames(4, 1080, 1920), base, shifted[1:1 + weights.numel()].view(4, -1),
+                  (1080, 1920)))
+    cases.append(("fisheye B=4 mono", frames(4, 1080, 1920)[:1], base, weights, (1080, 1920)))
+    for label, pl, b_, w_, hw in cases:
+        got = undistortion.remap_float_cuda(pl, b_, w_, hw)
+        bad = int((got != undistortion.remap_float_planes(pl, b_, w_, hw)).sum())
+        v = undistortion.remap_run_width(hw[1], got.data_ptr(), b_.data_ptr(), w_.data_ptr())
+        print(f"kernel E float remap {label} (V={v}): {bad} mismatching bytes "
+              f"({int((w_ == 0).all(0).sum())} of {b_.numel()} pixels fully outside)")
+        if bad:
+            raise AssertionError(f"kernel E: {bad} mismatching bytes at {label}")
+    del cases, flat, shifted
+    hw = (1080, 1920)
+    ms = device_ms(lambda: undistortion.remap_float_cuda(planes, base, weights, hw))
+    plain_ms = device_ms(lambda: undistortion.remap_float_planes(planes, base, weights, hw))
+    n = planes[0].numel()
+    unaligned = [torch.empty(16 + n, dtype=torch.uint8, device=dev)[1:1 + n].view(p.shape)
+                 for p in planes]
+    for dst, src in zip(unaligned, planes):
+        dst.copy_(src)
+    if not torch.equal(undistortion.remap_float_cuda(unaligned, base, weights, hw),
+                       undistortion.remap_float_cuda(planes, base, weights, hw)):
+        raise AssertionError("kernel E: planes 1 byte past a 16-byte boundary differ")
+    ms_unaligned = device_ms(lambda: undistortion.remap_float_cuda(unaligned, base, weights, hw))
+    del unaligned
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(rng.integers(1 << 31)))
+    big = [torch.randint(0, 256, REMAP_B64, generator=g, device="cuda", dtype=torch.uint8)
+           for _ in range(3)]
+    ms_b64 = device_ms(lambda: undistortion.remap_float_cuda(big, base, weights, hw))
+    del big
+    live = int((weights != 0).any(0).sum())
+    work = remap_float_work(planes[0].shape[0], *hw, base.numel(), 3, live)
+    work_b64 = remap_float_work(REMAP_B64[0], *hw, base.numel(), 3, live)
+    b64 = bound(bytes_=work_b64["bytes"], ops=work_b64["ops"])
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(bytes_=work["bytes"], ops=work["ops"]),
+               ms_b64=ms_b64, bound_ms_b64=b64["bound_ms"], ms_unaligned=ms_unaligned)
+    print(f"kernel E time B=4 1080x1920: {ms:.4f} ms (bound {row['bound_ms']:.4f}, "
+          f"{row['bound_by']}), plain {plain_ms:.4f} ms, planes 1 byte past a 16-byte boundary "
+          f"(no staged tile) {ms_unaligned:.4f} ms; B={REMAP_B64[0]} "
+          f"{REMAP_B64[1]}x{REMAP_B64[2]}: {ms_b64:.4f} ms (bound {b64['bound_ms']:.4f}, "
+          f"{b64['bound_by']})")
+    return row
+
+
 def check_kernels(tp, torch, rng):
     """Phase 1: each kernel against its plain version on the card."""
     import numpy as np
 
     from raw_image_pipeline_tpu_torch import kernels
     from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
-    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, undistortion
+    from raw_image_pipeline_tpu_torch.ops import ccc, debayer
     from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
     from raw_image_pipeline_tpu_torch.tools import workloads
     from raw_image_pipeline_tpu_torch.tools.measure import bound, ccc_response_work, device_ms
@@ -249,25 +366,7 @@ def check_kernels(tp, torch, rng):
                                       debayer.debayer_mht, phase)
     planes = [planes[:, c].contiguous() for c in range(3)]  # no swap under MHT
 
-    config = workloads.chains(tp)["float"].config(1080, 1920)
-    params = tp.make_params(config, (1080, 1920), dev)
-    base, weights = params.remap_base, params.remap_weights
-    got = undistortion.remap_float_cuda(planes, base, weights, (1080, 1920))
-    want = undistortion.remap_float_planes(planes, base, weights, (1080, 1920))
-    bad = int((got != want).sum())
-    print(f"kernel E float remap B=4 1080x1920: {bad} mismatching bytes "
-          f"({int((weights == 0).all(0).sum())} of {base.numel()} pixels fully outside)")
-    if bad:
-        raise AssertionError(f"kernel E: {bad} mismatching bytes")
-    ms = device_ms(lambda: undistortion.remap_float_cuda(planes, base, weights, (1080, 1920)))
-    plain_ms = device_ms(lambda: undistortion.remap_float_planes(planes, base, weights,
-                                                                (1080, 1920)))
-    # the planes and the maps in, [4, h, w, 3] out
-    moved = (2 * sum(p.numel() for p in planes) + base.numel() * base.element_size()
-             + weights.numel() * weights.element_size())
-    rows["E"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                     **bound(bytes_=moved, ops=0))
-    print(f"kernel E time: {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rows["E"] = check_remap(tp, torch, rng, planes)
     for k in kernels.ALL:
         k.launches = 0  # the comparisons above are not the main path's
     return rows

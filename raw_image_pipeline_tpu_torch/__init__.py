@@ -12,11 +12,21 @@ Public API:
     save_state / load_state — the Kalman track to and from an .npz, in the
         reference package's format.
     flagship_config — the flagship 8-stage chain's configuration.
+    PipelineConfig and its eight stage configs (DebayerConfig, ...,
+        UndistortionConfig), CameraCalibration — the configuration types.
 """
 
 from raw_image_pipeline_tpu_torch.config import (
     CameraCalibration,
+    ColorCalibrationConfig,
+    ColorEnhancerConfig,
+    DebayerConfig,
+    FlipConfig,
+    GammaCorrectionConfig,
     PipelineConfig,
+    UndistortionConfig,
+    VignettingCorrectionConfig,
+    WhiteBalanceConfig,
     flagship_config,
     load_camera_calibration,
     load_color_calibration,
@@ -35,9 +45,19 @@ from raw_image_pipeline_tpu_torch.pipeline import (
 )
 from raw_image_pipeline_tpu_torch.api import RawImagePipeline
 
+__version__ = "0.1.0"
+
 __all__ = [
     "RawImagePipeline",
     "PipelineConfig",
+    "DebayerConfig",
+    "FlipConfig",
+    "WhiteBalanceConfig",
+    "ColorCalibrationConfig",
+    "GammaCorrectionConfig",
+    "VignettingCorrectionConfig",
+    "ColorEnhancerConfig",
+    "UndistortionConfig",
     "CameraCalibration",
     "flagship_config",
     "load_pipeline_params",
@@ -52,4 +72,5 @@ __all__ = [
     "params_from_numpy",
     "state_from_numpy",
     "IspState",
+    "__version__",
 ]

@@ -29,7 +29,12 @@
 // the last strip's last column from the one before; with V = 1 a last
 // strip of one column computes the strip to its left). Taps past the
 // frame are read clamped and feed only pixels that are not stored, so any
-// H x W >= 3 (odd included) works without a padded copy.
+// H x W >= 3 (odd included) works without a padded copy. At H = 2 both
+// rows are stored from the zero-padded stencil, swapped (cv's replication
+// there takes output row 0 from stencil row 1 and row 1 from row 0), so
+// the rows above and below the frame read 0; W = 2 (always V = 1) is the
+// same along the columns. Those frames run an instantiation of their own
+// (TWO), so the others keep the code they had.
 
 #include "debayer_strip.cuh"
 
@@ -37,7 +42,16 @@ namespace {
 
 using isp_strip::kind_at;
 
-template <int KINDS, int V>
+// The stencil row (or column) whose value cv's border replication stores
+// at output row r of a frame of n rows: clamp(r, 1, n - 2), and at n = 2
+// (only where TWO) the other row.
+template <bool TWO>
+__device__ __forceinline__ int border_src(int r, int n) {
+  return (TWO && n == 2) ? 1 - r : min(max(r, 1), n - 2);
+}
+
+// TWO: H or W is 2
+template <int KINDS, int V, bool TWO>
 __global__ void __launch_bounds__(isp_strip::kBlock)
     debayer_bilinear_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int h,
                             int w, int pairs, int nstrips) {
@@ -53,6 +67,13 @@ __global__ void __launch_bounds__(isp_strip::kBlock)
   for (int k = 0; k < 4; ++k) {
     const int row = min(max(pr - 1 + k, 0), h - 1);
     isp_strip::load_row<V, 1>(f + (size_t)row * w, pc, w, st.first, st.last, px[k]);
+    if constexpr (TWO) {
+      if (h == 2 && (k == 0 || k == 3)) {  // rows -1 and 2: the stencil's zero padding
+#pragma unroll
+        for (int j = 0; j < COLS + 2; ++j) px[k][j] = 0;
+      }
+      if (V == 1 && w == 2) px[k][0] = px[k][3] = 0;  // columns -1 and 2
+    }
   }
 
   int o[2][3][COLS];  // the computed block: [row][B, G, R][column]
@@ -88,7 +109,7 @@ __global__ void __launch_bounds__(isp_strip::kBlock)
   for (int q = 0; q < 2; ++q) {
     const int r = st.r0 + q;
     if (r >= h) break;
-    const bool second = min(max(r, 1), h - 2) > pr;  // which computed row
+    const bool second = border_src<TWO>(r, h) > pr;  // which computed row
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       uint8_t* dst = ob + c * plane + (size_t)r * w + st.c0;
@@ -99,7 +120,7 @@ __global__ void __launch_bounds__(isp_strip::kBlock)
 #pragma unroll
         for (int j = 0; j < COLS; ++j) {
           const int col = st.c0 + j;
-          if (col < w) dst[j] = (uint8_t)(min(max(col, 1), w - 2) > pc ? v[1] : v[0]);
+          if (col < w) dst[j] = (uint8_t)(border_src<TWO>(col, w) > pc ? v[1] : v[0]);
         }
       } else {
         if (st.first) v[0] = v[1];
@@ -124,9 +145,15 @@ extern "C" int isp_debayer_bilinear(const void* in, void* out, int batch, int h,
     constexpr int KINDS = decltype(k)::value, V = decltype(vc)::value;
     constexpr int COLS = isp_strip::cols<V>();
     const int pairs = (h + 1) / 2, nstrips = (w + COLS - 1) / COLS;
-    debayer_bilinear_kernel<KINDS, V>
-        <<<isp_strip::grid_for(batch, pairs, nstrips), isp_strip::kBlock, 0,
-           (cudaStream_t)stream>>>((const uint8_t*)in, (uint8_t*)out, h, w, pairs, nstrips);
+    const dim3 grid = isp_strip::grid_for(batch, pairs, nstrips);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (h == 2 || w == 2) {
+      debayer_bilinear_kernel<KINDS, V, true><<<grid, isp_strip::kBlock, 0, s>>>(
+          (const uint8_t*)in, (uint8_t*)out, h, w, pairs, nstrips);
+    } else {
+      debayer_bilinear_kernel<KINDS, V, false><<<grid, isp_strip::kBlock, 0, s>>>(
+          (const uint8_t*)in, (uint8_t*)out, h, w, pairs, nstrips);
+    }
     return (int)cudaGetLastError();
   });
 }

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "isp_ccc_histogram": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
     "isp_ccc_response": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "isp_debayer_mht": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

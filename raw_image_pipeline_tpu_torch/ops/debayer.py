@@ -181,8 +181,8 @@ def _launch_debayer(kernel: kernels.Kernel, bayer: torch.Tensor, phase: str,
 
 def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     """Kernel A: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
-    equal to debayer_bilinear for any H, W >= 3."""
-    return _launch_debayer(kernels.DEBAYER_BILINEAR, bayer, phase, 3)
+    equal to debayer_bilinear for any H, W >= 2."""
+    return _launch_debayer(kernels.DEBAYER_BILINEAR, bayer, phase, 2)
 
 
 def _desc8(v: torch.Tensor) -> torch.Tensor:

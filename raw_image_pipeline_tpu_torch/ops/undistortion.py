@@ -518,13 +518,42 @@ def remap_fixed32_planes(planes, base: torch.Tensor, weights: torch.Tensor,
     return out.reshape(out.shape[0], *out_hw, out.shape[-1])
 
 
+REMAP_TILE = (8, 64)  # kernel E's output tile (rows, columns): a block of REMAP_BLOCK threads
+REMAP_BLOCK = 128  # kBlock in csrc/remap_float.cu
+REMAP_MIN_BLOCKS = 7  # kMinBlocks there: the blocks resident on an SM
+
+
+def remap_run_width(wo: int, out_ptr: int, base_ptr: int, weights_ptr: int) -> int:
+    """Kernel E's store width V for an output Wo pixels wide: 4 where Wo and
+    the output's address are multiples of 4 and the map (base and weights)
+    is 16-byte aligned, so that each thread loads the map of its run of 4
+    pixels as 16-byte words and stores the run's 4C bytes as C aligned
+    4-byte words in every frame; else 1 (byte stores)."""
+    if wo % 4 == 0 and out_ptr % 4 == 0 and base_ptr % 16 == 0 and weights_ptr % 16 == 0:
+        return 4
+    return 1
+
+
+def remap_frame_chunk(batch: int, threads: int, sms: int) -> int:
+    """Frames per grid row of kernel E, whose threads each loop over a range
+    of frames against one load of their map: all of them in one range
+    where the `threads` of a frame's tiles fill a card of `sms` SMs
+    (REMAP_MIN_BLOCKS resident blocks of REMAP_BLOCK threads each), else as
+    many ranges as it takes, up to one frame each. The chains' frames
+    (1080x1920, 1080x1440) fill an H100 alone, so they always run as one
+    range; only small frames are split."""
+    fill = sms * REMAP_MIN_BLOCKS * REMAP_BLOCK
+    ranges = min(batch, max(1, -(-fill // max(threads, 1))))
+    return -(-batch // ranges)
+
+
 def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
                      out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Kernel E: remap_float_planes for three contiguous [B, H, W] u8 CUDA
-    planes, base [Ho*Wo] int32 and weights [4, Ho*Wo] f32 on the same card.
-    Returns [B, Ho, Wo, 3] u8."""
-    if len(planes) != 3:
-        raise ValueError(f"planes: expected 3, got {len(planes)}")
+    """Kernel E: remap_float_planes for one or three contiguous [B, H, W] u8
+    CUDA planes, base [Ho*Wo] int32 and weights [4, Ho*Wo] f32 on the same
+    card. Returns [B, Ho, Wo, C] u8, C = len(planes)."""
+    if len(planes) not in (1, 3):
+        raise ValueError(f"planes: expected 1 or 3, got {len(planes)}")
     shape = tuple(planes[0].shape)
     if len(shape) != 3:
         raise ValueError(f"planes: expected [B, H, W], got {shape}")
@@ -533,15 +562,22 @@ def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
     b, h, w = shape
     ho, wo = out_hw
     n = ho * wo
+    c = len(planes)
     kernels.check_cuda(base, "base", torch.int32, (n,))
     kernels.check_cuda(weights, "weights", torch.float32, (4, n))
     kernels.check_batch(b, "planes")
-    out = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=planes[0].device)
+    out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=planes[0].device)
     if b and n:
+        ptrs = [p.data_ptr() for p in planes]
+        tiles = -(-ho // REMAP_TILE[0]) * -(-wo // REMAP_TILE[1])
+        planes16 = w % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+        sms = torch.cuda.get_device_properties(out.device).multi_processor_count
         with torch.cuda.device(out.device):
             kernels.REMAP_FLOAT.launch(
-                planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
-                base.data_ptr(), weights.data_ptr(), out.data_ptr(), b, h, w, n,
+                *ptrs * (3 // c), base.data_ptr(), weights.data_ptr(), out.data_ptr(), b, h, w,
+                ho, wo, c, remap_run_width(wo, out.data_ptr(), base.data_ptr(),
+                                           weights.data_ptr()),
+                remap_frame_chunk(b, REMAP_BLOCK * tiles, sms), int(planes16),
                 kernels.stream_handle(out),
             )
     return out
@@ -561,7 +597,4 @@ def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"unknown remap mode [{mode}]")
     if plain or planes[0].device.type == "cpu":
         return remap_float_planes(planes, base, weights, out_hw)
-    planes = tuple(p.contiguous() for p in planes)
-    if len(planes) == 1:  # mono: kernel E blends three planes, keep one
-        return remap_float_cuda(planes * 3, base, weights, out_hw)[..., :1]
-    return remap_float_cuda(planes, base, weights, out_hw)
+    return remap_float_cuda(tuple(p.contiguous() for p in planes), base, weights, out_hw)

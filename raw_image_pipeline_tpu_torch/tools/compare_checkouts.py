@@ -10,13 +10,16 @@ checkout's tools (measure.py, workloads.py, profile_chains.py, which
 import nothing of the package) and imports the package of its own
 checkout, through functions every version of the port has:
 
-  * kernels A-D as the chains call them at 1920x1080, B=4:
+  * kernels A-E as the chains call them at 1920x1080, B=4:
     ops.debayer.debayer_planes on a seeded mosaic, bilinear (A) and "mht"
     (D, the gpu_parity chain's), ops.ccc.log_chroma_histogram on A's
-    planes' working resize (270x360) (B) and ops.ccc.ccc_response on that
-    histogram (C), each with every stream operation its call makes: device
-    ms (measure.device_ms) and ms per call, the host's launches included
-    (measure.call_ms);
+    planes' working resize (270x360) (B), ops.ccc.ccc_response on that
+    histogram (C) and ops.undistortion.remap_planes(..., "float") of A's
+    planes through the float chain's fisheye maps (E; "E_off1" the same
+    on copies of the planes 1 byte past a 16-byte boundary; "E64" the same
+    at B=64, seeded planes), each with every stream operation its call makes:
+    device ms (measure.device_ms) and ms per call, the host's launches
+    included (measure.call_ms);
   * each chain of the flagship family in tools/workloads.py (flagship,
     gpu_parity, float, fixed32): frames/s at each of its sizes (its frames
     in its calls, the Kalman state carried; the median of 7), and one
@@ -93,7 +96,7 @@ def _worker(root: str, out: str) -> dict:
 
     import raw_image_pipeline_tpu_torch as tp
     from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
-    from raw_image_pipeline_tpu_torch.ops import ccc, debayer
+    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, undistortion
     from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
 
     if not os.path.abspath(tp.__file__).startswith(os.path.join(root, "")):
@@ -112,13 +115,32 @@ def _worker(root: str, out: str) -> dict:
     wr, wi, bias = (torch.as_tensor(a, device="cuda")
                     for a in (model.filt_dft_re, model.filt_dft_im, model.bias))
     hist = ccc.log_chroma_histogram(*small, *cuts)
+    maps = tp.make_params(workloads.chains(tp)["float"].config(1080, 1920), (1080, 1920), "cuda")
+    planes = [p.contiguous() for p in debayer.debayer_planes(bayer, encoding)]
+    n = planes[0].numel()
+    unaligned = [torch.empty(16 + n, dtype=torch.uint8, device="cuda")[1:1 + n].view(p.shape)
+                 for p in planes]
+    for dst, src in zip(unaligned, planes):
+        dst.copy_(src)
+    big = [torch.randint(0, 256, (64, 1080, 1920), generator=g, device="cuda", dtype=torch.uint8)
+           for _ in range(3)]
+
+    def remap(pl):
+        return undistortion.remap_planes(pl, maps.remap_base, maps.remap_weights, (1080, 1920),
+                                         "float")
+
     calls = {"A": lambda: debayer.debayer_planes(bayer, encoding),
              "B": lambda: ccc.log_chroma_histogram(*small, *cuts),
              "C": lambda: ccc.ccc_response(hist, wr, wi, bias),
-             "D": lambda: debayer.debayer_planes(bayer, encoding, "mht")}
+             "D": lambda: debayer.debayer_planes(bayer, encoding, "mht"),
+             "E": lambda: remap(planes),
+             "E_off1": lambda: remap(unaligned),
+             "E64": lambda: remap(big)}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},
            "frames_per_s": {}, "profiles": {}}
+    del big, unaligned, calls
+    torch.cuda.empty_cache()
     for name in FLAGSHIP_FAMILY:
         ch = workloads.chains(tp)[name]
         for h, w in ch.sizes:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 import statistics
 import time
+from typing import Optional
 
 # published peaks of one H100 SXM (NVIDIA's data sheet) at the full 700 W:
 # HBM3 bytes/s and f32 FLOP/s outside the tensor cores
@@ -45,6 +46,24 @@ def debayer_work(pixels: int, algorithm: str) -> dict:
     the f32 rate (the only scalar rate of the published table; an
     instruction may do two integer operations, e.g. a three-input add)."""
     return {"bytes": 4 * pixels, "ops": pixels * DEBAYER_OPS_PER_PIXEL[algorithm]}
+
+
+# f32 operations an output value of kernel E's blend: four products and
+# three sums (the rounding and the clamp are not counted)
+REMAP_FLOAT_OPS_PER_VALUE = 7
+
+
+def remap_float_work(batch: int, h: int, w: int, n: int, channels: int,
+                     live: Optional[int] = None) -> dict:
+    """The work of kernel E on `batch` frames of `channels` [h, w] u8 planes
+    remapped to n output pixels: "bytes", the planes read and the [batch, n,
+    channels] output written once, and the map (a 4-byte base and four
+    4-byte weights a pixel) read once; "ops", REMAP_FLOAT_OPS_PER_VALUE for
+    each output value of the `live` pixels (default n) that have a nonzero
+    weight, the others being 0 without a blend."""
+    live = n if live is None else live
+    return {"bytes": batch * channels * (h * w + n) + 20 * n,
+            "ops": batch * channels * live * REMAP_FLOAT_OPS_PER_VALUE}
 
 
 def ccc_response_work(batch: int, n: int = 256) -> dict:

@@ -42,7 +42,8 @@ _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 # "        /*0040*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;"
 _INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 # "debayer_mht_kernel<78, 16>", or demangled "debayer_mht_kernel<(int)78, (int)16>"
-_STRIP = re.compile(r"debayer_(?:bilinear|mht)_kernel<(?:\(int\))?(\d+),\s*(?:\(int\))?(\d+)>")
+# (kernel A's with a third argument, "(bool)0")
+_STRIP = re.compile(r"debayer_(?:bilinear|mht)_kernel<(?:\(int\))?(\d+),\s*(?:\(int\))?(\d+)[,>]")
 
 
 def opcode_class(opcode: str) -> str:

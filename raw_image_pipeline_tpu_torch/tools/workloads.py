@@ -1,7 +1,8 @@
 """The chains and seeded inputs that chip_smoke.py and the port's tools run
 on a CUDA card: the table of chains (each a configuration, its sizes, its
-kernels and its batch), frames made on the card from a seed, and the
-two-peak CCC histogram that holds kernel C's argmax on a near-tie.
+kernels and its batch), frames made on the card from a seed, hostile remap
+maps for kernel E, and the two-peak CCC histogram that holds kernel C's
+argmax on a near-tie.
 
 This module imports nothing of the package (a chain's configuration is
 built from the package module it is given): compare_checkouts.py loads
@@ -109,6 +110,18 @@ def chains(tp) -> dict:
     table["bayer16"] = Chain(bayer16, (), (), encoding="bayer_gbrg16", kind="bayer16",
                              small_only=True)
     return table
+
+
+def hostile_maps(out_hw, src_hw, seed: int):
+    """A float32 (map_x, map_y) pair of shape out_hw whose taps scatter over
+    a source of src_hw and 3 pixels past each of its borders: what
+    remap_precompute makes of it straddles the border, points out of the
+    image, and leaves the frame altogether for a source of height or width
+    1."""
+    rng = np.random.default_rng(seed)
+    (h, w), (sh, sw) = out_hw, src_hw
+    return ((rng.random((h, w)) * (sw + 6) - 3).astype(np.float32),
+            (rng.random((h, w)) * (sh + 6) - 3).astype(np.float32))
 
 
 def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int):

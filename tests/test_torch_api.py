@@ -108,6 +108,24 @@ def test_api_methods_equal_reference_list():
     assert public_methods(tp.RawImagePipeline) == public_methods(JaxRawImagePipeline)
 
 
+def test_top_level_names_cover_reference():
+    # every name the JAX package exports at its top level, the port exports
+    # too, as the same kind of thing (each config class the port's own copy)
+    import raw_image_pipeline_tpu as jtp
+
+    assert set(jtp.__all__) <= set(tp.__all__)
+    for name in jtp.__all__:
+        got, want = getattr(tp, name), getattr(jtp, name)
+        if isinstance(want, type):
+            assert isinstance(got, type) and got.__name__ == want.__name__, name
+            if dataclasses.is_dataclass(want):
+                assert ([f.name for f in dataclasses.fields(got)]
+                        == [f.name for f in dataclasses.fields(want)]), name
+        else:
+            assert type(got) is type(want), name
+    assert tp.__version__ == jtp.__version__
+
+
 # --- apply, process and the setters against the JAX API ----------------------
 
 

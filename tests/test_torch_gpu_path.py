@@ -2,8 +2,9 @@
 GPU-parity chain (MHT demosaic with no R<->B swap, the BT.709 gamma) and the
 float and fixed32 remap modes. Each JAX function and its port get the same
 seeded numpy inputs; the tolerance is 0 mismatching bytes, and the Kalman
-state is held as tests/test_torch_pipeline.py holds it. Kernels D and E
-against their plain versions on a CUDA card (skipped without one)."""
+state is held as tests/test_torch_pipeline.py holds it. Kernel E's launch
+helpers (store width, frame ranges) on the CPU; kernels D and E against
+their plain versions on a CUDA card (skipped without one)."""
 
 import dataclasses
 import os
@@ -25,6 +26,7 @@ from raw_image_pipeline_tpu_torch.ops import common as pcommon
 from raw_image_pipeline_tpu_torch.ops import debayer as pdeb
 from raw_image_pipeline_tpu_torch.ops import gamma as pgamma
 from raw_image_pipeline_tpu_torch.ops import undistortion as pund
+from raw_image_pipeline_tpu_torch.tools import workloads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("rggb", "grbg", "gbrg", "bggr")
@@ -100,9 +102,7 @@ def _maps(hw, kind):
         new_k = jund.estimate_new_camera_matrix(calib.K(), calib.D(), size, calib.R(),
                                                 0.0, size, 1.0)
         return jund.init_undistort_rectify_map(calib.K(), calib.D(), calib.R(), new_k, size)
-    rng = np.random.default_rng(h * w)
-    return ((rng.random((h, w)) * (w + 6) - 3).astype(np.float32),
-            (rng.random((h, w)) * (h + 6) - 3).astype(np.float32))
+    return workloads.hostile_maps(hw, hw, h * w)
 
 
 def _remap_both(hw, kind, mode, **jax_kw):
@@ -160,6 +160,55 @@ def test_remap_float_equals_reference(hw, kind, blend_impl):
 def test_remap_fixed32_equals_reference(hw, kind):
     got, want = _remap_both(hw, kind, "fixed32")
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("hw", [(96, 128), (91, 117)])
+def test_mono_float_remap_equals_reference(hw):
+    # one plane through remap_planes (kernel E's C = 1 form on a card)
+    # against the JAX remap of that plane alone
+    mx, my = _maps(hw, "fisheye")
+    base, weights = jund.remap_precompute(mx, my, hw, mode="float")
+    plane = np.random.default_rng(9).integers(0, 256, (2,) + hw, dtype=np.uint8)
+    want = np.asarray(jund.remap_bilinear_u8_planes((jnp.asarray(np.moveaxis(plane, 0, -1)),),
+                                                    base, weights, hw, hw, mode="float"))
+    got = pund.remap_planes((torch.as_tensor(plane),), torch.as_tensor(base),
+                            torch.as_tensor(weights), hw, "float")
+    assert got.shape == (2,) + hw + (1,)
+    np.testing.assert_array_equal(_np(got), np.moveaxis(want, -1, 0))
+
+
+@pytest.mark.parametrize("offset", [0, 4, 1])
+def test_remap_run_width(offset):
+    # kernel E stores 4-byte words where Wo and the output's address are
+    # multiples of 4 and the map is 16-byte aligned, else bytes
+    k = (0, 4, 1).index(offset)
+    for wo, want in {1920: (4, 4, 1), 1440: (4, 4, 1), 1444: (4, 4, 1), 1439: (1, 1, 1),
+                     117: (1, 1, 1), 2: (1, 1, 1)}.items():
+        assert pund.remap_run_width(wo, 4096 + offset, 8192, 8192) == want[k], wo
+    assert pund.remap_run_width(1920, 4096, 8192 + offset, 8192) == (4, 1, 1)[k]
+    assert pund.remap_run_width(1920, 4096, 8192, 8192 + offset) == (4, 1, 1)[k]
+
+
+def test_remap_frame_chunk():
+    # one range of frames where a frame's tiles fill the card (the map is
+    # then read once), else ranges down to one frame each
+    sms = 132  # an H100 SXM
+    fill = sms * pund.REMAP_MIN_BLOCKS * pund.REMAP_BLOCK
+    for hw in ((1080, 1920), (1080, 1440)):  # the chains' frames: one range
+        tiles = -(-hw[0] // pund.REMAP_TILE[0]) * -(-hw[1] // pund.REMAP_TILE[1])
+        for batch in (1, 4, 64):
+            assert pund.remap_frame_chunk(batch, pund.REMAP_BLOCK * tiles, sms) == batch
+    small = pund.REMAP_BLOCK * (-(-91 // pund.REMAP_TILE[0]) * -(-117 // pund.REMAP_TILE[1]))
+    assert small < fill
+    assert pund.remap_frame_chunk(4, small, sms) == 1
+    assert pund.remap_frame_chunk(64, fill // 4, sms) == 16
+    assert pund.remap_frame_chunk(64, fill // 4, 2 * sms) == 8  # a card of more SMs
+    for batch in (1, 5, 64):
+        for threads in (1, 3000, 20000, 70000, 120000):
+            chunk = pund.remap_frame_chunk(batch, threads, sms)
+            assert 1 <= chunk <= batch
+            if batch * threads <= fill:
+                assert chunk == 1
 
 
 def test_remap_planes_dispatch():
@@ -297,14 +346,17 @@ def test_kernel_d_equals_plain_on_card(hw):
 @pytest.mark.parametrize("kind", ["fisheye", "hostile"])
 @pytest.mark.parametrize("hw", [(1080, 1920), (91, 117)])
 def test_kernel_e_equals_plain_on_card(hw, kind):
+    # B=4, B=1 and one mono plane
     dev = _cuda()
     mx, my = _maps(hw, kind)
     base, weights = (torch.as_tensor(a, device=dev)
                      for a in pund.remap_precompute(mx, my, hw, mode="float"))
     planes = tuple(torch.as_tensor(p, device=dev) for p in
                    np.random.default_rng(4).integers(0, 256, (3, 4) + hw, dtype=np.uint8))
-    got = pund.remap_float_cuda(planes, base, weights, hw)
-    assert torch.equal(got, pund.remap_float_planes(planes, base, weights, hw))
+    for pl in (planes, tuple(p[:1] for p in planes), planes[:1]):
+        got = pund.remap_float_cuda(pl, base, weights, hw)
+        assert got.shape == pl[0].shape + (len(pl),)
+        assert torch.equal(got, pund.remap_float_planes(pl, base, weights, hw))
 
 
 @pytest.mark.cuda

@@ -122,10 +122,12 @@ def test_flip_equals_reference(angle):
 # --- debayer (kernel A's plain version) ------------------------------------
 
 
-# the last three: the widths at which kernels A and D change strip width V
-# (8 at 1080, 4 at 36, 1 at 17 after a strip of 2), few rows each
+# then the widths at which kernels A and D change strip width V (8 at 1080,
+# 4 at 36, 1 at 17 after a strip of 2), few rows each; last, a height and a
+# width of 2, where cv's border replication swaps the stencil's two rows
+# (columns)
 @pytest.mark.parametrize("hw", [(16, 24), (17, 23), (3, 3), (4, 9), (31, 30),
-                                (4, 1080), (4, 36), (5, 17)])
+                                (4, 1080), (4, 36), (5, 17), (2, 8), (8, 2)])
 def test_debayer_equals_reference(hw):
     rng = np.random.default_rng(sum(hw))
     bayer = rng.integers(0, 256, (2,) + hw, dtype=np.uint8)
@@ -214,7 +216,7 @@ def card_debayer_cases(hw, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hw", [(1080, 1920), (1920, 1080), (1080, 1444), (1079, 1439), (3, 5),
-                                (3, 3)])
+                                (3, 3), (2, 1920), (1080, 2), (2, 2)])
 def test_kernel_a_equals_plain_on_card(hw):
     dev = _cuda()
     for bayer in card_debayer_cases(hw, dev):

@@ -3,8 +3,9 @@ inputs: profile_chains on torch.profiler traces (busy time is the union of
 the device work's intervals, never above the window it spans; the isp_*
 ranges on the device's timeline are spans, not work; a range's host side
 counts the CUDA API calls that start in it), the kernel bound and kernels
-C's, A's and D's work (tools/measure), the order of compare_checkouts'
-turns, and sass_census on a listing in cuobjdump's format."""
+C's, A's, D's and E's work (tools/measure), the order of compare_checkouts'
+turns, sass_census on a listing in cuobjdump's format, and card_tests'
+collection of the cuda-marked tests with jax stubbed."""
 
 import math
 
@@ -16,6 +17,7 @@ from raw_image_pipeline_tpu_torch.tools.measure import (
     bound,
     ccc_response_work,
     debayer_work,
+    remap_float_work,
 )
 from raw_image_pipeline_tpu_torch.tools.sass_census import census, pixels_per_thread
 from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time, union_us
@@ -169,6 +171,24 @@ def test_debayer_work(algorithm):
     assert got["bound_ms"] == pytest.approx(4 * px / 3.35e9, rel=1e-12)
 
 
+@pytest.mark.parametrize("batch, channels", [(4, 3), (64, 3), (4, 1)])
+def test_remap_float_work(batch, channels):
+    # the float chain's call at 1080x1920: the planes in, the interleaved
+    # output out, the 20-byte-a-pixel map once; 91.2 MB at B=4, 837.7 MB
+    # at B=64
+    n = 1080 * 1920
+    w = remap_float_work(batch, 1080, 1920, n, channels)
+    assert w["bytes"] == 2 * batch * channels * n + 20 * n
+    assert w["ops"] == 7 * batch * channels * n
+    if channels == 3:
+        assert w["bytes"] == {4: 91_238_400, 64: 837_734_400}[batch]
+    # pixels with no weight need no blend
+    assert remap_float_work(batch, 1080, 1920, n, channels, live=n // 2)["ops"] == w["ops"] // 2
+    got = bound(w["bytes"], w["ops"])
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(w["bytes"] / 3.35e9, rel=1e-12)
+
+
 _LISTING = """
         code for sm_90a
                 Function : _ZN12_GLOBAL__N_118debayer_mht_kernelILi78ELi16EEEvPKhPhiiii
@@ -201,4 +221,23 @@ def test_sass_census_counts_by_class():
     assert pixels_per_thread(name) == 32
     assert pixels_per_thread("debayer_bilinear_kernel<228, 1>(...)") == 4
     assert pixels_per_thread("void <unnamed>::debayer_mht_kernel<(int)27, (int)8>(...)") == 16
+    assert pixels_per_thread("debayer_bilinear_kernel<(int)27, (int)4, (bool)1>(...)") == 8
     assert pixels_per_thread("ccc_response_stage") is None
+
+
+def test_card_tests_collects_the_cuda_tests_with_jax_stubbed():
+    # tools/card_tests gives jax and cv2 stand-ins so that the test modules
+    # collect where neither is installed; run in its own process, so the
+    # stand-ins never reach this one
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-m", "raw_image_pipeline_tpu_torch.tools.card_tests", "--collect-only",
+         "-q", "tests/test_torch_gpu_path.py"],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
+    assert "test_kernel_e_equals_plain_on_card" in run.stdout
+    assert "test_remap_frame_chunk" not in run.stdout  # not cuda-marked

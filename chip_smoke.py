@@ -38,7 +38,12 @@ per source, into build/kernels/), then:
                        planes 1 and 8 bytes and the map 4 bytes past a
                        16-byte boundary, and a mono plane; timed at B=4,
                        at B=4 on planes 1 byte off (ms_unaligned) and at
-                       B=64 1920x1080 (ms_b64);
+                       B=64 1920x1080 (ms_b64); then with per-camera maps,
+                       4 cameras x B=4 1080x1920 through four distinct
+                       fisheye maps in one launch, 0 mismatching bytes
+                       against each camera's block, timed beside its bound
+                       (ms_cameras4, bound_ms_cameras4) and one camera's
+                       launch at B=4 (ms_cameras1);
   2. drives each chain through build_pipeline(config, encoding,
      with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
      state carried across the calls, at 1920x1080:
@@ -62,7 +67,17 @@ per source, into build/kernels/), then:
      each wb_* chain and the first 128-frame chunk of pointwise_bgr8 must
      also equal the chain on the CPU, byte for byte; frames/s is printed;
      then the flagship at B=70 with microbatch=32 must equal the unchunked
-     chain, bytes and Kalman state;
+     chain, bytes and Kalman state; then the camera-blocked multicamera
+     chains (BASELINE config 5 on one card) multicam4 and multicam4_float,
+     4 cameras x B=4 in 2 calls in both temporal modes, each kernel of the
+     chain launched once per call, equal to the plain-op multicamera chain
+     and to four single-camera chains, and with four equal calibrations one
+     flat map (E launched with cameras=1), frames/s beside the four
+     single-camera chains'; then the streamed Kalman chain (BASELINE config
+     3): 42 1920x1080 frames written as raw files, read back through the
+     port's FramePump, run through StreamRunner(batch_size=4) and held,
+     every stream's every frame and the final state, against build_pipeline
+     on the same batches, frames/s beside bare chain calls;
   3. runs each chain at 96x128 on the card and on the CPU (plain versions)
      and requires equal bytes and Kalman state, the flagship in debug mode
      (every stage's dump), plus mono8, rgb8 and 16-bit Bayer input; then
@@ -284,6 +299,56 @@ def check_remap(tp, torch, rng, planes):
     return row
 
 
+MULTICAM_E = (4, 4, 1080, 1920)  # kernel E per camera: cameras, frames a camera, H, W
+
+
+def check_remap_cameras(tp, torch, rng, row):
+    """Phase 1: kernel E with per-camera maps, one launch for [4 cameras x
+    B=4] 1080x1920 planes through the four distinct fisheye maps of the
+    multicam4_float chain (tools/workloads.multicam_calibrations), stacked
+    [4, N] / [4, 4, N], against remap_float_planes camera block by camera
+    block: 0 mismatching bytes. Then its device time beside its byte bound
+    (the planes in, the output out, four maps of 20 bytes a pixel), and on
+    the same line the single-camera launch (cameras=1, camera 0's map) at
+    B=4. Adds ms_cameras4, bound_ms_cameras4 and ms_cameras1 to E's row."""
+    from raw_image_pipeline_tpu_torch.ops import undistortion
+    from raw_image_pipeline_tpu_torch.parallel import build_multicamera_pipeline
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, device_ms, remap_float_work
+
+    cams, per, h, w = MULTICAM_E
+    hw = (h, w)
+    config = workloads.multicam_chains(tp)["multicam4_float"].config(h, w)
+    calibs = workloads.multicam_calibrations(config.calibration)
+    params = build_multicamera_pipeline(config, calibs, "bayer_gbrg8", hw, device="cuda").params
+    base, weights = params.remap_base, params.remap_weights
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(rng.integers(1 << 31)))
+    planes = [torch.randint(0, 256, (cams * per, h, w), generator=g, device="cuda",
+                            dtype=torch.uint8) for _ in range(3)]
+    for pl in (planes, planes[:1]):
+        got = undistortion.remap_float_cuda(pl, base, weights, hw)
+        bad = sum(int((got[c * per:(c + 1) * per] != undistortion.remap_float_planes(
+            [p[c * per:(c + 1) * per] for p in pl], base[c], weights[c], hw)).sum())
+            for c in range(cams))
+        v = undistortion.remap_run_width(w, got.data_ptr(), base.data_ptr(), weights.data_ptr())
+        print(f"kernel E float remap per camera: {cams} cameras x B={per} {w}x{h}, "
+              f"{len(pl)} channel(s), maps {tuple(base.shape)} (V={v}): {bad} mismatching bytes")
+        if bad:
+            raise AssertionError(f"kernel E per camera: {bad} mismatching bytes")
+    del got
+    ms = device_ms(lambda: undistortion.remap_float_cuda(planes, base, weights, hw))
+    first = [p[:per] for p in planes]
+    ms1 = device_ms(lambda: undistortion.remap_float_cuda(first, base[0], weights[0], hw))
+    live = int((weights != 0).any(1).sum())
+    work = remap_float_work(cams * per, h, w, base.shape[1], 3, live, maps=cams)
+    b = bound(bytes_=work["bytes"], ops=work["ops"])
+    row.update(ms_cameras4=ms, bound_ms_cameras4=b["bound_ms"], ms_cameras1=ms1)
+    print(f"kernel E time per camera, {cams} cameras x B={per} {w}x{h} in one launch: {ms:.4f} ms "
+          f"(bound {b['bound_ms']:.4f}, {b['bound_by']}); one camera (cameras=1) B={per}: "
+          f"{ms1:.4f} ms")
+
+
 def check_kernels(tp, torch, rng):
     """Phase 1: each kernel against its plain version on the card."""
     import numpy as np
@@ -367,6 +432,7 @@ def check_kernels(tp, torch, rng):
     planes = [planes[:, c].contiguous() for c in range(3)]  # no swap under MHT
 
     rows["E"] = check_remap(tp, torch, rng, planes)
+    check_remap_cameras(tp, torch, rng, rows["E"])
     for k in kernels.ALL:
         k.launches = 0  # the comparisons above are not the main path's
     return rows
@@ -533,6 +599,238 @@ def check_microbatch(tp, torch, rng):
         raise AssertionError("microbatch differs from the unchunked chain")
 
 
+def check_multicam(tp, torch):
+    """Phase 2: the camera-blocked chains multicam4 and multicam4_float
+    (tools/workloads.multicam_chains: 4 cameras x B=4 1920x1080, fx and fy
+    scaled per camera) in both temporal modes, with state, in 2 calls. The
+    launch counts are set to 0 just before each run and read just after:
+    each kernel of the chain must launch once per call (A, B and C once for
+    all four cameras, E once with its four maps). Each run must equal (i)
+    the plain-op multicamera chain and (ii) four single-camera chains
+    (build_pipeline), each camera's block with its own calibration, bytes
+    and Kalman state per camera; (iii) four equal calibrations must give
+    one flat map, and E a launch with cameras=1, equal to the plain chain.
+    Returns {chain: (frames/s, frames/s of the four single-camera
+    chains)}."""
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.parallel import (
+        build_multicamera_pipeline,
+        multicamera_state,
+    )
+    from raw_image_pipeline_tpu_torch.pipeline import _post_flip_shape, make_isp_fn
+    from raw_image_pipeline_tpu_torch.tools import workloads
+
+    h, w = 1080, 1920
+    enc = "bayer_gbrg8"
+    cams = len(workloads.MULTICAM_SCALES)
+    fps = {}
+    for name, ch in workloads.multicam_chains(tp).items():
+        config = ch.config(h, w)
+        calibs = workloads.multicam_calibrations(config.calibration)
+        src = _post_flip_shape(h, w, config.flip.angle if config.flip.enabled else 0)
+        per = ch.frames // ch.calls
+        frames = workloads.card_frames(torch, "bayer", cams * ch.frames, h, w,
+                                       workloads.SEED + len(name)).view(cams, ch.frames, h, w)
+        multi = build_multicamera_pipeline(config, calibs, enc, (h, w), with_state=True,
+                                           temporal_mode="sequence", device="cuda")
+        solo = [tp.build_pipeline(config.replace(calibration=c), enc, (h, w), with_state=True,
+                                  temporal_mode="sequence", device="cuda") for c in calibs]
+
+        def run(fn, params, mode, cameras=cams, px=frames):
+            """The frames in ch.calls calls of fn, the state carried."""
+            state = (multicamera_state(cams, per, mode, "cuda") if cameras > 1 else
+                     tp.init_state(() if mode == "sequence" else (per,), "cuda"))
+            outs = []
+            for c in range(ch.calls):
+                chunk = px[:, c * per:(c + 1) * per] if cameras > 1 else px[c * per:(c + 1) * per]
+                out, state = fn(params, chunk, state)
+                outs.append(out["processed"])
+            return outs, state
+
+        for mode in ("sequence", "cameras"):
+            label = f"multicamera {name} {w}x{h} {cams} cameras x B={per} ({mode})"
+            fn, plain_fn = (make_isp_fn(config.replace(calibration=calibs[0]), enc, True, False,
+                                        temporal_mode=mode, remap_src_hw=src, n_cameras=cams,
+                                        plain=plain) for plain in (False, True))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            outs, state = run(fn, multi.params, mode)
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in kernels.ALL}
+            print(f"{label} kernel launches per call: "
+                  f"{ {k: v / ch.calls for k, v in counts.items()} }")
+            if any(counts[k] != ch.calls for k in ch.kernels):
+                raise AssertionError(f"{label}: kernels {ch.kernels} must launch once per call: "
+                                     f"{counts} in {ch.calls} calls")
+            for o in outs:
+                if tuple(o.shape) != (cams, per, h, w, 3) or o.dtype != torch.uint8:
+                    raise AssertionError(f"{label}: processed {tuple(o.shape)} {o.dtype}")
+            ref, ref_state = run(plain_fn, multi.params, mode)
+            bad = sum(int((a != b).sum()) for a, b in zip(outs, ref))
+            same = _same_state(torch, state, ref_state)
+            single_fn = make_isp_fn(config, enc, True, False, temporal_mode=mode,
+                                    remap_src_hw=src)
+            bad_single, same_single = [], []
+            for c, pipe in enumerate(solo):
+                one, one_state = run(single_fn, pipe.params, mode, 1, frames[c])
+                bad_single.append(sum(int((a[c] != b).sum()) for a, b in zip(outs, one)))
+                same_single.append(all(torch.equal(getattr(state, f)[c], getattr(one_state, f))
+                                       for f in ("x", "p", "initialized")))
+            print(f"{label}: {bad} mismatching bytes vs the plain-op multicamera chain, Kalman "
+                  f"state equal: {same}; vs four single-camera chains: {bad_single} mismatching "
+                  f"bytes, states equal: {same_single} (x={state.x.reshape(-1).tolist()})")
+            if bad or not same or any(bad_single) or not all(same_single):
+                raise AssertionError(f"{label} differs")
+            if mode == "sequence":
+                def timed(call):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    return cams * ch.frames / (time.perf_counter() - t0)
+
+                fps[name] = (statistics.median(timed(lambda: run(fn, multi.params, mode))
+                                               for _ in range(ch.reps)),
+                             statistics.median(timed(lambda: [
+                                 run(single_fn, p.params, mode, 1, frames[c])
+                                 for c, p in enumerate(solo)]) for _ in range(ch.reps)))
+                print(f"{label} frames/s: {fps[name][0]:.2f} ({cams * per} frames a call), four "
+                      f"single-camera chains of B={per}: {fps[name][1]:.2f}; median of {ch.reps}")
+        # (iii) four equal calibrations share one flat map
+        shared = build_multicamera_pipeline(config, [calibs[0]] * cams, enc, (h, w),
+                                            with_state=True, temporal_mode="sequence",
+                                            device="cuda")
+        cameras_arg = []
+        launch = kernels.REMAP_FLOAT.launch
+        kernels.REMAP_FLOAT.launch = lambda *a: (cameras_arg.append(a[6]), launch(*a))[1]
+        try:
+            outs, state = run(shared.fn, shared.params, "sequence")
+        finally:
+            del kernels.REMAP_FLOAT.launch  # the class's method again
+        plain_fn = make_isp_fn(config, enc, True, False, temporal_mode="sequence",
+                               remap_src_hw=src, n_cameras=cams, plain=True)
+        ref, ref_state = run(plain_fn, shared.params, "sequence")
+        bad = sum(int((a != b).sum()) for a, b in zip(outs, ref))
+        flat = shared.params.remap_base.dim() == 1
+        print(f"multicamera {name} with four equal calibrations: one flat map {flat} "
+              f"{tuple(shared.params.remap_base.shape)}, kernel E launched with cameras="
+              f"{cameras_arg}; {bad} mismatching bytes vs the plain-op chain, Kalman state equal: "
+              f"{_same_state(torch, state, ref_state)}")
+        if (not flat or bad or not _same_state(torch, state, ref_state)
+                or ("remap_float" in ch.kernels) != bool(cameras_arg)
+                or any(c != 1 for c in cameras_arg)):
+            raise AssertionError(f"multicamera {name}: the shared map's run is wrong")
+        del frames, multi, solo, shared, outs, ref
+        torch.cuda.empty_cache()
+    return fps
+
+
+def check_stream(tp, torch, np, root):
+    """Phase 2: the streamed Kalman chain (BASELINE config 3): the
+    flagship at 1920x1080 through StreamRunner(batch_size=4) on the card.
+    Its STREAM_FRAMES frames are written as raw files and read back through
+    the port's FramePump (the native library, built with make, or numpy
+    reads where it does not build; the line says which). The launch counts
+    are set to 0 before the run and read after it: A, B and C launch once
+    per batch, the stateful tail of 2 included. Every stream's every frame
+    and the final Kalman state must equal build_pipeline(...,
+    keep_intermediates=True, temporal_mode="sequence") called on the same
+    batches with the state carried. Returns (the runner's frames/s, the
+    bare chain's frames/s with synchronous copies in and out)."""
+    import tempfile
+
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.runtime import native
+    from raw_image_pipeline_tpu_torch.runtime.stream import StreamRunner
+    from raw_image_pipeline_tpu_torch.tools import workloads
+
+    h, w = 1080, 1920
+    n, b = workloads.STREAM_FRAMES, workloads.STREAM_BATCH
+    config = tp.flagship_config(h, w)
+    frames = workloads.card_frames(torch, "bayer", n, h, w, workloads.SEED + n).cpu().numpy()
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
+        paths = [os.path.join(d, f"frame_{i:03d}.raw") for i in range(n)]
+        for p, f in zip(paths, frames):
+            f.tofile(p)
+        # the pump's library alone: the sink's needs OpenCV's headers;
+        # without a toolchain the frames are read with numpy
+        try:
+            subprocess.run(["make", "-C", native._NATIVE_DIR, "libframe_pump.so"],
+                           capture_output=True, timeout=120)
+        except (OSError, subprocess.SubprocessError) as e:
+            print(f"stream: make of the native pump failed: {e!r}")
+        t0 = time.perf_counter()
+        if native.native_available():
+            how = "the native FramePump"
+            pump = native.FramePump(paths, (h, w), batch=b)
+            read = np.concatenate(list(pump))
+            pump.close()
+        else:
+            how = "numpy reads (the native pump's library did not build)"
+            read = np.stack([np.fromfile(p, np.uint8).reshape(h, w) for p in paths])
+        read_s = time.perf_counter() - t0
+    print(f"stream: {n} raw {w}x{h} frames read back through {how} in {read_s:.3f} s: "
+          f"equal to those written: {np.array_equal(read, frames)}")
+    if not np.array_equal(read, frames):
+        raise AssertionError("stream: the frames read back differ from those written")
+
+    runner = StreamRunner(config, "bayer_gbrg8", (h, w), batch_size=b, device="cuda")
+    got = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    count = runner.run(iter(read), lambda s, i, img: got.setdefault((s, i), img))
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels.ALL}
+    batches = -(-n // b)
+    print(f"stream flagship {w}x{h} StreamRunner(batch_size={b}): {count} frames, "
+          f"{len(got)} images; kernel launches {counts} ({batches} batches)")
+    if count != n or any(counts[k] != batches for k in
+                         ("debayer_bilinear", "ccc_histogram", "ccc_response")):
+        raise AssertionError("stream: frames or launches wrong")
+    pipe = tp.build_pipeline(config, "bayer_gbrg8", (h, w), with_state=True,
+                             keep_intermediates=True, temporal_mode="sequence", device="cuda")
+    state = tp.init_state((), "cuda")
+    bad, seen = 0, 0
+    for s in range(0, n, b):
+        out, state = pipe(torch.as_tensor(read[s:s + b], device="cuda"), state)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        for i in range(out["processed"].shape[0]):
+            for stream, key in (("color", "dist_color"), ("color_rect", "processed"),
+                                ("debayered", "debayered")):
+                bad += int((got[(stream, s + i)] != out[key][i]).sum())
+                seen += 1
+    same = _same_state(torch, runner.state, state)
+    print(f"stream vs build_pipeline on the same batches, the state carried: {bad} mismatching "
+          f"bytes in {seen} of {len(got)} images; Kalman state equal: {same} "
+          f"(x={runner.state.x.tolist()}, p={float(runner.state.p)})")
+    if bad or seen != len(got) or not same:
+        raise AssertionError("stream: the runner differs from the chain")
+    del got
+
+    def runner_fps():
+        runner.reset_white_balance()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run(iter(read), lambda s, i, img: None)
+        return n / (time.perf_counter() - t0)
+
+    def bare_fps():
+        st = tp.init_state((), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, n, b):
+            o, st = pipe(torch.as_tensor(read[s:s + b]).to("cuda"), st)
+            _ = {k: v.cpu() for k, v in o.items()}
+        return n / (time.perf_counter() - t0)
+
+    turns = [(runner_fps(), bare_fps()) for _ in range(3)]
+    fps = (statistics.median(t[0] for t in turns), statistics.median(t[1] for t in turns))
+    print(f"stream frames/s: StreamRunner {fps[0]:.2f}, bare chain calls with synchronous "
+          f"copies {fps[1]:.2f} (host clock over {n} frames, median of 3 turns)")
+    return fps
+
+
 def check_small(tp, torch, np):
     """Phase 3: each chain on the card equals it on the CPU at a small size;
     also the flagship in debug mode, every dump compared."""
@@ -624,12 +922,21 @@ def main() -> int:
           + ("" if built is not None else " (already built)"))
 
     rng = np.random.default_rng(workloads.SEED)
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return result
+
     try:
-        rows = check_kernels(tp, torch, rng)
-        launches, per_flagship_call, fps, peak = check_chains(tp, torch, rng)
-        check_microbatch(tp, torch, rng)
-        check_small(tp, torch, np)
-        check_api(tp, torch, np)
+        rows = phase("kernels", check_kernels, tp, torch, rng)
+        launches, per_flagship_call, fps, peak = phase("chains", check_chains, tp, torch, rng)
+        phase("microbatch", check_microbatch, tp, torch, rng)
+        multicam_fps = phase("multicamera", check_multicam, tp, torch)
+        stream_fps = phase("stream", check_stream, tp, torch, np, root)
+        phase("small", check_small, tp, torch, np)
+        phase("api", check_api, tp, torch, np)
     except Exception as e:  # the smoke test's boundary: report and fail
         import traceback
 
@@ -641,7 +948,12 @@ def main() -> int:
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],
-        "peak_device_bytes_1920x1080": peak}))
+        "peak_device_bytes_1920x1080": peak,
+        "multicam_frames_per_s": [
+            {"chain": name, "size": "1920x1080", "cameras": len(workloads.MULTICAM_SCALES),
+             "kernels": a, "four_single_cameras": b} for name, (a, b) in multicam_fps.items()],
+        "stream_frames_per_s": {"chain": "flagship", "size": "1920x1080",
+                                "runner": stream_fps[0], "bare_calls": stream_fps[1]}}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
     # that runs the kernel (A, B, C: flagship; D: gpu_parity; E: float);
     # launches_per_flagship_call: the grids it put on the device per call

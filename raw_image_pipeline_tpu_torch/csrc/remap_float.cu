@@ -27,6 +27,13 @@
 //   in registers, then loops over a range of frames [f0, f1) against that
 //   one map; grid y splits the batch into such ranges only where the tiles
 //   of one frame cannot fill the card (ops/undistortion.remap_frame_chunk).
+// - Several cameras, each with its own map (the camera-blocked multicamera
+//   chain): the batch is camera-major, `cameras` blocks of `batch` frames,
+//   and base and weights are stacked [cameras, N] and [cameras, 4, N].
+//   Grid z is the camera: a block offsets the map by its camera's N (4N for
+//   the weights), reduces its source box from that camera's map, and takes
+//   its frame range from that camera's block of frames. With one camera the
+//   grid, the map and the frames are those of a single map.
 // - The block reduces its live pixels' taps to one bounding box in the
 //   source (a few bytes an output pixel on the fisheye maps) and copies
 //   the box of each plane into shared memory with 16-byte cp.async, one
@@ -133,7 +140,8 @@ __device__ __forceinline__ void store_run(uint8_t* dst, const uint32_t* px, int 
 
 // WORDS: Wo and the output's address are multiples of 4 and the map is
 // 16-byte aligned; planes16: W and every plane's address are multiples of 16
-// (else every tile gathers from global memory).
+// (else every tile gathers from global memory). batch: frames of one camera
+// (blockIdx.z); base and weights: that camera's map at blockIdx.z * N.
 template <int C, bool WORDS>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     remap_float_kernel(const uint8_t* __restrict__ p0, const uint8_t* __restrict__ p1,
@@ -150,6 +158,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   const long long n = (long long)ho * wo;
   const long long q0 = (long long)r * wo + c0;
   const long long size = (long long)h * w;
+  base += blockIdx.z * n;  // this camera's map
+  weights += blockIdx.z * 4 * n;
 
   // the run's map, once for all frames
   int b[kRun];
@@ -232,8 +242,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   for (int j = 0; j < kRun; ++j) s[j] = staged ? (by[j] - rmin) * pitch + bx[j] - xa : 0;
 
   const uint8_t* planes[3] = {p0, p1, p2};
-  const int f0 = blockIdx.y * chunk;
-  const int f1 = min(batch, f0 + chunk);
+  const int first = blockIdx.z * batch;  // this camera's first frame
+  const int f0 = first + blockIdx.y * chunk;
+  const int f1 = min(first + batch, f0 + chunk);
   const bool stores = r < ho && c0 < wo;
   uint8_t* dst = out + ((size_t)f0 * n + q0) * C;
   const size_t frame_out = (size_t)n * C;
@@ -306,12 +317,12 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 
 template <int C, bool WORDS>
 int launch(const void* p0, const void* p1, const void* p2, const void* base,
-           const void* weights, void* out, int batch, int h, int w, int ho, int wo, int chunk,
-           bool planes16, cudaStream_t stream) {
+           const void* weights, void* out, int cameras, int batch, int h, int w, int ho, int wo,
+           int chunk, bool planes16, cudaStream_t stream) {
   const long long tiles =
       (long long)((ho + kTileH - 1) / kTileH) * ((wo + kTileW - 1) / kTileW);
   if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (unsigned)((batch + chunk - 1) / chunk));
+  const dim3 grid((unsigned)tiles, (unsigned)((batch + chunk - 1) / chunk), (unsigned)cameras);
   remap_float_kernel<C, WORDS><<<grid, kBlock, 0, stream>>>(
       (const uint8_t*)p0, (const uint8_t*)p1, (const uint8_t*)p2, (const int32_t*)base,
       (const float*)weights, (uint8_t*)out, batch, h, w, ho, wo, chunk, planes16);
@@ -320,35 +331,40 @@ int launch(const void* p0, const void* p1, const void* p2, const void* base,
 
 template <int C>
 int by_width(bool words, const void* p0, const void* p1, const void* p2, const void* base,
-             const void* weights, void* out, int batch, int h, int w, int ho, int wo, int chunk,
-             bool planes16, cudaStream_t s) {
-  return words ? launch<C, true>(p0, p1, p2, base, weights, out, batch, h, w, ho, wo, chunk,
-                                 planes16, s)
-               : launch<C, false>(p0, p1, p2, base, weights, out, batch, h, w, ho, wo, chunk,
-                                  planes16, s);
+             const void* weights, void* out, int cameras, int batch, int h, int w, int ho, int wo,
+             int chunk, bool planes16, cudaStream_t s) {
+  return words ? launch<C, true>(p0, p1, p2, base, weights, out, cameras, batch, h, w, ho, wo,
+                                 chunk, planes16, s)
+               : launch<C, false>(p0, p1, p2, base, weights, out, cameras, batch, h, w, ho, wo,
+                                  chunk, planes16, s);
 }
 
 }  // namespace
 
+// cameras: maps stacked in base [cameras, N] and weights [cameras, 4, N],
+// and the planes' frames camera-major, `batch` frames a camera (1: one map
+// for all `batch` frames);
 // channels: 1 (p0 only) or 3 (p0, p1, p2 interleaved into the output);
 // v: ops/undistortion.remap_run_width (4: word stores, 1: byte stores);
-// chunk: frames per grid row (ops/undistortion.remap_frame_chunk);
+// chunk: frames per grid row within a camera's block
+// (ops/undistortion.remap_frame_chunk);
 // planes16: w and every plane's address are multiples of 16, so that the
 // tiles' source boxes can be copied into shared memory as 16-byte words
 // (else every tile gathers from global memory).
 extern "C" int isp_remap_float(const void* p0, const void* p1, const void* p2, const void* base,
-                               const void* weights, void* out, int batch, int h, int w, int ho,
-                               int wo, int channels, int v, int chunk, int planes16,
-                               void* stream) {
-  if (chunk < 1 || (v != 1 && v != 4) || (v == 4 && wo % 4 != 0)) {
+                               const void* weights, void* out, int cameras, int batch, int h,
+                               int w, int ho, int wo, int channels, int v, int chunk,
+                               int planes16, void* stream) {
+  if (chunk < 1 || cameras < 1 || cameras > 65535 || (v != 1 && v != 4) ||
+      (v == 4 && wo % 4 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   switch (channels) {
-    case 1: return by_width<1>(v == 4, p0, p1, p2, base, weights, out, batch, h, w, ho, wo,
-                               chunk, planes16 != 0, s);
-    case 3: return by_width<3>(v == 4, p0, p1, p2, base, weights, out, batch, h, w, ho, wo,
-                               chunk, planes16 != 0, s);
+    case 1: return by_width<1>(v == 4, p0, p1, p2, base, weights, out, cameras, batch, h, w, ho,
+                               wo, chunk, planes16 != 0, s);
+    case 3: return by_width<3>(v == 4, p0, p1, p2, base, weights, out, cameras, batch, h, w, ho,
+                               wo, chunk, planes16 != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -19,6 +19,12 @@ from the planes (`remap_planes` picks by mode):
   (csrc/remap_float.cu) computes it;
 - `remap_fixed32_planes`, "fixed32": the 2^15-scaled integer blend, exact
   in f32.
+
+Per-camera maps (the camera-blocked multicamera chain): `remap_planes`
+also takes base [C, N] and weights [C, k, N] stacked over C cameras, with
+the planes' batch camera-major ([C*B'] frames); each camera's block of B'
+frames goes through its own map. Kernel E does so in one launch, the plain
+versions block by block.
 """
 
 from __future__ import annotations
@@ -547,11 +553,26 @@ def remap_frame_chunk(batch: int, threads: int, sms: int) -> int:
     return -(-batch // ranges)
 
 
+def remap_blocks(batch: int, cameras: int, chunk: int, n: int):
+    """Kernel E's grid rows as csrc/remap_float.cu reads them from blockIdx:
+    for each camera z (grid z) and frame range y (grid y) of that camera's
+    block of batch // cameras frames, (z, y, f0, f1, base offset, weights
+    offset): the frames [f0, f1) of the camera-major batch that its blocks
+    remap, through the map at base + z*n and weights + z*4*n (n output
+    pixels a map)."""
+    per = batch // cameras
+    return [(z, y, z * per + y * chunk, min(z * per + per, z * per + (y + 1) * chunk),
+             z * n, z * 4 * n)
+            for z in range(cameras) for y in range(-(-per // chunk))]
+
+
 def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
                      out_hw: Tuple[int, int]) -> torch.Tensor:
     """Kernel E: remap_float_planes for one or three contiguous [B, H, W] u8
     CUDA planes, base [Ho*Wo] int32 and weights [4, Ho*Wo] f32 on the same
-    card. Returns [B, Ho, Wo, C] u8, C = len(planes)."""
+    card, or per-camera maps base [C, Ho*Wo] and weights [C, 4, Ho*Wo] for
+    a camera-major batch of C blocks of B/C frames (remap_blocks). Returns
+    [B, Ho, Wo, C] u8, C = len(planes), in one launch."""
     if len(planes) not in (1, 3):
         raise ValueError(f"planes: expected 1 or 3, got {len(planes)}")
     shape = tuple(planes[0].shape)
@@ -563,8 +584,12 @@ def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
     ho, wo = out_hw
     n = ho * wo
     c = len(planes)
-    kernels.check_cuda(base, "base", torch.int32, (n,))
-    kernels.check_cuda(weights, "weights", torch.float32, (4, n))
+    cameras = base.shape[0] if base.dim() == 2 else 1
+    lead = (cameras,) if base.dim() == 2 else ()
+    kernels.check_cuda(base, "base", torch.int32, lead + (n,))
+    kernels.check_cuda(weights, "weights", torch.float32, lead + (4, n))
+    if b % cameras:
+        raise ValueError(f"planes: batch {b} is not a multiple of the {cameras} cameras' maps")
     kernels.check_batch(b, "planes")
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=planes[0].device)
     if b and n:
@@ -572,12 +597,13 @@ def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
         tiles = -(-ho // REMAP_TILE[0]) * -(-wo // REMAP_TILE[1])
         planes16 = w % 16 == 0 and all(p % 16 == 0 for p in ptrs)
         sms = torch.cuda.get_device_properties(out.device).multi_processor_count
+        per = b // cameras
         with torch.cuda.device(out.device):
             kernels.REMAP_FLOAT.launch(
-                *ptrs * (3 // c), base.data_ptr(), weights.data_ptr(), out.data_ptr(), b, h, w,
-                ho, wo, c, remap_run_width(wo, out.data_ptr(), base.data_ptr(),
-                                           weights.data_ptr()),
-                remap_frame_chunk(b, REMAP_BLOCK * tiles, sms), int(planes16),
+                *ptrs * (3 // c), base.data_ptr(), weights.data_ptr(), out.data_ptr(), cameras,
+                per, h, w, ho, wo, c,
+                remap_run_width(wo, out.data_ptr(), base.data_ptr(), weights.data_ptr()),
+                remap_frame_chunk(per, REMAP_BLOCK * tiles * cameras, sms), int(planes16),
                 kernels.stream_handle(out),
             )
     return out
@@ -586,15 +612,22 @@ def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
 def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
                  out_hw: Tuple[int, int], mode: str, plain: bool = False) -> torch.Tensor:
     """The remap stage in `mode` ("lerp" | "float" | "fixed32"; base and
-    weights from remap_precompute in the same mode). Float mode on CUDA
-    planes goes through kernel E, on CPU planes (or plain=True) through
+    weights from remap_precompute in the same mode, flat or stacked per
+    camera, see the module's docstring). Float mode on CUDA planes goes
+    through kernel E, on CPU planes (or plain=True) through
     remap_float_planes; lerp and fixed32 are plain torch ops."""
-    if mode == "lerp":
-        return remap_lerp_planes(planes, base, weights, out_hw)
-    if mode == "fixed32":
-        return remap_fixed32_planes(planes, base, weights, out_hw)
-    if mode != "float":
+    fns = {"lerp": remap_lerp_planes, "float": remap_float_planes,
+           "fixed32": remap_fixed32_planes}
+    if mode not in fns:
         raise ValueError(f"unknown remap mode [{mode}]")
-    if plain or planes[0].device.type == "cpu":
-        return remap_float_planes(planes, base, weights, out_hw)
-    return remap_float_cuda(tuple(p.contiguous() for p in planes), base, weights, out_hw)
+    if mode == "float" and not plain and planes[0].device.type != "cpu":
+        return remap_float_cuda(tuple(p.contiguous() for p in planes), base, weights, out_hw)
+    if base.dim() == 1:
+        return fns[mode](planes, base, weights, out_hw)
+    # per-camera maps: camera c's block of frames through map c
+    cams, b = base.shape[0], planes[0].shape[0]
+    if b % cams:
+        raise ValueError(f"planes: batch {b} is not a multiple of the {cams} cameras' maps")
+    per = b // cams
+    return torch.cat([fns[mode](tuple(p[c * per:(c + 1) * per] for p in planes), base[c],
+                                weights[c], out_hw) for c in range(cams)])

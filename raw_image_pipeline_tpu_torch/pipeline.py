@@ -18,9 +18,11 @@ pipeline's device; every small table is its exact host table, applied as
 a gather. Mono frames skip white balance, colour calibration, vignetting
 and the enhancer, as the reference does.
 
-Everything of the reference package's build_pipeline runs here but the
-camera-blocked multicamera form (n_cameras > 1), which raises
-NotImplementedError.
+The camera-blocked multicamera form (make_isp_fn(..., n_cameras=C), built
+by parallel/multicamera.py) flattens [C, B, ...] frames camera-major into
+one batch for every shared-parameter stage, routes each camera's block
+through its own remap map where the maps are stacked, and gives each
+camera its own Kalman track.
 """
 
 from __future__ import annotations
@@ -162,6 +164,21 @@ def _check_pixels(pixels: torch.Tensor, encoding: str) -> None:
         raise ValueError(f"pixels for [{encoding}]: expected {want}, got {shape} {dtype}")
 
 
+def remap_fields(config: PipelineConfig,
+                 src_hw: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """The remap's base and weights (remap_precompute in the configured
+    mode) for config's calibration, over a source of src_hw (post-flip)."""
+    calib = config.calibration
+    size = (calib.image_width, calib.image_height)
+    new_size = config.undistortion.new_image_size or size
+    new_K = estimate_new_camera_matrix(
+        calib.K(), calib.D(), size, calib.R(),
+        config.undistortion.balance, new_size, config.undistortion.fov_scale,
+    )
+    mx, my = init_undistort_rectify_map(calib.K(), calib.D(), calib.R(), new_K, size)
+    return remap_precompute(mx, my, src_hw, mode=config.undistortion.interpolation)
+
+
 def _host_fields(config: PipelineConfig, frame_hw: Tuple[int, int]) -> Dict[str, np.ndarray]:
     """The numbers the reference package's make_params puts in its IspParams,
     as numpy arrays (same names; only the fields the port reads)."""
@@ -175,17 +192,7 @@ def _host_fields(config: PipelineConfig, frame_hw: Tuple[int, int]) -> Dict[str,
     if vig.enabled:
         fields["vignetting_mask"] = build_vignetting_mask(fh, fw, vig.scale, vig.a2, vig.a4)
     if _runs_undistortion(config):
-        calib = config.calibration
-        size = (calib.image_width, calib.image_height)
-        new_size = config.undistortion.new_image_size or size
-        new_K = estimate_new_camera_matrix(
-            calib.K(), calib.D(), size, calib.R(),
-            config.undistortion.balance, new_size, config.undistortion.fov_scale,
-        )
-        mx, my = init_undistort_rectify_map(calib.K(), calib.D(), calib.R(), new_K, size)
-        fields["remap_base"], fields["remap_weights"] = remap_precompute(
-            mx, my, (fh, fw), mode=config.undistortion.interpolation
-        )
+        fields["remap_base"], fields["remap_weights"] = remap_fields(config, (fh, fw))
     wbc = config.white_balance
     if _uses_ccc(config):
         ccc_model = load_ccc_model(wbc.ccc_model_path)
@@ -318,9 +325,18 @@ def make_isp_fn(
     in the reference's stage order (no flip hoist, no gamma fold).
     temporal_mode (CCC temporal consistency with state): "cameras" — one
     Kalman track per batch entry; "sequence" — one track advanced through
-    the batch in order."""
-    if n_cameras > 1:
-        raise NotImplementedError("n_cameras>1")
+    the batch in order.
+
+    n_cameras > 1 is the camera-blocked multicamera form (the reference
+    package's, see parallel/multicamera.py): pixels arrive as [n_cameras,
+    B, ...] and are flattened camera-major to one [n_cameras*B] batch, so
+    that every shared-parameter stage runs once over all cameras; where
+    params.remap_base is stacked [n_cameras, N] (distinct calibrations)
+    each camera's block goes through its own map, a flat [N] map serves
+    the whole batch. State: [n_cameras, B, ...] tracks in "cameras" mode,
+    one track per camera ([n_cameras, ...]) in "sequence" mode, advanced
+    through its own block's frames. Outputs and state come back with their
+    [n_cameras, B] leading axes."""
     if temporal_mode not in ("cameras", "sequence"):
         raise ValueError(f"unknown temporal_mode [{temporal_mode}]")
     deb = config.debayer
@@ -350,6 +366,15 @@ def make_isp_fn(
     mono_axis_possible = not bayer8 and encoding not in BAYER16_ENCODINGS
 
     def fn(params: IspParams, pixels: torch.Tensor, state: Optional[IspState]):
+        cam_b = 0
+        if n_cameras > 1:
+            if pixels.dim() < 2 or pixels.shape[0] != n_cameras:
+                raise ValueError(f"pixels: expected [{n_cameras}, B, ...] for {n_cameras} "
+                                 f"cameras, got {tuple(pixels.shape)}")
+            cam_b = pixels.shape[1]
+            pixels = pixels.reshape((-1,) + tuple(pixels.shape[2:]))
+            if state is not None and temporal_mode != "sequence":
+                state = _map_state(lambda v: v.reshape((-1,) + tuple(v.shape[2:])), state)
         _check_pixels(pixels, encoding)
         outputs: Dict[str, torch.Tensor] = {}
         img = pixels
@@ -418,7 +443,13 @@ def make_isp_fn(
                     )
                     uv = ccc_ops.response_argmax(resp)
                     if use_kalman:
-                        if temporal_mode == "sequence":
+                        if temporal_mode == "sequence" and n_cameras > 1:
+                            # one track per camera through its own block's
+                            # frames: time first, the cameras as the batch
+                            uvc = uv.reshape(n_cameras, cam_b, -1).transpose(0, 1)
+                            state, uvc = ccc_ops.kalman_scan(state, uvc)
+                            uv = uvc.transpose(0, 1).reshape(n_cameras * cam_b, -1)
+                        elif temporal_mode == "sequence":
                             # batch axis = time: one track advanced through the frames
                             state, uv = ccc_ops.kalman_scan(state, uv)
                         else:
@@ -478,9 +509,22 @@ def make_isp_fn(
         if debug:
             outputs["debug/07_undistortion"] = img
         outputs["processed"] = img[..., None] if mono_axis else img
+        if n_cameras > 1:
+            # the [C, B] leading axes back on every output and on the
+            # flattened "cameras"-mode state
+            outputs = {k: v.reshape((n_cameras, cam_b) + tuple(v.shape[1:]))
+                       for k, v in outputs.items()}
+            if state is not None and temporal_mode != "sequence":
+                state = _map_state(lambda v: v.reshape((n_cameras, cam_b) + tuple(v.shape[1:])),
+                                   state)
         return outputs, state
 
     return fn
+
+
+def _map_state(f, state: IspState) -> IspState:
+    """f applied to every field of a Kalman state."""
+    return ccc_ops.KalmanState(x=f(state.x), p=f(state.p), initialized=f(state.initialized))
 
 
 def _chunked_fn(inner_fn, microbatch: int):

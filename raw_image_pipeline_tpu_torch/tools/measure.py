@@ -54,16 +54,18 @@ REMAP_FLOAT_OPS_PER_VALUE = 7
 
 
 def remap_float_work(batch: int, h: int, w: int, n: int, channels: int,
-                     live: Optional[int] = None) -> dict:
+                     live: Optional[int] = None, maps: int = 1) -> dict:
     """The work of kernel E on `batch` frames of `channels` [h, w] u8 planes
-    remapped to n output pixels: "bytes", the planes read and the [batch, n,
-    channels] output written once, and the map (a 4-byte base and four
+    remapped to n output pixels through `maps` maps (one per camera, each
+    serving batch // maps frames): "bytes", the planes read and the [batch,
+    n, channels] output written once, and each map (a 4-byte base and four
     4-byte weights a pixel) read once; "ops", REMAP_FLOAT_OPS_PER_VALUE for
-    each output value of the `live` pixels (default n) that have a nonzero
-    weight, the others being 0 without a blend."""
-    live = n if live is None else live
-    return {"bytes": batch * channels * (h * w + n) + 20 * n,
-            "ops": batch * channels * live * REMAP_FLOAT_OPS_PER_VALUE}
+    each output value of the pixels that have a nonzero weight, `live` of
+    them over all the maps together (default n a map), the others being 0
+    without a blend."""
+    live = n * maps if live is None else live
+    return {"bytes": batch * channels * (h * w + n) + 20 * n * maps,
+            "ops": batch // maps * channels * live * REMAP_FLOAT_OPS_PER_VALUE}
 
 
 def ccc_response_work(batch: int, n: int = 256) -> dict:

@@ -112,6 +112,41 @@ def chains(tp) -> dict:
     return table
 
 
+MULTICAM_SCALES = (1.0, 1.02, 0.98, 1.04)  # fx and fy per camera: bench.py's config 5
+MULTICAM_BATCH, MULTICAM_CALLS = 4, 2  # frames per camera per call, calls of a run
+STREAM_FRAMES, STREAM_BATCH = 42, 4  # a stream of 10 batches and a stateful tail of 2
+
+
+def multicam_chains(tp) -> dict:
+    """name -> Chain of the camera-blocked chains (BASELINE config 5 on one
+    card): 4 cameras of bayer_gbrg8 1920x1080 frames, MULTICAM_BATCH a
+    camera per call; "multicam4" the flagship (lerp remap, plain ops),
+    "multicam4_float" the float remap (kernel E with per-camera maps).
+    Their calibrations: multicam_calibrations of the config's."""
+    table = chains(tp)
+    ccc = ("ccc_histogram", "ccc_response")
+    return {
+        "multicam4": Chain(table["flagship"].config, ((1080, 1920),), ("debayer_bilinear",) + ccc,
+                           frames=MULTICAM_BATCH * MULTICAM_CALLS, calls=MULTICAM_CALLS, reps=3),
+        "multicam4_float": Chain(table["float"].config, ((1080, 1920),),
+                                 ("debayer_bilinear",) + ccc + ("remap_float",),
+                                 frames=MULTICAM_BATCH * MULTICAM_CALLS, calls=MULTICAM_CALLS,
+                                 reps=3),
+    }
+
+
+def multicam_calibrations(calibration, scales=MULTICAM_SCALES) -> list:
+    """One calibration per camera: `calibration` with fx and fy scaled by
+    each of `scales` (as bench.py perturbs config 5's cameras)."""
+    out = []
+    for s in scales:
+        k = list(calibration.camera_matrix)
+        k[0] *= s
+        k[4] *= s
+        out.append(dataclasses.replace(calibration, camera_matrix=tuple(k)))
+    return out
+
+
 def hostile_maps(out_hw, src_hw, seed: int):
     """A float32 (map_x, map_y) pair of shape out_hw whose taps scatter over
     a source of src_hw and 3 pixels past each of its borders: what

@@ -375,3 +375,68 @@ def test_chain_on_card_equals_cpu(name):
         assert torch.equal(res["cuda"][0][k], v), k
     for f in ("x", "p", "initialized"):
         assert torch.equal(getattr(res["cuda"][1], f).cpu(), getattr(res["cpu"][1], f)), f
+
+
+def _camera_maps(hw, scales):
+    """remap_precompute's float-mode maps for the flagship's fisheye
+    calibration with fx and fy scaled per camera, stacked [C, N] / [C, 4,
+    N]."""
+    h, w = hw
+    calib = tp.flagship_config(h, w).calibration
+    size = (w, h)
+    maps = []
+    for s in scales:
+        k = calib.K().copy()
+        k[0, 0] *= s
+        k[1, 1] *= s
+        new_k = jund.estimate_new_camera_matrix(k, calib.D(), size, calib.R(), 0.0, size, 1.0)
+        mx, my = jund.init_undistort_rectify_map(k, calib.D(), calib.R(), new_k, size)
+        maps.append(pund.remap_precompute(mx, my, hw, mode="float"))
+    return np.stack([b for b, _ in maps]), np.stack([wt for _, wt in maps])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(91, 117), (96, 128)])  # byte stores (V=1), word stores (V=4)
+def test_kernel_e_per_camera_maps_equals_plain_on_card(hw):
+    # 3 cameras x B=2, each camera's block through its own map in one
+    # launch, against remap_float_planes block by block
+    dev = _cuda()
+    base, weights = (torch.as_tensor(a, device=dev) for a in _camera_maps(hw, (1.0, 1.03, 0.97)))
+    planes = tuple(torch.as_tensor(p, device=dev) for p in
+                   np.random.default_rng(6).integers(0, 256, (3, 6) + hw, dtype=np.uint8))
+    out = torch.empty((6,) + hw + (3,), dtype=torch.uint8, device=dev)
+    v = pund.remap_run_width(hw[1], out.data_ptr(), base.data_ptr(), weights.data_ptr())
+    assert v == (1 if hw[1] % 4 else 4)
+    for pl in (planes, planes[:1]):
+        got = pund.remap_float_cuda(pl, base, weights, hw)
+        assert got.shape == (6,) + hw + (len(pl),)
+        for c in range(3):
+            want = pund.remap_float_planes(tuple(p[2 * c:2 * c + 2] for p in pl), base[c],
+                                           weights[c], hw)
+            assert torch.equal(got[2 * c:2 * c + 2], want), c
+
+
+def test_port_sources_import_no_jax():
+    # every module of the port, and chip_smoke.py, imports neither jax nor
+    # anything of the JAX package (the card's machine has no jax)
+    import ast
+
+    pkg = os.path.join(REPO, "raw_image_pipeline_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    for name in ("parallel/multicamera.py", "runtime/stream.py", "runtime/sources.py",
+                 "runtime/control.py", "runtime/native.py"):
+        assert os.path.join(pkg, name) in files, name
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for m in names:
+                root = m.split(".")[0]
+                assert root not in ("jax", "jaxlib", "raw_image_pipeline_tpu"), (path, m)

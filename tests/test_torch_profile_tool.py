@@ -189,6 +189,20 @@ def test_remap_float_work(batch, channels):
     assert got["bound_ms"] == pytest.approx(w["bytes"] / 3.35e9, rel=1e-12)
 
 
+def test_remap_float_work_per_camera_maps():
+    # 4 cameras x B=4 at 1080x1920, a map each: four maps of 20 bytes a
+    # pixel read once, each camera's live pixels blended in its 4 frames
+    n = 1080 * 1920
+    w = remap_float_work(16, 1080, 1920, n, 3, maps=4)
+    assert w["bytes"] == 2 * 16 * 3 * n + 4 * 20 * n
+    assert w["ops"] == 7 * 16 * 3 * n
+    lives = (n // 2, n // 3, n // 4, n // 5)  # each map's live pixels
+    assert remap_float_work(16, 1080, 1920, n, 3, live=sum(lives), maps=4)["ops"] == \
+        sum(7 * 4 * 3 * live for live in lives)
+    # one map is the single-camera work
+    assert remap_float_work(4, 1080, 1920, n, 3, maps=1) == remap_float_work(4, 1080, 1920, n, 3)
+
+
 _LISTING = """
         code for sm_90a
                 Function : _ZN12_GLOBAL__N_118debayer_mht_kernelILi78ELi16EEEvPKhPhiiii

@@ -83,7 +83,27 @@ per source, into build/kernels/), then:
      (every stage's dump), plus mono8, rgb8 and 16-bit Bayer input; then
      the RawImagePipeline API on the card against the API on the CPU:
      process with a grey-world WB, apply on a bgr8 buffer, and use_gpu=True
-     with pca (D).
+     with pca (D);
+  4. drives the port's user programs (raw_image_pipeline_tpu_torch/tools)
+     on the card: run_pipeline's directory raw mode at the reference's
+     launch-file profile on the 1.6 MP sensor (flip 180, CCC, undistortion
+     with balance 0.5 and fov_scale 1.2; configs/alphasense_launch_profile
+     .yaml, alphasense_calib_1.6mp_example.yaml), 24 raw 1440x1080 frames in
+     batches of 8, with the lerp and the float remap, on seeded synthetic
+     frames and on frames mosaicked from the Alphasense fixture: every
+     written PNG decoded against the plain-op chain on the card (every
+     frame) and the CPU chain (the first 2), camera_info.yaml against the
+     CPU API's, launches counted over each run, frames/s with the writes
+     beside StreamRunner with a null sink, one colour frame's write by
+     image_io (and by cv2 where it imports); run_pipeline --listen
+     --control (6 frames paced one output at a time, reset_white_balance
+     and reload_params between frames 2 and 3) against the CPU API;
+     apply_pipeline and ccc_tune (both modes) on the fixture against
+     --device cpu (files, printed text, gains' bits); gpu_parity_check whole
+     (all 2^24 triples of the exact colour spaces against their digests,
+     the white-balance oracle goldens, the 540x720 chain card vs CPU);
+     stream_bench on 64 1080x1920 raw frames; stage_timings of the flagship
+     at 1920x1080, B=4.
 
 It prints the card's name and power limit, the build time, one line per
 check, a JSON line of the kernels (with each one's launches on the main
@@ -892,6 +912,275 @@ def check_api(tp, torch, np):
         raise AssertionError("the API's calls left the frames unchanged")
 
 
+TOOLS_FRAMES, TOOLS_BATCH, TOOLS_CPU_FRAMES, LIVE_FRAMES = 24, 8, 2, 6
+
+
+def _captured(fn, *args):
+    """(fn(*args), what it printed), the print echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    print(buf.getvalue(), end="")
+    return result, buf.getvalue()
+
+
+def _camera_infos_equal(tp, out_dir, params, calib, interpolation=None) -> bool:
+    import yaml
+
+    from raw_image_pipeline_tpu_torch.runtime.stream import make_camera_infos
+
+    api = tp.RawImagePipeline(False, params, calib, "", device="cpu")
+    if interpolation:
+        api.set_undistortion_interpolation(interpolation)
+    want = yaml.safe_load(yaml.safe_dump(
+        {k: v.to_dict() for k, v in make_camera_infos(api).items()}))
+    with open(os.path.join(out_dir, "camera_info.yaml")) as f:
+        return yaml.safe_load(f) == want
+
+
+def _write_ms(write, path, img, reps=5):
+    """[median, least, most] ms of `reps` writes of img to path."""
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        write(path, img)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return [statistics.median(runs), min(runs), max(runs)]
+
+
+def check_run_pipeline(tp, torch, np, root, d):
+    """run_pipeline's directory raw mode at the launch profile on the
+    1.6 MP sensor, with the lerp remap and with the float remap (kernel E),
+    on two contents: seeded synthetic frames and frames mosaicked from the
+    Alphasense fixture (real content). Every written PNG is decoded and
+    held against the plain-op chain on the card for every frame and the
+    CPU chain for the first frames; camera_info.yaml against the CPU API's;
+    kernel launches counted over the tool's run. Returns {"<content>
+    <mode>": frames/s with the writes, "<content> <mode> null sink":
+    frames/s of StreamRunner with a null sink, "<content> image_io write
+    ms": one color frame written on one thread, [median, least, most] of
+    5, and "<content> cv2 write ms" the same by cv2.imwrite where cv2
+    imports (not used by the port)}."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.pipeline import make_isp_fn, make_params
+    from raw_image_pipeline_tpu_torch.runtime.stream import StreamRunner
+    from raw_image_pipeline_tpu_torch.tools import run_pipeline, workloads
+    from raw_image_pipeline_tpu_torch.utils import image_io
+
+    h, w = workloads.LAUNCH_PROFILE_HW
+    n, b = TOOLS_FRAMES, TOOLS_BATCH
+    params, calib = (os.path.join(root, f) for f in workloads.LAUNCH_PROFILE)
+    fixture = image_io.imread(os.path.join(root, "tests", "fixtures", "alphasense.png"),
+                              image_io.IMREAD_COLOR)
+    contents = {
+        "synthetic": workloads.card_frames(torch, "bayer", n, h, w, workloads.SEED + 80),
+        "fixture": workloads.fixture_frames(torch, fixture, n, h, w),
+    }
+    streams = (("color", "dist_color"), ("color_rect", "processed"), ("debayered", "debayered"))
+    names = [f"frame_{i:03d}" for i in range(n)]
+    cv2 = image_io.cv2_module()
+    result = {}
+    for content, frames in contents.items():
+        host = frames.cpu().numpy()
+        in_dir = os.path.join(d, f"raw_{content}")
+        os.makedirs(in_dir)
+        for name, f in zip(names, host):
+            f.tofile(os.path.join(in_dir, name + ".raw"))
+        for mode in ("lerp", "float"):
+            label = f"tools run_pipeline {w}x{h} {content} {mode}"
+            config = run_pipeline.pipeline_config(
+                params, calib, tp.config.DEFAULT_COLOR_CALIBRATION_PATH,
+                mode if mode == "float" else None)
+            p = make_params(config, (h, w), "cuda")
+            plain_fn = make_isp_fn(config, "bayer_gbrg8", False, True, plain=True)
+            refs = []
+            for s in range(0, n, b):
+                ref, _ = plain_fn(p, frames[s:s + b], None)
+                refs.append({k: v.cpu().numpy() for k, v in ref.items()})
+            cpu_pipe = tp.build_pipeline(config, "bayer_gbrg8", (h, w),
+                                         keep_intermediates=True, device="cpu")
+            t0 = time.perf_counter()
+            cpu_out, _ = cpu_pipe(torch.as_tensor(host[:TOOLS_CPU_FRAMES]), None)
+            cpu_s = time.perf_counter() - t0
+            out_dir = os.path.join(d, f"out_{content}_{mode}")
+            argv = ["-i", in_dir, "-o", out_dir, "-p", params, "-c", calib,
+                    "--raw-shape", f"{h}x{w}", "-e", "bayer_gbrg8", "-b", str(b)]
+            if mode == "float":
+                argv += ["--remap-interpolation", "float"]
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            count, text = _captured(run_pipeline.main, argv)
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in kernels.ALL}
+            path_kernels = ("debayer_bilinear", "ccc_histogram", "ccc_response") + (
+                ("remap_float",) if mode == "float" else ())
+            print(f"{label}: {count} frames written, kernel launches {counts}")
+            if count != n or any(counts[k] != n // b for k in path_kernels):
+                raise AssertionError(f"{label}: frames or launches wrong")
+            result[f"{content} {mode}"] = float(
+                re.search(r"\(([0-9.]+) frames/s", text).group(1))
+            bad_card = bad_cpu = pngs = 0
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(8) as pool:  # the decoders release the GIL
+                for s in range(0, n, b):
+                    keys = [(i, st, key) for i in range(s, s + b) for st, key in streams]
+                    decoded = pool.map(lambda k: image_io.imread(
+                        os.path.join(out_dir, k[1], names[k[0]] + ".png"),
+                        image_io.IMREAD_UNCHANGED), keys)
+                    for (i, _, key), got in zip(keys, decoded):
+                        pngs += 1
+                        bad_card += int((got != refs[s // b][key][i - s]).sum())
+                        if i < TOOLS_CPU_FRAMES:
+                            bad_cpu += int((got != cpu_out[key][i].numpy()).sum())
+            decode_s = time.perf_counter() - t0
+            infos = _camera_infos_equal(tp, out_dir, params, calib,
+                                        mode if mode == "float" else None)
+            print(f"{label}: {pngs} PNGs decoded in {decode_s:.1f} s: {bad_card} mismatching "
+                  f"bytes vs the plain-op chain on the card, {bad_cpu} vs the CPU chain on the "
+                  f"first {TOOLS_CPU_FRAMES} frames ({cpu_s:.1f} s); camera_info.yaml equal to "
+                  f"the CPU API's: {infos}")
+            if bad_card or bad_cpu or not infos or pngs != 3 * n:
+                raise AssertionError(f"{label}: the tool's outputs differ")
+            runner = StreamRunner(config, "bayer_gbrg8", (h, w), batch_size=b, device="cuda")
+            runner.run(iter(host[:b]), lambda *a: None)  # warm
+
+            def null_fps():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runner.run(iter(host), lambda *a: None)
+                return n / (time.perf_counter() - t0)
+
+            result[f"{content} {mode} null sink"] = statistics.median(
+                null_fps() for _ in range(3))
+            print(f"{label} frames/s: {result[f'{content} {mode}']:.2f} with the PNG writes, "
+                  f"{result[f'{content} {mode} null sink']:.2f} for StreamRunner with a "
+                  f"null sink (median of 3)")
+        # the color frame before the remap: the same image in both modes
+        img = refs[0]["dist_color"][0]
+        one = os.path.join(d, f"one_{content}.png")
+        writes = {"image_io": image_io.imwrite}
+        if cv2 is not None:
+            writes["cv2"] = cv2.imwrite
+        for name, write in writes.items():
+            result[f"{content} {name} write ms"] = _write_ms(write, one, img)
+        print(f"tools one {w}x{h} {content} color frame written on one thread, ms (median "
+              f"of 5, least-most): " + "; ".join(
+                  "{} {:.1f} ({:.1f}-{:.1f})".format(name, *result[f"{content} {name} write ms"])
+                  for name in writes))
+    return result
+
+
+def check_live(tp, torch, np, root, d):
+    """run_pipeline --listen --control at the launch profile on the 1.6 MP
+    sensor, driven by run_pipeline.drive_live: LIVE_FRAMES frames, frame
+    k+1 sent only once output k exists, the commands reset_white_balance
+    and reload_params between frames 2 and 3; each output against the CPU
+    API's process of its frame, with the same commands."""
+    from raw_image_pipeline_tpu_torch.tools import run_pipeline, workloads
+    from raw_image_pipeline_tpu_torch.utils import image_io
+
+    h, w = workloads.LAUNCH_PROFILE_HW
+    params, calib = (os.path.join(root, f) for f in workloads.LAUNCH_PROFILE)
+    frames = workloads.card_frames(torch, "bayer", LIVE_FRAMES, h, w,
+                                   workloads.SEED + 81).cpu().numpy()
+    out_dir = os.path.join(d, "live")
+    t0 = time.perf_counter()
+    n, replies = run_pipeline.drive_live(
+        frames, out_dir, ["--raw-shape", f"{h}x{w}", "-e", "bayer_gbrg8", "-p", params,
+                          "-c", calib], ("reset_white_balance", "reload_params"), 3, 120.0)
+    seconds = time.perf_counter() - t0
+    api = tp.RawImagePipeline(False, params, calib, "", device="cpu")
+    bad = 0
+    for k, f in enumerate(frames):
+        if k == 3:
+            api.reset_white_balance_temporal_consistency()
+            api.load_params(params)
+        got = image_io.imread(os.path.join(out_dir, f"{k:06d}.png"), image_io.IMREAD_UNCHANGED)
+        bad += int((got != api.process(f, "bayer_gbrg8")).sum())
+    print(f"tools run_pipeline --listen --control {w}x{h}: {n} frames in {seconds:.1f} s, "
+          f"replies {replies}; {bad} mismatching bytes vs the CPU API")
+    if n != LIVE_FRAMES or replies != ["ok", "ok params reloaded"] or bad:
+        raise AssertionError("tools: live mode differs")
+
+
+def check_small_tools(tp, torch, np, root, d):
+    """apply_pipeline and ccc_tune (the argmax and the debug-offset mode) on
+    tests/fixtures/alphasense.png, on the card and with --device cpu: equal
+    output files and printed text."""
+    from raw_image_pipeline_tpu_torch.tools import apply_pipeline, ccc_tune
+    from raw_image_pipeline_tpu_torch.utils import image_io
+
+    fixture = os.path.join(root, "tests", "fixtures", "alphasense.png")
+    runs = {
+        "apply_pipeline": (apply_pipeline.main, lambda o: ["-i", fixture, "-o", o],
+                           ("output_process.png", "output_apply.png")),
+        "ccc_tune": (ccc_tune.main, lambda o: ["-i", fixture, "-o",
+                                               os.path.join(o, "ccc.png")], ("ccc.png",)),
+        "ccc_tune offsets": (ccc_tune.main, lambda o: [
+            "-i", fixture, "-o", os.path.join(o, "ccc.png"), "--lu-offset", "0.3",
+            "--lv-offset", "-0.2"], ("ccc.png",)),
+    }
+    for name, (fn, argv, files) in runs.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(d, name.replace(" ", "_"), dev)
+            os.makedirs(out, exist_ok=True)
+            ret, text = _captured(fn, argv(out) + ["--device", dev])
+            imgs = [image_io.imread(os.path.join(out, f), image_io.IMREAD_UNCHANGED)
+                    for f in files]
+            res[dev] = (ret, text.replace(out, "OUT"), imgs)
+        bad = sum(int((a != b).sum()) for a, b in zip(res["cuda"][2], res["cpu"][2]))
+        same_text = res["cuda"][1] == res["cpu"][1]
+        same_ret = (res["cuda"][0] is None and res["cpu"][0] is None) or np.array_equal(
+            np.asarray(res["cuda"][0]).view(np.uint32), np.asarray(res["cpu"][0]).view(np.uint32))
+        print(f"tools {name} on the card vs --device cpu: {bad} mismatching bytes in "
+              f"{len(files)} PNGs, printed text equal: {same_text}, gains' bits equal: {same_ret}")
+        if bad or not same_text or not same_ret:
+            raise AssertionError(f"tools {name}: the card differs from the CPU")
+
+
+def check_tools(tp, torch, np, root):
+    """Phase 4: the port's user programs on the card (run_pipeline,
+    apply_pipeline, ccc_tune, gpu_parity_check, stream_bench,
+    stage_timings), each step's seconds printed. Returns the numbers the
+    JSON line keeps."""
+    import tempfile
+
+    from raw_image_pipeline_tpu_torch.tools import gpu_parity_check, stream_bench, workloads
+    from raw_image_pipeline_tpu_torch.utils import stage_timings
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        print(f"tools step {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return result
+
+    out = {}
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
+        out["run_pipeline"] = step("run_pipeline", check_run_pipeline, tp, torch, np, root, d)
+        step("live", check_live, tp, torch, np, root, d)
+        step("apply_pipeline and ccc_tune", check_small_tools, tp, torch, np, root, d)
+        t = time.perf_counter()
+        step("gpu_parity_check", gpu_parity_check.main)
+        out["gpu_parity_check_s"] = time.perf_counter() - t
+        out["stream_bench_fps"] = step("stream_bench", stream_bench.main, [
+            "--frames", "64", "--batch", "32", "--frames-dir", os.path.join(d, "stream")])
+    px = workloads.card_frames(torch, "bayer", 4, 1080, 1920, workloads.SEED + 82).cpu().numpy()
+    timings = step("stage_timings", stage_timings, tp.flagship_config(1080, 1920),
+                   "bayer_gbrg8", px, None, 5, "cuda")
+    out["stage_timings_ms"] = {k: v * 1e3 for k, v in timings.items()}
+    print("tools stage_timings flagship 1920x1080 B=4, ms (least of 5 calls, cumulative "
+          "differences): " + ", ".join(f"{k} {v:.3f}" for k, v in out["stage_timings_ms"].items()))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -937,6 +1226,7 @@ def main() -> int:
         stream_fps = phase("stream", check_stream, tp, torch, np, root)
         phase("small", check_small, tp, torch, np)
         phase("api", check_api, tp, torch, np)
+        tools = phase("tools", check_tools, tp, torch, np, root)
     except Exception as e:  # the smoke test's boundary: report and fail
         import traceback
 
@@ -953,7 +1243,8 @@ def main() -> int:
             {"chain": name, "size": "1920x1080", "cameras": len(workloads.MULTICAM_SCALES),
              "kernels": a, "four_single_cameras": b} for name, (a, b) in multicam_fps.items()],
         "stream_frames_per_s": {"chain": "flagship", "size": "1920x1080",
-                                "runner": stream_fps[0], "bare_calls": stream_fps[1]}}))
+                                "runner": stream_fps[0], "bare_calls": stream_fps[1]},
+        "tools": tools}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
     # that runs the kernel (A, B, C: flagship; D: gpu_parity; E: float);
     # launches_per_flagship_call: the grids it put on the device per call

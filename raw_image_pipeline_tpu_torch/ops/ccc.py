@@ -22,6 +22,12 @@ the response each have a plain version here and a hand-written CUDA kernel
 (kernel B, csrc/ccc_histogram.cu; kernel C, csrc/ccc_response.cu);
 `log_chroma_histogram` and `ccc_response` launch the kernel for a CUDA
 tensor and run the plain version for a CPU one.
+
+The chain works on planes; the image-level API of the reference package
+(`log_chroma_histogram_image`, `estimate_illuminant`, `gains_from_offsets`,
+`apply_gains`, `ccc_balance_white` on [..., H, W, 3] BGR frames, which
+tools/ccc_tune.py uses) splits the frames into planes and goes through the
+same functions.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 
 from raw_image_pipeline_tpu_torch import kernels
 from raw_image_pipeline_tpu_torch.ops.common import resolve_device, round_u8
+from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
 
 # Reference constants (ccc.cpp:19-33)
 SMALL_W, SMALL_H = 360, 270
@@ -264,6 +271,20 @@ def gains_from_uv(uv_pos: torch.Tensor, exp_tab: torch.Tensor) -> torch.Tensor:
     return gains / gains.min(dim=-1, keepdim=True).values
 
 
+def gains_from_offsets(lu: float, lv: float, uv0: float = UV0, device="cuda") -> torch.Tensor:
+    """Debug-UV-offset mode gains (setDebugUVOffset, ccc.cpp:349-357):
+    Lu = lu - uv0, Lv = lv - uv0, exp by libm in f64 (the reference's
+    std::exp), then [3] f32 BGR gains normalized by their min in f32."""
+    gains = np.array([math.exp(lv - uv0), 1.0, math.exp(lu - uv0)], np.float32)
+    return torch.as_tensor(gains / gains.min(), device=resolve_device(device))
+
+
+def apply_gains(image: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
+    """cv::multiply(image, Scalar(gain_b, gain_g, gain_r)) on [..., H, W, 3]
+    u8 BGR images with gains [..., 3]: saturating round-half-even."""
+    return round_u8(image.float() * gains[..., None, None, :])
+
+
 def apply_gains_planes(planes, gains: torch.Tensor):
     """cv::multiply(image, Scalar(gain_b, gain_g, gain_r)) on a tuple of
     [B, H, W] u8 planes (BGR order) with gains [B, 3]: saturating
@@ -336,3 +357,62 @@ def kalman_scan(state: KalmanState, meas: torch.Tensor) -> Tuple[KalmanState, to
         state, uv = kalman_update(state, meas[t])
         outs.append(uv)
     return state, torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# Image-level CCC ([..., H, W, 3] BGR frames, as ccc_tune holds them)
+# ---------------------------------------------------------------------------
+
+
+def _image_planes(image: torch.Tensor):
+    """[..., H, W, 3] u8 -> (the leading shape, three [N, H, W] planes)."""
+    if image.dim() < 3 or image.shape[-1] != 3:
+        raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
+    lead = tuple(image.shape[:-3])
+    flat = image.reshape((-1,) + tuple(image.shape[-3:]))
+    return lead, tuple(flat[..., c].contiguous() for c in range(3))
+
+
+def _histogram_cuts(bright_thr: float, dark_thr: float, uv0: float):
+    """The histogram's runtime values: f32(255 * threshold) of the f64
+    products, and uv0 narrowed to f32."""
+    return (float(np.float32(255.0 * bright_thr)), float(np.float32(255.0 * dark_thr)),
+            float(np.float32(uv0)))
+
+
+def log_chroma_histogram_image(image: torch.Tensor, bright_thr: float = 0.9,
+                               dark_thr: float = 0.1, uv0: float = UV0) -> torch.Tensor:
+    """[..., H, W, 3] u8 BGR (the 360x270 working resize) -> [..., 256, 256]
+    f32 histogram: the reference package's image-level log_chroma_histogram,
+    through the planar one (kernel B on a CUDA tensor)."""
+    lead, planes = _image_planes(image)
+    hist = log_chroma_histogram(*planes, *_histogram_cuts(bright_thr, dark_thr, uv0))
+    return hist.reshape(lead + (HIST_N, HIST_N))
+
+
+def estimate_illuminant(image: torch.Tensor, model, bright_thr: float = 0.9,
+                        dark_thr: float = 0.1, uv0: float = UV0) -> torch.Tensor:
+    """[..., H, W, 3] u8 BGR frames and a CCCModel (models/ccc_model.py) ->
+    the response's first-occurrence peak [..., 2] int32 (x, y): the
+    360x270 resize of each plane, the histogram (kernel B) and the response
+    (kernel C) on a CUDA tensor, the argmax."""
+    lead, planes = _image_planes(image)
+    small = [resize_linear_u8_plane(p, SMALL_H, SMALL_W) for p in planes]
+    hist = log_chroma_histogram(*small, *_histogram_cuts(bright_thr, dark_thr, uv0))
+    filt = (torch.as_tensor(np.asarray(a, np.float32), device=image.device)
+            for a in (model.filt_dft_re, model.filt_dft_im, model.bias))
+    return response_argmax(ccc_response(hist, *filt)).reshape(lead + (2,))
+
+
+def ccc_balance_white(image: torch.Tensor, model, bright_thr: float = 0.9,
+                      dark_thr: float = 0.1, state=None, uv0: float = UV0):
+    """Full CCC white balance on [..., H, W, 3] u8 BGR frames: the peak
+    (estimate_illuminant), the Kalman step where `state` is given, and the
+    gains (libm's exp, exp_table). Returns (balanced image, new state);
+    with state=None the raw per-frame peak drives the gains and the new
+    state is None."""
+    uv = estimate_illuminant(image, model, bright_thr, dark_thr, uv0)
+    if state is not None:
+        state, uv = kalman_update(state, uv)
+    gains = gains_from_uv(uv, torch.as_tensor(exp_table(uv0), device=image.device))
+    return apply_gains(image, gains), state

@@ -18,6 +18,11 @@ import numpy as np
 SEED = 0
 FRAMES, CALLS = 8, 2  # a flagship-family run: 8 frames in 2 calls of B=4
 TWO_PEAK_GAP = 1e-5  # the two-peak fixture's relative gap between its peaks
+# the reference's launch-file setup of the Alphasense 1.6 MP sensor, relative
+# to the repository: pipeline params and calibration
+LAUNCH_PROFILE = ("configs/alphasense_launch_profile.yaml",
+                  "configs/alphasense_calib_1.6mp_example.yaml")
+LAUNCH_PROFILE_HW = (1080, 1440)
 
 
 class Chain:
@@ -159,26 +164,39 @@ def hostile_maps(out_hw, src_hw, seed: int):
             (rng.random((h, w)) * (sh + 6) - 3).astype(np.float32))
 
 
-def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int):
-    """n seeded [h, w] frames made on the card, each with its own colour
-    cast (a per-frame, per-channel gain), so that every white-balance method
-    finds different gains per frame: "color" [n, h, w, 3] BGR, "bayer"
-    [n, h, w] bayer_gbrg8 mosaics of such frames."""
-    g = torch.Generator(device="cuda")
+def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int, device="cuda"):
+    """n seeded [h, w] frames made on the card (or `device`), each with its
+    own colour cast (a per-frame, per-channel gain), so that every
+    white-balance method finds different gains per frame: "color"
+    [n, h, w, 3] BGR, "bayer" [n, h, w] bayer_gbrg8 mosaics of such
+    frames."""
+    g = torch.Generator(device=device)
     g.manual_seed(seed)
-    yy = torch.linspace(0, 1, h, device="cuda")[:, None]
-    xx = torch.linspace(0, 1, w, device="cuda")[None, :] * (w / h)
+    yy = torch.linspace(0, 1, h, device=device)[:, None]
+    xx = torch.linspace(0, 1, w, device=device)[None, :] * (w / h)
     out = torch.empty((n, h, w, 3) if kind == "color" else (n, h, w), dtype=torch.uint8,
-                      device="cuda")
+                      device=device)
     for s in range(0, n, 32):
         m = min(32, n - s)
-        phase = torch.rand((m, 1, 1), generator=g, device="cuda") * 6
+        phase = torch.rand((m, 1, 1), generator=g, device=device) * 6
         base = 40 + 200 * (0.5 + 0.5 * torch.sin(7 * xx + 5 * yy + phase))
-        cast = 0.4 + 1.3 * torch.rand((m, 1, 1, 3), generator=g, device="cuda")
-        noise = 0.8 + 0.4 * torch.rand((m, h, w, 3), generator=g, device="cuda")
+        cast = 0.4 + 1.3 * torch.rand((m, 1, 1, 3), generator=g, device=device)
+        noise = 0.8 + 0.4 * torch.rand((m, h, w, 3), generator=g, device=device)
         img = (base[..., None] * cast * noise).clamp(0, 255).to(torch.uint8)
         out[s:s + m] = img if kind == "color" else mosaic_gbrg(img)
     return out
+
+
+def fixture_frames(torch, bgr, n: int, h: int, w: int, device="cuda"):
+    """n [h, w] bayer_gbrg8 frames of real content: the BGR image `bgr` (the
+    repository's Alphasense fixture, 720x540) resized bilinearly to
+    (h, w), frame k turned 8k pixels to the right (wrapping round) so that
+    no two frames are equal, then mosaicked."""
+    img = torch.as_tensor(bgr, device=device).permute(2, 0, 1)[None].float()
+    img = torch.nn.functional.interpolate(img, size=(h, w), mode="bilinear",
+                                          align_corners=False)
+    img = img.round().clamp(0, 255).to(torch.uint8)[0].permute(1, 2, 0)
+    return mosaic_gbrg(torch.stack([torch.roll(img, 8 * k, dims=1) for k in range(n)]))
 
 
 def mosaic_gbrg(bgr):

@@ -425,7 +425,11 @@ def test_port_sources_import_no_jax():
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
     for name in ("parallel/multicamera.py", "runtime/stream.py", "runtime/sources.py",
-                 "runtime/control.py", "runtime/native.py"):
+                 "runtime/control.py", "runtime/native.py", "tools/run_pipeline.py",
+                 "tools/apply_pipeline.py", "tools/ccc_tune.py", "tools/stream_bench.py",
+                 "tools/gpu_parity_check.py", "tools/color_calibration.py",
+                 "tools/png_writer_bench.py",
+                 "utils/image_io.py", "utils/logging.py", "utils/profiling.py"):
         assert os.path.join(pkg, name) in files, name
     for path in files:
         with open(path) as f:

@@ -38,6 +38,7 @@ from raw_image_pipeline_tpu_torch.ops import gamma as pgamma
 from raw_image_pipeline_tpu_torch.ops import resize as presize
 from raw_image_pipeline_tpu_torch.ops import undistortion as pund
 from raw_image_pipeline_tpu_torch.ops import vignetting as pvig
+from raw_image_pipeline_tpu_torch.tools import gpu_parity_check as gpc
 
 PHASES = ("rggb", "grbg", "gbrg", "bggr")
 
@@ -291,8 +292,11 @@ def test_colorspace_host_tables_equal_reference():
     np.testing.assert_array_equal(pcs._softfloat_cbrt_f32(bits), jcs._softfloat_cbrt_f32(bits))
 
 
-# every u8 triple, in chunks (each chunk also runs jitted on the JAX side)
+# every u8 triple, in chunks (each chunk also runs jitted on the JAX side);
+# each chunk's port outputs also hash to the digest tools/gpu_parity_check.py
+# holds the card to, over the same chunks
 _CHUNK = 1 << 22
+assert _CHUNK == gpc.CHUNK
 
 
 @pytest.mark.parametrize("index", range((1 << 24) // _CHUNK))
@@ -302,11 +306,13 @@ def test_lab_roundtrip_all_triples_equal_reference(index):
     want = jax.jit(jcs.bgr_to_lab_planes)(b, g, r)
     for x, y in zip(fwd, want):
         np.testing.assert_array_equal(_np(x), np.asarray(y))
+    assert gpc.planes_digest(fwd) == gpc.DIGESTS["bgr_to_lab"][index]
     # the inverse, on every (L, a, b) triple
     inv = pcs.lab_to_bgr_planes(*map(torch.as_tensor, (b, g, r)))
     want = jax.jit(jcs.lab_to_bgr_planes)(b, g, r)
     for x, y in zip(inv, want):
         np.testing.assert_array_equal(_np(x), np.asarray(y))
+    assert gpc.planes_digest(inv) == gpc.DIGESTS["lab_to_bgr"][index]
 
 
 @pytest.mark.parametrize("index", range((1 << 24) // _CHUNK))
@@ -316,15 +322,18 @@ def test_hsv_all_triples_equal_reference(index):
     want = jax.jit(jcs.bgr_to_hsv_planes)(b, g, r)
     for x, y in zip(fwd, want):
         np.testing.assert_array_equal(_np(x), np.asarray(y))
+    assert gpc.planes_digest(fwd) == gpc.DIGESTS["bgr_to_hsv"][index]
     # HSV->BGR in both of cv2's row kernels, on every (h, s, v) triple
     h = (b.astype(np.int32) * 180 // 256).astype(np.uint8)  # h spans [0, 180)
-    for port, ref in ((pcs.hsv_to_bgr_planes, jcs.hsv_to_bgr_planes),
-                      (pcs.hsv_to_bgr_planes_scalar, jcs.hsv_to_bgr_planes_scalar)):
-        for hh in (h, b):  # also h >= 180, which cv2 wraps by sector % 6
+    for port, ref, name in ((pcs.hsv_to_bgr_planes, jcs.hsv_to_bgr_planes, "hsv_to_bgr"),
+                            (pcs.hsv_to_bgr_planes_scalar, jcs.hsv_to_bgr_planes_scalar,
+                             "hsv_to_bgr_scalar")):
+        for hh, suffix in ((h, ""), (b, "_any_h")):  # also h >= 180: cv2 wraps by sector % 6
             got = port(*map(torch.as_tensor, (hh, g, r)))
             want = jax.jit(ref)(hh, g, r)
             for x, y in zip(got, want):
                 np.testing.assert_array_equal(_np(x), np.asarray(y))
+            assert gpc.planes_digest(got) == gpc.DIGESTS[name + suffix][index]
 
 
 # --- vignetting ------------------------------------------------------------

@@ -103,11 +103,24 @@ per source, into build/kernels/), then:
      (all 2^24 triples of the exact colour spaces against their digests,
      the white-balance oracle goldens, the 540x720 chain card vs CPU);
      stream_bench on 64 1080x1920 raw frames; stage_timings of the flagship
-     at 1920x1080, B=4.
+     at 1920x1080, B=4;
+  5. runs the mesh (raw_image_pipeline_tpu_torch/parallel) over logical
+     shards of cuda:0: the flagship at 1920x1080, 2 calls of B=4 with the
+     state carried, over (data 2, space 2) and (1, 4) in both temporal
+     modes, the float (E) and gpu_parity (D) chains over (1, 4), multicam4
+     over data 2 and StreamRunner over (2, 1), each equal to the unsharded
+     call byte for byte and in state, the launch counts set to 0 just
+     before each sharded run and read just after (every kernel of the
+     chain launched once per shard and call); frames/s sharded and
+     unsharded on the one card (no scaling figure); each flagship slab's
+     remap window; tools/pod_bench.py at 1920x1080, batch 4 a device, as
+     one process and as two gloo ranks on the card, and two NCCL ranks on
+     the card, which must refuse.
 
 It prints the card's name and power limit, the build time, one line per
-check, a JSON line of the kernels (with each one's launches on the main
-path and per flagship call) and, last, {"ok": true, "device": ...}.
+check, a JSON line of the mesh phase, a JSON line of the kernels (with
+each one's launches on the main path and per flagship call) and, last,
+{"ok": true, "device": ...}.
 Any failure, and a machine without a CUDA device, exits non-zero without
 the last line. It imports no JAX.
 """
@@ -1181,6 +1194,249 @@ def check_tools(tp, torch, np, root):
     return out
 
 
+MESH_CARD = "cuda:0"
+MESH_CHAINS = (  # (chain, [(data, space)], temporal modes) of the mesh phase
+    ("flagship", ((2, 2), (1, 4)), ("sequence", "cameras")),
+    ("float", ((1, 4),), ("sequence",)),
+    ("gpu_parity", ((1, 4),), ("sequence",)),
+)
+MESH_STREAM_FRAMES = 12  # 3 batches of 4 through StreamRunner over (2, 1)
+
+
+def _pod_bench(root, argv, ranks):
+    """tools/pod_bench.py as `ranks` processes (gloo on one card when 2),
+    each with its own timeout. Returns [(returncode, stdout, stderr)]."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    cmd = [sys.executable, "-m", "raw_image_pipeline_tpu_torch.tools.pod_bench", *argv]
+    if ranks > 1:
+        cmd += ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(ranks)]
+    procs = [subprocess.Popen(cmd + (["--process-id", str(i)] if ranks > 1 else []), cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(ranks)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def check_mesh(tp, torch, np, root, smi_line):
+    """Phase 5: the mesh (parallel/) on the one card, every shard a logical
+    shard on cuda:0: the flagship at 1920x1080, B=4 a call, over (data 2,
+    space 2) and (1, 4) in both temporal modes, 2 calls with the state
+    carried; the float (E) and gpu_parity (D) chains over (1, 4); multicam4
+    over data 2; StreamRunner over (2, 1). The launch counts are set to 0
+    just before each sharded run and read just after: every kernel of the
+    chain must have launched inside it (A/D and C once per shard and call,
+    B once per shard and call, E once per shard and call). Each sharded
+    output and state, and the unsharded call's on the card, must equal the
+    plain-op unsharded chain on the card on the same frames byte for byte,
+    so the kernels are held against their plain versions at the shards'
+    shapes (halo'd slabs, per-slab counts, rebased windows). Then tools/pod_bench.py at 1920x1080, batch 4 a device, as one
+    process and as two gloo processes on cuda:0 (and NCCL on two ranks of
+    one card must refuse). Frames/s are logical shards on one card, not a
+    scaling figure. Returns the numbers of the mesh JSON line."""
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.parallel import (
+        build_multicamera_pipeline,
+        make_mesh,
+        multicamera_state,
+    )
+    from raw_image_pipeline_tpu_torch.pipeline import _post_flip_shape, make_isp_fn
+    from raw_image_pipeline_tpu_torch.runtime.stream import StreamRunner
+    from raw_image_pipeline_tpu_torch.tools import workloads
+
+    h, w = 1080, 1920
+    enc = "bayer_gbrg8"
+    per, calls = workloads.FRAMES // workloads.CALLS, workloads.CALLS
+    table = workloads.chains(tp)
+    launches, fps, windows = {}, {}, {}
+    label = f"logical shards on one card, not a scaling figure; {smi_line}"
+
+    def run(pipe, frames, state, sharded):
+        outs = []
+        for c in range(calls):
+            out, state = pipe(frames[c * per:(c + 1) * per], state)
+            outs.append(out["processed"].gather(MESH_CARD) if sharded else out["processed"])
+        return outs, state
+
+    for name, layouts, modes in MESH_CHAINS:
+        ch = table[name]
+        config = ch.config(h, w)
+        frames = workloads.card_frames(torch, "bayer", per * calls, h, w,
+                                       workloads.SEED + 90 + len(name))
+        for mode in modes:
+            shape = () if mode == "sequence" else (per,)
+            whole = tp.build_pipeline(config, enc, (h, w), with_state=True, temporal_mode=mode,
+                                      device=MESH_CARD)
+            plain_fn = make_isp_fn(config, enc, True, False, temporal_mode=mode, plain=True)
+            ref, ref_state = run(lambda px, st: plain_fn(whole.params, px, st), frames,
+                                 tp.init_state(shape, MESH_CARD), False)
+            one, one_state = run(whole, frames, tp.init_state(shape, MESH_CARD), False)
+            bad = sum(int((a != b).sum()) for a, b in zip(one, ref))
+            same = _same_state(torch, one_state, ref_state)
+            print(f"mesh {name} {mode} {w}x{h} B={per} x {calls} calls, unsharded: {bad} "
+                  f"mismatching bytes vs the plain-op chain, Kalman state equal: {same}")
+            if bad or not same:
+                raise AssertionError(f"mesh {name} {mode}: the unsharded call differs")
+            del one
+            for data, space in layouts:
+                mesh = make_mesh([MESH_CARD] * (data * space), space=space)
+                pipe = tp.build_pipeline(config, enc, (h, w), with_state=True,
+                                         temporal_mode=mode, mesh=mesh)
+                if name == "flagship" and mode == "sequence":
+                    windows[f"space{space}"] = [pipe.shard_params[(0, s)].remap_window
+                                                for s in range(space)]
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                outs, state = run(pipe, frames, tp.init_state(shape, MESH_CARD), True)
+                torch.cuda.synchronize()
+                counts = {k.name: k.launches for k in kernels.ALL}
+                key = f"{name} ({data}, {space}) {mode}"
+                launches[key] = counts
+                bad = sum(int((a != b).sum()) for a, b in zip(outs, ref))
+                same = _same_state(torch, state, ref_state)
+                print(f"mesh {key} {w}x{h} B={per} x {calls} calls: {bad} mismatching bytes "
+                      f"vs the plain-op unsharded chain, Kalman state equal: {same}; launches "
+                      f"{counts}")
+                want = data * space * calls  # every shard holds frames and rows
+                if bad or not same or any(counts[k] != want for k in ch.kernels):
+                    raise AssertionError(f"mesh {key}: differs or a kernel of {ch.kernels} "
+                                         f"did not launch {want} times")
+                if name == "flagship" and mode == "sequence":
+                    def timed(p, sharded):
+                        st = tp.init_state((), MESH_CARD)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        run(p, frames, st, sharded)
+                        torch.cuda.synchronize()
+                        return per * calls / (time.perf_counter() - t0)
+
+                    fps[f"({data}, {space})"] = statistics.median(timed(pipe, True)
+                                                                  for _ in range(3))
+                    fps["unsharded"] = statistics.median(timed(whole, False) for _ in range(3))
+                    print(f"mesh flagship {w}x{h} frames/s ({data}, {space}): "
+                          f"{fps[f'({data}, {space})']:.2f}, unsharded: {fps['unsharded']:.2f} "
+                          f"(host clock over {per * calls} frames in {calls} calls, median of "
+                          f"3; {label})")
+            del whole, ref
+        del frames
+        torch.cuda.empty_cache()
+    print(f"mesh flagship {w}x{h} remap windows (source rows [start, stop) per output slab): "
+          f"{windows}")
+
+    # multicam4: the four cameras over data 2
+    ch = workloads.multicam_chains(tp)["multicam4"]
+    config = ch.config(h, w)
+    calibs = workloads.multicam_calibrations(config.calibration)
+    cams = len(calibs)
+    src = _post_flip_shape(h, w, config.flip.angle if config.flip.enabled else 0)
+    frames = workloads.card_frames(torch, "bayer", cams * per, h, w,
+                                   workloads.SEED + 95).view(cams, per, h, w)
+    for mode in ("sequence", "cameras"):
+        whole = build_multicamera_pipeline(config, calibs, enc, (h, w), True, mode,
+                                           device=MESH_CARD)
+        pipe = build_multicamera_pipeline(config, calibs, enc, (h, w), True, mode,
+                                          mesh=make_mesh([MESH_CARD] * 2))
+        plain_fn = make_isp_fn(config.replace(calibration=calibs[0]), enc, True, False,
+                               temporal_mode=mode, remap_src_hw=src, n_cameras=cams, plain=True)
+        ref, ref_state = plain_fn(whole.params, frames,
+                                  multicamera_state(cams, per, mode, MESH_CARD))
+        one, one_state = whole(frames, multicamera_state(cams, per, mode, MESH_CARD))
+        bad_one = int((one["processed"] != ref["processed"]).sum())
+        same_one = _same_state(torch, one_state, ref_state)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out, state = pipe(frames, multicamera_state(cams, per, mode, MESH_CARD))
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in kernels.ALL}
+        launches[f"multicam4 (2, 1) {mode}"] = counts
+        bad = int((out["processed"].gather(MESH_CARD) != ref["processed"]).sum())
+        same = _same_state(torch, state, ref_state)
+        print(f"mesh multicam4 {cams} cameras x B={per} over data 2 ({mode}): {bad} mismatching "
+              f"bytes vs the plain-op unsharded chain, Kalman state equal: {same}; launches "
+              f"{counts}; the unsharded call: {bad_one} mismatching bytes, state equal: "
+              f"{same_one}")
+        if (bad or not same or bad_one or not same_one
+                or any(counts[k] != 2 for k in ch.kernels)):
+            raise AssertionError(f"mesh multicam4 ({mode}) differs or a kernel did not launch")
+    del frames, whole, pipe, out, ref, one
+    torch.cuda.empty_cache()
+
+    # StreamRunner over (2, 1) and on the card alone, against the plain-op
+    # chain on the same batches, the state carried
+    config = tp.flagship_config(h, w)
+    n = MESH_STREAM_FRAMES
+    frames = workloads.card_frames(torch, "bayer", n, h, w, workloads.SEED + 96).cpu().numpy()
+    plain_fn = make_isp_fn(config, enc, True, True, temporal_mode="sequence", plain=True)
+    params = tp.make_params(config, (h, w), MESH_CARD)
+    want, want_state = {}, tp.init_state((), MESH_CARD)
+    for s in range(0, n, per):
+        out, want_state = plain_fn(params, torch.as_tensor(frames[s:s + per], device=MESH_CARD),
+                                   want_state)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        for i in range(out["processed"].shape[0]):
+            for stream, key in (("color", "dist_color"), ("color_rect", "processed"),
+                                ("debayered", "debayered")):
+                want[(stream, s + i)] = out[key][i]
+    got = {}
+    for key, kw in (("one", {"device": MESH_CARD}),
+                    ("mesh", {"mesh": make_mesh([MESH_CARD] * 2)})):
+        runner = StreamRunner(config, enc, (h, w), batch_size=per, **kw)
+        images = {}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        runner.run(iter(frames), lambda s, i, img: images.setdefault((s, i), img))
+        torch.cuda.synchronize()
+        got[key] = images, runner.state, {k.name: k.launches for k in kernels.ALL}
+    launches["stream (2, 1)"] = counts = got["mesh"][2]
+    res = {key: (sum(int((images[k] != want[k]).sum()) for k in want), set(images) == set(want),
+                 _same_state(torch, st, want_state)) for key, (images, st, _) in got.items()}
+    print(f"mesh StreamRunner(batch_size={per}) over (2, 1), {n} frames {w}x{h}: "
+          f"{len(got['mesh'][0])} images; (mismatching bytes vs the plain-op chain, the same "
+          f"images, Kalman state equal): over the mesh {res['mesh']}, without a mesh "
+          f"{res['one']}; launches {counts}")
+    if (any(bad or not images or not same for bad, images, same in res.values())
+            or counts["debayer_bilinear"] != 2 * n // per):
+        raise AssertionError("mesh StreamRunner differs")
+    del got, want, frames
+    torch.cuda.empty_cache()
+
+    # pod_bench: one process, two gloo ranks on the card; NCCL must refuse
+    bench = {}
+    argv = ["--height", str(h), "--width", str(w), "--batch-per-device", "4",
+            "--k-dispatch", "3", "--rounds", "3"]
+    for ranks, extra in ((1, []), (2, ["--backend", "gloo"])):
+        outs = _pod_bench(root, argv + extra, ranks)
+        for rc, out, err in outs:
+            if rc != 0:
+                raise AssertionError(f"pod_bench ({ranks} ranks) failed rc={rc}: {err[-2000:]}")
+        line = json.loads(outs[0][1].strip().splitlines()[-1])
+        if line["processes"] != ranks or any("pod_scaling" in o for _, o, _ in outs[1:]):
+            raise AssertionError(f"pod_bench ({ranks} ranks): {line}")
+        bench[f"{ranks}_ranks"] = line
+        print(f"mesh pod_bench {ranks} rank(s) on {MESH_CARD}: {json.dumps(line)} ({label})")
+    refused = _pod_bench(root, argv + ["--backend", "nccl"], 2)
+    msgs = [err for rc, _, err in refused if rc != 0 and "NCCL cannot run ranks" in err]
+    print(f"mesh pod_bench 2 NCCL ranks on one card: refused by {len(msgs)} of 2 ranks")
+    if len(msgs) != 2:
+        raise AssertionError("NCCL on two ranks of one card did not refuse: "
+                             + " | ".join(err[-500:] for _, _, err in refused))
+    return {"launches": launches, "flagship_frames_per_s": fps, "remap_windows": windows,
+            "pod_bench": bench}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1227,6 +1483,7 @@ def main() -> int:
         phase("small", check_small, tp, torch, np)
         phase("api", check_api, tp, torch, np)
         tools = phase("tools", check_tools, tp, torch, np, root)
+        mesh = phase("mesh", check_mesh, tp, torch, np, root, smi_line)
     except Exception as e:  # the smoke test's boundary: report and fail
         import traceback
 
@@ -1245,6 +1502,8 @@ def main() -> int:
         "stream_frames_per_s": {"chain": "flagship", "size": "1920x1080",
                                 "runner": stream_fps[0], "bare_calls": stream_fps[1]},
         "tools": tools}))
+    print(json.dumps({"mesh": mesh, "card": smi_line,
+                      "note": "logical shards on one card, not a scaling figure"}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
     # that runs the kernel (A, B, C: flagship; D: gpu_parity; E: float);
     # launches_per_flagship_call: the grids it put on the device per call

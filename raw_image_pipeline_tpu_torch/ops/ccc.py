@@ -35,7 +35,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,25 +116,28 @@ def log_chroma_bins(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
     return (frame * (HIST_N * HIST_N) + u * HIST_N + v)[valid]
 
 
-def _pixel_weight(h: int, w: int) -> float:
+def frame_pixel_weight(h: int, w: int) -> float:
     return float(np.float32(1.0 / (h * w)))  # narrowed as ccc.py:206
 
 
 def log_chroma_histogram_plain(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
                                bright_cut: float, dark_cut: float,
-                               uv0: float) -> torch.Tensor:
+                               uv0: float, pixel_weight: Optional[float] = None) -> torch.Tensor:
     """Plain version of kernel B: three [B, h, w] u8 planes -> [B, 256, 256]
     f32 histogram, the integer counts of the valid pixels' (u, v) bins
-    times f32(1/(h*w)) once."""
+    times pixel_weight once (default f32(1/(h*w)); 1.0 gives the counts,
+    as the spatial split sums them over slabs)."""
     nb = b.shape[0]
+    if pixel_weight is None:
+        pixel_weight = frame_pixel_weight(*b.shape[-2:])
     counts = torch.bincount(log_chroma_bins(b, g, r, bright_cut, dark_cut, uv0),
                             minlength=nb * HIST_N * HIST_N)
-    return counts.float().view(nb, HIST_N, HIST_N) * _pixel_weight(*b.shape[-2:])
+    return counts.float().view(nb, HIST_N, HIST_N) * pixel_weight
 
 
 def log_chroma_histogram_cuda(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
                               bright_cut: float, dark_cut: float,
-                              uv0: float) -> torch.Tensor:
+                              uv0: float, pixel_weight: Optional[float] = None) -> torch.Tensor:
     """Kernel B: same contract as log_chroma_histogram_plain, CUDA tensors,
     one launch and no other stream operation."""
     for name, t in (("b", b), ("g", g), ("r", r)):
@@ -147,12 +150,15 @@ def log_chroma_histogram_cuda(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
         raise ValueError(f"planes: kernel B takes frames of at most {HIST_KERNEL_MAX_PIXELS} "
                          f"pixels, got {h}x{w}")
     hist = torch.empty((nb, HIST_N, HIST_N), dtype=torch.float32, device=b.device)
-    if nb:
+    if nb and h * w == 0:
+        hist.zero_()  # no pixels (an empty slab of the spatial split)
+    elif nb:
         tab = _log_tab_on(str(b.device))
         with torch.cuda.device(b.device):
             kernels.CCC_HISTOGRAM.launch(
                 b.data_ptr(), g.data_ptr(), r.data_ptr(), tab.data_ptr(), hist.data_ptr(),
-                nb, h * w, bright_cut, dark_cut, uv0, _pixel_weight(h, w),
+                nb, h * w, bright_cut, dark_cut, uv0,
+                frame_pixel_weight(h, w) if pixel_weight is None else pixel_weight,
                 kernels.stream_handle(b),
             )
     return hist
@@ -160,14 +166,15 @@ def log_chroma_histogram_cuda(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
 
 def log_chroma_histogram(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
                          bright_cut: float, dark_cut: float, uv0: float,
-                         plain: bool = False) -> torch.Tensor:
+                         plain: bool = False,
+                         pixel_weight: Optional[float] = None) -> torch.Tensor:
     """[B, h, w] u8 B/G/R planes (the working resize) -> [B, 256, 256] f32
-    histogram. Kernel B on CUDA tensors; the plain version on CPU tensors
-    or with plain=True."""
+    histogram (pixel_weight: see log_chroma_histogram_plain). Kernel B on
+    CUDA tensors; the plain version on CPU tensors or with plain=True."""
     if plain or b.device.type == "cpu":
-        return log_chroma_histogram_plain(b, g, r, bright_cut, dark_cut, uv0)
+        return log_chroma_histogram_plain(b, g, r, bright_cut, dark_cut, uv0, pixel_weight)
     return log_chroma_histogram_cuda(b.contiguous(), g.contiguous(), r.contiguous(),
-                                     bright_cut, dark_cut, uv0)
+                                     bright_cut, dark_cut, uv0, pixel_weight)
 
 
 # ---------------------------------------------------------------------------

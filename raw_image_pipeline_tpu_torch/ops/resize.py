@@ -88,15 +88,36 @@ def _tables_on(src_h: int, src_w: int, dst_h: int, dst_w: int, device: str):
     return (idx(sx), idx(sx2), wt(a0), wt(a1)), (idx(sy), idx(sy2), wt(b0), wt(b1))
 
 
+@functools.lru_cache(maxsize=64)
+def _rows_on(src_h: int, src_w: int, dst_h: int, dst_w: int, device: str,
+             y0: int, y1: int, row0: int):
+    """_tables_on's tables for the output rows [y0, y1), their source rows
+    counted from the frame's row row0 (the whole tables for the whole
+    frame)."""
+    x, (sy, sy2, b0, b1) = _tables_on(src_h, src_w, dst_h, dst_w, device)
+    if (y0, y1, row0) == (0, dst_h, 0):
+        return x, (sy, sy2, b0, b1)
+    return x, (sy[y0:y1] - row0, sy2[y0:y1] - row0, b0[y0:y1], b1[y0:y1])
+
+
 def resize_linear_u8_plane(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
     """[..., H, W] uint8 -> [..., dst_h, dst_w] uint8, bit-exact vs
     cv::resize(INTER_LINEAR). Only the rows the vertical pass reads go
     through the horizontal pass (identical values, fewer operations)."""
-    (sx, sx2, a0, a1), (sy, sy2, b0, b1) = _tables_on(
-        img.shape[-2], img.shape[-1], dst_h, dst_w, str(img.device)
+    return resize_linear_u8_rows(img, img.shape[-2], dst_h, dst_w, 0, dst_h, 0)
+
+
+def resize_linear_u8_rows(img: torch.Tensor, src_h: int, dst_h: int, dst_w: int,
+                          y0: int, y1: int, row0: int) -> torch.Tensor:
+    """Rows [y0, y1) of the resize of an src_h-row frame to dst_h x dst_w,
+    from `img` [..., h, W], the frame's rows [row0, row0 + h) (which must
+    hold every source row those output rows read): [..., y1 - y0, dst_w]
+    uint8, equal to those rows of resize_linear_u8_plane of the frame."""
+    (sx, sx2, a0, a1), (sy, sy2, b0, b1) = _rows_on(
+        src_h, img.shape[-1], dst_h, dst_w, str(img.device), y0, y1, row0
     )
 
-    def horiz(rows: torch.Tensor) -> torch.Tensor:  # int32 [..., dst_h, dst_w]
+    def horiz(rows: torch.Tensor) -> torch.Tensor:  # int32 [..., rows, dst_w]
         return (rows.index_select(-1, sx).to(torch.int32) * a0
                 + rows.index_select(-1, sx2).to(torch.int32) * a1)
 

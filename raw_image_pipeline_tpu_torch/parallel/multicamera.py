@@ -18,21 +18,29 @@ method, frame size); their calibrations' values differ freely.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional, Sequence, Tuple
 
-import torch
+import numpy as np
 
 from raw_image_pipeline_tpu_torch.config import CameraCalibration, PipelineConfig
 from raw_image_pipeline_tpu_torch.ops import ccc as ccc_ops
 from raw_image_pipeline_tpu_torch.ops.common import resolve_device
+from raw_image_pipeline_tpu_torch.parallel.mesh import split_frames
+from raw_image_pipeline_tpu_torch.parallel.spatial import (
+    MeshFn,
+    check_mesh_rows,
+    shard_params,
+)
 from raw_image_pipeline_tpu_torch.pipeline import (
     BuiltPipeline,
     IspState,
+    _host_fields,
     _post_flip_shape,
     _runs_undistortion,
+    impls_for_devices,
+    make_isp_chain,
     make_isp_fn,
-    make_params,
+    params_from_numpy,
     remap_fields,
 )
 
@@ -61,11 +69,17 @@ def build_multicamera_pipeline(
     `device` ("cuda", the default, launches the hand-written kernels;
     "cpu" runs the plain versions): outputs, state = pipe(frames, state),
     every output [n_cameras, B, ...]. Its params carry stacked per-camera
-    remap maps where the calibrations differ. mesh: not supported yet (the
-    port runs on one card; ROADMAP Queue 1, multi-device)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the port runs on one card; multi-device is ROADMAP Queue 1, item 5")
+    remap maps where the calibrations differ.
+
+    mesh (parallel.mesh.make_mesh): the cameras split over "data" (as
+    tensor_split splits them), each data shard running the camera-blocked
+    chain of its cameras with their stacked maps (a flat map where its
+    cameras' calibrations are equal) and their Kalman tracks, and each
+    frame's rows over "space" (parallel/spatial.py); `device` is then not
+    used. Frames may be a ShardedBatch (shard_batch(..., row_axis=2)) or
+    the global [C, B, H, W] batch; outputs come back as ShardedBatch,
+    the state (split over the cameras in both temporal modes) whole. Equal
+    to the unsharded chain byte for byte."""
     n = len(calibrations)
     if n == 0:
         raise ValueError("need at least one camera calibration")
@@ -75,28 +89,71 @@ def build_multicamera_pipeline(
         # calibrations may differ in values but must share the frame size
         if (c.image_height, c.image_width) != tuple(frame_hw):
             raise ValueError("all cameras must share one frame size")
-    dev = resolve_device(device)
     config0 = base_config.replace(calibration=calibrations[0])
-    params = make_params(config0, frame_hw, dev)
-    # the cameras' configs differ only in their calibration, from which
-    # only the remap's maps derive; sharing is decided on the host
-    # dataclasses, so that equal calibrations give one flat map
-    maps_shared = all(c == calibrations[0] for c in calibrations[1:])
     src_hw = _post_flip_shape(*frame_hw,
                               base_config.flip.angle if base_config.flip.enabled else 0)
-    if not maps_shared and _runs_undistortion(config0):
-        maps = [remap_fields(base_config.replace(calibration=c), src_hw)
-                for c in calibrations[1:]]
-        params = dataclasses.replace(
-            params,
-            remap_base=torch.stack([params.remap_base] + [
-                torch.as_tensor(b, device=dev).to(torch.int32) for b, _ in maps]),
-            remap_weights=torch.stack([params.remap_weights] + [
-                torch.as_tensor(w, device=dev).to(torch.float32) for _, w in maps]),
-        )
+    if mesh is not None:
+        return _mesh_multicamera(base_config, calibrations, encoding, frame_hw, with_state,
+                                 temporal_mode, mesh, src_hw)
+    dev = resolve_device(device)
+    fields = _camera_fields(base_config, calibrations, frame_hw, src_hw)
+    params = params_from_numpy(fields, config0, dev)
     fn = make_isp_fn(config0, encoding, with_state, False, temporal_mode=temporal_mode,
                      remap_src_hw=src_hw, n_cameras=n)
     if not with_state:
         inner = fn
         fn = lambda p, px, state=None: (inner(p, px, None)[0], state)  # noqa: E731
     return BuiltPipeline(base_config, params, fn)
+
+
+def _camera_fields(base_config: PipelineConfig, calibrations, frame_hw, src_hw):
+    """The host fields of a camera-blocked chain over `calibrations`: the
+    first camera's, with the remap maps stacked [C, N] / [C, k, N] where
+    the calibrations differ (one flat map where they are all equal)."""
+    config0 = base_config.replace(calibration=calibrations[0])
+    fields = _host_fields(config0, frame_hw)
+    # the cameras' configs differ only in their calibration, from which
+    # only the remap's maps derive; sharing is decided on the host
+    # dataclasses, so that equal calibrations give one flat map
+    maps_shared = all(c == calibrations[0] for c in calibrations[1:])
+    if not maps_shared and _runs_undistortion(config0):
+        maps = [(fields["remap_base"], fields["remap_weights"])] + [
+            remap_fields(base_config.replace(calibration=c), src_hw) for c in calibrations[1:]]
+        fields["remap_base"] = np.stack([b for b, _ in maps])
+        fields["remap_weights"] = np.stack([w for _, w in maps])
+    return fields
+
+
+def _mesh_multicamera(base_config, calibrations, encoding, frame_hw, with_state,
+                      temporal_mode, mesh, src_hw) -> BuiltPipeline:
+    """The cameras over the mesh's data axis (see build_multicamera_pipeline)."""
+    if mesh.process_count != 1:
+        raise ValueError("a multicamera mesh spans one process")
+    n = len(calibrations)
+    config0 = base_config.replace(calibration=calibrations[0])
+    check_mesh_rows(config0, frame_hw, src_hw, mesh)
+    ranges = split_frames(n, mesh.local_data)
+    row_fields = {d: _camera_fields(base_config, calibrations[a:b] or calibrations[:1],
+                                    frame_hw, src_hw)
+                  for d, (a, b) in enumerate(ranges)}
+    per_shard = shard_params(config0, row_fields[0], mesh, src_hw, rows=row_fields)
+    chains = {}
+
+    def chain(params, pixels, state, part):
+        # each data shard's chain for its own number of cameras
+        c = pixels.shape[0]
+        if c not in chains:
+            chains[c] = make_isp_chain(config0, encoding, with_state, False,
+                                       temporal_mode=temporal_mode, remap_src_hw=src_hw,
+                                       n_cameras=c, camera_blocked=True)
+        outputs, new_state, heights = yield from chains[c](params, pixels, state, part)
+        return outputs, (new_state if with_state else None), heights
+
+    fn = MeshFn(chain, mesh, per_shard, state_sharded=True, gathers=False, row_axis=2)
+    if not with_state:
+        inner = fn
+        fn = lambda px, state=None: (inner(px, None)[0], state)  # noqa: E731
+    return BuiltPipeline(base_config, params_from_numpy(row_fields[0], config0,
+                                                        mesh.devices[0, 0]),
+                         fn, mesh=mesh, shard_params=per_shard,
+                         selected_impls=impls_for_devices(mesh.local_devices()))

@@ -53,7 +53,7 @@ from raw_image_pipeline_tpu_torch.ops.debayer import (
 from raw_image_pipeline_tpu_torch.ops.flip import flip as flip_op
 from raw_image_pipeline_tpu_torch.ops.flip import flipped_bayer_encoding
 from raw_image_pipeline_tpu_torch.ops.gamma import apply_lut, build_bt709_lut, build_gamma_lut
-from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
+from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane, resize_linear_u8_rows
 from raw_image_pipeline_tpu_torch.ops.undistortion import (
     estimate_new_camera_matrix,
     init_undistort_rectify_map,
@@ -107,6 +107,9 @@ class IspParams:
     ccc_bright_cut: float = 0.0
     ccc_dark_cut: float = 0.0
     ccc_uv0: float = 0.0
+    # the source rows [start, stop) remap_base indexes (a slab of the
+    # spatial split: its map rebased to its window; None: the whole frame)
+    remap_window: Optional[Tuple[int, int]] = None
 
 
 def _post_flip_shape(h: int, w: int, angle: int) -> Tuple[int, int]:
@@ -337,6 +340,49 @@ def make_isp_fn(
     one track per camera ([n_cameras, ...]) in "sequence" mode, advanced
     through its own block's frames. Outputs and state come back with their
     [n_cameras, B] leading axes."""
+    from raw_image_pipeline_tpu_torch.parallel.spatial import Part, run_whole
+
+    chain = make_isp_chain(config, encoding, with_state, keep_intermediates,
+                           temporal_mode=temporal_mode, remap_src_hw=remap_src_hw,
+                           debug=debug, n_cameras=n_cameras, plain=plain)
+
+    def fn(params: IspParams, pixels: torch.Tensor, state: Optional[IspState]):
+        outputs, state, _ = run_whole(chain(params, pixels, state, Part()))
+        return outputs, state
+
+    return fn
+
+
+def make_isp_chain(
+    config: PipelineConfig,
+    encoding: str,
+    with_state: bool,
+    keep_intermediates: bool = True,
+    *,
+    temporal_mode: str = "cameras",
+    remap_src_hw: Optional[Tuple[int, int]] = None,
+    debug: bool = False,
+    n_cameras: int = 1,
+    camera_blocked: Optional[bool] = None,
+    plain: bool = False,
+):
+    """make_isp_fn's chain as a generator over one slab of the frame
+    (parallel/spatial.py): chain(params, pixels, state, part) runs the
+    stages on the part's rows of pixels (all of them for Part()), yields a
+    request where slabs exchange rows or numbers, and returns (outputs,
+    state, heights), heights[key] the global row count of outputs[key]
+    (the slab's rows are part.rows(heights[key])). camera_blocked: the
+    [n_cameras, B, ...] form (default n_cameras > 1; True with one camera
+    keeps the camera axis)."""
+    from raw_image_pipeline_tpu_torch.parallel.spatial import (
+        Fetch,
+        GatherData,
+        SumSpace,
+        debayer_halo,
+        flip180_rows,
+        resize_slab,
+    )
+
     if temporal_mode not in ("cameras", "sequence"):
         raise ValueError(f"unknown temporal_mode [{temporal_mode}]")
     deb = config.debayer
@@ -346,6 +392,7 @@ def make_isp_fn(
     algorithm = deb.algorithm
     if algorithm not in _ALGORITHMS:
         raise ValueError(f"Unknown demosaic algorithm: {algorithm}")
+    blocked = n_cameras > 1 if camera_blocked is None else camera_blocked
     wb = config.white_balance
     use_ccc = _uses_ccc(config)
     use_kalman = use_ccc and wb.temporal_consistency and with_state
@@ -359,15 +406,28 @@ def make_isp_fn(
     # (debayer.cpp:49-52); the GPU-parity MHT has none
     cpu_swap = algorithm != "mht"
     bayer8 = encoding in BAYER_ENCODINGS
+    bayer = bayer8 or encoding in BAYER16_ENCODINGS
     # flip the 1-channel mosaic instead of the three planes wherever the
     # rotated pattern has an exact demosaic equivalent (8-bit, even sizes);
     # debug keeps the reference's order for its 00_debayer dump
     hoist_enc = flipped_bayer_encoding(encoding, flip_angle) if bayer8 and not debug else None
-    mono_axis_possible = not bayer8 and encoding not in BAYER16_ENCODINGS
+    mono_axis_possible = not bayer
 
-    def fn(params: IspParams, pixels: torch.Tensor, state: Optional[IspState]):
+    def flipped_rows(tensors, have, h, angle, want):
+        """Rows `want` of the flip of the frame whose rows `have` are
+        `tensors` (the 180 rule, or the gather rule for 90 and 270)."""
+        if angle == 180:
+            src = yield Fetch(tensors, have, flip180_rows(h, *want))
+            return tuple(flip_op(t, 180, spatial_axes=(1, 2)) for t in src)
+        if angle in (90, 270):
+            full = yield Fetch(tensors, have, (0, h))
+            return tuple(flip_op(t, angle, spatial_axes=(1, 2))[:, want[0]:want[1]]
+                         for t in full)
+        return (yield Fetch(tensors, have, want))
+
+    def chain(params: IspParams, pixels: torch.Tensor, state: Optional[IspState], part: Part):
         cam_b = 0
-        if n_cameras > 1:
+        if blocked:
             if pixels.dim() < 2 or pixels.shape[0] != n_cameras:
                 raise ValueError(f"pixels: expected [{n_cameras}, B, ...] for {n_cameras} "
                                  f"cameras, got {tuple(pixels.shape)}")
@@ -377,27 +437,44 @@ def make_isp_fn(
                 state = _map_state(lambda v: v.reshape((-1,) + tuple(v.shape[2:])), state)
         _check_pixels(pixels, encoding)
         outputs: Dict[str, torch.Tensor] = {}
+        heights: Dict[str, int] = {}
         img = pixels
         # mono frames may arrive as [B, H, W, 1]: processed as [B, H, W],
         # the trailing axis restored on exit
         mono_axis = mono_axis_possible and img.dim() == 4 and img.shape[-1] == 1
         if mono_axis:
             img = img[..., 0]
+        # the frame's rows (all of them, or this part's slab of them)
+        h = part.height if part.height is not None else img.shape[1]
+        w = img.shape[2]
+        rows = part.rows(h)
 
         def pack(planes):
             return torch.stack(planes, dim=-1) if len(planes) == 3 else planes[0]
 
+        def keep(name, planes, height):
+            outputs[name] = pack(planes)
+            heights[name] = height
+
         def dump(name, planes):
             # the reference's stage dump points (raw_image_pipeline.hpp:144-172)
             if debug:
-                outputs["debug/" + name] = pack(planes)
+                keep("debug/" + name, planes, h)
 
         # each stage is a profiler range (torch.profiler attributes time per
         # ISP stage, as the reference package's jax.named_scope do)
         with stage("isp_debayer"):
-            hoist = hoist_enc is not None and img.shape[-1] % 2 == 0 and img.shape[-2] % 2 == 0
+            hoist = hoist_enc is not None and w % 2 == 0 and h % 2 == 0
             if hoist:
-                img = flip_op(img, flip_angle, spatial_axes=(-2, -1))
+                # the flipped mosaic's slab and its debayer halo
+                fh, fw = _post_flip_shape(h, w, flip_angle)
+                mine = part.rows(fh)
+                halo = debayer_halo(fh, *mine)
+                (img,) = yield from flipped_rows((img,), rows, h, flip_angle, halo)
+                h, w, rows = fh, fw, mine
+            elif bayer:
+                halo = debayer_halo(h, *rows)
+                (img,) = yield Fetch((img,), rows, halo)
             if bayer8:
                 planes = debayer_planes(img, hoist_enc if hoist else encoding, algorithm,
                                         plain=plain)
@@ -415,15 +492,19 @@ def make_isp_fn(
                     img = torch.flip(img, dims=(-1,))
                 # other encodings pass through untouched (debayer.cpp:75)
                 planes = (img[..., 0], img[..., 1], img[..., 2]) if img.dim() == 4 else (img,)
+            if bayer and halo != rows:  # the slab without its halo
+                planes = tuple(p[:, rows[0] - halo[0]:rows[1] - halo[0]] for p in planes)
         dump("00_debayer", planes)
         is_color = len(planes) == 3
 
         with stage("isp_flip"):
             if config.flip.enabled and not hoist:
-                planes = tuple(flip_op(p, config.flip.angle, spatial_axes=(-2, -1))
-                               for p in planes)
+                fh, fw = _post_flip_shape(h, w, config.flip.angle)
+                mine = part.rows(fh)
+                planes = yield from flipped_rows(planes, rows, h, config.flip.angle, mine)
+                h, w, rows = fh, fw, mine
         if keep_intermediates:
-            outputs["debayered"] = pack(planes)
+            keep("debayered", planes, h)
         dump("01_flip", planes)
 
         # the statistical methods, colour calibration, vignetting and the
@@ -431,33 +512,53 @@ def make_isp_fn(
         if wb.enabled and is_color:
             with stage("isp_white_balance"):
                 if use_ccc:
-                    small = [resize_linear_u8_plane(p, ccc_ops.SMALL_H, ccc_ops.SMALL_W)
-                             for p in planes]
-                    hist = ccc_ops.log_chroma_histogram(
-                        *small, params.ccc_bright_cut, params.ccc_dark_cut, params.ccc_uv0,
-                        plain=plain,
-                    )
+                    if part.count == 1:
+                        small = [resize_linear_u8_plane(p, ccc_ops.SMALL_H, ccc_ops.SMALL_W)
+                                 for p in planes]
+                        hist = ccc_ops.log_chroma_histogram(
+                            *small, params.ccc_bright_cut, params.ccc_dark_cut,
+                            params.ccc_uv0, plain=plain,
+                        )
+                    else:
+                        # the slab's resized rows, their integer counts
+                        # summed over the slabs, scaled once
+                        y0, y1, a, b = resize_slab(h, ccc_ops.SMALL_H, *rows)
+                        src = yield Fetch(planes, rows, (a, b))
+                        small = [resize_linear_u8_rows(p, h, ccc_ops.SMALL_H, ccc_ops.SMALL_W,
+                                                       y0, y1, a) for p in src]
+                        counts = ccc_ops.log_chroma_histogram(
+                            *small, params.ccc_bright_cut, params.ccc_dark_cut,
+                            params.ccc_uv0, plain=plain, pixel_weight=1.0,
+                        )
+                        total = yield SumSpace(counts)
+                        hist = total.float() * ccc_ops.frame_pixel_weight(
+                            ccc_ops.SMALL_H, ccc_ops.SMALL_W)
                     resp = ccc_ops.ccc_response(
                         hist, params.ccc_filt_dft_re, params.ccc_filt_dft_im, params.ccc_bias,
                         plain=plain,
                     )
                     uv = ccc_ops.response_argmax(resp)
                     if use_kalman:
-                        if temporal_mode == "sequence" and n_cameras > 1:
+                        if temporal_mode == "sequence" and blocked:
                             # one track per camera through its own block's
                             # frames: time first, the cameras as the batch
                             uvc = uv.reshape(n_cameras, cam_b, -1).transpose(0, 1)
                             state, uvc = ccc_ops.kalman_scan(state, uvc)
                             uv = uvc.transpose(0, 1).reshape(n_cameras * cam_b, -1)
                         elif temporal_mode == "sequence":
-                            # batch axis = time: one track advanced through the frames
-                            state, uv = ccc_ops.kalman_scan(state, uv)
+                            # batch axis = time: one track advanced through
+                            # every frame of the batch (of every data shard)
+                            every, first = yield GatherData(uv)
+                            state, uv_all = ccc_ops.kalman_scan(state, every)
+                            uv = uv_all[first:first + uv.shape[0]]
                         else:
                             state, uv = ccc_ops.kalman_update(state, uv)
                     gains = ccc_ops.gains_from_uv(uv, params.ccc_exp_tab)
                     planes = ccc_ops.apply_gains_planes(planes, gains)
                 elif stat_wb is not None:
-                    planes = stat_wb(planes)
+                    # the gather rule: the frame's statistics need all rows
+                    full = yield Fetch(planes, rows, (0, h))
+                    planes = tuple(p[:, rows[0]:rows[1]] for p in stat_wb(full))
                 else:
                     raise ValueError(f"White Balance method [{wb.method}] not supported")
         dump("02_white_balancing", planes)
@@ -488,28 +589,33 @@ def make_isp_fn(
         dump("06_color_enhancer", planes)
 
         if keep_intermediates:
-            outputs["dist_color"] = pack(planes)
+            keep("dist_color", planes, h)
         with stage("isp_undistortion"):
             if run_undist:
-                hw = tuple(planes[0].shape[-2:])
-                if remap_src_hw is not None and hw != tuple(remap_src_hw):
+                if remap_src_hw is not None and (h, w) != tuple(remap_src_hw):
                     raise ValueError(
                         f"remap precomputed for source {tuple(remap_src_hw)} but got "
-                        f"frame {hw}; rebuild the pipeline for this frame size"
+                        f"frame {(h, w)}; rebuild the pipeline for this frame size"
                     )
+                # the source rows the slab's map reads (every row unsharded)
+                window = yield Fetch(planes, rows, params.remap_window or (0, h))
+                ho, wo = calib.image_height, calib.image_width
+                o0, o1 = part.rows(ho)
                 img = remap_planes(
-                    planes, params.remap_base, params.remap_weights,
-                    (calib.image_height, calib.image_width),
+                    window, params.remap_base, params.remap_weights, (o1 - o0, wo),
                     config.undistortion.interpolation, plain=plain,
                 )
                 if not is_color:
                     img = img[..., 0]
+                h = ho
             else:
                 img = pack(planes)
         if debug:
             outputs["debug/07_undistortion"] = img
+            heights["debug/07_undistortion"] = h
         outputs["processed"] = img[..., None] if mono_axis else img
-        if n_cameras > 1:
+        heights["processed"] = h
+        if blocked:
             # the [C, B] leading axes back on every output and on the
             # flattened "cameras"-mode state
             outputs = {k: v.reshape((n_cameras, cam_b) + tuple(v.shape[1:]))
@@ -517,9 +623,9 @@ def make_isp_fn(
             if state is not None and temporal_mode != "sequence":
                 state = _map_state(lambda v: v.reshape((n_cameras, cam_b) + tuple(v.shape[1:])),
                                    state)
-        return outputs, state
+        return outputs, state, heights
 
-    return fn
+    return chain
 
 
 def _map_state(f, state: IspState) -> IspState:
@@ -545,16 +651,40 @@ def _chunked_fn(inner_fn, microbatch: int):
     return fn
 
 
+def impls_for_devices(devices) -> Dict[str, Tuple[str, ...]]:
+    """The implementation each shard on `devices` runs, per op: "cuda" (the
+    hand-written kernels A/D, B, C, E) on a card, "plain" (the plain
+    PyTorch versions) on the CPU. Unlike the JAX package, which pins
+    GSPMD-partitionable XLA formulations on any multi-device mesh (GSPMD
+    cannot partition a pallas_call), the port splits the work itself and
+    keeps its kernels on every shard."""
+    impl = tuple("cuda" if torch.device(d).type == "cuda" else "plain" for d in devices)
+    return {op: impl for op in ("demosaic", "histogram", "response", "remap_blend")}
+
+
 class BuiltPipeline:
     """A pipeline built for one configuration, encoding and frame size:
-    `outputs, state = pipe(pixels, state)`."""
+    `outputs, state = pipe(pixels, state)`.
 
-    def __init__(self, config: PipelineConfig, params: IspParams, fn):
+    With a mesh (build_pipeline's mesh= or spatial_shards=), pixels may be
+    a ShardedBatch (parallel.mesh.shard_batch, multihost.distribute_batch)
+    or a global batch, which the call splits; every output comes back as a
+    ShardedBatch (`.gather(device)` gives the tensor). `params` are then
+    the whole frame's on the mesh's first device, `shard_params` each
+    shard's. selected_impls: see impls_for_devices."""
+
+    def __init__(self, config: PipelineConfig, params: IspParams, fn, mesh=None,
+                 shard_params=None, selected_impls=None):
         self.config = config
         self.params = params
         self.fn = fn
+        self.mesh = mesh
+        self.shard_params = shard_params
+        self.selected_impls = selected_impls or impls_for_devices([params.color_matrix.device])
 
-    def __call__(self, pixels: torch.Tensor, state: Optional[IspState] = None):
+    def __call__(self, pixels, state: Optional[IspState] = None):
+        if self.mesh is not None:
+            return self.fn(pixels, state)
         return self.fn(self.params, pixels, state)
 
 
@@ -568,6 +698,8 @@ def build_pipeline(
     device="cuda",
     debug: bool = False,
     microbatch: Optional[int] = None,
+    mesh=None,
+    spatial_shards: Optional[int] = None,
 ) -> BuiltPipeline:
     """Build the ISP for one configuration on `device` ("cuda", the
     default, launches the hand-written kernels and raises without a CUDA
@@ -581,17 +713,53 @@ def build_pipeline(
     frames of a pointwise chain); the whole input and the chunks' outputs
     stay on the device, and their concatenation at the end holds the
     output twice. Equal to the unchunked chain, the Kalman track included.
-    A remainder runs as one more chunk."""
-    dev = resolve_device(device)
+    A remainder runs as one more chunk.
+
+    mesh (parallel.mesh.make_mesh, multihost.global_data_mesh): run over
+    the mesh's devices instead of `device` — frames over "data", each
+    frame's rows over "space" in slabs (parallel/spatial.py), every shard
+    with the kernels of its device; the call then takes and returns
+    sharded batches (see BuiltPipeline). spatial_shards=k alone makes a
+    mesh of k logical space shards on `device`; with a mesh it must equal
+    its space axis. A sharded call equals the unsharded one byte for byte,
+    the Kalman state included, so neither changes a number. "cameras"
+    state is split over data with the frames (a process passes its own
+    frames' tracks); "sequence" state is one track: every shard gathers
+    the batch's CCC measurements (over processes too) and runs the same
+    Kalman scan. keep_intermediates, debug and microbatch apply per
+    shard."""
     if frame_hw is None:
         frame_hw = (config.calibration.image_height, config.calibration.image_width)
-    fn = make_isp_fn(
-        config, encoding, with_state, keep_intermediates, temporal_mode=temporal_mode,
-        remap_src_hw=_post_flip_shape(
-            *frame_hw, config.flip.angle if config.flip.enabled else 0
-        ),
-        debug=debug,
+    src_hw = _post_flip_shape(*frame_hw, config.flip.angle if config.flip.enabled else 0)
+    if spatial_shards is not None and mesh is not None and spatial_shards != mesh.shape["space"]:
+        raise ValueError(f"spatial_shards={spatial_shards} differs from the mesh's space axis "
+                         f"{mesh.shape['space']}")
+    if mesh is None and spatial_shards is not None and spatial_shards > 1:
+        from raw_image_pipeline_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh([resolve_device(device)] * spatial_shards, space=spatial_shards)
+    fields = _host_fields(config, frame_hw)
+    kw = dict(temporal_mode=temporal_mode, remap_src_hw=src_hw, debug=debug)
+    if mesh is None:
+        fn = make_isp_fn(config, encoding, with_state, keep_intermediates, **kw)
+        if microbatch:
+            fn = _chunked_fn(fn, microbatch)
+        return BuiltPipeline(config, params_from_numpy(fields, config, resolve_device(device)),
+                             fn)
+    from raw_image_pipeline_tpu_torch.parallel.spatial import (
+        MeshFn,
+        check_mesh_rows,
+        shard_params,
     )
-    if microbatch:
-        fn = _chunked_fn(fn, microbatch)
-    return BuiltPipeline(config, make_params(config, frame_hw, dev), fn)
+
+    check_mesh_rows(config, frame_hw, src_hw, mesh)
+    per_shard = shard_params(config, fields, mesh, src_hw)
+    wb = config.white_balance
+    sequence_kalman = (temporal_mode == "sequence" and with_state and _uses_ccc(config)
+                       and wb.temporal_consistency)
+    chain = make_isp_chain(config, encoding, with_state, keep_intermediates, **kw)
+    fn = MeshFn(chain, mesh, per_shard, state_sharded=temporal_mode != "sequence",
+                gathers=sequence_kalman, microbatch=microbatch)
+    return BuiltPipeline(config, params_from_numpy(fields, config, mesh.devices[0, 0]), fn,
+                         mesh=mesh, shard_params=per_shard,
+                         selected_impls=impls_for_devices(mesh.local_devices()))

@@ -26,6 +26,7 @@ import torch
 
 from raw_image_pipeline_tpu_torch.config import PipelineConfig
 from raw_image_pipeline_tpu_torch.ops.common import resolve_device
+from raw_image_pipeline_tpu_torch.parallel.mesh import shard_batch
 from raw_image_pipeline_tpu_torch.pipeline import BuiltPipeline, build_pipeline, init_state
 
 
@@ -86,7 +87,12 @@ def make_camera_infos(api_pipeline, output_frame: str = "passthrough") -> Dict[s
 class StreamRunner:
     """Batched streaming executor with carried CCC state, on `device`
     ("cuda", the default, runs the hand-written kernels; "cpu" the plain
-    versions)."""
+    versions). mesh (parallel.mesh.make_mesh): each batch is split over
+    the mesh (frames over "data", rows over "space"), run there, and
+    gathered on the mesh's first device for the sink, in order; `device`
+    is then not used. A mesh over several processes (every process runs
+    the runner on the same frames) needs batch_size, and a stateful run's
+    tail, to be multiples of the process count: ValueError otherwise."""
 
     def __init__(
         self,
@@ -100,15 +106,19 @@ class StreamRunner:
         microbatch=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the port runs on one card; multi-device is ROADMAP Queue 1, item 5")
         self.config = config
         self.encoding = encoding
         self.batch_size = batch_size
         self.output_encoding = output_encoding
         self.slow_skip = slow_skip
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._processes = mesh.process_count if mesh is not None else 1
+        if batch_size % self._processes:
+            raise ValueError(f"batch_size {batch_size} does not split evenly over the mesh's "
+                             f"{self._processes} processes")
+        self.device = mesh.devices[0, 0] if mesh is not None else resolve_device(device)
+        self._cards = sorted({d for d in (mesh.local_devices() if mesh is not None
+                                          else [self.device]) if d.type == "cuda"}, key=str)
         wb = config.white_balance
         self.with_state = wb.enabled and wb.method == "ccc" and wb.temporal_consistency
         self.pipe: BuiltPipeline = build_pipeline(
@@ -117,7 +127,7 @@ class StreamRunner:
             temporal_mode="sequence", device=self.device,
             # bound peak device memory for very large batch_size (see
             # build_pipeline)
-            microbatch=microbatch,
+            microbatch=microbatch, mesh=mesh,
         )
         # one shared illuminant track, like the reference's single camera
         # stream; batch entries advance it sequentially via scan semantics
@@ -150,7 +160,7 @@ class StreamRunner:
         # staging slots, [batch_size, *frame] each, and the event after the
         # last copy out of each (a slot is refilled only once it has run)
         slots: List[Optional[torch.Tensor]] = [None, None]
-        copied: List[Optional[torch.cuda.Event]] = [None, None]
+        copied: List[Optional[List[torch.cuda.Event]]] = [None, None]
         turn = 0  # the slot being filled
         n = 0  # frames in it
         # the dispatched batch: its frame count, its outputs on the host
@@ -193,13 +203,27 @@ class StreamRunner:
                 # runs at its own size.
                 slot[size:] = slot[size - 1]
                 size = self.batch_size
-            if cuda:
+            if size % self._processes:
+                raise ValueError(f"the stateful tail batch of {size} frames does not split "
+                                 f"evenly over the mesh's {self._processes} processes; feed "
+                                 f"a multiple of {self._processes} frames")
+            if self.mesh is not None:
+                dev = shard_batch(slot[:size] if cuda else slot[:size].clone(), self.mesh,
+                                  spatial=self.mesh.shape["space"] > 1)
+            elif cuda:
                 dev = slot[:size].to(self.device, non_blocking=True)
-                copied[turn] = torch.cuda.Event()
-                copied[turn].record()
             else:
                 dev = slot[:size].clone()  # the slot is refilled while the sink holds outputs
+            if cuda:
+                # the copies out of the slot run on every card they go to
+                copied[turn] = []
+                for d in self._cards:
+                    with torch.cuda.device(d):
+                        copied[turn].append(torch.cuda.Event())
+                        copied[turn][-1].record()
             outputs, state = self.pipe(dev, self.state if self.with_state else None)
+            if self.mesh is not None:
+                outputs = {k: v.gather(self.device) for k, v in outputs.items()}
             if self.with_state:
                 self.state = state
             host = {}
@@ -229,8 +253,8 @@ class StreamRunner:
                     dtype = torch.from_numpy(np.zeros(0, frame.dtype)).dtype
                     slots[turn] = torch.empty((self.batch_size,) + frame.shape, dtype=dtype,
                                               pin_memory=cuda)
-                if copied[turn] is not None:
-                    copied[turn].synchronize()  # its last copy to the card has run
+                for event in copied[turn] or ():
+                    event.synchronize()  # its last copies to the cards have run
             slots[turn].numpy()[n] = frame
             n += 1
             if n == self.batch_size:

@@ -444,3 +444,36 @@ def test_port_sources_import_no_jax():
             for m in names:
                 root = m.split(".")[0]
                 assert root not in ("jax", "jaxlib", "raw_image_pipeline_tpu"), (path, m)
+
+
+@pytest.mark.cuda
+def test_flagship_mesh_on_card_equals_unsharded():
+    """The flagship over four logical shards of one card (data 2 x space
+    2), both temporal modes, two calls with the state carried: equal to
+    the unsharded call on the card, bytes and Kalman state, with kernels
+    A, B and C launched on the shards."""
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.parallel import make_mesh
+
+    dev = _cuda()
+    hw = (272, 368)
+    config = tp.flagship_config(*hw)
+    frames = torch.as_tensor(_frames(9, 8, *hw)).to(dev)
+    mesh = make_mesh([dev] * 4, space=2)
+    for mode in ("cameras", "sequence"):
+        whole = tp.build_pipeline(config, "bayer_gbrg8", hw, with_state=True,
+                                  temporal_mode=mode, device=dev)
+        split = tp.build_pipeline(config, "bayer_gbrg8", hw, with_state=True,
+                                  temporal_mode=mode, mesh=mesh)
+        assert split.selected_impls["demosaic"] == ("cuda",) * 4
+        ws = ss = tp.init_state((4,) if mode == "cameras" else (), dev)
+        for chunk in torch.split(frames, 4):
+            wo, ws = whole(chunk, ws)
+            kernels.reset_launch_counts()
+            so, ss = split(chunk, ss)
+            torch.cuda.synchronize()
+            assert all(k.launches == 4 for k in (kernels.DEBAYER_BILINEAR, kernels.CCC_HISTOGRAM,
+                                                  kernels.CCC_RESPONSE))
+            assert torch.equal(so["processed"].gather(dev), wo["processed"])
+            for f in ("x", "p", "initialized"):
+                assert torch.equal(getattr(ss, f), getattr(ws, f))

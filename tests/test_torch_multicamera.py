@@ -248,9 +248,23 @@ def test_camera_blocked_grid_covers_every_frame_once(batch, cameras, chunk):
 def test_multicamera_refuses():
     config = _config()
     calibs = _calibrations(config, "distinct")
-    with pytest.raises(NotImplementedError):
-        build_multicamera_pipeline(config, calibs, "bayer_gbrg8", HW, mesh=object(),
-                                   device="cpu")
+    # a mesh is accepted: the cameras over data (2 + 1 + 1 over three
+    # shards), each shard with its cameras' stacked maps and tracks, equal
+    # to the unsharded chain
+    from raw_image_pipeline_tpu_torch.parallel import make_mesh
+
+    frames = torch.as_tensor(_multicam_frames(11))
+    for mode in ("cameras", "sequence"):
+        whole = build_multicamera_pipeline(config, calibs, "bayer_gbrg8", HW, True, mode,
+                                           device="cpu")
+        split = build_multicamera_pipeline(config, calibs, "bayer_gbrg8", HW, True, mode,
+                                           mesh=make_mesh(["cpu"] * 3))
+        state = multicamera_state(CAMERAS, BATCH, mode, "cpu")
+        ref, ref_state = whole(frames, state)
+        out, out_state = split(frames, state)
+        assert torch.equal(out["processed"].gather("cpu"), ref["processed"])
+        for f in ("x", "p", "initialized"):
+            assert torch.equal(getattr(out_state, f), getattr(ref_state, f))
     with pytest.raises(ValueError):
         build_multicamera_pipeline(config, [], device="cpu")
     odd = dataclasses.replace(calibs[1], image_width=HW[1] + 2)

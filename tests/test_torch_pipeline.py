@@ -274,7 +274,12 @@ def test_port_runs_with_jax_blocked():
         out, st = pipe(px, tp.init_state((), device="cpu"))
         assert out["processed"].shape == (2, h, w, 3) and bool(st.initialized)
         from raw_image_pipeline_tpu_torch.parallel import build_multicamera_pipeline
+        from raw_image_pipeline_tpu_torch.parallel import dryrun, mesh, multihost, spatial
         from raw_image_pipeline_tpu_torch.runtime import control, native, sources, stream
+        from raw_image_pipeline_tpu_torch.tools import pod_bench
+        split = tp.build_pipeline(tp.flagship_config(h, w), "bayer_gbrg8", (h, w),
+                                  mesh=mesh.make_mesh(["cpu"] * 4, space=2))
+        assert split(px)[0]["processed"].gather("cpu").shape == (2, h, w, 3)
         assert not any(m == "jax" or m.startswith(("jax.", "raw_image_pipeline_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

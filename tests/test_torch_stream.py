@@ -205,9 +205,25 @@ def _jax_config_type():
     return JaxPipelineConfig
 
 
-def test_stream_runner_refuses_mesh_and_defaults_to_cuda():
-    with pytest.raises(NotImplementedError):
-        StreamRunner(_config(), "bayer_gbrg8", (32, 48), mesh=object(), device="cpu")
+def test_stream_runner_refuses_mesh_and_defaults_to_cuda(frames):
+    """A mesh is accepted: each batch is split over it (data 2 x space 2;
+    the stateful tail of one frame leaves a data shard without frames) and
+    gathered for the sink in order, every image and the Kalman state equal
+    to the runner without one. The device defaults to the card."""
+    from raw_image_pipeline_tpu_torch.parallel import make_mesh
+
+    got = {}
+    for name, kw in (("one", {}), ("mesh", {"mesh": make_mesh(["cpu"] * 4, space=2)})):
+        runner = _runner(_config(), 3, **kw)
+        out = []
+        assert runner.run(iter(frames), lambda s, i, img: out.append((s, i, img.copy()))) == 7
+        got[name] = out, runner.state
+    (one, one_state), (mesh, mesh_state) = got["one"], got["mesh"]
+    assert [(s, i) for s, i, _ in mesh] == [(s, i) for s, i, _ in one]
+    for (_, _, a), (_, _, b) in zip(mesh, one):
+        np.testing.assert_array_equal(a, b)
+    for f in ("x", "p", "initialized"):
+        assert torch.equal(getattr(mesh_state, f), getattr(one_state, f))
     assert inspect.signature(StreamRunner).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -44,6 +44,15 @@ per source, into build/kernels/), then:
                        against each camera's block, timed beside its bound
                        (ms_cameras4, bound_ms_cameras4) and one camera's
                        launch at B=4 (ms_cameras1);
+     then the ops phase (check_ops): the reference package's entry points
+     that reach a kernel, on [..., H, W(, 3)] CUDA frames at 1080x1920
+     (leading dims (4,)) and at a random odd crop (leading dims (2, 3)):
+     debayer bilinear (A) and MHT (D) in the four encodings,
+     log_chroma_histogram and _rt (B) on the 270x360 resize, ccc_response
+     (C), remap_bilinear_u8 in float mode (E) with one map and with
+     per-camera maps; each against plain=True on the card and the planar
+     path of the chain, 0 mismatching bytes, with its device time; its
+     launches go to the kernels line as launches_ops;
   2. drives each chain through build_pipeline(config, encoding,
      with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
      state carried across the calls, at 1920x1080:
@@ -253,7 +262,8 @@ def check_remap(tp, torch, rng, planes):
 
     def maps(out_hw, src_hw, kind):
         if kind == "fisheye":
-            params = tp.make_params(workloads.chains(tp)["float"].config(*out_hw), out_hw, dev)
+            params = tp.make_params(workloads.chains(tp)["float"].config(*out_hw), out_hw,
+                                    device=dev)
             return params.remap_base, params.remap_weights
         mx, my = workloads.hostile_maps(out_hw, src_hw, out_hw[0] * out_hw[1])
         return tuple(torch.as_tensor(a, device=dev)
@@ -397,8 +407,8 @@ def check_kernels(tp, torch, rng):
     rows = {}
     phase = debayer.phase_for_encoding("bayer_grbg8")  # the flipped gbrg mosaic
     planes, rows["A"] = check_debayer(torch, rng, "A", "bilinear",
-                                      debayer.debayer_bilinear_cuda, debayer.debayer_bilinear,
-                                      phase)
+                                      debayer.debayer_bilinear_cuda,
+                                      debayer.debayer_bilinear_planar, phase)
     planes = [planes[:, c] for c in (2, 1, 0)]  # R<->B swap, as the chain
 
     cfg = tp.flagship_config(1080, 1920).white_balance
@@ -430,7 +440,7 @@ def check_kernels(tp, torch, rng):
     model = load_ccc_model(cfg.ccc_model_path)
     wr, wi, bias = (torch.as_tensor(a, device=dev) for a in
                     (model.filt_dft_re, model.filt_dft_im, model.bias))
-    hist = ccc.log_chroma_histogram(*small, *cuts)
+    hist = ccc.log_chroma_histogram_planes(*small, *cuts)
     two_peak, gap, peaks = workloads.two_peak_histogram(model.filt_dft_re, model.filt_dft_im,
                                                         model.bias)
     err = 0.0
@@ -461,7 +471,7 @@ def check_kernels(tp, torch, rng):
           f"{as_products['bound_ms']:.5f} ms")
 
     planes, rows["D"] = check_debayer(torch, rng, "D", "mht", debayer.debayer_mht_cuda,
-                                      debayer.debayer_mht, phase)
+                                      debayer.debayer_mht_planar, phase)
     planes = [planes[:, c].contiguous() for c in range(3)]  # no swap under MHT
 
     rows["E"] = check_remap(tp, torch, rng, planes)
@@ -469,6 +479,140 @@ def check_kernels(tp, torch, rng):
     for k in kernels.ALL:
         k.launches = 0  # the comparisons above are not the main path's
     return rows
+
+
+OPS_CROP_LEAD = (2, 3)  # the ops phase's leading dims at its random odd crop
+
+
+def check_ops(tp, torch, rng, smi_line):
+    """Phase ops: the reference package's entry points that reach a kernel,
+    called as its users call them on [..., H, W(, 3)] CUDA frames, at
+    1080x1920 with leading dims (4,) and at a random odd crop with leading
+    dims OPS_CROP_LEAD: debayer bilinear (A) and MHT (D) in the four
+    encodings, log_chroma_histogram and log_chroma_histogram_rt (B) on the
+    270x360 resize, ccc_response (C) on those histograms, and
+    remap_bilinear_u8 in float mode (E) with one map and with per-camera
+    maps (four at 1080x1920, the multicam4_float chain's; two at the crop).
+    Each is held against the same call with plain=True on the card and
+    against the planar path the chain runs (debayer_planes,
+    log_chroma_histogram_planes, ccc_response on [B, 256, 256],
+    remap_planes): 0 mismatching bytes (f32 values for the histograms; for
+    ccc_response the argmax, and the values against the plain version
+    within 1e-4 of max |response| as phase 1 holds kernel C). One line per
+    function with its device time. Returns each kernel's launches in the
+    entry points' calls (the comparisons not counted)."""
+    import numpy as np
+
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
+    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, undistortion
+    from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8
+    from raw_image_pipeline_tpu_torch.parallel import build_multicamera_pipeline
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.tools.measure import device_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(rng.integers(1 << 31)))
+    crop = (2 * int(rng.integers(100, 540)) + 1, 2 * int(rng.integers(100, 960)) + 1)
+    launches = {k.name: 0 for k in kernels.ALL}
+    cfg = tp.flagship_config(1080, 1920).white_balance
+    model = load_ccc_model(cfg.ccc_model_path)
+    filt = tuple(torch.as_tensor(a, device=dev)
+                 for a in (model.filt_dft_re, model.filt_dft_im, model.bias))
+    cuts = tuple(float(np.float32(v)) for v in (255.0 * cfg.saturation_bright_thr,
+                                                255.0 * cfg.saturation_dark_thr, cfg.ccc_uv0))
+
+    def counted(call):
+        kernels.reset_launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+        for k in kernels.ALL:
+            launches[k.name] += k.launches
+        return out
+
+    def report(label, bad, ms, note=""):
+        print(f"ops {label}: {bad} mismatching bytes against plain=True and the planar path"
+              f"{note}; {ms:.4f} ms on the device [{smi_line}]")
+        if bad:
+            raise AssertionError(f"ops {label}: {bad} mismatching bytes")
+
+    def planes_of(x):  # [..., H, W, 3] -> three contiguous [N, H, W] planes
+        flat = x.reshape((-1,) + tuple(x.shape[-3:]))
+        return [flat[..., c].contiguous() for c in range(3)]
+
+    def remap_maps(hw, cameras):
+        """Float-mode (base, weights): the float chain's fisheye map, or
+        the multicam4_float chain's four per-camera maps, at 1080x1920;
+        hostile maps (one, or one per camera stacked) at the crop."""
+        if hw == (1080, 1920):
+            if cameras == 1:
+                p = tp.make_params(workloads.chains(tp)["float"].config(*hw), hw, device=dev)
+            else:
+                config = workloads.multicam_chains(tp)["multicam4_float"].config(*hw)
+                p = build_multicamera_pipeline(
+                    config, workloads.multicam_calibrations(config.calibration), "bayer_gbrg8",
+                    hw, device="cuda").params
+            return p.remap_base, p.remap_weights
+        maps = [undistortion.remap_precompute(*workloads.hostile_maps(hw, hw, 7 + c), hw,
+                                              mode="float") for c in range(cameras)]
+        stack = (lambda a: a[0]) if cameras == 1 else np.stack
+        return (torch.as_tensor(stack([m[k] for m in maps]), device=dev) for k in (0, 1))
+
+    for lead, hw in (((4,), (1080, 1920)), (OPS_CROP_LEAD, crop)):
+        size = f"{'x'.join(map(str, lead))} x {hw[0]}x{hw[1]}"
+        bayer = torch.randint(0, 256, lead + hw, generator=g, device=dev, dtype=torch.uint8)
+        flat = bayer.reshape((-1,) + hw)
+        for algorithm in ("bilinear", "mht"):
+            bad = 0
+            for enc in debayer.BAYER_ENCODINGS:
+                got = counted(lambda: debayer.debayer(bayer, enc, algorithm))
+                bad += int((got != debayer.debayer(bayer, enc, algorithm, plain=True)).sum())
+                planar = torch.stack(debayer.debayer_planes(flat, enc, algorithm), dim=-1)
+                bad += int((got != planar.reshape(got.shape)).sum())
+            ms = device_ms(lambda: debayer.debayer(bayer, "bayer_gbrg8", algorithm))
+            report(f"debayer {algorithm} {size} in 4 encodings", bad, ms)
+        bgr = debayer.debayer(bayer, "bayer_gbrg8")
+        small = resize_linear_u8(bgr, ccc.SMALL_H, ccc.SMALL_W)
+        planar_hist = ccc.log_chroma_histogram_planes(*planes_of(small), *cuts).reshape(
+            lead + (ccc.HIST_N, ccc.HIST_N))
+        thr = (cfg.saturation_bright_thr, cfg.saturation_dark_thr, cfg.ccc_uv0)
+        for name, fn, args in (("log_chroma_histogram", ccc.log_chroma_histogram, thr),
+                               ("log_chroma_histogram_rt", ccc.log_chroma_histogram_rt, cuts)):
+            hist = counted(lambda: fn(small, *args))
+            bad = int((hist != fn(small, *args, plain=True)).sum())
+            bad += int((hist != planar_hist).sum())
+            report(f"{name} {size} on the {ccc.SMALL_H}x{ccc.SMALL_W} resize", bad,
+                   device_ms(lambda: fn(small, *args)))
+        resp = counted(lambda: ccc.ccc_response(hist, *filt))
+        want = ccc.ccc_response(hist, *filt, plain=True)
+        err, scale = float((resp - want).abs().max()), float(want.abs().max())
+        bad = int((ccc.response_argmax(resp) != ccc.response_argmax(want)).sum())
+        flat_resp = ccc.ccc_response_cuda(hist.reshape(-1, ccc.HIST_N, ccc.HIST_N).contiguous(),
+                                          *filt)
+        bad += int((resp != flat_resp.reshape(resp.shape)).sum())
+        report(f"ccc_response {size}", bad + int(err > 1e-4 * scale),
+               device_ms(lambda: ccc.ccc_response(hist, *filt)),
+               f" (argmax against plain=True; max |diff| {err:.3e}, limit {1e-4 * scale:.3e})")
+        for cameras in (1, 4 if len(lead) == 1 else lead[0]):
+            base, weights = remap_maps(hw, cameras)
+            img = bgr.reshape((-1,) + hw + (3,)) if cameras > 1 else bgr
+            got = counted(lambda: undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
+                                                                 cameras, "float"))
+            bad = int((got != undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
+                                                             cameras, "float", plain=True)).sum())
+            planar = undistortion.remap_planes(planes_of(img), base, weights, hw, "float")
+            bad += int((got != planar.reshape(got.shape)).sum())
+            ms = device_ms(lambda: undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
+                                                                  cameras, "float"))
+            report(f"remap_bilinear_u8 float {size}, {cameras} map(s)", bad, ms)
+        del bayer, flat, bgr, small
+    torch.cuda.empty_cache()
+    print(f"ops launches of the entry points' calls: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"ops: a kernel was not launched: {launches}")
+    kernels.reset_launch_counts()
+    return launches
 
 
 def _run_chain(call, frames, state, calls):
@@ -1010,7 +1154,7 @@ def check_run_pipeline(tp, torch, np, root, d):
             config = run_pipeline.pipeline_config(
                 params, calib, tp.config.DEFAULT_COLOR_CALIBRATION_PATH,
                 mode if mode == "float" else None)
-            p = make_params(config, (h, w), "cuda")
+            p = make_params(config, (h, w), device="cuda")
             plain_fn = make_isp_fn(config, "bayer_gbrg8", False, True, plain=True)
             refs = []
             for s in range(0, n, b):
@@ -1380,7 +1524,7 @@ def check_mesh(tp, torch, np, root, smi_line):
     n = MESH_STREAM_FRAMES
     frames = workloads.card_frames(torch, "bayer", n, h, w, workloads.SEED + 96).cpu().numpy()
     plain_fn = make_isp_fn(config, enc, True, True, temporal_mode="sequence", plain=True)
-    params = tp.make_params(config, (h, w), MESH_CARD)
+    params = tp.make_params(config, (h, w), device=MESH_CARD)
     want, want_state = {}, tp.init_state((), MESH_CARD)
     for s in range(0, n, per):
         out, want_state = plain_fn(params, torch.as_tensor(frames[s:s + per], device=MESH_CARD),
@@ -1476,6 +1620,9 @@ def main() -> int:
 
     try:
         rows = phase("kernels", check_kernels, tp, torch, rng)
+        # its own generator: the later phases' inputs stay what they were
+        ops_launches = phase("ops", check_ops, tp, torch,
+                             np.random.default_rng(workloads.SEED + 1), smi_line)
         launches, per_flagship_call, fps, peak = phase("chains", check_chains, tp, torch, rng)
         phase("microbatch", check_microbatch, tp, torch, rng)
         multicam_fps = phase("multicamera", check_multicam, tp, torch)
@@ -1513,7 +1660,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": launches[k.name], "grids_per_launch": k.grids,
-         "launches_per_flagship_call": per_flagship_call[k.name], **rows[key]}
+         "launches_per_flagship_call": per_flagship_call[k.name],
+         "launches_ops": ops_launches[k.name], **rows[key]}
         for key, k in names.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

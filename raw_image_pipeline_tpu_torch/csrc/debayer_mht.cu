@@ -1,5 +1,5 @@
 // Kernel D: Malvar-He-Cutler 5x5 demosaic, the reference's CUDA algorithm
-// (cv::cuda::demosaicing, *_MHT), equal to ops/debayer.debayer_mht.
+// (cv::cuda::demosaicing, *_MHT), equal to ops/debayer.debayer_mht_planar.
 //
 // Replaces: raw_image_pipeline_tpu/ops/debayer_pallas.py `_mht_kernel`
 // (line 229), reached through `debayer_mht_pallas` (line 295).

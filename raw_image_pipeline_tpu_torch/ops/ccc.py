@@ -20,14 +20,13 @@ with libm — the reference's std::log/std::exp — so every device computes
 the same numbers; each table is uploaded once per device. The histogram and
 the response each have a plain version here and a hand-written CUDA kernel
 (kernel B, csrc/ccc_histogram.cu; kernel C, csrc/ccc_response.cu);
-`log_chroma_histogram` and `ccc_response` launch the kernel for a CUDA
-tensor and run the plain version for a CPU one.
+`log_chroma_histogram_planes` and `ccc_response` launch the kernel for a
+CUDA tensor and run the plain version for a CPU one.
 
 The chain works on planes; the image-level API of the reference package
-(`log_chroma_histogram_image`, `estimate_illuminant`, `gains_from_offsets`,
-`apply_gains`, `ccc_balance_white` on [..., H, W, 3] BGR frames, which
-tools/ccc_tune.py uses) splits the frames into planes and goes through the
-same functions.
+(`log_chroma_histogram`, `log_chroma_histogram_rt`, `estimate_illuminant`,
+`apply_gains`, `ccc_balance_white` on [..., H, W, 3] BGR frames) splits the
+frames into planes and goes through the same functions.
 """
 
 from __future__ import annotations
@@ -41,8 +40,13 @@ import numpy as np
 import torch
 
 from raw_image_pipeline_tpu_torch import kernels
-from raw_image_pipeline_tpu_torch.ops.common import resolve_device, round_u8
-from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
+from raw_image_pipeline_tpu_torch.ops.common import (
+    as_tensor_on,
+    image_planes,
+    resolve_device,
+    round_u8,
+)
+from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8
 
 # Reference constants (ccc.cpp:19-33)
 SMALL_W, SMALL_H = 360, 270
@@ -164,13 +168,14 @@ def log_chroma_histogram_cuda(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
     return hist
 
 
-def log_chroma_histogram(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
-                         bright_cut: float, dark_cut: float, uv0: float,
-                         plain: bool = False,
-                         pixel_weight: Optional[float] = None) -> torch.Tensor:
+def log_chroma_histogram_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
+                                bright_cut: float, dark_cut: float, uv0: float,
+                                plain: bool = False,
+                                pixel_weight: Optional[float] = None) -> torch.Tensor:
     """[B, h, w] u8 B/G/R planes (the working resize) -> [B, 256, 256] f32
     histogram (pixel_weight: see log_chroma_histogram_plain). Kernel B on
-    CUDA tensors; the plain version on CPU tensors or with plain=True."""
+    CUDA tensors (frames of at most HIST_KERNEL_MAX_PIXELS); the plain
+    version on CPU tensors or with plain=True."""
     if plain or b.device.type == "cpu":
         return log_chroma_histogram_plain(b, g, r, bright_cut, dark_cut, uv0, pixel_weight)
     return log_chroma_histogram_cuda(b.contiguous(), g.contiguous(), r.contiguous(),
@@ -249,14 +254,22 @@ def ccc_response_cuda(hist: torch.Tensor, filt_dft_re: torch.Tensor,
     return out
 
 
-def ccc_response(hist: torch.Tensor, filt_dft_re: torch.Tensor,
-                 filt_dft_im: torch.Tensor, bias: torch.Tensor,
+def ccc_response(hist: torch.Tensor, filt_dft_re, filt_dft_im, bias_spatial, *,
                  plain: bool = False) -> torch.Tensor:
-    """[B, 256, 256] f32 -> [B, 256, 256] f32 response. Kernel C on CUDA
-    tensors; the plain version on CPU tensors or with plain=True."""
+    """[..., 256, 256] f32 histograms -> [..., 256, 256] f32 responses; the
+    filter's DFT and the spatial bias are [256, 256] f32 (tensors or
+    arrays). Kernel C on CUDA tensors; the plain version on CPU tensors or
+    with plain=True."""
+    lead = tuple(hist.shape[:-2])
+    x = hist.to(torch.float32).reshape((-1, HIST_N, HIST_N))
+    wr, wi, bias = (as_tensor_on(a, hist.device, torch.float32)
+                    for a in (filt_dft_re, filt_dft_im, bias_spatial))
     if plain or hist.device.type == "cpu":
-        return ccc_response_plain(hist, filt_dft_re, filt_dft_im, bias)
-    return ccc_response_cuda(hist.contiguous(), filt_dft_re, filt_dft_im, bias)
+        resp = ccc_response_plain(x, wr, wi, bias)
+    else:
+        resp = ccc_response_cuda(x.contiguous(), wr.contiguous(), wi.contiguous(),
+                                 bias.contiguous())
+    return resp.reshape(lead + (HIST_N, HIST_N))
 
 
 def response_argmax(response: torch.Tensor) -> torch.Tensor:
@@ -268,10 +281,22 @@ def response_argmax(response: torch.Tensor) -> torch.Tensor:
     return torch.stack([idx % HIST_N, idx // HIST_N], dim=-1).to(torch.int32)
 
 
-def gains_from_uv(uv_pos: torch.Tensor, exp_tab: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=8)
+def _exp_tab_on(uv0: float, device: str) -> torch.Tensor:
+    """exp_table(uv0) on `device`, uploaded once per (uv0, device)."""
+    return torch.as_tensor(exp_table(uv0), device=device)
+
+
+def gains_from_uv(uv_pos: torch.Tensor, uv0: float = UV0) -> torch.Tensor:
     """uv_pos [..., 2] int (x, y) -> [..., 3] float32 BGR gains
-    (ccc.cpp:342-381; z forced to 1, min-normalized). exp_tab is
-    exp_table(uv0) on the device."""
+    (ccc.cpp:342-381; z forced to 1, min-normalized), exp by libm (the
+    reference's std::exp) as exp_table(uv0)."""
+    return gains_from_uv_table(uv_pos, _exp_tab_on(float(uv0), str(uv_pos.device)))
+
+
+def gains_from_uv_table(uv_pos: torch.Tensor, exp_tab: torch.Tensor) -> torch.Tensor:
+    """gains_from_uv with the exp table given: exp_tab is exp_table(uv0)
+    on uv_pos's device (the pipeline's params.ccc_exp_tab)."""
     gain_r = exp_tab[uv_pos[..., 0].long()]
     gain_b = exp_tab[uv_pos[..., 1].long()]
     gains = torch.stack([gain_b, torch.ones_like(gain_r), gain_r], dim=-1)
@@ -326,12 +351,12 @@ class KalmanState:
     initialized: torch.Tensor  # [...] bool
 
 
-def kalman_init(batch_shape=(), device="cuda") -> KalmanState:
-    """Fresh state (first_frame_=true): the prior (height/2, width/2) of the
-    reference's statePre/statePost (ccc.cpp:185-188)."""
+def kalman_init(batch_shape=(), uv_init=(HIST_N // 2, HIST_N // 2), device="cuda") -> KalmanState:
+    """Fresh state (first_frame_=true). uv_init mirrors the reference's
+    statePre/statePost prior of (height/2, width/2) (ccc.cpp:185-188)."""
     batch_shape = tuple(batch_shape)
     device = resolve_device(device)
-    x = torch.tensor((HIST_N // 2, HIST_N // 2), dtype=torch.float32, device=device)
+    x = torch.tensor(tuple(uv_init), dtype=torch.float32, device=device)
     return KalmanState(
         x=x.expand(batch_shape + (2,)).clone(),
         p=torch.zeros(batch_shape, dtype=torch.float32, device=device),
@@ -367,33 +392,29 @@ def kalman_scan(state: KalmanState, meas: torch.Tensor) -> Tuple[KalmanState, to
 
 
 # ---------------------------------------------------------------------------
-# Image-level CCC ([..., H, W, 3] BGR frames, as ccc_tune holds them)
+# Image-level CCC ([..., H, W, 3] BGR frames, the reference package's API)
 # ---------------------------------------------------------------------------
 
 
-def _image_planes(image: torch.Tensor):
-    """[..., H, W, 3] u8 -> (the leading shape, three [N, H, W] planes)."""
-    if image.dim() < 3 or image.shape[-1] != 3:
-        raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
-    lead = tuple(image.shape[:-3])
-    flat = image.reshape((-1,) + tuple(image.shape[-3:]))
-    return lead, tuple(flat[..., c].contiguous() for c in range(3))
-
-
-def _histogram_cuts(bright_thr: float, dark_thr: float, uv0: float):
-    """The histogram's runtime values: f32(255 * threshold) of the f64
-    products, and uv0 narrowed to f32."""
-    return (float(np.float32(255.0 * bright_thr)), float(np.float32(255.0 * dark_thr)),
-            float(np.float32(uv0)))
-
-
-def log_chroma_histogram_image(image: torch.Tensor, bright_thr: float = 0.9,
-                               dark_thr: float = 0.1, uv0: float = UV0) -> torch.Tensor:
+def log_chroma_histogram(image: torch.Tensor, bright_thr: float = 0.9,
+                         dark_thr: float = 0.1, uv0: float = UV0, *,
+                         plain: bool = False) -> torch.Tensor:
     """[..., H, W, 3] u8 BGR (the 360x270 working resize) -> [..., 256, 256]
-    f32 histogram: the reference package's image-level log_chroma_histogram,
-    through the planar one (kernel B on a CUDA tensor)."""
-    lead, planes = _image_planes(image)
-    hist = log_chroma_histogram(*planes, *_histogram_cuts(bright_thr, dark_thr, uv0))
+    f32 histogram, each pixel weighing f32(1/(H*W)). The cuts are
+    f32(255 * threshold) of the f64 products, as the reference package's
+    static path; kernel B on a CUDA tensor (see
+    log_chroma_histogram_planes)."""
+    return log_chroma_histogram_rt(image, 255.0 * bright_thr, 255.0 * dark_thr, uv0,
+                                   plain=plain)
+
+
+def log_chroma_histogram_rt(image: torch.Tensor, bright_cut, dark_cut, uv0, *,
+                            plain: bool = False) -> torch.Tensor:
+    """log_chroma_histogram with the pre-scaled 255*threshold cuts and uv0
+    given as f32 values (numbers or one-element tensors, narrowed to f32)."""
+    lead, planes = image_planes(image)
+    cuts = (float(np.float32(float(v))) for v in (bright_cut, dark_cut, uv0))
+    hist = log_chroma_histogram_planes(*planes, *cuts, plain=plain)
     return hist.reshape(lead + (HIST_N, HIST_N))
 
 
@@ -401,14 +422,12 @@ def estimate_illuminant(image: torch.Tensor, model, bright_thr: float = 0.9,
                         dark_thr: float = 0.1, uv0: float = UV0) -> torch.Tensor:
     """[..., H, W, 3] u8 BGR frames and a CCCModel (models/ccc_model.py) ->
     the response's first-occurrence peak [..., 2] int32 (x, y): the
-    360x270 resize of each plane, the histogram (kernel B) and the response
-    (kernel C) on a CUDA tensor, the argmax."""
-    lead, planes = _image_planes(image)
-    small = [resize_linear_u8_plane(p, SMALL_H, SMALL_W) for p in planes]
-    hist = log_chroma_histogram(*small, *_histogram_cuts(bright_thr, dark_thr, uv0))
-    filt = (torch.as_tensor(np.asarray(a, np.float32), device=image.device)
-            for a in (model.filt_dft_re, model.filt_dft_im, model.bias))
-    return response_argmax(ccc_response(hist, *filt)).reshape(lead + (2,))
+    360x270 resize, the histogram (kernel B) and the response (kernel C)
+    on a CUDA tensor, the argmax."""
+    hist = log_chroma_histogram(resize_linear_u8(image, SMALL_H, SMALL_W), bright_thr,
+                                dark_thr, uv0)
+    return response_argmax(ccc_response(hist, model.filt_dft_re, model.filt_dft_im,
+                                        model.bias))
 
 
 def ccc_balance_white(image: torch.Tensor, model, bright_thr: float = 0.9,
@@ -421,5 +440,4 @@ def ccc_balance_white(image: torch.Tensor, model, bright_thr: float = 0.9,
     uv = estimate_illuminant(image, model, bright_thr, dark_thr, uv0)
     if state is not None:
         state, uv = kalman_update(state, uv)
-    gains = gains_from_uv(uv, torch.as_tensor(exp_table(uv0), device=image.device))
-    return apply_gains(image, gains), state
+    return apply_gains(image, gains_from_uv(uv, uv0)), state

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from raw_image_pipeline_tpu_torch.ops.common import round_u8
+from raw_image_pipeline_tpu_torch.ops.common import as_tensor_on, round_u8
 
 
 def color_correct_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
@@ -25,3 +25,15 @@ def color_correct_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
                  + bias[o])
         for o in range(3)
     )
+
+
+def color_correct(image: torch.Tensor, matrix, bias) -> torch.Tensor:
+    """[..., H, W, 3] u8 BGR frames -> the same, through
+    color_correct_planes. matrix [3, 3] and bias [3] f32 (tensors or
+    arrays)."""
+    if image.dim() < 3 or image.shape[-1] != 3:
+        raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
+    m = as_tensor_on(matrix, image.device, torch.float32).reshape(3, 3)
+    b = as_tensor_on(bias, image.device, torch.float32).reshape(3)
+    return torch.stack(color_correct_planes(image[..., 0], image[..., 1], image[..., 2], m, b),
+                       dim=-1)

@@ -61,3 +61,13 @@ def enhance_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
     ss = tables[1][s.long()]
     vs = tables[2][v.long()]
     return _hsv_to_bgr_mixed(hs, ss, vs)
+
+
+def enhance(image: torch.Tensor, gains) -> torch.Tensor:
+    """[..., H, W, 3] u8 BGR frames -> the same, with three host float gains
+    (hue, saturation, value) served as their exact tables (gain_tables)."""
+    if image.dim() < 3 or image.shape[-1] != 3:
+        raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
+    tables = torch.as_tensor(gain_tables(gains), device=image.device)
+    return torch.stack(enhance_planes(image[..., 0], image[..., 1], image[..., 2], tables),
+                       dim=-1)

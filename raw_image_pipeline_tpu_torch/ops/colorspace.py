@@ -330,3 +330,43 @@ def lab_to_bgr_planes(L: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
         return tabs["inv_gamma"][idx.long()].to(torch.uint8)
 
     return channel(2), channel(1), channel(0)
+
+
+# ---------------------------------------------------------------------------
+# [..., H, W, 3] frames (the reference package's image-level entry points)
+# ---------------------------------------------------------------------------
+
+
+def _channels(image: torch.Tensor):
+    if image.dim() < 3 or image.shape[-1] != 3:
+        raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
+    return image[..., 0], image[..., 1], image[..., 2]
+
+
+def bgr_to_hsv_u8(image: torch.Tensor) -> torch.Tensor:
+    """cv::cvtColor(COLOR_BGR2HSV) on [..., H, W, 3] u8 frames."""
+    return torch.stack(bgr_to_hsv_planes(*_channels(image)), dim=-1)
+
+
+def hsv_to_bgr_u8(image: torch.Tensor) -> torch.Tensor:
+    """cv::cvtColor(COLOR_HSV2BGR) on [..., H, W, 3] u8 frames (cv2 5.0's
+    SIMD row kernel throughout, as the reference package's function)."""
+    return torch.stack(hsv_to_bgr_planes(*_channels(image)), dim=-1)
+
+
+def bgr_to_lab_u8(image: torch.Tensor) -> torch.Tensor:
+    """cv::cvtColor(COLOR_BGR2Lab) on [..., H, W, 3] u8 frames."""
+    return torch.stack(bgr_to_lab_planes(*_channels(image)), dim=-1)
+
+
+def lab_to_bgr_u8(image: torch.Tensor) -> torch.Tensor:
+    """cv::cvtColor(COLOR_Lab2BGR) on [..., H, W, 3] u8 frames."""
+    return torch.stack(lab_to_bgr_planes(*_channels(image)), dim=-1)
+
+
+def bgr_to_gray_f32(image: torch.Tensor) -> torch.Tensor:
+    """cv::cvtColor(COLOR_BGR2GRAY) on CV_32F: [..., H, W, 3] -> [..., H, W]
+    f32, the plain chain (r*.299 + g*.587) + b*.114 with every op rounded
+    in f32 (XLA:CPU contracts the reference package's into two fmas)."""
+    x = image.to(torch.float32)
+    return (x[..., 2] * _f32(0.299) + x[..., 1] * _f32(0.587)) + x[..., 0] * _f32(0.114)

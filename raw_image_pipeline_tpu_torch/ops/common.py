@@ -8,6 +8,7 @@ any device (no fused op such as addcmul or lerp may be used inside them).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -35,6 +36,11 @@ def avg4(a, b, c, d) -> torch.Tensor:
     return (a + b + c + d + 2) >> 2
 
 
+def saturate_u8(x: torch.Tensor) -> torch.Tensor:
+    """Clamp an integer or float tensor to [0, 255] and cast to uint8."""
+    return torch.clamp(x, 0, 255).to(torch.uint8)
+
+
 def round_u8(x: torch.Tensor) -> torch.Tensor:
     """OpenCV saturate_cast<uchar>(float): rint (half-to-even) then clamp.
     torch.round rounds half to even, like cvRound on x86."""
@@ -60,3 +66,27 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     bb = s - p
     e2 = (p - (s - bb)) + (c - bb)
     return s + (e2 + err)
+
+
+def image_planes(image: torch.Tensor):
+    """[..., H, W, 3] frames -> (the leading shape, three planes [N, H, W]),
+    N the product of the leading dims: how the NHWC entry points hand
+    frames to the planar cores."""
+    if image.dim() < 3 or image.shape[-1] != 3:
+        raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
+    lead = tuple(image.shape[:-3])
+    flat = image.reshape((-1,) + tuple(image.shape[-3:]))
+    return lead, (flat[..., 0], flat[..., 1], flat[..., 2])
+
+
+def planes_image(planes, lead) -> torch.Tensor:
+    """Planes [N, H, W] -> [*lead, H, W, C]."""
+    out = torch.stack(tuple(planes), dim=-1)
+    return out.reshape(tuple(lead) + tuple(out.shape[1:]))
+
+
+def as_tensor_on(x, device, dtype=None) -> torch.Tensor:
+    """x (a tensor, numpy array, sequence or number) as a tensor on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype or x.dtype)
+    return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)

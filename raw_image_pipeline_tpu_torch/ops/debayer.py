@@ -3,17 +3,24 @@
 Two algorithms for 8-bit frames, each a plain version and a hand-written
 kernel:
 
-- bilinear, bit-exact vs cv::demosaicing: `debayer_bilinear` (zero-padded
-  shifted views, phase masks, then cv::demosaicing's 1-px border
-  replication), op for op the reference package's; kernel A
+- bilinear, bit-exact vs cv::demosaicing: `debayer_bilinear_planar`
+  (zero-padded shifted views, phase masks, then cv::demosaicing's 1-px
+  border replication), op for op the reference package's; kernel A
   (csrc/debayer.cu);
 - MHT, the Malvar-He-Cutler 5x5 stencil of the reference's CUDA backend
-  (cv::cuda::demosaicing): `debayer_mht`, the full stencil over a
+  (cv::cuda::demosaicing): `debayer_mht_planar`, the full stencil over a
   clamp-to-edge mosaic; kernel D (csrc/debayer_mht.cu).
 
+Both plain versions and both kernels write planar [B, 3, H, W];
+`debayer_bilinear`, `debayer_mht` and `debayer_bilinear16` are the
+reference package's functions of a phase ([..., H, W] in, [..., H, W, 3]
+out), on the kernel for a CUDA tensor.
+
 `debayer_planes` is what the pipeline calls: on a CUDA tensor it launches
-the algorithm's kernel, on a CPU tensor it runs the plain version. 16-bit
-frames (an extension of the reference) go through `debayer_bilinear16`,
+the algorithm's kernel, on a CPU tensor it runs the plain version.
+`debayer` is the reference package's entry point over [..., H, W] frames,
+[..., H, W, 3] out, through the same dispatch. 16-bit
+frames (an extension of the reference) go through `debayer_bilinear16_planar`,
 plain int32 ops on any device.
 
 Phase convention: OpenCV's COLOR_BayerXX2BGR codes define the CFA phase from
@@ -52,7 +59,7 @@ ENCODING_TO_CV_CODE = {
 BAYER_ENCODINGS = tuple(ENCODING_TO_CV_CODE)
 
 # 16-bit patterns: listed by the reference but unimplemented there (it
-# throws); demosaiced by debayer_bilinear16 when DebayerConfig.bayer16 is
+# throws); demosaiced by debayer_bilinear16_planar when DebayerConfig.bayer16 is
 # "scale8"
 BAYER16_ENCODINGS = ("bayer_bggr16", "bayer_gbrg16", "bayer_grbg16", "bayer_rggb16")
 
@@ -130,14 +137,15 @@ def _bilinear_stencil(p: torch.Tensor, phase: str, hi: int) -> torch.Tensor:
     return _replicate_border(torch.clamp(torch.stack([b, g, r], dim=-3), 0, hi))
 
 
-def debayer_bilinear(bayer: torch.Tensor, phase: str) -> torch.Tensor:
-    """Plain bilinear demosaic: [B, H, W] uint8 -> [B, 3, H, W] uint8 planar
-    BGR (the channel order cv2 produces), bit-exact vs cv::demosaicing."""
+def debayer_bilinear_planar(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+    """Plain bilinear demosaic (kernel A's plain version): [B, H, W] uint8
+    -> [B, 3, H, W] uint8 planar BGR (the channel order cv2 produces),
+    bit-exact vs cv::demosaicing."""
     p = F.pad(bayer, (1, 1, 1, 1)).to(torch.int16)
     return _bilinear_stencil(p, phase, 255).to(torch.uint8)
 
 
-def debayer_bilinear16(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+def debayer_bilinear16_planar(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     """Bilinear demosaic of 16-bit frames (the reference package's
     debayer_bilinear16, an extension: the reference lists these patterns
     and throws): [B, H, W] uint16 (or any integer dtype holding 16-bit
@@ -181,7 +189,7 @@ def _launch_debayer(kernel: kernels.Kernel, bayer: torch.Tensor, phase: str,
 
 def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     """Kernel A: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
-    equal to debayer_bilinear for any H, W >= 2."""
+    equal to debayer_bilinear_planar for any H, W >= 2."""
     return _launch_debayer(kernels.DEBAYER_BILINEAR, bayer, phase, 2)
 
 
@@ -192,8 +200,8 @@ def _desc8(v: torch.Tensor) -> torch.Tensor:
     return q - (((v & 15) == 8) & ((q & 1) == 1)).to(v.dtype)
 
 
-def debayer_mht(bayer: torch.Tensor, phase: str) -> torch.Tensor:
-    """Plain Malvar-He-Cutler demosaic: [B, H, W] uint8 -> [B, 3, H, W]
+def debayer_mht_planar(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+    """Plain Malvar-He-Cutler demosaic (kernel D's plain version): [B, H, W] uint8 -> [B, 3, H, W]
     uint8 planar BGR, equal to the reference package's debayer_mht for any
     H, W >= 1 (no R<->B swap: this is the reference's GPU algorithm).
 
@@ -233,30 +241,81 @@ def debayer_mht(bayer: torch.Tensor, phase: str) -> torch.Tensor:
 
 def debayer_mht_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     """Kernel D: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
-    equal to debayer_mht for any H, W >= 1."""
+    equal to debayer_mht_planar for any H, W >= 1."""
     return _launch_debayer(kernels.DEBAYER_MHT, bayer, phase, 1)
 
 
 _ALGORITHMS = {
-    "bilinear": (debayer_bilinear, debayer_bilinear_cuda),
-    "mht": (debayer_mht, debayer_mht_cuda),
+    "bilinear": (debayer_bilinear_planar, debayer_bilinear_cuda),
+    "mht": (debayer_mht_planar, debayer_mht_cuda),
 }
+
+
+def _dispatch(algorithm: str, bayer: torch.Tensor, phase: str, plain: bool) -> torch.Tensor:
+    """[N, H, W] u8 -> [N, 3, H, W]: the algorithm's kernel (A or D) on a
+    CUDA tensor, its plain version on a CPU tensor or with plain=True."""
+    plain_fn, cuda_fn = _ALGORITHMS[algorithm]
+    if plain or bayer.device.type == "cpu":
+        return plain_fn(bayer, phase)
+    return cuda_fn(bayer.contiguous(), phase)
+
+
+def _flat(bayer: torch.Tensor) -> torch.Tensor:
+    return bayer.reshape((-1,) + tuple(bayer.shape[-2:]))
+
+
+def _nhwc(out: torch.Tensor, lead) -> torch.Tensor:
+    """[N, 3, H, W] -> [*lead, H, W, 3]."""
+    return out.permute(0, 2, 3, 1).reshape(tuple(lead) + tuple(out.shape[-2:]) + (3,)) \
+        .contiguous()
+
+
+def debayer_bilinear(bayer: torch.Tensor, phase: str, *, plain: bool = False) -> torch.Tensor:
+    """Bilinear demosaic in a CFA phase: [..., H, W] uint8 -> [..., H, W, 3]
+    uint8 BGR, kernel A on a CUDA tensor."""
+    return _nhwc(_dispatch("bilinear", _flat(bayer), phase, plain), bayer.shape[:-2])
+
+
+def debayer_mht(bayer: torch.Tensor, phase: str, *, plain: bool = False) -> torch.Tensor:
+    """Malvar-He-Cutler demosaic in a CFA phase: [..., H, W] uint8 ->
+    [..., H, W, 3] uint8 BGR, kernel D on a CUDA tensor."""
+    return _nhwc(_dispatch("mht", _flat(bayer), phase, plain), bayer.shape[:-2])
+
+
+def debayer_bilinear16(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+    """Bilinear demosaic of 16-bit frames: [..., H, W] uint16 ->
+    [..., H, W, 3] uint16 BGR (plain int32 ops on any device)."""
+    return _nhwc(debayer_bilinear16_planar(_flat(bayer), phase).to(torch.uint16),
+                 bayer.shape[:-2])
+
+
+def _demosaic(bayer: torch.Tensor, encoding: str, algorithm: str, plain: bool) -> torch.Tensor:
+    """[N, H, W] 8-bit mosaic of an encoding -> [N, 3, H, W] BGR (_dispatch)."""
+    if encoding not in ENCODING_TO_CV_CODE:
+        raise NotImplementedError(f"debayer of encoding [{encoding}]")
+    if algorithm not in _ALGORITHMS:
+        raise NotImplementedError(f"the [{algorithm}] demosaic algorithm")
+    return _dispatch(algorithm, bayer, phase_for_encoding(encoding), plain)
+
+
+def debayer(bayer: torch.Tensor, encoding: str, algorithm: str = "bilinear", *,
+            plain: bool = False) -> torch.Tensor:
+    """Demosaic [..., H, W] frames by ROS encoding name to [..., H, W, 3]
+    BGR in cv2's channel order (before the pipeline's CPU-path R<->B swap):
+    uint8 for the 8-bit encodings ("bilinear" = kernel A, "mht" = kernel D
+    on a CUDA tensor; the plain versions on a CPU tensor or with
+    plain=True), uint16 for the 16-bit ones (bilinear, plain int32 ops)."""
+    if bayer.dim() < 2:
+        raise ValueError(f"bayer: expected [..., H, W], got {tuple(bayer.shape)}")
+    if encoding in BAYER16_ENCODINGS:  # whatever the algorithm, as the reference package
+        return debayer_bilinear16(bayer, phase_for_encoding(encoding))
+    return _nhwc(_demosaic(_flat(bayer), encoding, algorithm, plain), bayer.shape[:-2])
 
 
 def debayer_planes(bayer: torch.Tensor, encoding: str, algorithm: str = "bilinear",
                    plain: bool = False):
     """Demosaic a [B, H, W] uint8 batch straight to three [B, H, W] planes
-    (c0, c1, c2) in cv2's BGR order, by "bilinear" or "mht". A CUDA tensor
-    goes through the algorithm's kernel (A or D), a CPU tensor (or
-    plain=True) through the plain version."""
-    if encoding not in ENCODING_TO_CV_CODE:
-        raise NotImplementedError(f"debayer of encoding [{encoding}]")
-    if algorithm not in _ALGORITHMS:
-        raise NotImplementedError(f"the [{algorithm}] demosaic algorithm")
-    plain_fn, cuda_fn = _ALGORITHMS[algorithm]
-    phase = phase_for_encoding(encoding)
-    if plain or bayer.device.type == "cpu":
-        out = plain_fn(bayer, phase)
-    else:
-        out = cuda_fn(bayer.contiguous(), phase)
+    (c0, c1, c2) in cv2's BGR order: debayer(...)[..., c] without the
+    interleave, as the chain calls it (8-bit encodings only)."""
+    out = _demosaic(bayer, encoding, algorithm, plain)
     return out[:, 0], out[:, 1], out[:, 2]

@@ -4,7 +4,8 @@ PyTorch port of raw_image_pipeline_tpu/ops/gamma.py).
 The reference builds lut[i] = saturate_cast<uchar>(pow(i/255, k) * 255) and
 applies it with cv::LUT. Its GPU backend's "default" method is NPP's fixed
 ITU-R BT.709 curve instead (`build_bt709_lut`). The port applies either
-exact host table as a gather.
+exact host table as a gather (`apply_lut`; `gamma_correct` and
+`gamma_apply_bt709` on frames).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import math
 
 import numpy as np
 import torch
+
+from raw_image_pipeline_tpu_torch.ops.common import as_tensor_on
 
 
 def build_gamma_lut(k: float) -> np.ndarray:
@@ -44,6 +47,19 @@ def build_bt709_lut(forward: bool) -> np.ndarray:
     return np.clip(np.rint(y * 255.0), 0, 255).astype(np.uint8)
 
 
-def apply_lut(plane: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """table[plane] for a u8 plane and a 256-entry table on its device."""
-    return table[plane.long()]
+def apply_lut(image: torch.Tensor, lut) -> torch.Tensor:
+    """lut[image] for u8 frames or planes of any shape and a 256-entry table
+    (a tensor, moved to the image's device if elsewhere, or an array), in
+    the table's dtype."""
+    return as_tensor_on(lut, image.device)[image.long()]
+
+
+def gamma_correct(image: torch.Tensor, k: float) -> torch.Tensor:
+    """The reference's gamma LUT for exponent k on u8 frames of any shape."""
+    return apply_lut(image, build_gamma_lut(k))
+
+
+def gamma_apply_bt709(image: torch.Tensor, forward: bool) -> torch.Tensor:
+    """The GPU backend's "default" gamma (the fixed BT.709 curve, k ignored)
+    on u8 frames of any shape, as its exact host table."""
+    return apply_lut(image, build_bt709_lut(forward))

@@ -40,6 +40,7 @@ import os
 import numpy as np
 import torch
 
+from raw_image_pipeline_tpu_torch.ops.common import image_planes, planes_image
 from raw_image_pipeline_tpu_torch.ops.white_balance import Planes, apply_gains_8p8
 
 _MODEL_PATH = os.path.join(
@@ -221,7 +222,7 @@ def predict_illuminant(features: torch.Tensor) -> torch.Tensor:
     return torch.where(consensus.any(dim=-1, keepdim=True), cons, every)
 
 
-def balance_white_learned(planes: Planes, saturation_thresh: float = 0.98) -> Planes:
+def balance_white_learned_planes(planes: Planes, saturation_thresh: float = 0.98) -> Planes:
     """Planes (b, g, r) -> balanced planes, by the default LearningBasedWB
     model. The saturation threshold is trunc(f32(thresh) * 255)."""
     thresh255 = int(np.trunc(np.float32(saturation_thresh) * 255))
@@ -232,3 +233,12 @@ def balance_white_learned(planes: Planes, saturation_thresh: float = 0.98) -> Pl
     gains = illum.amin(dim=-1, keepdim=True) / illum
     gi = torch.round(gains * 256.0).to(torch.int32)
     return apply_gains_8p8(planes, gi)
+
+
+def balance_white_learned_model(image: torch.Tensor,
+                                saturation_thresh: float = 0.98) -> torch.Tensor:
+    """[..., H, W, 3] u8 BGR frames -> balanced, by the default
+    LearningBasedWB model (balance_white_learned_planes per frame of the
+    flattened batch)."""
+    lead, planes = image_planes(image)
+    return planes_image(balance_white_learned_planes(planes, saturation_thresh), lead)

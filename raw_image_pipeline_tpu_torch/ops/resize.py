@@ -107,6 +107,15 @@ def resize_linear_u8_plane(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.T
     return resize_linear_u8_rows(img, img.shape[-2], dst_h, dst_w, 0, dst_h, 0)
 
 
+def resize_linear_u8(image: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+    """[..., H, W, C] uint8 -> [..., dst_h, dst_w, C] uint8, each channel
+    through resize_linear_u8_plane."""
+    if image.dim() < 3:
+        raise ValueError(f"image: expected [..., H, W, C], got {tuple(image.shape)}")
+    out = resize_linear_u8_plane(image.movedim(-1, 0), dst_h, dst_w)
+    return out.movedim(0, -1).contiguous()
+
+
 def resize_linear_u8_rows(img: torch.Tensor, src_h: int, dst_h: int, dst_w: int,
                           y0: int, y1: int, row0: int) -> torch.Tensor:
     """Rows [y0, y1) of the resize of an src_h-row frame to dst_h x dst_w,

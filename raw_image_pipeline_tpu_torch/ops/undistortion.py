@@ -25,6 +25,11 @@ also takes base [C, N] and weights [C, k, N] stacked over C cameras, with
 the planes' batch camera-major ([C*B'] frames); each camera's block of B'
 frames goes through its own map. Kernel E does so in one launch, the plain
 versions block by block.
+
+The reference package's entry points take frames: `remap_bilinear_u8`
+([..., H, W, C]), `remap_bilinear_u8_planes` (its batch-minor planes
+[H, W, ...]) and `remap_bilinear_u8_from_maps` (cv2-style maps); each goes
+through `remap_planes`, so float mode reaches kernel E on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from raw_image_pipeline_tpu_torch import kernels
-from raw_image_pipeline_tpu_torch.ops.common import fma_f32, round_u8
+from raw_image_pipeline_tpu_torch.ops.common import as_tensor_on, fma_f32, round_u8
 
 
 # ---------------------------------------------------------------------------
@@ -631,3 +636,84 @@ def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
     per = b // cams
     return torch.cat([fns[mode](tuple(p[c * per:(c + 1) * per] for p in planes), base[c],
                                 weights[c], out_hw) for c in range(cams)])
+
+
+# ---------------------------------------------------------------------------
+# The reference package's entry points
+# ---------------------------------------------------------------------------
+
+
+def _check_src(h: int, w: int, src_hw) -> None:
+    """base and weights index a source of src_hw: a frame of another size
+    would be read with the wrong row stride."""
+    if src_hw is not None and (h, w) != tuple(src_hw):
+        raise ValueError(f"remap precomputed for source {tuple(src_hw)} but got frame "
+                         f"({h}, {w}); rebuild the pipeline for this frame size")
+
+
+def _remap_batch(planes, base, weights, out_hw, n_cameras: int, mode: str,
+                 plain: bool) -> torch.Tensor:
+    """[N, H, W] planes (camera-major over n_cameras blocks) -> [N, Ho, Wo, C]
+    through remap_planes (kernel E takes one or three planes)."""
+    dev = planes[0].device
+    base = as_tensor_on(base, dev, torch.int32)
+    weights = as_tensor_on(weights, dev, torch.float32)
+    if (base.dim() == 2) != (n_cameras > 1) or (n_cameras > 1 and base.shape[0] != n_cameras):
+        raise ValueError(f"base {tuple(base.shape)}: expected [N] for one camera, "
+                         f"[n_cameras, N] for {n_cameras}")
+    return remap_planes(planes, base, weights, tuple(int(v) for v in out_hw), mode, plain)
+
+
+def remap_bilinear_u8(image: torch.Tensor, base, weights, out_hw: Tuple[int, int],
+                      src_hw: Tuple[int, int] | None = None, n_cameras: int = 1,
+                      mode: str = "lerp", *, plain: bool = False) -> torch.Tensor:
+    """cv::remap(INTER_LINEAR, BORDER_CONSTANT, 0) with remap_precompute's
+    (base, weights) in `mode`: [..., H, W, C] u8 -> [..., Ho, Wo, C] u8.
+    n_cameras > 1: image [n_cameras * B', H, W, C] camera-major, base
+    [n_cameras, N] and weights [n_cameras, k, N] stacked per camera. Float
+    mode runs kernel E on a CUDA tensor, the plain version on a CPU tensor
+    or with plain=True; lerp and fixed32 are plain torch ops."""
+    if image.dim() < 3:
+        raise ValueError(f"image: expected [..., H, W, C], got {tuple(image.shape)}")
+    h, w, c = image.shape[-3:]
+    _check_src(h, w, src_hw)
+    if n_cameras > 1 and image.dim() != 4:
+        raise ValueError(f"image: expected [n_cameras * B, H, W, C] for {n_cameras} cameras, "
+                         f"got {tuple(image.shape)}")
+    lead = tuple(image.shape[:-3])
+    flat = image.reshape((-1, h, w, c))
+    out = _remap_batch(tuple(flat[..., k] for k in range(c)), base, weights, out_hw,
+                       n_cameras, mode, plain)
+    return out.reshape(lead + tuple(out.shape[1:]))
+
+
+def remap_bilinear_u8_planes(planes, base, weights, out_hw: Tuple[int, int],
+                             src_hw: Tuple[int, int] | None = None, n_cameras: int = 1,
+                             mode: str = "lerp", *, plain: bool = False) -> torch.Tensor:
+    """The reference package's planar remap, in its batch-minor layout: a
+    tuple of C [H, W, ...] u8 planes -> [Ho, Wo, C, ...] u8; with
+    n_cameras > 1 (planes [H, W, n_cameras * B'], camera-major) ->
+    [n_cameras, Ho, Wo, C, B']. Same dispatch as remap_bilinear_u8."""
+    h, w = planes[0].shape[0], planes[0].shape[1]
+    _check_src(h, w, src_hw)
+    lead = tuple(planes[0].shape[2:])
+    if n_cameras > 1 and len(lead) != 1:
+        raise ValueError(f"planes: expected [H, W, n_cameras * B] for {n_cameras} cameras, "
+                         f"got {tuple(planes[0].shape)}")
+    batch = tuple(p.reshape(h, w, -1).permute(2, 0, 1) for p in planes)  # [N, H, W]
+    out = _remap_batch(batch, base, weights, out_hw, n_cameras, mode, plain)  # [N, Ho, Wo, C]
+    if n_cameras > 1:
+        n = out.shape[0]
+        return out.reshape((n_cameras, n // n_cameras) + tuple(out.shape[1:])) \
+            .permute(0, 2, 3, 4, 1).contiguous()
+    return out.permute(1, 2, 3, 0).reshape(tuple(out.shape[1:]) + lead).contiguous()
+
+
+def remap_bilinear_u8_from_maps(image: torch.Tensor, map_x, map_y, mode: str = "lerp", *,
+                                plain: bool = False) -> torch.Tensor:
+    """remap_bilinear_u8 from cv2-style float32 maps (host arrays): the
+    factors are precomputed on the host at every call (remap_precompute)."""
+    h, w = image.shape[-3], image.shape[-2]
+    mx, my = np.asarray(map_x), np.asarray(map_y)
+    base, weights = remap_precompute(mx, my, (h, w), mode=mode)
+    return remap_bilinear_u8(image, base, weights, mx.shape, mode=mode, plain=plain)

@@ -22,7 +22,7 @@ from raw_image_pipeline_tpu_torch.ops.colorspace import (
     bgr_to_lab_planes,
     lab_to_bgr_planes,
 )
-from raw_image_pipeline_tpu_torch.ops.common import round_u8
+from raw_image_pipeline_tpu_torch.ops.common import as_tensor_on, round_u8
 from raw_image_pipeline_tpu_torch.ops.gamma import build_gamma_lut
 
 
@@ -55,3 +55,12 @@ def correct_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
     L, a, bb = bgr_to_lab_planes(b, g, r, gamma_tab=gamma_tab)
     L = round_u8(L.float() * mask)
     return lab_to_bgr_planes(L, a, bb)
+
+
+def correct(image: torch.Tensor, mask) -> torch.Tensor:
+    """[..., H, W, 3] u8 BGR frames and an [H, W] f32 mask (tensor or
+    array) -> the same: the exact Lab roundtrip with L scaled by the mask."""
+    if image.dim() < 3 or image.shape[-1] != 3:
+        raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
+    m = as_tensor_on(mask, image.device, torch.float32)
+    return torch.stack(correct_planes(image[..., 0], image[..., 1], image[..., 2], m), dim=-1)

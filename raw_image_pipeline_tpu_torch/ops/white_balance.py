@@ -3,7 +3,10 @@ of raw_image_pipeline_tpu/ops/white_balance.py; "learned" is in
 ops/learned_wb.py, "ccc" in ops/ccc.py).
 
 Every method is a per-frame reduction followed by a per-pixel map, on the
-three [B, H, W] u8 planes (b, g, r) the pipeline carries. The statistics
+three [B, H, W] u8 planes (b, g, r) the pipeline carries (the `*_planes`
+cores); `balance_white_simple`, `_grey_world`, `_pca` and `_learned` take
+[..., H, W, 3] frames, as the reference package's, and flatten the leading
+dims into the planes' batch. The statistics
 are per channel and the positional rules index the flattened H*W frame, so
 the planar form computes what the reference package's packed form does.
 
@@ -24,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from raw_image_pipeline_tpu_torch.ops.common import fma_f32, round_u8
+from raw_image_pipeline_tpu_torch.ops.common import fma_f32, image_planes, planes_image, round_u8
 
 Planes = tuple  # (b, g, r), each [B, H, W] uint8
 
@@ -77,7 +80,7 @@ def _simple_tables(device: torch.device):
             torch.as_tensor(_SIMPLE_BETA32, device=device))
 
 
-def balance_white_simple(planes: Planes, p: float) -> Planes:
+def balance_white_simple_planes(planes: Planes, p: float) -> Planes:
     """cv::xphoto::SimpleWB (setP(p)), 8u, default ranges. Per channel: walk
     the 256-bin histogram from each end while the cumulative count is
     strictly below the f32 target (p*n)/100 (stop bins p1, p2), then stretch
@@ -116,7 +119,7 @@ def apply_gains_8p8(planes: Planes, gains: torch.Tensor) -> Planes:
     )
 
 
-def balance_white_grey_world(planes: Planes, thresh: float) -> Planes:
+def balance_white_grey_world_planes(planes: Planes, thresh: float) -> Planes:
     """cv::xphoto::GrayworldWB: integer saturation mask
     (mx-mn)*255 <= cvRound(thr*255)*mx, integer channel sums, gains toward
     the minimum positive sum, rint(f32(smin)/f32(s)*256), applied as
@@ -194,7 +197,7 @@ def _pca_solve(c: torch.Tensor, sg: torch.Tensor, mg: torch.Tensor):
     return x0, x1
 
 
-def balance_white_pca(planes: Planes) -> Planes:
+def balance_white_pca_planes(planes: Planes) -> Planes:
     """The reference PCA method: per channel c in (b, r), the 2x2 solve
     against the green channel's sum and max, then the per-pixel map
     cvRound(min(x0*c^2 + x1*c, 255)) as a 256-entry table; g passes through.
@@ -218,3 +221,34 @@ def balance_white_pca(planes: Planes) -> Planes:
         return torch.where(bad[:, None, None], nan_pattern, out)
 
     return corrected(b), g, corrected(r)
+
+
+# ---------------------------------------------------------------------------
+# [..., H, W, 3] frames (the reference package's entry points)
+# ---------------------------------------------------------------------------
+
+
+def balance_white_simple(image: torch.Tensor, p: float) -> torch.Tensor:
+    """cv::xphoto::SimpleWB on [..., H, W, 3] u8 BGR frames."""
+    lead, planes = image_planes(image)
+    return planes_image(balance_white_simple_planes(planes, p), lead)
+
+
+def balance_white_grey_world(image: torch.Tensor, thresh: float) -> torch.Tensor:
+    """cv::xphoto::GrayworldWB on [..., H, W, 3] u8 BGR frames."""
+    lead, planes = image_planes(image)
+    return planes_image(balance_white_grey_world_planes(planes, thresh), lead)
+
+
+def balance_white_pca(image: torch.Tensor) -> torch.Tensor:
+    """The reference PCA method on [..., H, W, 3] u8 BGR frames."""
+    lead, planes = image_planes(image)
+    return planes_image(balance_white_pca_planes(planes), lead)
+
+
+def balance_white_learned(image: torch.Tensor, thresh: float) -> torch.Tensor:
+    """cv::xphoto::LearningBasedWB with the default model on [..., H, W, 3]
+    u8 BGR frames (ops/learned_wb.balance_white_learned_model)."""
+    from raw_image_pipeline_tpu_torch.ops.learned_wb import balance_white_learned_model
+
+    return balance_white_learned_model(image, thresh)

@@ -23,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from raw_image_pipeline_tpu_torch.config import CameraCalibration, PipelineConfig
+from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
 from raw_image_pipeline_tpu_torch.ops import ccc as ccc_ops
 from raw_image_pipeline_tpu_torch.ops.common import resolve_device
 from raw_image_pipeline_tpu_torch.parallel.mesh import split_frames
@@ -92,26 +93,29 @@ def build_multicamera_pipeline(
     config0 = base_config.replace(calibration=calibrations[0])
     src_hw = _post_flip_shape(*frame_hw,
                               base_config.flip.angle if base_config.flip.enabled else 0)
+    # the model is read once and shared by every camera's parameters
+    wb = base_config.white_balance
+    ccc_model = load_ccc_model(wb.ccc_model_path) if wb.enabled and wb.method == "ccc" else None
     if mesh is not None:
         return _mesh_multicamera(base_config, calibrations, encoding, frame_hw, with_state,
-                                 temporal_mode, mesh, src_hw)
+                                 temporal_mode, mesh, src_hw, ccc_model)
     dev = resolve_device(device)
-    fields = _camera_fields(base_config, calibrations, frame_hw, src_hw)
+    fields = _camera_fields(base_config, calibrations, frame_hw, src_hw, ccc_model)
     params = params_from_numpy(fields, config0, dev)
     fn = make_isp_fn(config0, encoding, with_state, False, temporal_mode=temporal_mode,
                      remap_src_hw=src_hw, n_cameras=n)
     if not with_state:
         inner = fn
         fn = lambda p, px, state=None: (inner(p, px, None)[0], state)  # noqa: E731
-    return BuiltPipeline(base_config, params, fn)
+    return BuiltPipeline(base_config, params, fn, ccc_model=ccc_model)
 
 
-def _camera_fields(base_config: PipelineConfig, calibrations, frame_hw, src_hw):
+def _camera_fields(base_config: PipelineConfig, calibrations, frame_hw, src_hw, ccc_model):
     """The host fields of a camera-blocked chain over `calibrations`: the
     first camera's, with the remap maps stacked [C, N] / [C, k, N] where
     the calibrations differ (one flat map where they are all equal)."""
     config0 = base_config.replace(calibration=calibrations[0])
-    fields = _host_fields(config0, frame_hw)
+    fields = _host_fields(config0, frame_hw, ccc_model)
     # the cameras' configs differ only in their calibration, from which
     # only the remap's maps derive; sharing is decided on the host
     # dataclasses, so that equal calibrations give one flat map
@@ -125,7 +129,7 @@ def _camera_fields(base_config: PipelineConfig, calibrations, frame_hw, src_hw):
 
 
 def _mesh_multicamera(base_config, calibrations, encoding, frame_hw, with_state,
-                      temporal_mode, mesh, src_hw) -> BuiltPipeline:
+                      temporal_mode, mesh, src_hw, ccc_model) -> BuiltPipeline:
     """The cameras over the mesh's data axis (see build_multicamera_pipeline)."""
     if mesh.process_count != 1:
         raise ValueError("a multicamera mesh spans one process")
@@ -134,7 +138,7 @@ def _mesh_multicamera(base_config, calibrations, encoding, frame_hw, with_state,
     check_mesh_rows(config0, frame_hw, src_hw, mesh)
     ranges = split_frames(n, mesh.local_data)
     row_fields = {d: _camera_fields(base_config, calibrations[a:b] or calibrations[:1],
-                                    frame_hw, src_hw)
+                                    frame_hw, src_hw, ccc_model)
                   for d, (a, b) in enumerate(ranges)}
     per_shard = shard_params(config0, row_fields[0], mesh, src_hw, rows=row_fields)
     chains = {}
@@ -156,4 +160,5 @@ def _mesh_multicamera(base_config, calibrations, encoding, frame_hw, with_state,
     return BuiltPipeline(base_config, params_from_numpy(row_fields[0], config0,
                                                         mesh.devices[0, 0]),
                          fn, mesh=mesh, shard_params=per_shard,
-                         selected_impls=impls_for_devices(mesh.local_devices()))
+                         selected_impls=impls_for_devices(mesh.local_devices()),
+                         ccc_model=ccc_model)

@@ -36,7 +36,7 @@ import torch
 from torch.profiler import record_function as stage
 
 from raw_image_pipeline_tpu_torch.config import PipelineConfig
-from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
+from raw_image_pipeline_tpu_torch.models.ccc_model import CCCModel, load_ccc_model
 from raw_image_pipeline_tpu_torch.ops import ccc as ccc_ops
 from raw_image_pipeline_tpu_torch.ops.color_calibration import color_correct_planes
 from raw_image_pipeline_tpu_torch.ops.color_enhancer import enhance_planes, gain_tables
@@ -46,7 +46,7 @@ from raw_image_pipeline_tpu_torch.ops.debayer import (
     _ALGORITHMS,
     BAYER16_ENCODINGS,
     BAYER_ENCODINGS,
-    debayer_bilinear16,
+    debayer_bilinear16_planar,
     debayer_planes,
     phase_for_encoding,
 )
@@ -67,11 +67,11 @@ from raw_image_pipeline_tpu_torch.ops.vignetting import (
 from raw_image_pipeline_tpu_torch.ops.vignetting import (
     correct_planes as vignetting_correct_planes,
 )
-from raw_image_pipeline_tpu_torch.ops.learned_wb import balance_white_learned
+from raw_image_pipeline_tpu_torch.ops.learned_wb import balance_white_learned_planes
 from raw_image_pipeline_tpu_torch.ops.white_balance import (
-    balance_white_grey_world,
-    balance_white_pca,
-    balance_white_simple,
+    balance_white_grey_world_planes,
+    balance_white_pca_planes,
+    balance_white_simple_planes,
 )
 
 # Cross-frame state: the CCC Kalman illuminant track.
@@ -140,13 +140,13 @@ def _statistical_wb(wb):
     """The per-frame statistical white-balance op for wb.method (planes ->
     planes), or None for an unknown method."""
     if wb.method == "simple":
-        return lambda planes: balance_white_simple(planes, wb.clipping_percentile)
+        return lambda planes: balance_white_simple_planes(planes, wb.clipping_percentile)
     if wb.method in ("grey_world", "gray_world"):
-        return lambda planes: balance_white_grey_world(planes, wb.saturation_bright_thr)
+        return lambda planes: balance_white_grey_world_planes(planes, wb.saturation_bright_thr)
     if wb.method == "learned":
-        return lambda planes: balance_white_learned(planes, wb.saturation_bright_thr)
+        return lambda planes: balance_white_learned_planes(planes, wb.saturation_bright_thr)
     if wb.method == "pca":
-        return balance_white_pca
+        return balance_white_pca_planes
     return None
 
 
@@ -182,9 +182,12 @@ def remap_fields(config: PipelineConfig,
     return remap_precompute(mx, my, src_hw, mode=config.undistortion.interpolation)
 
 
-def _host_fields(config: PipelineConfig, frame_hw: Tuple[int, int]) -> Dict[str, np.ndarray]:
+def _host_fields(config: PipelineConfig, frame_hw: Tuple[int, int],
+                 ccc_model: Optional[CCCModel] = None) -> Dict[str, np.ndarray]:
     """The numbers the reference package's make_params puts in its IspParams,
-    as numpy arrays (same names; only the fields the port reads)."""
+    as numpy arrays (same names; only the fields the port reads). The CCC
+    filter comes from ccc_model, or from wbc.ccc_model_path where it is
+    None."""
     h, w = frame_hw
     fh, fw = _post_flip_shape(h, w, config.flip.angle if config.flip.enabled else 0)
     fields: Dict[str, np.ndarray] = {
@@ -198,7 +201,8 @@ def _host_fields(config: PipelineConfig, frame_hw: Tuple[int, int]) -> Dict[str,
         fields["remap_base"], fields["remap_weights"] = remap_fields(config, (fh, fw))
     wbc = config.white_balance
     if _uses_ccc(config):
-        ccc_model = load_ccc_model(wbc.ccc_model_path)
+        if ccc_model is None:
+            ccc_model = load_ccc_model(wbc.ccc_model_path)
         fields["ccc_filt_dft_re"] = ccc_model.filt_dft_re
         fields["ccc_filt_dft_im"] = ccc_model.filt_dft_im
         fields["ccc_bias"] = ccc_model.bias
@@ -260,10 +264,12 @@ def params_from_numpy(fields, config: PipelineConfig, device="cuda") -> IspParam
 
 
 def make_params(config: PipelineConfig, frame_hw: Tuple[int, int],
-                device="cuda") -> IspParams:
+                ccc_model: Optional[CCCModel] = None, device="cuda") -> IspParams:
     """Build the parameters for frames of shape frame_hw (pre-flip, i.e.
-    sensor orientation) on `device`."""
-    return params_from_numpy(_host_fields(config, frame_hw), config, device)
+    sensor orientation) on `device`. ccc_model (models/ccc_model.CCCModel,
+    e.g. one trained or changed in memory) gives the CCC filter; None loads
+    the configuration's ccc_model_path."""
+    return params_from_numpy(_host_fields(config, frame_hw, ccc_model), config, device)
 
 
 def init_state(batch_shape: Tuple[int, ...] = (), device="cuda") -> IspState:
@@ -483,7 +489,7 @@ def make_isp_chain(
             elif encoding in BAYER16_ENCODINGS:
                 # demosaic at full depth, then scale into the 8-bit chain
                 # (always the bilinear stencil, as the reference package)
-                full = debayer_bilinear16(img, phase_for_encoding(encoding))
+                full = debayer_bilinear16_planar(img, phase_for_encoding(encoding))
                 planes = tuple((full[:, c] >> 8).to(torch.uint8) for c in range(3))
                 if cpu_swap:
                     planes = planes[::-1]
@@ -515,7 +521,7 @@ def make_isp_chain(
                     if part.count == 1:
                         small = [resize_linear_u8_plane(p, ccc_ops.SMALL_H, ccc_ops.SMALL_W)
                                  for p in planes]
-                        hist = ccc_ops.log_chroma_histogram(
+                        hist = ccc_ops.log_chroma_histogram_planes(
                             *small, params.ccc_bright_cut, params.ccc_dark_cut,
                             params.ccc_uv0, plain=plain,
                         )
@@ -526,7 +532,7 @@ def make_isp_chain(
                         src = yield Fetch(planes, rows, (a, b))
                         small = [resize_linear_u8_rows(p, h, ccc_ops.SMALL_H, ccc_ops.SMALL_W,
                                                        y0, y1, a) for p in src]
-                        counts = ccc_ops.log_chroma_histogram(
+                        counts = ccc_ops.log_chroma_histogram_planes(
                             *small, params.ccc_bright_cut, params.ccc_dark_cut,
                             params.ccc_uv0, plain=plain, pixel_weight=1.0,
                         )
@@ -553,7 +559,7 @@ def make_isp_chain(
                             uv = uv_all[first:first + uv.shape[0]]
                         else:
                             state, uv = ccc_ops.kalman_update(state, uv)
-                    gains = ccc_ops.gains_from_uv(uv, params.ccc_exp_tab)
+                    gains = ccc_ops.gains_from_uv_table(uv, params.ccc_exp_tab)
                     planes = ccc_ops.apply_gains_planes(planes, gains)
                 elif stat_wb is not None:
                     # the gather rule: the frame's statistics need all rows
@@ -671,12 +677,15 @@ class BuiltPipeline:
     or a global batch, which the call splits; every output comes back as a
     ShardedBatch (`.gather(device)` gives the tensor). `params` are then
     the whole frame's on the mesh's first device, `shard_params` each
-    shard's. selected_impls: see impls_for_devices."""
+    shard's. selected_impls: see impls_for_devices. ccc_model: the CCC
+    model the parameters were built from (None without CCC)."""
 
     def __init__(self, config: PipelineConfig, params: IspParams, fn, mesh=None,
-                 shard_params=None, selected_impls=None):
+                 shard_params=None, selected_impls=None,
+                 ccc_model: Optional[CCCModel] = None):
         self.config = config
         self.params = params
+        self.ccc_model = ccc_model
         self.fn = fn
         self.mesh = mesh
         self.shard_params = shard_params
@@ -694,9 +703,10 @@ def build_pipeline(
     frame_hw: Optional[Tuple[int, int]] = None,
     with_state: bool = False,
     keep_intermediates: bool = False,
-    temporal_mode: str = "cameras",
+    ccc_model: Optional[CCCModel] = None,
     device="cuda",
     debug: bool = False,
+    temporal_mode: str = "cameras",
     microbatch: Optional[int] = None,
     mesh=None,
     spatial_shards: Optional[int] = None,
@@ -706,7 +716,9 @@ def build_pipeline(
     device; "cpu" runs every op on its plain version).
 
     frame_hw defaults to the calibration's image size. Input pixels: see
-    make_isp_fn. temporal_mode and debug: see make_isp_fn.
+    make_isp_fn. temporal_mode and debug: see make_isp_fn. ccc_model: the
+    CCC model to run (see make_params); None loads the configuration's
+    ccc_model_path.
 
     microbatch: process the batch as sequential chunks of this many frames,
     which bounds the stages' intermediates at one chunk's (e.g. 512 1080p
@@ -738,14 +750,16 @@ def build_pipeline(
         from raw_image_pipeline_tpu_torch.parallel.mesh import make_mesh
 
         mesh = make_mesh([resolve_device(device)] * spatial_shards, space=spatial_shards)
-    fields = _host_fields(config, frame_hw)
+    if _uses_ccc(config) and ccc_model is None:
+        ccc_model = load_ccc_model(config.white_balance.ccc_model_path)
+    fields = _host_fields(config, frame_hw, ccc_model)
     kw = dict(temporal_mode=temporal_mode, remap_src_hw=src_hw, debug=debug)
     if mesh is None:
         fn = make_isp_fn(config, encoding, with_state, keep_intermediates, **kw)
         if microbatch:
             fn = _chunked_fn(fn, microbatch)
         return BuiltPipeline(config, params_from_numpy(fields, config, resolve_device(device)),
-                             fn)
+                             fn, ccc_model=ccc_model)
     from raw_image_pipeline_tpu_torch.parallel.spatial import (
         MeshFn,
         check_mesh_rows,
@@ -762,4 +776,5 @@ def build_pipeline(
                 gathers=sequence_kalman, microbatch=microbatch)
     return BuiltPipeline(config, params_from_numpy(fields, config, mesh.devices[0, 0]), fn,
                          mesh=mesh, shard_params=per_shard,
-                         selected_impls=impls_for_devices(mesh.local_devices()))
+                         selected_impls=impls_for_devices(mesh.local_devices()),
+                         ccc_model=ccc_model)

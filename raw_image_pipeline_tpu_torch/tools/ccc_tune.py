@@ -61,7 +61,7 @@ def main(argv=None):
         print(f"debug offsets Lu={args.lu_offset} Lv={args.lv_offset} uv0={args.uv0}")
     else:
         uv = ccc.estimate_illuminant(x_img, model, args.bright_thr, args.dark_thr, args.uv0)
-        gains = ccc.gains_from_uv(uv, torch.as_tensor(ccc.exp_table(args.uv0), device=dev))
+        gains = ccc.gains_from_uv(uv, args.uv0)
         x, y = uv.tolist()
         print(f"uv_pos=({x}, {y})  Lu={x/64 + args.uv0:.4f}  Lv={y/64 + args.uv0:.4f}")
     out = ccc.apply_gains(x_img, gains).cpu().numpy()

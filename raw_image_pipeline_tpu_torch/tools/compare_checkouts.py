@@ -12,7 +12,7 @@ checkout, through functions every version of the port has:
 
   * kernels A-E as the chains call them at 1920x1080, B=4:
     ops.debayer.debayer_planes on a seeded mosaic, bilinear (A) and "mht"
-    (D, the gpu_parity chain's), ops.ccc.log_chroma_histogram on A's
+    (D, the gpu_parity chain's), ops.ccc.log_chroma_histogram_planes on A's
     planes' working resize (270x360) (B), ops.ccc.ccc_response on that
     histogram (C) and ops.undistortion.remap_planes(..., "float") of A's
     planes through the float chain's fisheye maps (E; "E_off1" the same
@@ -114,8 +114,9 @@ def _worker(root: str, out: str) -> dict:
     model = load_ccc_model(wb.ccc_model_path)
     wr, wi, bias = (torch.as_tensor(a, device="cuda")
                     for a in (model.filt_dft_re, model.filt_dft_im, model.bias))
-    hist = ccc.log_chroma_histogram(*small, *cuts)
-    maps = tp.make_params(workloads.chains(tp)["float"].config(1080, 1920), (1080, 1920), "cuda")
+    hist = ccc.log_chroma_histogram_planes(*small, *cuts)
+    maps = tp.make_params(workloads.chains(tp)["float"].config(1080, 1920), (1080, 1920),
+                          device="cuda")
     planes = [p.contiguous() for p in debayer.debayer_planes(bayer, encoding)]
     n = planes[0].numel()
     unaligned = [torch.empty(16 + n, dtype=torch.uint8, device="cuda")[1:1 + n].view(p.shape)
@@ -130,7 +131,7 @@ def _worker(root: str, out: str) -> dict:
                                          "float")
 
     calls = {"A": lambda: debayer.debayer_planes(bayer, encoding),
-             "B": lambda: ccc.log_chroma_histogram(*small, *cuts),
+             "B": lambda: ccc.log_chroma_histogram_planes(*small, *cuts),
              "C": lambda: ccc.ccc_response(hist, wr, wi, bias),
              "D": lambda: debayer.debayer_planes(bayer, encoding, "mht"),
              "E": lambda: remap(planes),

@@ -201,10 +201,10 @@ def white_balance(img: np.ndarray, method: str, param, device) -> np.ndarray:
         img, method = np.ascontiguousarray(img[:49, :550]), "learned"
     t = torch.as_tensor(img[None], device=device)
     planes = (t[..., 0], t[..., 1], t[..., 2])
-    out = {"simple": lambda: wb.balance_white_simple(planes, param),
-           "grey": lambda: wb.balance_white_grey_world(planes, param),
-           "pca": lambda: wb.balance_white_pca(planes),
-           "learned": lambda: learned_wb.balance_white_learned(planes, param)}[method]()
+    out = {"simple": lambda: wb.balance_white_simple_planes(planes, param),
+           "grey": lambda: wb.balance_white_grey_world_planes(planes, param),
+           "pca": lambda: wb.balance_white_pca_planes(planes),
+           "learned": lambda: learned_wb.balance_white_learned_planes(planes, param)}[method]()
     return torch.stack(out, dim=-1)[0].cpu().numpy()
 
 

@@ -104,7 +104,7 @@ def test_exp_table_and_gains():
     # given the same exp values, the gain arithmetic is the reference's
     xy = np.stack(np.meshgrid(np.arange(256), np.arange(256), indexing="ij"), -1)
     uv = xy.reshape(-1, 2).astype(np.int32)
-    got = pccc.gains_from_uv(torch.as_tensor(uv), torch.as_tensor(np.array(je)))
+    got = pccc.gains_from_uv_table(torch.as_tensor(uv), torch.as_tensor(np.array(je)))
     np.testing.assert_array_equal(_np(got), np.asarray(jccc.gains_from_uv(uv, UV0)))
 
 
@@ -144,7 +144,8 @@ def test_gray_mask_all_triples():
 def test_histogram_equals_einsum_path():
     img = _small_planes(1)
     want = jccc.log_chroma_histogram_rt(img, BRIGHT, DARK, UV0, impl="einsum")
-    got = pccc.log_chroma_histogram(*_port_planes(img), float(BRIGHT), float(DARK), float(UV0))
+    got = pccc.log_chroma_histogram_planes(*_port_planes(img), float(BRIGHT), float(DARK),
+                                           float(UV0))
     np.testing.assert_array_equal(_np(got), np.asarray(want))
     assert float(_np(got).sum()) > 0.5  # most pixels counted
 
@@ -154,7 +155,7 @@ def test_histogram_equals_pallas_kernel_interpret():
     img = _small_planes(2, b=2, h=64, w=80)
     planes = _port_planes(img)
     want = np.asarray(jccc.log_chroma_histogram_rt(img, BRIGHT, DARK, UV0, impl="pallas"))
-    got = pccc.log_chroma_histogram(*planes, float(BRIGHT), float(DARK), float(UV0))
+    got = pccc.log_chroma_histogram_planes(*planes, float(BRIGHT), float(DARK), float(UV0))
     np.testing.assert_array_equal(_np(got), want)
     bins = pccc.log_chroma_bins(*planes, float(BRIGHT), float(DARK), float(UV0))
     counts = torch.bincount(bins, minlength=2 * 256 * 256).view(2, 256, 256)
@@ -318,8 +319,8 @@ def test_kernel_b_equals_plain_on_card():
 def test_kernel_c_equals_plain_on_card(model, two_peak):
     dev = _cuda()
     img = _small_planes(6, b=4)
-    hist = pccc.log_chroma_histogram(*[p.to(dev) for p in _port_planes(img)],
-                                     float(BRIGHT), float(DARK), float(UV0))
+    hist = pccc.log_chroma_histogram_planes(*[p.to(dev) for p in _port_planes(img)],
+                                            float(BRIGHT), float(DARK), float(UV0))
     w = [torch.as_tensor(np.array(a), device=dev)
          for a in (model.filt_dft_re, model.filt_dft_im, model.bias)]
     for x in (hist, torch.as_tensor(two_peak[0][None], device=dev)):

@@ -60,14 +60,15 @@ def test_mht_equals_pallas_kernel_interpret(hw):
     bayer = np.random.default_rng(hw[1]).integers(0, 256, (2,) + hw, dtype=np.uint8)
     for phase in PHASES:
         want = np.asarray(debayer_mht_pallas(bayer, phase, interpret=True))
-        got = pdeb.debayer_mht(torch.as_tensor(bayer), phase)
+        got = pdeb.debayer_mht_planar(torch.as_tensor(bayer), phase)
         np.testing.assert_array_equal(_np(got), want)
 
 
 def test_debayer_planes_dispatch():
     bayer = torch.as_tensor(np.random.default_rng(8).integers(0, 256, (3, 12, 10), np.uint8))
     phase = pdeb.phase_for_encoding("bayer_rggb8")
-    for algorithm, fn in (("bilinear", pdeb.debayer_bilinear), ("mht", pdeb.debayer_mht)):
+    for algorithm, fn in (("bilinear", pdeb.debayer_bilinear_planar),
+                          ("mht", pdeb.debayer_mht_planar)):
         got = pdeb.debayer_planes(bayer, "bayer_rggb8", algorithm)
         assert torch.equal(torch.stack(got, dim=1), fn(bayer, phase))
     with pytest.raises(NotImplementedError):
@@ -339,7 +340,7 @@ def test_kernel_d_equals_plain_on_card(hw):
     for bayer in card_debayer_cases(hw, dev):
         for phase in PHASES:
             got = pdeb.debayer_mht_cuda(bayer, phase)
-            assert torch.equal(got, pdeb.debayer_mht(bayer, phase))
+            assert torch.equal(got, pdeb.debayer_mht_planar(bayer, phase))
 
 
 @pytest.mark.cuda
@@ -477,3 +478,64 @@ def test_flagship_mesh_on_card_equals_unsharded():
             assert torch.equal(so["processed"].gather(dev), wo["processed"])
             for f in ("x", "p", "initialized"):
                 assert torch.equal(getattr(ss, f), getattr(ws, f))
+
+
+# --- the op layer's entry points on the card --------------------------------
+
+
+def _op_layer_calls(dev, lead, hw):
+    """{name: (call(plain, device), kernel)} for each entry point of the op
+    layer that reaches a kernel, on seeded [*lead, H, W(, 3)] frames."""
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
+    from raw_image_pipeline_tpu_torch.ops import ccc as pccc
+
+    rng = np.random.default_rng(sum(hw))
+    bayer = rng.integers(0, 256, lead + hw, dtype=np.uint8)
+    bgr = rng.integers(0, 256, lead + hw + (3,), dtype=np.uint8)
+    model = load_ccc_model(tp.flagship_config(*hw).white_balance.ccc_model_path)
+    filt = (model.filt_dft_re, model.filt_dft_im, model.bias)
+    hist = pccc.log_chroma_histogram(torch.as_tensor(bgr)).numpy()
+    cams = 2 if len(lead) == 2 else 1  # per-camera maps over the first leading dim
+    maps = [pund.remap_precompute(*_maps(hw, "fisheye"), hw, mode="float")]
+    if cams == 2:
+        maps.append(pund.remap_precompute(*_maps(hw, "hostile"), hw, mode="float"))
+    base, weights = (np.stack([m[k] for m in maps]) if cams == 2 else maps[0][k]
+                     for k in (0, 1))
+    flat_bgr = bgr.reshape((-1,) + hw + (3,))
+
+    def on(x, device):
+        return torch.as_tensor(x, device=device)
+
+    return {
+        "debayer_bilinear": (lambda plain, d: pdeb.debayer(on(bayer, d), "bayer_gbrg8",
+                                                           plain=plain),
+                             kernels.DEBAYER_BILINEAR),
+        "debayer_mht": (lambda plain, d: pdeb.debayer(on(bayer, d), "bayer_rggb8", "mht",
+                                                      plain=plain), kernels.DEBAYER_MHT),
+        "log_chroma_histogram": (lambda plain, d: pccc.log_chroma_histogram(
+            on(bgr, d), 0.9, 0.1, plain=plain), kernels.CCC_HISTOGRAM),
+        "log_chroma_histogram_rt": (lambda plain, d: pccc.log_chroma_histogram_rt(
+            on(bgr, d), 229.5, 25.5, pccc.UV0, plain=plain), kernels.CCC_HISTOGRAM),
+        "ccc_response": (lambda plain, d: pccc.response_argmax(pccc.ccc_response(
+            on(hist, d), *filt, plain=plain)), kernels.CCC_RESPONSE),
+        "remap_bilinear_u8": (lambda plain, d: pund.remap_bilinear_u8(
+            on(flat_bgr, d), base, weights, hw, hw, cams, "float", plain=plain),
+            kernels.REMAP_FLOAT),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,hw", [((4,), (270, 360)), ((2, 3), (91, 117))])
+def test_op_layer_entry_points_launch_kernels_and_equal_plain_on_card(lead, hw):
+    """Each NHWC entry point that reaches kernel A-E, on a CUDA tensor: one
+    launch of its kernel, and the bytes (the response's argmax) of the same
+    call with plain=True on the card and on the CPU."""
+    dev = _cuda()
+    for name, (call, kernel) in _op_layer_calls(dev, lead, hw).items():
+        kernel.launches = 0
+        got = call(False, dev)
+        torch.cuda.synchronize()
+        assert kernel.launches == 1, name
+        assert torch.equal(got, call(True, dev)), name
+        assert torch.equal(got.cpu(), call(False, "cpu")), name

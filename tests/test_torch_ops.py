@@ -133,7 +133,7 @@ def test_debayer_equals_reference(hw):
     rng = np.random.default_rng(sum(hw))
     bayer = rng.integers(0, 256, (2,) + hw, dtype=np.uint8)
     for phase in PHASES:
-        got = pdeb.debayer_bilinear(torch.as_tensor(bayer), phase)  # [B, 3, H, W]
+        got = pdeb.debayer_bilinear_planar(torch.as_tensor(bayer), phase)  # [B, 3, H, W]
         want = np.asarray(jdeb.debayer_bilinear(bayer, phase))  # [B, H, W, 3]
         np.testing.assert_array_equal(np.moveaxis(_np(got), 1, -1), want)
 
@@ -142,7 +142,7 @@ def test_debayer_equals_pallas_kernel_interpret():
     bayer = np.random.default_rng(5).integers(0, 256, (2, 16, 24), dtype=np.uint8)
     for phase in PHASES:
         want = np.asarray(debayer_bilinear_pallas(bayer, phase, interpret=True))
-        got = pdeb.debayer_bilinear(torch.as_tensor(bayer), phase)
+        got = pdeb.debayer_bilinear_planar(torch.as_tensor(bayer), phase)
         np.testing.assert_array_equal(_np(got), want)
 
 
@@ -223,7 +223,7 @@ def test_kernel_a_equals_plain_on_card(hw):
     for bayer in card_debayer_cases(hw, dev):
         for phase in PHASES:
             got = pdeb.debayer_bilinear_cuda(bayer, phase)
-            assert torch.equal(got, pdeb.debayer_bilinear(bayer, phase))
+            assert torch.equal(got, pdeb.debayer_bilinear_planar(bayer, phase))
 
 
 # --- resize ----------------------------------------------------------------

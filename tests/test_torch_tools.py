@@ -210,7 +210,7 @@ def _cast_images(seed, n, h, w):
 def test_log_chroma_histogram_image_equals_reference(thr):
     img = _cast_images(3, 2, 270, 360)
     want = np.asarray(jccc.log_chroma_histogram(img, *thr))
-    got = pccc.log_chroma_histogram_image(torch.as_tensor(img), *thr).numpy()
+    got = pccc.log_chroma_histogram(torch.as_tensor(img), *thr).numpy()
     np.testing.assert_array_equal(got, want)
 
 

@@ -66,7 +66,7 @@ def mismatches(a, b):
 def test_simple_equals_reference(p):
     x = cast_frames(1, 3, 45, 61)
     want = np.asarray(jwb.balance_white_simple(x, p))
-    assert mismatches(packed(pwb.balance_white_simple(planes_of(x), p)), want) == 0
+    assert mismatches(packed(pwb.balance_white_simple_planes(planes_of(x), p)), want) == 0
 
 
 @pytest.mark.parametrize("thr", [0.5, 0.8, 1.2])
@@ -75,7 +75,7 @@ def test_grey_world_equals_reference(thr):
     # the frame has a scalar tail
     x = cast_frames(2, 3, 45, 61)
     want = np.asarray(jwb.balance_white_grey_world(x, thr))
-    got = packed(pwb.balance_white_grey_world(planes_of(x), thr))
+    got = packed(pwb.balance_white_grey_world_planes(planes_of(x), thr))
     assert mismatches(got, want) == 0
     assert not np.array_equal(got, x)
 
@@ -86,7 +86,7 @@ def test_pca_equals_reference(hw):
     x[1, ..., 0] = 77  # a constant channel: det == 0, the NaN pattern
     x[2, ..., 2] = 0
     want = np.asarray(jwb.balance_white_pca(x))
-    got = packed(pwb.balance_white_pca(planes_of(x)))
+    got = packed(pwb.balance_white_pca_planes(planes_of(x)))
     assert mismatches(got, want) == 0
     if hw[0] * hw[1] % 4:
         assert got[1, -1, -1, 0] == 0 and got[1, 0, 0, 0] == 255
@@ -97,7 +97,7 @@ def test_learned_equals_reference(hw):
     # 13x17 = 221 px: fewer bins than the 300-entry palette
     x = cast_frames(4, 3, *hw)
     want = np.asarray(jlearned.balance_white_learned_model(x, 0.8))
-    got = packed(plearned.balance_white_learned(planes_of(x), 0.8))
+    got = packed(plearned.balance_white_learned_planes(planes_of(x), 0.8))
     assert mismatches(got, want) == 0
     feats = plearned.extract_features(planes_of(x), 204)
     want_f = np.stack([np.asarray(jlearned._extract_features(f, 204)) for f in x])
@@ -178,20 +178,21 @@ def test_method_equals_oracle_golden(name, method, param):
     img = cv2.imread(ORACLE_INPUTS[name])
     planes = planes_of(img[None])
     if method == "simple":
-        got, ref = pwb.balance_white_simple(planes, param), f"{name}_simple_{param}.png"
+        got, ref = pwb.balance_white_simple_planes(planes, param), f"{name}_simple_{param}.png"
     elif method == "grey":
-        got, ref = pwb.balance_white_grey_world(planes, param), f"{name}_grey_{param}.png"
+        got, ref = pwb.balance_white_grey_world_planes(planes, param), f"{name}_grey_{param}.png"
     elif method == "pca":
-        got, ref = pwb.balance_white_pca(planes), f"{name}_pca.png"
+        got, ref = pwb.balance_white_pca_planes(planes), f"{name}_pca.png"
     else:
-        got, ref = plearned.balance_white_learned(planes, param), f"{name}_learned_{param}.png"
+        got = plearned.balance_white_learned_planes(planes, param)
+        ref = f"{name}_learned_{param}.png"
     assert mismatches(packed(got)[0], cv2.imread(os.path.join(FIX, ref))) == 0
 
 
 def test_learned_tie_break_crop_equals_oracle_golden():
     """A 49x550 crop with two brightest pixels: the 8-lane first-wins rank."""
     img = np.ascontiguousarray(cv2.imread(ORACLE_INPUTS["alphasense"])[:49, :550])
-    got = packed(plearned.balance_white_learned(planes_of(img[None]), 0.9))[0]
+    got = packed(plearned.balance_white_learned_planes(planes_of(img[None]), 0.9))[0]
     ref = cv2.imread(os.path.join(FIX, "alphasense_crop49x550_learned_0.9.png"))
     assert mismatches(got, ref) == 0
 
@@ -204,7 +205,7 @@ def test_learned_density_near_tie_crop_equals_reference():
     img = np.ascontiguousarray(cv2.imread(ORACLE_INPUTS["alphasense"])[349:413, 572:668])
     x = img[None]
     want = np.asarray(jlearned.balance_white_learned_model(x, 0.8))
-    assert mismatches(packed(plearned.balance_white_learned(planes_of(x), 0.8)), want) == 0
+    assert mismatches(packed(plearned.balance_white_learned_planes(planes_of(x), 0.8)), want) == 0
     f3 = plearned.extract_features(planes_of(x), 204)[0, 3].numpy()
     np.testing.assert_array_equal(f3, np.float32([0.333333164, 0.444444209]))
 

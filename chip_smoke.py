@@ -51,8 +51,14 @@ per source, into build/kernels/), then:
      log_chroma_histogram and _rt (B) on the 270x360 resize, ccc_response
      (C), remap_bilinear_u8 in float mode (E) with one map and with
      per-camera maps; each against plain=True on the card and the planar
-     path of the chain, 0 mismatching bytes, with its device time; its
-     launches go to the kernels line as launches_ops;
+     path of the chain, 0 mismatching bytes, with its device time; then
+     (check_ops_contract) the calls the JAX package takes that the kernels
+     once refused: the histograms over kernel B's 524160 pixels (1080x1920,
+     727x1001 and 733x821: runs of pixels as frames of their own, a tail),
+     float remaps of 2 and 4 channels and batch_minor=True (one map and
+     four), A, D and E at B = 65537, and B, C and E past a batch limit
+     lowered to 7, each against plain=True with the launches it must make;
+     the phase's launches go to the kernels line as launches_ops;
   2. drives each chain through build_pipeline(config, encoding,
      with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
      state carried across the calls, at 1920x1080:
@@ -484,6 +490,134 @@ def check_kernels(tp, torch, rng):
 OPS_CROP_LEAD = (2, 3)  # the ops phase's leading dims at its random odd crop
 
 
+def check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line):
+    """The ops phase's second part: the calls the JAX package takes that the
+    port's kernels once refused, each held against the same call with
+    plain=True on the card (or, for the batch-minor remap, the batch-major
+    call) at 0 mismatching bytes, f32 values for the histograms, with the
+    kernel launches it must make and its device time:
+    log_chroma_histogram and _rt over kernel B's 524160 pixels (1080x1920
+    with leading dims (4,): runs of 518400 pixels, four a frame; 727x1001:
+    seven a frame; 733x821: a run and a tail run; one launch of B where the
+    runs tile the frame, two with a tail); float remap_bilinear_u8 of 2 and
+    4 channels (E on groups of three planes and single planes) and
+    batch_minor=True, each with one map and four per-camera maps at
+    1080x1920, B=4; A, D and E at B = MAX_BATCH + 2 (4x8 frames: two
+    launches each); B, C and E (two cameras) at B=20 with the launches'
+    batch limit lowered to 7 (kernels.batch_runs), where the plain
+    comparison past MAX_BATCH would need tens of GB. Adds the launches to
+    `launches`."""
+    import numpy as np
+
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, undistortion
+    from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.tools.measure import device_ms
+
+    dev = torch.device("cuda")
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+
+    def case(label, call, want_call, expect, against="plain=True", exact=True):
+        kernels.reset_launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        made = {k.name: k.launches for k in kernels.ALL if k.launches}
+        for k in kernels.ALL:
+            launches[k.name] += k.launches
+        want = want_call()
+        if exact:
+            bad, note = int((got != want).sum()), ""
+        else:  # ccc_response: the argmax, and the values within 1e-4 of max |response|
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            bad = int((ccc.response_argmax(got) != ccc.response_argmax(want)).sum())
+            bad += int(err > 1e-4 * scale)
+            note = f" (argmax; max |diff| {err:.3e}, limit {1e-4 * scale:.3e})"
+        ms = device_ms(call)
+        print(f"ops {label}: {bad} mismatching against {against}{note}; launches {made}; "
+              f"{ms:.4f} ms on the device [{smi_line}]")
+        if bad or made != expect:
+            raise AssertionError(f"ops {label}: {bad} mismatching, launches {made} "
+                                 f"(expected {expect})")
+
+    limit = ccc.HIST_KERNEL_MAX_PIXELS
+    for lead, hw in (((4,), (1080, 1920)), ((2, 3), (727, 1001)), ((2,), (733, 821))):
+        img = rand(lead + hw + (3,))
+        run, k = ccc.pixel_runs(hw[0] * hw[1], limit)
+        tail = run * k < hw[0] * hw[1]
+        size = f"{'x'.join(map(str, lead))} x {hw[0]}x{hw[1]}"
+        for name, fn, args in (("log_chroma_histogram", ccc.log_chroma_histogram, thr),
+                               ("log_chroma_histogram_rt", ccc.log_chroma_histogram_rt, cuts)):
+            case(f"{name} {size} (runs of {run} pixels, {k} a frame"
+                 f"{' and a tail' if tail else ''})",
+                 lambda: fn(img, *args), lambda: fn(img, *args, plain=True),
+                 {"ccc_histogram": 2 if tail else 1})
+        del img
+    hw = (1080, 1920)
+    for cameras in (1, 4):
+        base, weights = remap_maps(hw, cameras)
+
+        def remap(x, *args, **kw):
+            return undistortion.remap_bilinear_u8(x, base, weights, hw, hw, *args, **kw)
+
+        for c in (2, 4):
+            img = rand((4,) + hw + (c,))
+            case(f"remap_bilinear_u8 float 4 x 1080x1920 x {c} channels, {cameras} map(s)",
+                 lambda: remap(img, n_cameras=cameras, mode="float"),
+                 lambda: remap(img, n_cameras=cameras, mode="float", plain=True),
+                 {"remap_float": 2})
+        img = rand((4,) + hw + (3,))
+        minor = img.movedim(0, 2).contiguous()  # [H, W, 4, 3]
+        major = remap(img, n_cameras=cameras, mode="float")
+        want = (major.movedim(0, 2) if cameras == 1 else
+                major.reshape((cameras, -1) + major.shape[1:]).permute(0, 2, 3, 1, 4))
+        # the JAX positions: src_hw, batch_minor, tuning, n_cameras, blend_impl, mode
+        case(f"remap_bilinear_u8 float batch_minor [1080, 1920, 4, 3], {cameras} map(s)",
+             lambda: remap(minor, True, None, cameras, None, "float"), lambda: want,
+             {"remap_float": 1}, against="the batch-major call")
+        del img, minor, major, want
+    torch.cuda.empty_cache()
+
+    nb = kernels.MAX_BATCH + 2
+    tiny = rand((nb, 4, 8))
+    for algorithm, name in (("bilinear", "debayer_bilinear"), ("mht", "debayer_mht")):
+        case(f"debayer {algorithm} {nb} x 4x8", lambda: debayer.debayer(tiny, "bayer_gbrg8",
+                                                                        algorithm),
+             lambda: debayer.debayer(tiny, "bayer_gbrg8", algorithm, plain=True), {name: 2})
+    base, weights = undistortion.remap_precompute(*workloads.hostile_maps((4, 8), (4, 8), 5),
+                                                  (4, 8), mode="float")
+    tiny = rand((nb, 4, 8, 3))
+    case(f"remap_bilinear_u8 float {nb} x 4x8",
+         lambda: undistortion.remap_bilinear_u8(tiny, base, weights, (4, 8), mode="float"),
+         lambda: undistortion.remap_bilinear_u8(tiny, base, weights, (4, 8), mode="float",
+                                                plain=True),
+         {"remap_float": 2})
+    del tiny
+
+    bgr = debayer.debayer(rand((20, 540, 720)), "bayer_gbrg8")
+    planes = [p.contiguous() for p in
+              resize_linear_u8(bgr, ccc.SMALL_H, ccc.SMALL_W).movedim(-1, 0)]
+    case("log_chroma_histogram_cuda 20 x 270x360, batch_limit 7",
+         lambda: ccc.log_chroma_histogram_cuda(*planes, *cuts, batch_limit=7),
+         lambda: ccc.log_chroma_histogram_plain(*planes, *cuts), {"ccc_histogram": 3})
+    hist = ccc.log_chroma_histogram_cuda(*planes, *cuts)
+    case("ccc_response_cuda 20 x 256x256, batch_limit 7",
+         lambda: ccc.ccc_response_cuda(hist, *filt, batch_limit=7),
+         lambda: ccc.ccc_response_plain(hist, *filt), {"ccc_response": 3}, exact=False)
+    maps = [undistortion.remap_precompute(*workloads.hostile_maps((91, 117), (91, 117), s),
+                                          (91, 117), mode="float") for s in (3, 4)]
+    base, weights = (torch.as_tensor(np.stack([m[i] for m in maps]), device=dev)
+                     for i in (0, 1))
+    planes = [rand((20, 91, 117)) for _ in range(3)]
+    case("remap_float_cuda 2 cameras x 10 x 91x117, batch_limit 7",
+         lambda: undistortion.remap_float_cuda(planes, base, weights, (91, 117), batch_limit=7),
+         lambda: undistortion.remap_planes(planes, base, weights, (91, 117), "float",
+                                           plain=True),
+         {"remap_float": 4})
+
+
 def check_ops(tp, torch, rng, smi_line):
     """Phase ops: the reference package's entry points that reach a kernel,
     called as its users call them on [..., H, W(, 3)] CUDA frames, at
@@ -598,15 +732,20 @@ def check_ops(tp, torch, rng, smi_line):
             base, weights = remap_maps(hw, cameras)
             img = bgr.reshape((-1,) + hw + (3,)) if cameras > 1 else bgr
             got = counted(lambda: undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
-                                                                 cameras, "float"))
+                                                                 n_cameras=cameras,
+                                                                 mode="float"))
             bad = int((got != undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
-                                                             cameras, "float", plain=True)).sum())
+                                                             n_cameras=cameras, mode="float",
+                                                             plain=True)).sum())
             planar = undistortion.remap_planes(planes_of(img), base, weights, hw, "float")
             bad += int((got != planar.reshape(got.shape)).sum())
             ms = device_ms(lambda: undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
-                                                                  cameras, "float"))
+                                                                  n_cameras=cameras,
+                                                                  mode="float"))
             report(f"remap_bilinear_u8 float {size}, {cameras} map(s)", bad, ms)
         del bayer, flat, bgr, small
+    torch.cuda.empty_cache()
+    check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line)
     torch.cuda.empty_cache()
     print(f"ops launches of the entry points' calls: {launches}")
     if not all(launches.values()):
@@ -678,7 +817,7 @@ def check_chains(tp, torch, rng):
             if main_run:
                 kernels.reset_launch_counts()
                 torch.cuda.reset_peak_memory_stats()
-            outs, state = _run_chain(pipe, frames, tp.init_state((), "cuda"), ch.calls)
+            outs, state = _run_chain(pipe, frames, tp.init_state((), device="cuda"), ch.calls)
             torch.cuda.synchronize()
             if main_run:
                 peak[name] = torch.cuda.max_memory_allocated()
@@ -692,7 +831,7 @@ def check_chains(tp, torch, rng):
                 if name == "flagship":  # grids on the device, per call
                     per_flagship_call = {k.name: k.launches * k.grids / ch.calls
                                          for k in kernels.ALL}
-            ref, ref_state = _run_chain(plain, frames, tp.init_state((), "cuda"), ch.calls)
+            ref, ref_state = _run_chain(plain, frames, tp.init_state((), device="cuda"), ch.calls)
             want = (ch.frames // ch.calls, *_out_hw(config, h, w), 3)
             for o in outs:
                 if tuple(o.shape) != want or o.dtype != torch.uint8:
@@ -716,7 +855,7 @@ def check_chains(tp, torch, rng):
             def timed(call):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                _run_chain(call, frames, tp.init_state((), "cuda"), ch.calls)
+                _run_chain(call, frames, tp.init_state((), device="cuda"), ch.calls)
                 torch.cuda.synchronize()
                 return ch.frames / (time.perf_counter() - t0)
 
@@ -740,7 +879,7 @@ def check_on_cpu(tp, torch, label, config, ch, frames, card_out):
                              with_state=True, temporal_mode="sequence", device="cpu",
                              microbatch=32)
     t0 = time.perf_counter()
-    out, _ = pipe(frames[:n].cpu(), tp.init_state((), "cpu"))
+    out, _ = pipe(frames[:n].cpu(), tp.init_state((), device="cpu"))
     bad = int((out["processed"] != card_out[:n].cpu()).sum())
     print(f"{label}: the first {n} frames on the CPU ({time.perf_counter() - t0:.1f} s): "
           f"{bad} mismatching bytes vs the card")
@@ -764,7 +903,7 @@ def check_microbatch(tp, torch, rng):
                                  microbatch=chunk)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        out, st = pipe(frames, tp.init_state((), "cuda"))
+        out, st = pipe(frames, tp.init_state((), device="cuda"))
         torch.cuda.synchronize()
         res[chunk] = (out["processed"], st, {k.name: k.launches for k in kernels.ALL})
     bad = int((res[mb][0] != res[None][0]).sum())
@@ -815,8 +954,8 @@ def check_multicam(tp, torch):
 
         def run(fn, params, mode, cameras=cams, px=frames):
             """The frames in ch.calls calls of fn, the state carried."""
-            state = (multicamera_state(cams, per, mode, "cuda") if cameras > 1 else
-                     tp.init_state(() if mode == "sequence" else (per,), "cuda"))
+            state = (multicamera_state(cams, per, mode, device="cuda") if cameras > 1 else
+                     tp.init_state(() if mode == "sequence" else (per,), device="cuda"))
             outs = []
             for c in range(ch.calls):
                 chunk = px[:, c * per:(c + 1) * per] if cameras > 1 else px[c * per:(c + 1) * per]
@@ -967,7 +1106,7 @@ def check_stream(tp, torch, np, root):
         raise AssertionError("stream: frames or launches wrong")
     pipe = tp.build_pipeline(config, "bayer_gbrg8", (h, w), with_state=True,
                              keep_intermediates=True, temporal_mode="sequence", device="cuda")
-    state = tp.init_state((), "cuda")
+    state = tp.init_state((), device="cuda")
     bad, seen = 0, 0
     for s in range(0, n, b):
         out, state = pipe(torch.as_tensor(read[s:s + b], device="cuda"), state)
@@ -993,7 +1132,7 @@ def check_stream(tp, torch, np, root):
         return n / (time.perf_counter() - t0)
 
     def bare_fps():
-        st = tp.init_state((), "cuda")
+        st = tp.init_state((), device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for s in range(0, n, b):
@@ -1023,7 +1162,7 @@ def check_small(tp, torch, np):
                                      with_state=True, keep_intermediates=True,
                                      temporal_mode="sequence", device=dev, debug=debug,
                                      microbatch=3 if ch.microbatch else None)
-            out, st = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), dev))
+            out, st = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), device=dev))
             res[dev] = ({k: v.cpu() for k, v in out.items()}, st)
         if set(res["cuda"][0]) != set(res["cpu"][0]):
             raise AssertionError(f"chain {name}: different outputs {sorted(res['cuda'][0])}")
@@ -1330,8 +1469,8 @@ def check_tools(tp, torch, np, root):
         out["stream_bench_fps"] = step("stream_bench", stream_bench.main, [
             "--frames", "64", "--batch", "32", "--frames-dir", os.path.join(d, "stream")])
     px = workloads.card_frames(torch, "bayer", 4, 1080, 1920, workloads.SEED + 82).cpu().numpy()
-    timings = step("stage_timings", stage_timings, tp.flagship_config(1080, 1920),
-                   "bayer_gbrg8", px, None, 5, "cuda")
+    timings = step("stage_timings", lambda: stage_timings(
+        tp.flagship_config(1080, 1920), "bayer_gbrg8", px, None, 5, device="cuda"))
     out["stage_timings_ms"] = {k: v * 1e3 for k, v in timings.items()}
     print("tools stage_timings flagship 1920x1080 B=4, ms (least of 5 calls, cumulative "
           "differences): " + ", ".join(f"{k} {v:.3f}" for k, v in out["stage_timings_ms"].items()))
@@ -1426,8 +1565,8 @@ def check_mesh(tp, torch, np, root, smi_line):
                                       device=MESH_CARD)
             plain_fn = make_isp_fn(config, enc, True, False, temporal_mode=mode, plain=True)
             ref, ref_state = run(lambda px, st: plain_fn(whole.params, px, st), frames,
-                                 tp.init_state(shape, MESH_CARD), False)
-            one, one_state = run(whole, frames, tp.init_state(shape, MESH_CARD), False)
+                                 tp.init_state(shape, device=MESH_CARD), False)
+            one, one_state = run(whole, frames, tp.init_state(shape, device=MESH_CARD), False)
             bad = sum(int((a != b).sum()) for a, b in zip(one, ref))
             same = _same_state(torch, one_state, ref_state)
             print(f"mesh {name} {mode} {w}x{h} B={per} x {calls} calls, unsharded: {bad} "
@@ -1444,7 +1583,7 @@ def check_mesh(tp, torch, np, root, smi_line):
                                                 for s in range(space)]
                 torch.cuda.synchronize()
                 kernels.reset_launch_counts()
-                outs, state = run(pipe, frames, tp.init_state(shape, MESH_CARD), True)
+                outs, state = run(pipe, frames, tp.init_state(shape, device=MESH_CARD), True)
                 torch.cuda.synchronize()
                 counts = {k.name: k.launches for k in kernels.ALL}
                 key = f"{name} ({data}, {space}) {mode}"
@@ -1460,7 +1599,7 @@ def check_mesh(tp, torch, np, root, smi_line):
                                          f"did not launch {want} times")
                 if name == "flagship" and mode == "sequence":
                     def timed(p, sharded):
-                        st = tp.init_state((), MESH_CARD)
+                        st = tp.init_state((), device=MESH_CARD)
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
                         run(p, frames, st, sharded)
@@ -1496,13 +1635,13 @@ def check_mesh(tp, torch, np, root, smi_line):
         plain_fn = make_isp_fn(config.replace(calibration=calibs[0]), enc, True, False,
                                temporal_mode=mode, remap_src_hw=src, n_cameras=cams, plain=True)
         ref, ref_state = plain_fn(whole.params, frames,
-                                  multicamera_state(cams, per, mode, MESH_CARD))
-        one, one_state = whole(frames, multicamera_state(cams, per, mode, MESH_CARD))
+                                  multicamera_state(cams, per, mode, device=MESH_CARD))
+        one, one_state = whole(frames, multicamera_state(cams, per, mode, device=MESH_CARD))
         bad_one = int((one["processed"] != ref["processed"]).sum())
         same_one = _same_state(torch, one_state, ref_state)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        out, state = pipe(frames, multicamera_state(cams, per, mode, MESH_CARD))
+        out, state = pipe(frames, multicamera_state(cams, per, mode, device=MESH_CARD))
         torch.cuda.synchronize()
         counts = {k.name: k.launches for k in kernels.ALL}
         launches[f"multicam4 (2, 1) {mode}"] = counts
@@ -1525,7 +1664,7 @@ def check_mesh(tp, torch, np, root, smi_line):
     frames = workloads.card_frames(torch, "bayer", n, h, w, workloads.SEED + 96).cpu().numpy()
     plain_fn = make_isp_fn(config, enc, True, True, temporal_mode="sequence", plain=True)
     params = tp.make_params(config, (h, w), device=MESH_CARD)
-    want, want_state = {}, tp.init_state((), MESH_CARD)
+    want, want_state = {}, tp.init_state((), device=MESH_CARD)
     for s in range(0, n, per):
         out, want_state = plain_fn(params, torch.as_tensor(frames[s:s + per], device=MESH_CARD),
                                    want_state)

@@ -47,6 +47,7 @@ class RawImagePipeline:
         params_path: str = "",
         calibration_path: str = "",
         color_calibration_path: str = "",
+        *,
         device="cuda",
     ):
         self._device = resolve_device(device)

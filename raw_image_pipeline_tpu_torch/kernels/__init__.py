@@ -181,9 +181,14 @@ def stream_handle(t: torch.Tensor) -> int:
 MAX_BATCH = 65535  # the kernels put the frame index in a grid's y or z
 
 
-def check_batch(n: int, name: str) -> None:
-    if n > MAX_BATCH:
-        raise ValueError(f"{name}: batch {n} exceeds {MAX_BATCH} frames per launch")
+def batch_runs(n: int, limit: int = MAX_BATCH):
+    """(start, count) runs of at most `limit` frames that cover frames
+    [0, n) in order: a wrapper launches its kernel once per run, on views of
+    its inputs and outputs, so any batch fits the grid."""
+    if limit < 1:
+        raise ValueError(f"limit must be at least 1, got {limit}")
+    for start in range(0, n, limit):
+        yield start, min(limit, n - start)
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:

@@ -141,31 +141,78 @@ def log_chroma_histogram_plain(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor
 
 def log_chroma_histogram_cuda(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
                               bright_cut: float, dark_cut: float,
-                              uv0: float, pixel_weight: Optional[float] = None) -> torch.Tensor:
-    """Kernel B: same contract as log_chroma_histogram_plain, CUDA tensors,
-    one launch and no other stream operation."""
+                              uv0: float, pixel_weight: Optional[float] = None, *,
+                              batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
+    """Kernel B: same contract as log_chroma_histogram_plain for frames of
+    at most HIST_KERNEL_MAX_PIXELS pixels, CUDA tensors; one launch per
+    batch_limit frames (kernels.batch_runs, the grid's limit) and no other
+    stream operation."""
     for name, t in (("b", b), ("g", g), ("r", r)):
         kernels.check_cuda(t, name, torch.uint8, b.shape)
     if b.dim() != 3:
         raise ValueError(f"planes: expected [B, h, w], got {tuple(b.shape)}")
     nb, h, w = b.shape
-    kernels.check_batch(nb, "planes")
     if h * w > HIST_KERNEL_MAX_PIXELS:
         raise ValueError(f"planes: kernel B takes frames of at most {HIST_KERNEL_MAX_PIXELS} "
                          f"pixels, got {h}x{w}")
     hist = torch.empty((nb, HIST_N, HIST_N), dtype=torch.float32, device=b.device)
     if nb and h * w == 0:
         hist.zero_()  # no pixels (an empty slab of the spatial split)
-    elif nb:
-        tab = _log_tab_on(str(b.device))
-        with torch.cuda.device(b.device):
+        return hist
+    weight = frame_pixel_weight(h, w) if pixel_weight is None else pixel_weight
+    tab = _log_tab_on(str(b.device))
+    with torch.cuda.device(b.device):
+        for s, n in kernels.batch_runs(nb, batch_limit):
             kernels.CCC_HISTOGRAM.launch(
-                b.data_ptr(), g.data_ptr(), r.data_ptr(), tab.data_ptr(), hist.data_ptr(),
-                nb, h * w, bright_cut, dark_cut, uv0,
-                frame_pixel_weight(h, w) if pixel_weight is None else pixel_weight,
+                b[s].data_ptr(), g[s].data_ptr(), r[s].data_ptr(), tab.data_ptr(),
+                hist[s].data_ptr(), n, h * w, bright_cut, dark_cut, uv0, weight,
                 kernels.stream_handle(b),
             )
     return hist
+
+
+def pixel_runs(n: int, limit: int) -> Tuple[int, int]:
+    """How log_chroma_histogram_runs cuts a frame of n > limit pixels: runs
+    of `run` pixels, `k` of them a frame. Where a divisor k of n with
+    n/k <= limit lies within 4x the fewest runs, the runs tile the frame
+    and its planes are viewed as k frames each, no copy; else runs of
+    `limit` pixels, and the frame's last n % limit pixels are a tail run."""
+    fewest = -(-n // limit)
+    for k in range(fewest, 4 * fewest + 1):
+        if n % k == 0:
+            return n // k, k
+    return limit, n // limit
+
+
+def log_chroma_histogram_runs(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
+                              bright_cut: float, dark_cut: float, uv0: float,
+                              pixel_weight: Optional[float], hist_fn,
+                              limit: int = HIST_KERNEL_MAX_PIXELS) -> torch.Tensor:
+    """The histogram of three [B, h, w] u8 planes whose frames may exceed
+    `limit` pixels, through hist_fn (log_chroma_histogram_plain's contract)
+    on runs of at most `limit` pixels: each frame's pixels are cut into
+    runs (pixel_runs), hist_fn counts every run as a frame of its own with
+    pixel weight 1, each frame's run counts are summed in int32 and scaled
+    once by f32(1/(h*w)) (or pixel_weight). The counts are integers, so
+    this equals one histogram of the whole frame bit for bit; it is the rule
+    the spatial split uses over row slabs. Frames within the limit go
+    through hist_fn once, unchanged."""
+    nb, h, w = b.shape
+    n = h * w
+    if n <= limit:
+        return hist_fn(b, g, r, bright_cut, dark_cut, uv0, pixel_weight)
+    if pixel_weight is None:
+        pixel_weight = frame_pixel_weight(h, w)
+    run, k = pixel_runs(n, limit)
+    flat = [p.reshape(nb, n) for p in (b, g, r)]
+    # a view where the runs tile the frame (run * k == n), else a copy
+    body = [p[:, :run * k].reshape(nb * k, 1, run).contiguous() for p in flat]
+    counts = hist_fn(*body, bright_cut, dark_cut, uv0, 1.0)
+    counts = counts.to(torch.int32).view(nb, k, HIST_N, HIST_N).sum(1, dtype=torch.int32)
+    if run * k < n:
+        tail = [p[:, run * k:].reshape(nb, 1, n - run * k).contiguous() for p in flat]
+        counts += hist_fn(*tail, bright_cut, dark_cut, uv0, 1.0).to(torch.int32)
+    return counts.float() * pixel_weight
 
 
 def log_chroma_histogram_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
@@ -174,12 +221,14 @@ def log_chroma_histogram_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tenso
                                 pixel_weight: Optional[float] = None) -> torch.Tensor:
     """[B, h, w] u8 B/G/R planes (the working resize) -> [B, 256, 256] f32
     histogram (pixel_weight: see log_chroma_histogram_plain). Kernel B on
-    CUDA tensors (frames of at most HIST_KERNEL_MAX_PIXELS); the plain
-    version on CPU tensors or with plain=True."""
+    CUDA tensors, frames over HIST_KERNEL_MAX_PIXELS in runs
+    (log_chroma_histogram_runs); the plain version on CPU tensors or with
+    plain=True."""
     if plain or b.device.type == "cpu":
         return log_chroma_histogram_plain(b, g, r, bright_cut, dark_cut, uv0, pixel_weight)
-    return log_chroma_histogram_cuda(b.contiguous(), g.contiguous(), r.contiguous(),
-                                     bright_cut, dark_cut, uv0, pixel_weight)
+    planes = (b.contiguous(), g.contiguous(), r.contiguous())
+    return log_chroma_histogram_runs(*planes, bright_cut, dark_cut, uv0, pixel_weight,
+                                     log_chroma_histogram_cuda)
 
 
 # ---------------------------------------------------------------------------
@@ -229,8 +278,10 @@ def ccc_response_plain(hist: torch.Tensor, filt_dft_re: torch.Tensor,
 
 
 def ccc_response_cuda(hist: torch.Tensor, filt_dft_re: torch.Tensor,
-                      filt_dft_im: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Kernel C: same contract as ccc_response_plain, CUDA tensors."""
+                      filt_dft_im: torch.Tensor, bias: torch.Tensor, *,
+                      batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
+    """Kernel C: same contract as ccc_response_plain, CUDA tensors; one call
+    of its entry per batch_limit frames (kernels.batch_runs)."""
     kernels.check_cuda(hist, "hist", torch.float32)
     if hist.dim() != 3 or tuple(hist.shape[1:]) != (HIST_N, HIST_N):
         raise ValueError(f"hist: expected [B, 256, 256], got {tuple(hist.shape)}")
@@ -239,16 +290,16 @@ def ccc_response_cuda(hist: torch.Tensor, filt_dft_re: torch.Tensor,
         kernels.check_cuda(t, name, torch.float32, (HIST_N, HIST_N))
     Fr, Fi = _dft_on(str(hist.device))
     nb = hist.shape[0]
-    kernels.check_batch(nb, "hist")
     out = torch.empty_like(hist)
-    scratch = torch.empty((4,) + tuple(hist.shape), dtype=torch.float32,
+    # the four stages' buffers for the largest run, reused in stream order
+    scratch = torch.empty((4, min(nb, batch_limit), HIST_N, HIST_N), dtype=torch.float32,
                           device=hist.device)
-    if nb:
-        with torch.cuda.device(hist.device):
+    with torch.cuda.device(hist.device):
+        for s, n in kernels.batch_runs(nb, batch_limit):
             kernels.CCC_RESPONSE.launch(
-                hist.data_ptr(), Fr.data_ptr(), Fi.data_ptr(),
+                hist[s].data_ptr(), Fr.data_ptr(), Fi.data_ptr(),
                 filt_dft_re.data_ptr(), filt_dft_im.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), nb,
+                out[s].data_ptr(), scratch.data_ptr(), n,
                 kernels.stream_handle(hist),
             )
     return out
@@ -303,7 +354,8 @@ def gains_from_uv_table(uv_pos: torch.Tensor, exp_tab: torch.Tensor) -> torch.Te
     return gains / gains.min(dim=-1, keepdim=True).values
 
 
-def gains_from_offsets(lu: float, lv: float, uv0: float = UV0, device="cuda") -> torch.Tensor:
+def gains_from_offsets(lu: float, lv: float, uv0: float = UV0, *,
+                       device="cuda") -> torch.Tensor:
     """Debug-UV-offset mode gains (setDebugUVOffset, ccc.cpp:349-357):
     Lu = lu - uv0, Lv = lv - uv0, exp by libm in f64 (the reference's
     std::exp), then [3] f32 BGR gains normalized by their min in f32."""
@@ -351,7 +403,8 @@ class KalmanState:
     initialized: torch.Tensor  # [...] bool
 
 
-def kalman_init(batch_shape=(), uv_init=(HIST_N // 2, HIST_N // 2), device="cuda") -> KalmanState:
+def kalman_init(batch_shape=(), uv_init=(HIST_N // 2, HIST_N // 2), *,
+                device="cuda") -> KalmanState:
     """Fresh state (first_frame_=true). uv_init mirrors the reference's
     statePre/statePost prior of (height/2, width/2) (ccc.cpp:185-188)."""
     batch_shape = tuple(batch_shape)

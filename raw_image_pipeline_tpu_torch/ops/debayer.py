@@ -169,28 +169,31 @@ def strip_width(w: int, in_ptr: int, out_ptr: int) -> int:
 
 
 def _launch_debayer(kernel: kernels.Kernel, bayer: torch.Tensor, phase: str,
-                    min_hw: int) -> torch.Tensor:
+                    min_hw: int, batch_limit: int) -> torch.Tensor:
     """Check a [B, H, W] uint8 CUDA mosaic, allocate [B, 3, H, W] and launch
-    kernel A or D on it at the strip width strip_width picks."""
+    kernel A or D on each run of at most batch_limit frames
+    (kernels.batch_runs) at the strip width strip_width picks for it."""
     kernels.check_cuda(bayer, "bayer", torch.uint8)
     if bayer.dim() != 3 or bayer.shape[1] < min_hw or bayer.shape[2] < min_hw:
         raise ValueError(f"bayer: expected [B, H, W] with H, W >= {min_hw}, "
                          f"got {tuple(bayer.shape)}")
     b, h, w = bayer.shape
-    kernels.check_batch(b, "bayer")
     out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=bayer.device)
-    if b:
-        with torch.cuda.device(bayer.device):
-            kernel.launch(bayer.data_ptr(), out.data_ptr(), b, h, w, phase_kinds(phase),
-                          strip_width(w, bayer.data_ptr(), out.data_ptr()),
+    with torch.cuda.device(bayer.device):
+        for s, n in kernels.batch_runs(b, batch_limit):
+            src, dst = bayer[s:s + n], out[s:s + n]
+            kernel.launch(src.data_ptr(), dst.data_ptr(), n, h, w, phase_kinds(phase),
+                          strip_width(w, src.data_ptr(), dst.data_ptr()),
                           kernels.stream_handle(bayer))
     return out
 
 
-def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str, *,
+                          batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
     """Kernel A: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
-    equal to debayer_bilinear_planar for any H, W >= 2."""
-    return _launch_debayer(kernels.DEBAYER_BILINEAR, bayer, phase, 2)
+    equal to debayer_bilinear_planar for any H, W >= 2 and any B (one launch
+    per batch_limit frames, the grid's limit)."""
+    return _launch_debayer(kernels.DEBAYER_BILINEAR, bayer, phase, 2, batch_limit)
 
 
 def _desc8(v: torch.Tensor) -> torch.Tensor:
@@ -239,10 +242,12 @@ def debayer_mht_planar(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     return torch.clamp(torch.stack([b, g, r], dim=-3), 0, 255).to(torch.uint8)
 
 
-def debayer_mht_cuda(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+def debayer_mht_cuda(bayer: torch.Tensor, phase: str, *,
+                     batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
     """Kernel D: [B, H, W] uint8 CUDA -> [B, 3, H, W] uint8 planar BGR,
-    equal to debayer_mht_planar for any H, W >= 1."""
-    return _launch_debayer(kernels.DEBAYER_MHT, bayer, phase, 1)
+    equal to debayer_mht_planar for any H, W >= 1 and any B (one launch per
+    batch_limit frames)."""
+    return _launch_debayer(kernels.DEBAYER_MHT, bayer, phase, 1, batch_limit)
 
 
 _ALGORITHMS = {
@@ -312,7 +317,7 @@ def debayer(bayer: torch.Tensor, encoding: str, algorithm: str = "bilinear", *,
     return _nhwc(_demosaic(_flat(bayer), encoding, algorithm, plain), bayer.shape[:-2])
 
 
-def debayer_planes(bayer: torch.Tensor, encoding: str, algorithm: str = "bilinear",
+def debayer_planes(bayer: torch.Tensor, encoding: str, algorithm: str = "bilinear", *,
                    plain: bool = False):
     """Demosaic a [B, H, W] uint8 batch straight to three [B, H, W] planes
     (c0, c1, c2) in cv2's BGR order: debayer(...)[..., c] without the

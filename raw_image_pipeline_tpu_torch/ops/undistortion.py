@@ -572,12 +572,15 @@ def remap_blocks(batch: int, cameras: int, chunk: int, n: int):
 
 
 def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
-                     out_hw: Tuple[int, int]) -> torch.Tensor:
+                     out_hw: Tuple[int, int], *,
+                     batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
     """Kernel E: remap_float_planes for one or three contiguous [B, H, W] u8
     CUDA planes, base [Ho*Wo] int32 and weights [4, Ho*Wo] f32 on the same
     card, or per-camera maps base [C, Ho*Wo] and weights [C, 4, Ho*Wo] for
     a camera-major batch of C blocks of B/C frames (remap_blocks). Returns
-    [B, Ho, Wo, C] u8, C = len(planes), in one launch."""
+    [B, Ho, Wo, C] u8, C = len(planes), in one launch where each camera's
+    block and the cameras fit the grid (batch_limit frames, the grid's
+    limit), else in the launches remap_launches lists."""
     if len(planes) not in (1, 3):
         raise ValueError(f"planes: expected 1 or 3, got {len(planes)}")
     shape = tuple(planes[0].shape)
@@ -595,23 +598,56 @@ def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
     kernels.check_cuda(weights, "weights", torch.float32, lead + (4, n))
     if b % cameras:
         raise ValueError(f"planes: batch {b} is not a multiple of the {cameras} cameras' maps")
-    kernels.check_batch(b, "planes")
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=planes[0].device)
-    if b and n:
-        ptrs = [p.data_ptr() for p in planes]
-        tiles = -(-ho // REMAP_TILE[0]) * -(-wo // REMAP_TILE[1])
-        planes16 = w % 16 == 0 and all(p % 16 == 0 for p in ptrs)
-        sms = torch.cuda.get_device_properties(out.device).multi_processor_count
-        per = b // cameras
-        with torch.cuda.device(out.device):
+    if not n:
+        return out
+    tiles = -(-ho // REMAP_TILE[0]) * -(-wo // REMAP_TILE[1])
+    sms = torch.cuda.get_device_properties(out.device).multi_processor_count
+    with torch.cuda.device(out.device):
+        for f0, nf, cams, z in remap_launches(b, cameras, batch_limit):
+            zb, zw = (base, weights) if z is None else (base[z], weights[z])
+            ptrs = [p[f0].data_ptr() for p in planes]
+            dst = out[f0]
+            planes16 = w % 16 == 0 and all(p % 16 == 0 for p in ptrs)
             kernels.REMAP_FLOAT.launch(
-                *ptrs * (3 // c), base.data_ptr(), weights.data_ptr(), out.data_ptr(), cameras,
-                per, h, w, ho, wo, c,
-                remap_run_width(wo, out.data_ptr(), base.data_ptr(), weights.data_ptr()),
-                remap_frame_chunk(per, REMAP_BLOCK * tiles * cameras, sms), int(planes16),
+                *ptrs * (3 // c), zb.data_ptr(), zw.data_ptr(), dst.data_ptr(), cams,
+                nf // cams, h, w, ho, wo, c,
+                remap_run_width(wo, dst.data_ptr(), zb.data_ptr(), zw.data_ptr()),
+                remap_frame_chunk(nf // cams, REMAP_BLOCK * tiles * cams, sms), int(planes16),
                 kernels.stream_handle(out),
             )
     return out
+
+
+def remap_launches(batch: int, cameras: int, limit: int = kernels.MAX_BATCH):
+    """Kernel E's launches for a camera-major batch of `cameras` blocks:
+    (first frame, frames, cameras in the launch, camera index) each. One
+    launch of every camera (grid z, camera index None: the stacked maps)
+    where a block of batch // cameras frames and the cameras fit the grid's
+    `limit`; else a launch for each camera and run of at most `limit` of
+    its frames (kernels.batch_runs), through that camera's map, so that no
+    launch straddles two cameras."""
+    if not batch:
+        return []
+    per = batch // cameras
+    if per <= limit and cameras <= limit:
+        return [(0, batch, cameras, None)]
+    return [(z * per + s, n, 1, z if cameras > 1 else None)
+            for z in range(cameras) for s, n in kernels.batch_runs(per, limit)]
+
+
+def remap_channel_groups(planes, remap_fn) -> torch.Tensor:
+    """Remap any number of [B, H, W] planes through remap_fn, which takes
+    one or three planes (kernel E's contract) and returns [B, Ho, Wo, c]:
+    groups of three planes, then single planes, stacked along the last axis
+    in the planes' order. The channels are independent, so this equals one
+    remap of all of them; one or three planes make one call."""
+    if len(planes) in (1, 3):
+        return remap_fn(tuple(planes))
+    three = len(planes) // 3 * 3
+    groups = [tuple(planes[i:i + 3]) for i in range(0, three, 3)]
+    groups += [(p,) for p in planes[three:]]
+    return torch.cat([remap_fn(g) for g in groups], dim=-1)
 
 
 def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
@@ -619,14 +655,17 @@ def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
     """The remap stage in `mode` ("lerp" | "float" | "fixed32"; base and
     weights from remap_precompute in the same mode, flat or stacked per
     camera, see the module's docstring). Float mode on CUDA planes goes
-    through kernel E, on CPU planes (or plain=True) through
-    remap_float_planes; lerp and fixed32 are plain torch ops."""
+    through kernel E (any number of planes, remap_channel_groups), on CPU
+    planes (or plain=True) through remap_float_planes; lerp and fixed32 are
+    plain torch ops."""
     fns = {"lerp": remap_lerp_planes, "float": remap_float_planes,
            "fixed32": remap_fixed32_planes}
     if mode not in fns:
         raise ValueError(f"unknown remap mode [{mode}]")
     if mode == "float" and not plain and planes[0].device.type != "cpu":
-        return remap_float_cuda(tuple(p.contiguous() for p in planes), base, weights, out_hw)
+        return remap_channel_groups(
+            tuple(p.contiguous() for p in planes),
+            lambda group: remap_float_cuda(group, base, weights, out_hw))
     if base.dim() == 1:
         return fns[mode](planes, base, weights, out_hw)
     # per-camera maps: camera c's block of frames through map c
@@ -654,7 +693,7 @@ def _check_src(h: int, w: int, src_hw) -> None:
 def _remap_batch(planes, base, weights, out_hw, n_cameras: int, mode: str,
                  plain: bool) -> torch.Tensor:
     """[N, H, W] planes (camera-major over n_cameras blocks) -> [N, Ho, Wo, C]
-    through remap_planes (kernel E takes one or three planes)."""
+    through remap_planes."""
     dev = planes[0].device
     base = as_tensor_on(base, dev, torch.int32)
     weights = as_tensor_on(weights, dev, torch.float32)
@@ -664,17 +703,43 @@ def _remap_batch(planes, base, weights, out_hw, n_cameras: int, mode: str,
     return remap_planes(planes, base, weights, tuple(int(v) for v in out_hw), mode, plain)
 
 
+# tuning and blend_impl pick the reference package's TPU gather pack and
+# blend backend; every choice gives the same bytes and the port has one
+# implementation, so both are accepted and ignored (the reference package
+# too takes an unknown blend_impl without complaint: it blends by default)
+
+
 def remap_bilinear_u8(image: torch.Tensor, base, weights, out_hw: Tuple[int, int],
-                      src_hw: Tuple[int, int] | None = None, n_cameras: int = 1,
-                      mode: str = "lerp", *, plain: bool = False) -> torch.Tensor:
+                      src_hw: Tuple[int, int] | None = None, batch_minor: bool = False,
+                      tuning: Tuple[int, int] | None = None, n_cameras: int = 1,
+                      blend_impl: str | None = None, mode: str = "lerp", *,
+                      plain: bool = False) -> torch.Tensor:
     """cv::remap(INTER_LINEAR, BORDER_CONSTANT, 0) with remap_precompute's
-    (base, weights) in `mode`: [..., H, W, C] u8 -> [..., Ho, Wo, C] u8.
-    n_cameras > 1: image [n_cameras * B', H, W, C] camera-major, base
-    [n_cameras, N] and weights [n_cameras, k, N] stacked per camera. Float
-    mode runs kernel E on a CUDA tensor, the plain version on a CPU tensor
-    or with plain=True; lerp and fixed32 are plain torch ops."""
+    (base, weights) in `mode`: [..., H, W, C] u8 -> [..., Ho, Wo, C] u8 for
+    any C, or with batch_minor=True [H, W, ..., C] -> [Ho, Wo, ..., C].
+    n_cameras > 1: image [n_cameras * B', H, W, C] camera-major (batch-minor:
+    [H, W, n_cameras * B', C] -> [n_cameras, Ho, Wo, B', C], as the
+    reference package returns it), base [n_cameras, N] and weights
+    [n_cameras, k, N] stacked per camera. Float mode runs kernel E on a
+    CUDA tensor (groups of three channels and single ones), the plain
+    version on a CPU tensor or with plain=True; lerp and fixed32 are plain
+    torch ops. tuning and blend_impl are accepted and ignored: they choose
+    among the reference package's TPU implementations, which give the same
+    bytes."""
     if image.dim() < 3:
         raise ValueError(f"image: expected [..., H, W, C], got {tuple(image.shape)}")
+    if batch_minor:
+        # [H, W, ..., C] -> [..., H, W, C] and back: the batch-major path
+        if n_cameras > 1 and image.dim() != 4:
+            raise ValueError(f"image: expected [H, W, n_cameras * B, C] for {n_cameras} "
+                             f"cameras, got {tuple(image.shape)}")
+        out = remap_bilinear_u8(image.movedim((0, 1), (-3, -2)), base, weights, out_hw,
+                                src_hw, False, tuning, n_cameras, blend_impl, mode,
+                                plain=plain)
+        if n_cameras > 1:  # [n_cameras * B', Ho, Wo, C] -> [n_cameras, Ho, Wo, B', C]
+            out = out.reshape((n_cameras, -1) + tuple(out.shape[1:])).permute(0, 2, 3, 1, 4)
+            return out.contiguous()
+        return out.movedim((-3, -2), (0, 1)).contiguous()
     h, w, c = image.shape[-3:]
     _check_src(h, w, src_hw)
     if n_cameras > 1 and image.dim() != 4:
@@ -688,12 +753,15 @@ def remap_bilinear_u8(image: torch.Tensor, base, weights, out_hw: Tuple[int, int
 
 
 def remap_bilinear_u8_planes(planes, base, weights, out_hw: Tuple[int, int],
-                             src_hw: Tuple[int, int] | None = None, n_cameras: int = 1,
-                             mode: str = "lerp", *, plain: bool = False) -> torch.Tensor:
+                             src_hw: Tuple[int, int] | None = None,
+                             tuning: Tuple[int, int] | None = None, n_cameras: int = 1,
+                             blend_impl: str | None = None, mode: str = "lerp", *,
+                             plain: bool = False) -> torch.Tensor:
     """The reference package's planar remap, in its batch-minor layout: a
     tuple of C [H, W, ...] u8 planes -> [Ho, Wo, C, ...] u8; with
     n_cameras > 1 (planes [H, W, n_cameras * B'], camera-major) ->
-    [n_cameras, Ho, Wo, C, B']. Same dispatch as remap_bilinear_u8."""
+    [n_cameras, Ho, Wo, C, B']. Same dispatch as remap_bilinear_u8, and
+    tuning and blend_impl are ignored as there."""
     h, w = planes[0].shape[0], planes[0].shape[1]
     _check_src(h, w, src_hw)
     lead = tuple(planes[0].shape[2:])

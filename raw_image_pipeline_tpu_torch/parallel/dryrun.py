@@ -55,10 +55,10 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
                                     temporal_mode=mode, mesh=mesh)
         whole = tp.build_pipeline(config, "bayer_gbrg8", (h, w), with_state=True,
                                   temporal_mode=mode, device=ref_dev)
-        out, state = sharded(pixels, tp.init_state(shape, ref_dev))
+        out, state = sharded(pixels, tp.init_state(shape, device=ref_dev))
         processed = out["processed"].gather("cpu")
         assert tuple(processed.shape) == (batch, h, w, 3), processed.shape
-        ref, ref_state = whole(pixels.to(ref_dev), tp.init_state(shape, ref_dev))
+        ref, ref_state = whole(pixels.to(ref_dev), tp.init_state(shape, device=ref_dev))
         assert torch.equal(processed, ref["processed"].cpu()), f"{mode}: outputs differ"
         for f in ("x", "p", "initialized"):
             assert torch.equal(getattr(state, f).cpu(), getattr(ref_state, f).cpu()), \

@@ -186,7 +186,8 @@ class ShardedBatch:
         return multihost.all_gather_frames(local)
 
 
-def shard_batch(pixels, mesh: Mesh, spatial: bool = False, row_axis: int = 1) -> ShardedBatch:
+def shard_batch(pixels, mesh: Mesh, spatial: bool = False, *,
+                row_axis: int = 1) -> ShardedBatch:
     """Split a global batch (tensor or numpy array; frames on axis 0) over
     `mesh`: frames over "data", and with spatial=True rows (row_axis) over
     "space" in even-start slabs. Each shard is copied to its device (a

@@ -46,7 +46,7 @@ from raw_image_pipeline_tpu_torch.pipeline import (
 )
 
 
-def multicamera_state(n_cameras: int, batch: int = 1, temporal_mode: str = "cameras",
+def multicamera_state(n_cameras: int, batch: int = 1, temporal_mode: str = "cameras", *,
                       device="cuda") -> IspState:
     """Per-camera Kalman state: [n_cameras, batch, ...] tracks in "cameras"
     mode (every batch slot an independent stream), [n_cameras, ...] in
@@ -64,6 +64,7 @@ def build_multicamera_pipeline(
     with_state: bool = False,
     temporal_mode: str = "cameras",
     mesh=None,
+    *,
     device="cuda",
 ) -> BuiltPipeline:
     """One camera-blocked chain over frames [n_cameras, B, H, W] on

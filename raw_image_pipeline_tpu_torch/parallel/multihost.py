@@ -48,6 +48,7 @@ def initialize_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    *,
     backend: Optional[str] = None,
     timeout_s: float = 300.0,
 ) -> None:
@@ -91,11 +92,23 @@ def initialize_multihost(
           file=sys.stderr, flush=True)
 
 
-def global_data_mesh(devices: Optional[Sequence] = None, space: int = 1) -> Mesh:
+def _check_axis(axis: str) -> None:
+    """The port's mesh names its axes ("data", "space"): the data axis is
+    always "data"."""
+    if axis != "data":
+        raise ValueError(f"axis={axis!r}: the port's mesh runs frames over its axis 'data' "
+                         f"(its axes are {Mesh.axis_names}); another name is not supported")
+
+
+def global_data_mesh(axis: str = "data", *, devices: Optional[Sequence] = None,
+                     space: int = 1) -> Mesh:
     """The mesh whose data axis runs over every process's local devices
     (this process's: `devices`, default every local card in one process
     and this rank's card where there are several, the CPU without CUDA
-    under gloo), each process's rows [len(devices) // space, space]."""
+    under gloo), each process's rows [len(devices) // space, space].
+    axis names the data axis as in the reference package; the port's mesh
+    calls it "data", and any other name raises ValueError."""
+    _check_axis(axis)
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if devices is None:
@@ -113,16 +126,17 @@ def global_data_mesh(devices: Optional[Sequence] = None, space: int = 1) -> Mesh
     return Mesh(grid, process_count=world, process_index=rank)
 
 
-def distribute_batch(local_batch, mesh: Optional[Mesh] = None, spatial: bool = False,
-                     row_axis: int = 1) -> ShardedBatch:
+def distribute_batch(local_batch, mesh: Optional[Mesh] = None, axis: str = "data", *,
+                     spatial: bool = False, row_axis: int = 1) -> ShardedBatch:
     """The global batch of every process's [B_local, ...] frames (equal
     B_local on every process): a ShardedBatch of shape
     [B_local * processes, ...] whose local shards are this process's
     frames, split over its data rows (and rows over space with
     spatial=True). This is the ingestion point of each process's frame
-    pump."""
+    pump. axis: the data axis, "data" (see global_data_mesh)."""
+    _check_axis(axis)
     if mesh is None:
-        mesh = global_data_mesh()
+        mesh = global_data_mesh(axis)
     local = as_tensor(local_batch)
     n = local.shape[0]
     return shard_local(local, mesh, n * mesh.process_count, n * mesh.process_index,

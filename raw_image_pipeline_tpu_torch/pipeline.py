@@ -264,7 +264,7 @@ def params_from_numpy(fields, config: PipelineConfig, device="cuda") -> IspParam
 
 
 def make_params(config: PipelineConfig, frame_hw: Tuple[int, int],
-                ccc_model: Optional[CCCModel] = None, device="cuda") -> IspParams:
+                ccc_model: Optional[CCCModel] = None, *, device="cuda") -> IspParams:
     """Build the parameters for frames of shape frame_hw (pre-flip, i.e.
     sensor orientation) on `device`. ccc_model (models/ccc_model.CCCModel,
     e.g. one trained or changed in memory) gives the CCC filter; None loads
@@ -272,7 +272,7 @@ def make_params(config: PipelineConfig, frame_hw: Tuple[int, int],
     return params_from_numpy(_host_fields(config, frame_hw, ccc_model), config, device)
 
 
-def init_state(batch_shape: Tuple[int, ...] = (), device="cuda") -> IspState:
+def init_state(batch_shape: Tuple[int, ...] = (), *, device="cuda") -> IspState:
     """Fresh temporal-consistency state (the reference's first_frame_=true)."""
     return ccc_ops.kalman_init(batch_shape, device=device)
 
@@ -300,7 +300,7 @@ def save_state(state: IspState, path: str) -> None:
     )
 
 
-def load_state(path: str, device="cuda") -> IspState:
+def load_state(path: str, *, device="cuda") -> IspState:
     """Restore a checkpoint written by save_state (of either package)."""
     d = np.load(path)
     return state_from_numpy(d["x"], d["p"], d["initialized"], device)
@@ -311,11 +311,14 @@ def make_isp_fn(
     encoding: str,
     with_state: bool,
     keep_intermediates: bool = True,
-    *,
+    debug: bool = False,
     temporal_mode: str = "cameras",
     remap_src_hw: Optional[Tuple[int, int]] = None,
-    debug: bool = False,
+    planar_internals: bool = True,
+    remap_tuning: Optional[Tuple[int, int]] = None,
     n_cameras: int = 1,
+    mesh_devices: int = 1,
+    *,
     plain: bool = False,
 ):
     """The chain for a fixed encoding: fn(params, pixels, state) ->
@@ -325,7 +328,8 @@ def make_isp_fn(
     encodings pass through) or [B, H, W] / [B, H, W, 1] uint8 mono. On
     CUDA the chain launches the hand-written kernels; plain=True runs every
     op on its plain version instead (the card's reference chain). The
-    parameters after keep_intermediates are keyword-only.
+    parameters sit at the reference package's positions; plain, the port's
+    own, is keyword-only.
 
     outputs["processed"] is [B, Ho, Wo, 3] u8 BGR (mono: the input's
     layout); with keep_intermediates also "debayered" (post-flip) and
@@ -345,7 +349,14 @@ def make_isp_fn(
     the whole batch. State: [n_cameras, B, ...] tracks in "cameras" mode,
     one track per camera ([n_cameras, ...]) in "sequence" mode, advanced
     through its own block's frames. Outputs and state come back with their
-    [n_cameras, B] leading axes."""
+    [n_cameras, B] leading axes.
+
+    planar_internals, remap_tuning and mesh_devices are accepted and
+    ignored: in the reference package they choose the TPU program's layout
+    (packed [..., 3] or planar), its remap gather's pack and chunking, and
+    the implementations GSPMD can partition over a mesh, and every choice
+    gives the same bytes. The port runs one planar chain, and a mesh is
+    build_pipeline's mesh=."""
     from raw_image_pipeline_tpu_torch.parallel.spatial import Part, run_whole
 
     chain = make_isp_chain(config, encoding, with_state, keep_intermediates,
@@ -704,12 +715,14 @@ def build_pipeline(
     with_state: bool = False,
     keep_intermediates: bool = False,
     ccc_model: Optional[CCCModel] = None,
-    device="cuda",
+    donate: bool = False,
     debug: bool = False,
     temporal_mode: str = "cameras",
     microbatch: Optional[int] = None,
     mesh=None,
     spatial_shards: Optional[int] = None,
+    *,
+    device="cuda",
 ) -> BuiltPipeline:
     """Build the ISP for one configuration on `device` ("cuda", the
     default, launches the hand-written kernels and raises without a CUDA
@@ -718,7 +731,10 @@ def build_pipeline(
     frame_hw defaults to the calibration's image size. Input pixels: see
     make_isp_fn. temporal_mode and debug: see make_isp_fn. ccc_model: the
     CCC model to run (see make_params); None loads the configuration's
-    ccc_model_path.
+    ccc_model_path. donate is accepted and ignored: in the reference package
+    it donates the input's device buffer to XLA, which eager PyTorch has no
+    counterpart of. The parameters sit at the reference package's
+    positions; device, the port's own, is keyword-only.
 
     microbatch: process the batch as sequential chunks of this many frames,
     which bounds the stages' intermediates at one chunk's (e.g. 512 1080p

@@ -104,6 +104,7 @@ class StreamRunner:
         slow_skip: int = 0,
         mesh=None,
         microbatch=None,
+        *,
         device="cuda",
     ):
         self.config = config
@@ -131,13 +132,13 @@ class StreamRunner:
         )
         # one shared illuminant track, like the reference's single camera
         # stream; batch entries advance it sequentially via scan semantics
-        self.state = init_state((), self.device) if self.with_state else None
+        self.state = init_state((), device=self.device) if self.with_state else None
         self._slow_counter = 0
 
     def reset_white_balance(self):
         """The ~reset_white_balance service (raw_image_pipeline_ros.cpp:290-295)."""
         if self.with_state:
-            self.state = init_state((), self.device)
+            self.state = init_state((), device=self.device)
 
     def run(
         self,

@@ -68,7 +68,7 @@ def _fps(tp, torch, workloads, name: str, h: int, w: int) -> float:
     per = ch.frames // ch.calls
 
     def run():
-        state = tp.init_state((), "cuda")
+        state = tp.init_state((), device="cuda")
         for c in range(ch.calls):
             _, state = pipe(frames[c * per:(c + 1) * per], state)
         torch.cuda.synchronize()

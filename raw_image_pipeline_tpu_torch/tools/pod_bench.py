@@ -77,10 +77,10 @@ def check_exact(tp, config, mesh, gbatch, every_local) -> None:
     kw = dict(with_state=True, temporal_mode="sequence")
     sharded = tp.build_pipeline(config, "bayer_gbrg8", (h, w), mesh=mesh, **kw)
     whole = tp.build_pipeline(config, "bayer_gbrg8", (h, w), device=dev, **kw)
-    out, state = sharded(gbatch, tp.init_state((), dev))
+    out, state = sharded(gbatch, tp.init_state((), device=dev))
     got = out["processed"].gather(dev)
     ref, ref_state = whole(torch.as_tensor(np.concatenate(every_local)).to(dev),
-                           tp.init_state((), dev))
+                           tp.init_state((), device=dev))
     bad = int((got != ref["processed"]).sum())
     same = all(torch.equal(getattr(state, f), getattr(ref_state, f))
                for f in ("x", "p", "initialized"))
@@ -137,7 +137,7 @@ def main(argv=None):
             devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         else:
             devices = [card] * (args.local_devices or 1)
-    mesh = global_data_mesh(devices)
+    mesh = global_data_mesh(devices=devices)
     n_dev = mesh.shape["data"]
     n_local = mesh.local_data
     log(f"[pod_bench] proc {pid}/{n_proc}, {n_local} local / {n_dev} global shards "

@@ -127,7 +127,7 @@ def profile_chain(tp, torch, workloads, name: str, out_dir: str) -> dict:
     frames = workloads.card_frames(torch, ch.kind, batch, H, W, workloads.SEED + len(name))
 
     def call():
-        pipe(frames, tp.init_state((), "cuda"))
+        pipe(frames, tp.init_state((), device="cuda"))
         torch.cuda.synchronize()
 
     for _ in range(2):

@@ -64,7 +64,7 @@ def pipeline_config(params: str, calibration: str, color_calibration: str,
     return config
 
 
-def main(argv=None, on_listen=None):
+def main(argv=None, *, on_listen=None):
     """The tool; with --listen, `on_listen(source, control server or None)`
     is called once both listen, before the first frame is read."""
     ap = argparse.ArgumentParser(description=__doc__)
@@ -311,7 +311,7 @@ def drive_live(frames, out_dir, argv, commands=(), command_frame=1, timeout=60.0
     producer = threading.Thread(target=produce, daemon=True)
     producer.start()
     try:
-        n = main(argv, on_listen)
+        n = main(argv, on_listen=on_listen)
     finally:
         listening.set()  # a tool that failed before listening frees the producer
         producer.join(timeout)

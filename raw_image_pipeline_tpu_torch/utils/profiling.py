@@ -73,6 +73,7 @@ def stage_timings(
     pixels: np.ndarray,
     stages: Optional[List[str]] = None,
     repeats: int = 3,
+    *,
     device="cuda",
 ) -> Dict[str, float]:
     """Cumulative-difference per-stage wall times (seconds) for the chain,

@@ -440,5 +440,5 @@ def test_inputs_on_card_equal_cpu(encoding):
     for dev in ("cuda", "cpu"):
         pipe = tp.build_pipeline(c, encoding, hw, with_state=True, temporal_mode="sequence",
                                  microbatch=3, device=dev)
-        res[dev] = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), dev))[0]
+        res[dev] = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), device=dev))[0]
     assert torch.equal(res["cuda"]["processed"].cpu(), res["cpu"]["processed"])

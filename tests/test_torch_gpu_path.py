@@ -370,7 +370,7 @@ def test_chain_on_card_equals_cpu(name):
     for dev in ("cuda", "cpu"):
         pipe = tp.build_pipeline(_chain_config(name, hw), "bayer_gbrg8", hw, with_state=True,
                                  keep_intermediates=True, temporal_mode="sequence", device=dev)
-        out, st = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), dev))
+        out, st = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), device=dev))
         res[dev] = ({k: v.cpu() for k, v in out.items()}, st)
     for k, v in res["cpu"][0].items():
         assert torch.equal(res["cuda"][0][k], v), k
@@ -467,7 +467,7 @@ def test_flagship_mesh_on_card_equals_unsharded():
         split = tp.build_pipeline(config, "bayer_gbrg8", hw, with_state=True,
                                   temporal_mode=mode, mesh=mesh)
         assert split.selected_impls["demosaic"] == ("cuda",) * 4
-        ws = ss = tp.init_state((4,) if mode == "cameras" else (), dev)
+        ws = ss = tp.init_state((4,) if mode == "cameras" else (), device=dev)
         for chunk in torch.split(frames, 4):
             wo, ws = whole(chunk, ws)
             kernels.reset_launch_counts()
@@ -520,7 +520,7 @@ def _op_layer_calls(dev, lead, hw):
         "ccc_response": (lambda plain, d: pccc.response_argmax(pccc.ccc_response(
             on(hist, d), *filt, plain=plain)), kernels.CCC_RESPONSE),
         "remap_bilinear_u8": (lambda plain, d: pund.remap_bilinear_u8(
-            on(flat_bgr, d), base, weights, hw, hw, cams, "float", plain=plain),
+            on(flat_bgr, d), base, weights, hw, hw, n_cameras=cams, mode="float", plain=plain),
             kernels.REMAP_FLOAT),
     }
 

@@ -259,7 +259,7 @@ def test_multicamera_refuses():
                                            device="cpu")
         split = build_multicamera_pipeline(config, calibs, "bayer_gbrg8", HW, True, mode,
                                            mesh=make_mesh(["cpu"] * 3))
-        state = multicamera_state(CAMERAS, BATCH, mode, "cpu")
+        state = multicamera_state(CAMERAS, BATCH, mode, device="cpu")
         ref, ref_state = whole(frames, state)
         out, out_state = split(frames, state)
         assert torch.equal(out["processed"].gather("cpu"), ref["processed"])

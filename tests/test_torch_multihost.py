@@ -39,13 +39,13 @@ frames = np.load(os.path.join(out_dir, "frames.npy"))
 initialize_multihost(addr, 2, pid, backend="gloo", timeout_s=240)
 # "cameras": 2 data shards a process; "sequence": 2 data x 2 space
 space = 1 if mode == "cameras" else 2
-mesh = global_data_mesh(["cpu"] * (2 * space), space=space)
+mesh = global_data_mesh(devices=["cpu"] * (2 * space), space=space)
 assert mesh.shape == {"data": 4, "space": space}, mesh.shape
 h, w = frames.shape[1:]
 pipe = tp.build_pipeline(tp.flagship_config(h, w), "bayer_gbrg8", (h, w), with_state=True,
                          temporal_mode=mode, mesh=mesh)
 per, calls, b_local = 4, 2, 2
-state = tp.init_state((b_local,) if mode == "cameras" else (), "cpu")
+state = tp.init_state((b_local,) if mode == "cameras" else (), device="cpu")
 outs = []
 for c in range(calls):
     chunk = frames[c * per:(c + 1) * per]
@@ -76,7 +76,7 @@ from raw_image_pipeline_tpu_torch.runtime.stream import StreamRunner
 
 addr, pid = sys.argv[1], int(sys.argv[2])
 initialize_multihost(addr, 2, pid, backend="gloo", timeout_s=60)
-mesh = global_data_mesh(["cpu"])
+mesh = global_data_mesh(devices=["cpu"])
 h, w = 24, 32
 config = tp.flagship_config(h, w)
 pipe = tp.build_pipeline(config, "bayer_gbrg8", (h, w), with_state=True,
@@ -85,7 +85,7 @@ frames = np.random.default_rng(5).integers(0, 256, (3, h, w), np.uint8)
 refused = []
 for n in (3, 0):  # an odd global batch, an empty one
     try:
-        pipe(frames[:n], tp.init_state((), "cpu"))
+        pipe(frames[:n], tp.init_state((), device="cpu"))
     except ValueError as e:
         refused.append(str(e))
 try:  # a batch size the processes cannot share
@@ -98,7 +98,7 @@ try:  # a stateful tail of one frame
 except ValueError as e:
     refused.append(str(e))
 # the ranks are still in step: an even batch runs, its outputs all-gathered
-out, _ = pipe(frames[:2], tp.init_state((), "cpu"))
+out, _ = pipe(frames[:2], tp.init_state((), device="cpu"))
 assert out["processed"].gather("cpu").shape == (2, h, w, 3)
 for r in refused:
     print("REFUSED", r, flush=True)

@@ -8,10 +8,10 @@ test_torch_op_layer_wb.py; the functions that reach kernels A-E in
 test_torch_op_layer_kernels.py), and build_pipeline runs a CCC model given
 in memory (ccc_model=)."""
 
-import ast
 import dataclasses
 import glob
 import importlib
+import inspect
 import math
 import os
 from unittest import mock
@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_pipeline import _frames, _p_after, _track_x
+from util_contract import contract_problems, port_object, public_defs
 from util_op_layer import CASE_IDS, CASES, F32, LEAD_IDS, LEADS, assert_equal, image, to_np
 
 import raw_image_pipeline_tpu_torch as tp
@@ -50,22 +51,7 @@ UV0 = jccc.UV0
 
 # --- (a) coverage -------------------------------------------------------------
 
-# parameters that select or tune the TPU implementation, or its layout
-TPU_ONLY_PARAMS = {
-    "impl": "TPU implementation selection (Pallas kernel or XLA); the port picks by the "
-            "tensor's device",
-    "precision": "XLA matmul precision on the TPU's MXU",
-    "blend_impl": "TPU remap blend selection (Pallas or XLA)",
-    "tuning": "the TPU remap's slot-pack chunking",
-    "batch_minor": "the TPU's batch-minor [H, W, B, C] layout",
-    "w_axis": "the TPU's batch-minor layout (which axis is W)",
-    "corr": "per-backend LUT corrections (the port serves exact host tables)",
-    "corr_idx": "per-backend LUT corrections (the port serves exact host tables)",
-    "corr_val": "per-backend LUT corrections (the port serves exact host tables)",
-}
-# parameters only the port has: the kernel-or-plain switch and the device
-PORT_ONLY_PARAMS = {"plain", "device"}
-# a JAX parameter that the port takes in another form, and why
+# a JAX parameter that the port takes in another form, at the same place, and why
 REPLACED_PARAMS = {
     ("colorspace", "bgr_to_lab_planes"): {
         "gamma_fn": ("gamma_tab", "the exact int32 table in place of the TPU's "
@@ -103,68 +89,57 @@ NOT_PORTED = {
                  "debayer_bilinear_pallas_planes", "mht_tile_rows_for", "debayer_mht_pallas",
                  "debayer_mht_pallas_nhwc", "debayer_mht_pallas_planes")},
     "remap_blend_pallas.blend_rows_pallas": _PALLAS,
+    **{f"lut.CorrectedTable.{n}": _CORRECTIONS for n in ("__init__", "__call__")},
 }
 JAX_OPS = sorted(os.path.basename(p)[:-3]
                  for p in glob.glob(os.path.join(REPO, "raw_image_pipeline_tpu", "ops", "*.py"))
                  if not p.endswith("__init__.py"))
 
 
-def _public_defs(path):
-    """{name: [parameter names]} of the module's top-level public defs."""
-    tree = ast.parse(open(path).read())
-    out = {}
-    for node in tree.body:
-        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
-            a = node.args
-            out[node.name] = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
-    return out
-
-
-def _expected_port_params(jax_params, replaced):
-    return [replaced[p][0] if p in replaced else p
-            for p in jax_params if p not in TPU_ONLY_PARAMS]
+def _jax_defs(module):
+    return public_defs(os.path.join(REPO, "raw_image_pipeline_tpu", "ops", f"{module}.py"))
 
 
 @pytest.mark.parametrize("module", JAX_OPS)
 def test_every_public_op_has_a_counterpart_or_a_reason(module):
-    defs = _public_defs(os.path.join(REPO, "raw_image_pipeline_tpu", "ops", f"{module}.py"))
+    """Every public def of the JAX module has a port counterpart that takes
+    a JAX-style call by position with the same meaning (util_contract's
+    rule: the JAX positions, TPU-only parameters left out only at the end
+    and only with a reason, the port's own parameters keyword-only)."""
+    defs = _jax_defs(module)
     assert defs, module
-    ported = {n: p for n, p in defs.items() if f"{module}.{n}" not in NOT_PORTED}
+    ported = {n: s for n, s in defs.items() if f"{module}.{n}" not in NOT_PORTED}
     if not ported:
         return  # a TPU-only module (debayer_pallas, remap_blend_pallas, lut)
     pmod = importlib.import_module(f"raw_image_pipeline_tpu_torch.ops.{module}")
-    for name, jparams in ported.items():
-        fn = getattr(pmod, name, None)
-        assert callable(fn), f"ops/{module}.py: no counterpart of {name}"
-        code = fn.__code__
-        pparams = list(code.co_varnames[:code.co_argcount + code.co_kwonlyargcount])
-        want = _expected_port_params(jparams, REPLACED_PARAMS.get((module, name), {}))
-        got = [p for p in pparams if p not in PORT_ONLY_PARAMS]
-        assert got == want, f"ops/{module}.{name}: port {pparams}, JAX {jparams}"
+    for name, jsig in ported.items():
+        fn = port_object(pmod, name)
+        assert fn is not None, f"ops/{module}.py: no counterpart of {name}"
+        replaced = {j: p for j, (p, _) in REPLACED_PARAMS.get((module, name), {}).items()}
+        problems = contract_problems(jsig, fn, replaced)
+        assert not problems, f"ops/{module}.{name}: {problems}"
 
 
 def test_not_ported_list_names_real_functions():
     for key, reason in NOT_PORTED.items():
-        module, name = key.split(".")
-        defs = _public_defs(os.path.join(REPO, "raw_image_pipeline_tpu", "ops", f"{module}.py"))
-        assert name in defs and reason, key
+        module, name = key.split(".", 1)
+        assert name in _jax_defs(module) and reason, key
     for (module, name), repl in REPLACED_PARAMS.items():
-        defs = _public_defs(os.path.join(REPO, "raw_image_pipeline_tpu", "ops", f"{module}.py"))
-        assert set(repl) <= set(defs[name]), (module, name)
-
-
-# build_pipeline's donate= is XLA buffer donation: eager PyTorch has none
-PIPELINE_NOT_PORTED = {"donate"}
+        assert set(repl) <= set(_jax_defs(module)[name][0]), (module, name)
 
 
 @pytest.mark.parametrize("name", ["build_pipeline", "make_params"])
 def test_build_pipeline_and_make_params_take_the_reference_arguments(name):
-    jparams = _public_defs(os.path.join(REPO, "raw_image_pipeline_tpu", "pipeline.py"))[name]
-    pparams = _public_defs(os.path.join(REPO, "raw_image_pipeline_tpu_torch", "pipeline.py"))[name]
-    want = [p for p in jparams if p not in PIPELINE_NOT_PORTED]
-    extra = {"device", "mesh", "spatial_shards"} - set(jparams)
-    assert [p for p in pparams if p not in extra] == want
-    assert "ccc_model" in pparams and pparams.index("device") == pparams.index("ccc_model") + 1
+    """Every JAX parameter at its JAX position (build_pipeline's donate, XLA
+    buffer donation, is accepted and ignored: eager PyTorch has none), and
+    the port's device, mesh and spatial_shards where the JAX function has
+    none, keyword-only."""
+    jpos, _ = public_defs(os.path.join(REPO, "raw_image_pipeline_tpu", "pipeline.py"))[name]
+    params = inspect.signature(getattr(tp, name)).parameters
+    pos = [p for p, v in params.items() if v.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD]
+    assert pos == jpos
+    assert params["device"].kind == inspect.Parameter.KEYWORD_ONLY
+    assert set(params) - set(jpos) == {"device"}
 
 
 # --- (b) equality on the CPU --------------------------------------------------

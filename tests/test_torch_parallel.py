@@ -64,7 +64,7 @@ def _sharded_run(config, hw, frames, mode, mesh, calls=2, **kw):
     pipe = tp.build_pipeline(config, ENC, hw, with_state=True, keep_intermediates=True,
                              temporal_mode=mode, mesh=mesh, **kw)
     n = frames.shape[0]
-    state = tp.init_state(() if mode == "sequence" else (n // calls,), "cpu")
+    state = tp.init_state(() if mode == "sequence" else (n // calls,), device="cpu")
     outs, states = [], []
     for chunk in np.split(frames, calls):
         out, state = pipe(torch.as_tensor(chunk), state)
@@ -161,7 +161,7 @@ def test_sharded_variants_equal_unsharded(name, kw):
                             temporal_mode="sequence", device="cpu", **kw)
     pipe = tp.build_pipeline(config, ENC, hw, with_state=True, keep_intermediates=True,
                              temporal_mode="sequence", mesh=mesh, **kw)
-    rs = ss = tp.init_state((), "cpu")
+    rs = ss = tp.init_state((), device="cpu")
     for chunk in torch.split(frames, 8):
         ro, rs = ref(chunk, rs)
         so, ss = pipe(chunk, ss)

@@ -301,7 +301,7 @@ def test_chain_on_card_equals_cpu():
     for dev in ("cuda", "cpu"):
         pipe = tp.build_pipeline(tp.flagship_config(*hw), "bayer_gbrg8", hw, with_state=True,
                                  keep_intermediates=True, temporal_mode="sequence", device=dev)
-        out, st = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), dev))
+        out, st = pipe(torch.as_tensor(frames, device=dev), tp.init_state((), device=dev))
         res[dev] = ({k: v.cpu() for k, v in out.items()}, st)
     for k, v in res["cpu"][0].items():
         assert torch.equal(res["cuda"][0][k], v), k

@@ -517,7 +517,7 @@ def test_stage_timings_keys_equal_reference():
     px = np.random.default_rng(7).integers(0, 256, (2, h, w), np.uint8)
     stages = ["color_calibration"]
     want = jax_stage_timings(ge._full_config((h, w)), "bayer_gbrg8", px, stages, repeats=1)
-    got = stage_timings(tp.flagship_config(h, w), "bayer_gbrg8", px, stages, 1, "cpu")
+    got = stage_timings(tp.flagship_config(h, w), "bayer_gbrg8", px, stages, 1, device="cpu")
     assert list(got) == list(want) == ["overhead"] + stages
     # every stage off: each truncated chain builds at once, the keys are the same
     off = tp.flagship_config(h, w)

@@ -130,7 +130,14 @@ per source, into build/kernels/), then:
      unsharded on the one card (no scaling figure); each flagship slab's
      remap window; tools/pod_bench.py at 1920x1080, batch 4 a device, as
      one process and as two gloo ranks on the card, and two NCCL ranks on
-     the card, which must refuse.
+     the card, which must refuse;
+  6. runs the port's benchmark program (tools/bench.py, the root
+     bench.py's counterpart) in a process of its own at its full sizes with
+     fewer repeats: the flagship at B = 16, 64 and 128, configs 1-6, the
+     four checks (A and D, B, C's argmax against f64, the colour
+     calibration over 2^24 triples) at 0 mismatches, the CPU arm; every
+     key of bench.py's headline in its last line, the kernels of each run
+     launched in it; prints that line.
 
 It prints the card's name and power limit, the build time, one line per
 check, a JSON line of the mesh phase, a JSON line of the kernels (with
@@ -1720,6 +1727,56 @@ def check_mesh(tp, torch, np, root, smi_line):
             "pod_bench": bench}
 
 
+# tools/bench.py's run in the bench phase: full sizes, fewer repeats
+BENCH_ARGV = ("--repeats", "2", "--rounds", "1", "--cpu-iters", "3")
+BENCH_CHECKS = ("kernel_debayer_check", "ccc_response_precision_check",
+                "kernel_histogram_check", "colorcal_semantics_check")
+
+
+def check_bench(torch, root):
+    """Phase 6: the port's benchmark program (tools/bench.py, the root
+    bench.py's counterpart) in a process of its own at its full sizes with
+    BENCH_ARGV's cut repeats: it must exit 0, its four checks must read 0,
+    its last line must carry every key of bench.py's headline plus cpu_fps,
+    device and card, and the kernels of each chain it ran must have
+    launched in that chain's run (its counts are set to 0 just before each
+    and read just after). Prints the headline line."""
+    import gc
+
+    from raw_image_pipeline_tpu_torch.tools import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory for the child's 128-frame batches
+    print(f"bench: this process holds {torch.cuda.memory_reserved()} bytes of the card")
+    res = subprocess.run([sys.executable, "-m", "raw_image_pipeline_tpu_torch.tools.bench",
+                          *BENCH_ARGV], cwd=root, capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"tools/bench.py exited {res.returncode}: {res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    details, head = json.loads(lines[-2]), json.loads(lines[-1])
+    missing = set(bench.HEADLINE_KEYS + ("cpu_fps", "device", "card")) - set(head)
+    if missing:
+        raise AssertionError(f"tools/bench.py's last line lacks {sorted(missing)}: {head}")
+    if details["checks"] != dict.fromkeys(BENCH_CHECKS, 0):
+        raise AssertionError(f"tools/bench.py's checks: {details['checks']}")
+    ccc = ("debayer_bilinear", "ccc_histogram", "ccc_response")
+    runs = {"headline": (details["headline"]["launches"], ccc)}
+    for key, row in details["configs"].items():
+        want = ccc if key.startswith(("config3", "config5", "config6")) else (
+            () if key.startswith("config4") else ccc[:1])
+        runs[key] = (row["launches"], want)
+    for run, (launches, want) in runs.items():
+        idle = [k for k in want if not launches[k] > 0]
+        if idle:
+            raise AssertionError(f"tools/bench.py's {run}: {idle} not launched ({launches})")
+    for key, row in details["configs"].items():
+        print(f"bench {key}: peak {row['peak_device_bytes']} bytes, launches {row['launches']}")
+    print(f"bench headline peak bytes {details['headline']['peak_device_bytes']}, "
+          f"launches {details['headline']['launches']}")
+    print(lines[-1])
+    return head
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1770,6 +1827,7 @@ def main() -> int:
         phase("api", check_api, tp, torch, np)
         tools = phase("tools", check_tools, tp, torch, np, root)
         mesh = phase("mesh", check_mesh, tp, torch, np, root, smi_line)
+        phase("bench", check_bench, torch, root)
     except Exception as e:  # the smoke test's boundary: report and fail
         import traceback
 

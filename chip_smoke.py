@@ -44,29 +44,41 @@ per source, into build/kernels/), then:
                        against each camera's block, timed beside its bound
                        (ms_cameras4, bound_ms_cameras4) and one camera's
                        launch at B=4 (ms_cameras1);
+       F lerp and fixed32 remap — in each mode 0 mismatching bytes on E's
+                       cases with the mode's maps, on lerp-hostile maps
+                       (coordinates on integers and halves, within 2^-20
+                       of integers, near 0 and past each border) at
+                       1439x1079 and 117x91, on 4 cameras x B=4 1920x1080
+                       through four distinct maps in one launch, at B=64
+                       and on 2 cameras x 10 frames past a batch limit
+                       lowered to 7 (four launches); timed at B=4 and B=64
+                       beside the plain version and the bound, and 4
+                       cameras x B=4 (lerp under the row's main keys,
+                       fixed32 under *_fixed32);
      then the ops phase (check_ops): the reference package's entry points
      that reach a kernel, on [..., H, W(, 3)] CUDA frames at 1080x1920
      (leading dims (4,)) and at a random odd crop (leading dims (2, 3)):
      debayer bilinear (A) and MHT (D) in the four encodings,
      log_chroma_histogram and _rt (B) on the 270x360 resize, ccc_response
-     (C), remap_bilinear_u8 in float mode (E) with one map and with
-     per-camera maps; each against plain=True on the card and the planar
+     (C), remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with
+     one map and with per-camera maps; each against plain=True on the card and the planar
      path of the chain, 0 mismatching bytes, with its device time; then
      (check_ops_contract) the calls the JAX package takes that the kernels
      once refused: the histograms over kernel B's 524160 pixels (1080x1920,
      727x1001 and 733x821: runs of pixels as frames of their own, a tail),
-     float remaps of 2 and 4 channels and batch_minor=True (one map and
-     four), A, D and E at B = 65537, and B, C and E past a batch limit
-     lowered to 7, each against plain=True with the launches it must make;
+     float remaps of 2 and 4 channels, lerp and fixed32 remaps of 4, and
+     batch_minor=True (one map and four), A, D, E and F at B = 65537, and
+     B, C, E and F past a batch limit lowered to 7, each against plain=True
+     with the launches it must make;
      the phase's launches go to the kernels line as launches_ops;
   2. drives each chain through build_pipeline(config, encoding,
      with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
      state carried across the calls, at 1920x1080:
-       flagship   — flagship_config(h, w), also at 1440x1080 (A, B, C);
+       flagship   — flagship_config(h, w), also at 1440x1080 (A, B, C, F);
        gpu_parity — MHT demosaic and the BT.709 gamma, the reference's
-                    use_gpu=True semantics, also at 1440x1080 (D, B, C);
+                    use_gpu=True semantics, also at 1440x1080 (D, B, C, F);
        float      — the float remap (A, B, C, E);
-       fixed32    — the fixed32 remap, plain torch ops (A, B, C);
+       fixed32    — the fixed32 remap (A, B, C, F);
          (each 8 seeded frames in 2 calls)
        wb_simple, wb_grey_world, wb_pca, wb_learned — BASELINE config 2:
                     debayer, flip 90 and the statistical white balance,
@@ -76,18 +88,20 @@ per source, into build/kernels/), then:
                     with microbatch=128 (no kernel), its peak device
                     memory printed;
      the launch counts are set to 0 just before each chain's 1920x1080 run
-     and read just after, and each kernel of that chain must have launched;
+     and read just after, and each kernel of that chain must have launched
+     in each of its calls;
      `processed` and the state must equal, byte for byte, the same chain
      with every op on its plain version on the card; the first 3 frames of
      each wb_* chain and the first 128-frame chunk of pointwise_bgr8 must
      also equal the chain on the CPU, byte for byte; frames/s is printed;
      then the flagship at B=70 with microbatch=32 must equal the unchunked
      chain, bytes and Kalman state; then the camera-blocked multicamera
-     chains (BASELINE config 5 on one card) multicam4 and multicam4_float,
-     4 cameras x B=4 in 2 calls in both temporal modes, each kernel of the
-     chain launched once per call, equal to the plain-op multicamera chain
-     and to four single-camera chains, and with four equal calibrations one
-     flat map (E launched with cameras=1), frames/s beside the four
+     chains (BASELINE config 5 on one card) multicam4 (F) and
+     multicam4_float (E), 4 cameras x B=4 in 2 calls in both temporal modes,
+     each kernel of the chain launched once per call, equal to the plain-op
+     multicamera chain and to four single-camera chains, and with four equal
+     calibrations one flat map (F or E launched with cameras=1), frames/s
+     beside the four
      single-camera chains'; then the streamed Kalman chain (BASELINE config
      3): 42 1920x1080 frames written as raw files, read back through the
      port's FramePump, run through StreamRunner(batch_size=4) and held,
@@ -405,6 +419,164 @@ def check_remap_cameras(tp, torch, rng, row):
           f"{ms1:.4f} ms")
 
 
+REMAP_LERP_MODES = ("lerp", "fixed32")  # kernel F's modes; lerp is the main path's
+REMAP_LERP_LIMIT = (2, 10, 7)  # cameras, frames a camera, lowered batch limit: 4 launches
+
+
+def check_remap_lerp(tp, torch, rng, planes):
+    """Phase 1: kernel F against its plain versions (remap_planes(...,
+    plain=True)) in lerp and in fixed32 mode, 0 mismatching bytes, on E's
+    cases (check_remap) with the mode's maps: the fisheye maps at 1080x1920
+    and 1080x1440 (B=4 and B=1) and at 1079x1439 and 91x117, the 1080x1920
+    map cropped to 1079x1439 and 91x117 over a 1080x1920 source, frames[1:]
+    of a B=4 batch, hostile maps (workloads.hostile_maps) and lerp-hostile
+    maps (workloads.lerp_hostile_maps: coordinates on integers and halves,
+    within 2^-20 of integers, near 0 and past each border) at 1079x1439 and
+    91x117, a source of height 1, planes 1 and 8 bytes and the weights 4
+    bytes past a 16-byte boundary, one mono plane; then 4 cameras x B=4
+    1080x1920 through the four distinct fisheye maps of the multicam4
+    chain in one launch, B=64 1080x1920, and REMAP_LERP_LIMIT's 2 cameras
+    x 10 frames past a batch limit lowered to 7 (four launches). Each line
+    names the store width V of its launch. Then the device times at B=4
+    1080x1920 on `planes` (kernel D's output) and at REMAP_B64, and the
+    plain versions' at both, beside each bound. Returns F's row: lerp, the
+    main path's mode, under the main keys, fixed32 under *_fixed32."""
+    import dataclasses
+
+    import numpy as np
+
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.ops import undistortion
+    from raw_image_pipeline_tpu_torch.parallel import build_multicamera_pipeline
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, device_ms, remap_lerp_work
+
+    dev = torch.device("cuda")
+    row = dict(max_abs_err=0.0, library_ms=None)
+
+    def frames(*shape):
+        return [torch.as_tensor(rng.integers(0, 256, shape, dtype="uint8"), device=dev)
+                for _ in range(3)]
+
+    def with_mode(config, mode):
+        return config.replace(undistortion=dataclasses.replace(config.undistortion,
+                                                               interpolation=mode))
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(rng.integers(1 << 31)))
+    big = [torch.randint(0, 256, REMAP_B64, generator=g, device="cuda", dtype=torch.uint8)
+           for _ in range(3)]
+    hw = (1080, 1920)
+    for mode in REMAP_LERP_MODES:
+        rows = undistortion.REMAP_WEIGHT_ROWS[mode]
+
+        def maps(out_hw, src_hw, kind):
+            if kind == "fisheye":
+                config = with_mode(tp.flagship_config(*out_hw), mode)
+                p = tp.make_params(config, out_hw, device=dev)
+                return p.remap_base, p.remap_weights
+            fn = workloads.hostile_maps if kind == "hostile" else workloads.lerp_hostile_maps
+            mx, my = fn(out_hw, src_hw, out_hw[0] * out_hw[1])
+            return tuple(torch.as_tensor(a, device=dev)
+                         for a in undistortion.remap_precompute(mx, my, src_hw, mode=mode))
+
+        fisheye = {s: maps(s, s, "fisheye") for s in ((1080, 1920), (1080, 1440))}
+        base, weights = fisheye[hw]
+        cases = [(f"fisheye B={b} {h}x{w}", frames(b, h, w), *fisheye[(h, w)], (h, w))
+                 for (h, w) in fisheye for b in (4, 1)]
+        cases.append(("fisheye frames[1:] of B=4 1080x1920",
+                      [p[1:] for p in frames(4, *hw)], base, weights, hw))
+        cases += [(f"fisheye B=4 {h}x{w}", frames(4, h, w), *maps((h, w), (h, w), "fisheye"),
+                   (h, w)) for (h, w) in ((1079, 1439), (91, 117))]
+        for (h, w), (r0, c0) in (((1079, 1439), (0, 0)), ((91, 117), (494, 901))):
+            crop = (slice(r0, r0 + h), slice(c0, c0 + w))
+            cases.append((f"fisheye B=4 1080x1920 source, its map cropped to {h}x{w} at "
+                          f"({r0}, {c0})", frames(4, *hw),
+                          base.view(hw)[crop].reshape(-1).contiguous(),
+                          weights.view((rows,) + hw)[(slice(None), *crop)].reshape(rows, -1)
+                          .contiguous(), (h, w)))
+        cases += [(f"{kind} B=4 {h}x{w}", frames(4, h, w), *maps((h, w), (h, w), kind), (h, w))
+                  for kind in ("hostile", "lerp-hostile") for (h, w) in ((1079, 1439), (91, 117))]
+        cases.append(("hostile B=4 1x128 source to 96x128", frames(4, 1, 128),
+                      *maps((96, 128), (1, 128), "hostile"), (96, 128)))
+        flat = torch.as_tensor(rng.integers(0, 256, 16 + 2 * hw[0] * hw[1], dtype="uint8"),
+                               device=dev)
+        cases += [(f"fisheye B=2 planes {off} bytes past a 16-byte boundary",
+                   [flat[off:off + 2 * hw[0] * hw[1]].view((2,) + hw)] * 3, base, weights, hw)
+                  for off in (1, 8)]
+        shifted = torch.empty(4 + weights.numel(), dtype=torch.float32, device=dev)
+        shifted[1:1 + weights.numel()] = weights.reshape(-1)
+        cases.append(("fisheye B=4, the weights 4 bytes past a 16-byte boundary",
+                      frames(4, *hw), base, shifted[1:1 + weights.numel()].view(rows, -1), hw))
+        cases.append(("fisheye B=4 mono", frames(4, *hw)[:1], base, weights, hw))
+        config = with_mode(workloads.multicam_chains(tp)["multicam4"].config(*hw), mode)
+        cams = workloads.multicam_calibrations(config.calibration)
+        mp = build_multicamera_pipeline(config, cams, "bayer_gbrg8", hw, device="cuda").params
+        cameras4 = (f"{len(cams)} cameras x B=4 1080x1920, maps {tuple(mp.remap_base.shape)}",
+                    frames(4 * len(cams), *hw), mp.remap_base, mp.remap_weights, hw)
+        cases.append(cameras4)
+        cases.append((f"fisheye B={REMAP_B64[0]} 1080x1920", big, base, weights, hw))
+        for label, pl, b_, w_, out_hw in cases:
+            got = undistortion.remap_lerp_cuda(pl, b_, w_, out_hw, mode=mode)
+            bad = int((got != undistortion.remap_planes(pl, b_, w_, out_hw, mode,
+                                                        plain=True)).sum())
+            v = undistortion.remap_run_width(out_hw[1], got.data_ptr(), b_.data_ptr(),
+                                             w_.data_ptr())
+            print(f"kernel F {mode} remap {label} (V={v}): {bad} mismatching bytes")
+            if bad:
+                raise AssertionError(f"kernel F {mode}: {bad} mismatching bytes at {label}")
+        del cases, flat, shifted, got
+        cam, per, limit = REMAP_LERP_LIMIT
+        lm = [undistortion.remap_precompute(*workloads.lerp_hostile_maps((91, 117), (91, 117), s),
+                                            (91, 117), mode=mode) for s in range(cam)]
+        lb, lw = (torch.as_tensor(np.stack([m[i] for m in lm]), device=dev) for i in (0, 1))
+        pl = frames(cam * per, 91, 117)
+        before = kernels.REMAP_LERP.launches
+        got = undistortion.remap_lerp_cuda(pl, lb, lw, (91, 117), mode=mode, batch_limit=limit)
+        made = kernels.REMAP_LERP.launches - before
+        bad = int((got != undistortion.remap_planes(pl, lb, lw, (91, 117), mode,
+                                                    plain=True)).sum())
+        print(f"kernel F {mode} remap {cam} cameras x {per} 91x117, batch limit {limit}: {bad} "
+              f"mismatching bytes, {made} launches")
+        if bad or made != cam * -(-per // limit):
+            raise AssertionError(f"kernel F {mode}: the lowered batch limit's run is wrong")
+
+        def fn(pl_, b_=base, w_=weights):
+            return lambda: undistortion.remap_lerp_cuda(pl_, b_, w_, hw, mode=mode)
+
+        def plain(pl_):
+            return lambda: undistortion.remap_planes(pl_, base, weights, hw, mode, plain=True)
+
+        live = int((weights[undistortion.REMAP_WEIGHT_ROWS[mode] - 4:] != 0).any(0).sum())
+        work = remap_lerp_work(planes[0].shape[0], *hw, base.numel(), 3, mode, live)
+        work64 = remap_lerp_work(REMAP_B64[0], *hw, base.numel(), 3, mode, live)
+        _, _, cb, cw, _ = cameras4
+        cam_live = int((cw[:, undistortion.REMAP_WEIGHT_ROWS[mode] - 4:] != 0).any(1).sum())
+        work_cams = remap_lerp_work(4 * len(cams), *hw, base.numel(), 3, mode, cam_live,
+                                    maps=len(cams))
+        cam_planes = cameras4[1]
+        times = dict(ms=device_ms(fn(planes)), plain_ms=device_ms(plain(planes), n=5),
+                     **bound(bytes_=work["bytes"], ops=work["ops"]),
+                     ms_b64=device_ms(fn(big)), plain_ms_b64=device_ms(plain(big), n=3),
+                     bound_ms_b64=bound(bytes_=work64["bytes"], ops=work64["ops"])["bound_ms"],
+                     ms_cameras4=device_ms(fn(cam_planes, cb, cw)),
+                     bound_ms_cameras4=bound(bytes_=work_cams["bytes"],
+                                             ops=work_cams["ops"])["bound_ms"])
+        del cameras4, cam_planes, mp
+        print(f"kernel F {mode} time B=4 1080x1920: {times['ms']:.4f} ms (bound "
+              f"{times['bound_ms']:.4f}, {times['bound_by']}), plain {times['plain_ms']:.4f} ms; "
+              f"B={REMAP_B64[0]}: {times['ms_b64']:.4f} ms (bound {times['bound_ms_b64']:.4f}), "
+              f"plain {times['plain_ms_b64']:.4f} ms; {len(cams)} cameras x B=4 in one launch: "
+              f"{times['ms_cameras4']:.4f} ms (bound {times['bound_ms_cameras4']:.4f})")
+        if mode != "lerp":  # bytes bound both modes; the row's bound_by is lerp's
+            times = {k + "_" + mode: v for k, v in times.items() if k != "bound_by"}
+        row.update(times)
+        torch.cuda.empty_cache()
+    del big
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_kernels(tp, torch, rng):
     """Phase 1: each kernel against its plain version on the card."""
     import numpy as np
@@ -489,6 +661,7 @@ def check_kernels(tp, torch, rng):
 
     rows["E"] = check_remap(tp, torch, rng, planes)
     check_remap_cameras(tp, torch, rng, rows["E"])
+    rows["F"] = check_remap_lerp(tp, torch, rng, planes)
     for k in kernels.ALL:
         k.launches = 0  # the comparisons above are not the main path's
     return rows
@@ -506,11 +679,12 @@ def check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line
     log_chroma_histogram and _rt over kernel B's 524160 pixels (1080x1920
     with leading dims (4,): runs of 518400 pixels, four a frame; 727x1001:
     seven a frame; 733x821: a run and a tail run; one launch of B where the
-    runs tile the frame, two with a tail); float remap_bilinear_u8 of 2 and
-    4 channels (E on groups of three planes and single planes) and
+    runs tile the frame, two with a tail); lerp and fixed32
+    remap_bilinear_u8 of 4 channels (F on a group of three planes and a
+    single plane), float ones of 2 and 4 channels (E likewise) and
     batch_minor=True, each with one map and four per-camera maps at
-    1080x1920, B=4; A, D and E at B = MAX_BATCH + 2 (4x8 frames: two
-    launches each); B, C and E (two cameras) at B=20 with the launches'
+    1080x1920, B=4; A, D, E and F at B = MAX_BATCH + 2 (4x8 frames: two
+    launches each); B, C, E and F (two cameras) at B=20 with the launches'
     batch limit lowered to 7 (kernels.batch_runs), where the plain
     comparison past MAX_BATCH would need tens of GB. Adds the launches to
     `launches`."""
@@ -564,6 +738,15 @@ def check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line
         del img
     hw = (1080, 1920)
     for cameras in (1, 4):
+        for mode, kernel in (("lerp", "remap_lerp"), ("fixed32", "remap_lerp")):
+            mb, mw = remap_maps(hw, cameras, mode)
+            img = rand((4,) + hw + (4,))
+            case(f"remap_bilinear_u8 {mode} 4 x 1080x1920 x 4 channels, {cameras} map(s)",
+                 lambda: undistortion.remap_bilinear_u8(img, mb, mw, hw, hw, n_cameras=cameras,
+                                                        mode=mode),
+                 lambda: undistortion.remap_bilinear_u8(img, mb, mw, hw, hw, n_cameras=cameras,
+                                                        mode=mode, plain=True),
+                 {kernel: 2})
         base, weights = remap_maps(hw, cameras)
 
         def remap(x, *args, **kw):
@@ -593,14 +776,15 @@ def check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line
         case(f"debayer {algorithm} {nb} x 4x8", lambda: debayer.debayer(tiny, "bayer_gbrg8",
                                                                         algorithm),
              lambda: debayer.debayer(tiny, "bayer_gbrg8", algorithm, plain=True), {name: 2})
-    base, weights = undistortion.remap_precompute(*workloads.hostile_maps((4, 8), (4, 8), 5),
-                                                  (4, 8), mode="float")
     tiny = rand((nb, 4, 8, 3))
-    case(f"remap_bilinear_u8 float {nb} x 4x8",
-         lambda: undistortion.remap_bilinear_u8(tiny, base, weights, (4, 8), mode="float"),
-         lambda: undistortion.remap_bilinear_u8(tiny, base, weights, (4, 8), mode="float",
-                                                plain=True),
-         {"remap_float": 2})
+    for mode, kernel in (("float", "remap_float"), ("lerp", "remap_lerp")):
+        base, weights = undistortion.remap_precompute(
+            *workloads.hostile_maps((4, 8), (4, 8), 5), (4, 8), mode=mode)
+        case(f"remap_bilinear_u8 {mode} {nb} x 4x8",
+             lambda: undistortion.remap_bilinear_u8(tiny, base, weights, (4, 8), mode=mode),
+             lambda: undistortion.remap_bilinear_u8(tiny, base, weights, (4, 8), mode=mode,
+                                                    plain=True),
+             {kernel: 2})
     del tiny
 
     bgr = debayer.debayer(rand((20, 540, 720)), "bayer_gbrg8")
@@ -613,16 +797,24 @@ def check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line
     case("ccc_response_cuda 20 x 256x256, batch_limit 7",
          lambda: ccc.ccc_response_cuda(hist, *filt, batch_limit=7),
          lambda: ccc.ccc_response_plain(hist, *filt), {"ccc_response": 3}, exact=False)
-    maps = [undistortion.remap_precompute(*workloads.hostile_maps((91, 117), (91, 117), s),
-                                          (91, 117), mode="float") for s in (3, 4)]
-    base, weights = (torch.as_tensor(np.stack([m[i] for m in maps]), device=dev)
-                     for i in (0, 1))
     planes = [rand((20, 91, 117)) for _ in range(3)]
-    case("remap_float_cuda 2 cameras x 10 x 91x117, batch_limit 7",
-         lambda: undistortion.remap_float_cuda(planes, base, weights, (91, 117), batch_limit=7),
-         lambda: undistortion.remap_planes(planes, base, weights, (91, 117), "float",
-                                           plain=True),
-         {"remap_float": 4})
+    for mode in ("float", "lerp"):
+        maps = [undistortion.remap_precompute(*workloads.hostile_maps((91, 117), (91, 117), s),
+                                              (91, 117), mode=mode) for s in (3, 4)]
+        base, weights = (torch.as_tensor(np.stack([m[i] for m in maps]), device=dev)
+                         for i in (0, 1))
+        if mode == "float":
+            def call():
+                return undistortion.remap_float_cuda(planes, base, weights, (91, 117),
+                                                     batch_limit=7)
+        else:
+            def call():
+                return undistortion.remap_lerp_cuda(planes, base, weights, (91, 117), mode=mode,
+                                                    batch_limit=7)
+        case(f"remap_{mode}_cuda 2 cameras x 10 x 91x117, batch_limit 7", call,
+             lambda: undistortion.remap_planes(planes, base, weights, (91, 117), mode,
+                                               plain=True),
+             {f"remap_{mode}": 4})
 
 
 def check_ops(tp, torch, rng, smi_line):
@@ -632,8 +824,9 @@ def check_ops(tp, torch, rng, smi_line):
     dims OPS_CROP_LEAD: debayer bilinear (A) and MHT (D) in the four
     encodings, log_chroma_histogram and log_chroma_histogram_rt (B) on the
     270x360 resize, ccc_response (C) on those histograms, and
-    remap_bilinear_u8 in float mode (E) with one map and with per-camera
-    maps (four at 1080x1920, the multicam4_float chain's; two at the crop).
+    remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with one map
+    and with per-camera maps (four at 1080x1920, the multicamera chain's;
+    two at the crop).
     Each is held against the same call with plain=True on the card and
     against the planar path the chain runs (debayer_planes,
     log_chroma_histogram_planes, ccc_response on [B, 256, 256],
@@ -642,6 +835,9 @@ def check_ops(tp, torch, rng, smi_line):
     within 1e-4 of max |response| as phase 1 holds kernel C). One line per
     function with its device time. Returns each kernel's launches in the
     entry points' calls (the comparisons not counted)."""
+    import dataclasses
+    import itertools
+
     import numpy as np
 
     from raw_image_pipeline_tpu_torch import kernels
@@ -682,21 +878,27 @@ def check_ops(tp, torch, rng, smi_line):
         flat = x.reshape((-1,) + tuple(x.shape[-3:]))
         return [flat[..., c].contiguous() for c in range(3)]
 
-    def remap_maps(hw, cameras):
-        """Float-mode (base, weights): the float chain's fisheye map, or
-        the multicam4_float chain's four per-camera maps, at 1080x1920;
-        hostile maps (one, or one per camera stacked) at the crop."""
+    def remap_maps(hw, cameras, mode="float"):
+        """(base, weights) in `mode`: the flagship's fisheye map remapping
+        in that mode, or the multicamera chain's four per-camera maps, at
+        1080x1920; hostile maps (one, or one per camera stacked) at the
+        crop."""
         if hw == (1080, 1920):
             if cameras == 1:
-                p = tp.make_params(workloads.chains(tp)["float"].config(*hw), hw, device=dev)
+                config = tp.flagship_config(*hw)
             else:
-                config = workloads.multicam_chains(tp)["multicam4_float"].config(*hw)
+                config = workloads.multicam_chains(tp)["multicam4"].config(*hw)
+            config = config.replace(undistortion=dataclasses.replace(config.undistortion,
+                                                                     interpolation=mode))
+            if cameras == 1:
+                p = tp.make_params(config, hw, device=dev)
+            else:
                 p = build_multicamera_pipeline(
                     config, workloads.multicam_calibrations(config.calibration), "bayer_gbrg8",
                     hw, device="cuda").params
             return p.remap_base, p.remap_weights
         maps = [undistortion.remap_precompute(*workloads.hostile_maps(hw, hw, 7 + c), hw,
-                                              mode="float") for c in range(cameras)]
+                                              mode=mode) for c in range(cameras)]
         stack = (lambda a: a[0]) if cameras == 1 else np.stack
         return (torch.as_tensor(stack([m[k] for m in maps]), device=dev) for k in (0, 1))
 
@@ -735,21 +937,20 @@ def check_ops(tp, torch, rng, smi_line):
         report(f"ccc_response {size}", bad + int(err > 1e-4 * scale),
                device_ms(lambda: ccc.ccc_response(hist, *filt)),
                f" (argmax against plain=True; max |diff| {err:.3e}, limit {1e-4 * scale:.3e})")
-        for cameras in (1, 4 if len(lead) == 1 else lead[0]):
-            base, weights = remap_maps(hw, cameras)
+        for mode, cameras in itertools.product(("float", "lerp", "fixed32"),
+                                               (1, 4 if len(lead) == 1 else lead[0])):
+            base, weights = remap_maps(hw, cameras, mode)
             img = bgr.reshape((-1,) + hw + (3,)) if cameras > 1 else bgr
-            got = counted(lambda: undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
-                                                                 n_cameras=cameras,
-                                                                 mode="float"))
-            bad = int((got != undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
-                                                             n_cameras=cameras, mode="float",
-                                                             plain=True)).sum())
-            planar = undistortion.remap_planes(planes_of(img), base, weights, hw, "float")
+
+            def remap(**kw):
+                return undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
+                                                      n_cameras=cameras, mode=mode, **kw)
+
+            got = counted(remap)
+            bad = int((got != remap(plain=True)).sum())
+            planar = undistortion.remap_planes(planes_of(img), base, weights, hw, mode)
             bad += int((got != planar.reshape(got.shape)).sum())
-            ms = device_ms(lambda: undistortion.remap_bilinear_u8(img, base, weights, hw, hw,
-                                                                  n_cameras=cameras,
-                                                                  mode="float"))
-            report(f"remap_bilinear_u8 float {size}, {cameras} map(s)", bad, ms)
+            report(f"remap_bilinear_u8 {mode} {size}, {cameras} map(s)", bad, device_ms(remap))
         del bayer, flat, bgr, small
     torch.cuda.empty_cache()
     check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line)
@@ -830,9 +1031,10 @@ def check_chains(tp, torch, rng):
                 peak[name] = torch.cuda.max_memory_allocated()
                 counts = {k.name: k.launches for k in kernels.ALL}
                 print(f"{label} kernel launches: {counts}")
-                if not all(counts[k] > 0 for k in ch.kernels):
-                    raise AssertionError(f"{label}: a kernel of the path was not launched: "
-                                         f"{counts}, expected {ch.kernels}")
+                if not all(counts[k] >= ch.calls for k in ch.kernels):
+                    raise AssertionError(f"{label}: a kernel of the path was not launched in "
+                                         f"each of its {ch.calls} calls: {counts}, expected "
+                                         f"{ch.kernels}")
                 for k in ch.kernels:
                     launches.setdefault(k, counts[k])
                 if name == "flagship":  # grids on the device, per call
@@ -928,11 +1130,12 @@ def check_multicam(tp, torch):
     scaled per camera) in both temporal modes, with state, in 2 calls. The
     launch counts are set to 0 just before each run and read just after:
     each kernel of the chain must launch once per call (A, B and C once for
-    all four cameras, E once with its four maps). Each run must equal (i)
-    the plain-op multicamera chain and (ii) four single-camera chains
+    all four cameras, F or E once with its four maps). Each run must equal
+    (i) the plain-op multicamera chain and (ii) four single-camera chains
     (build_pipeline), each camera's block with its own calibration, bytes
     and Kalman state per camera; (iii) four equal calibrations must give
-    one flat map, and E a launch with cameras=1, equal to the plain chain.
+    one flat map, and F or E a launch with cameras=1, equal to the plain
+    chain.
     Returns {chain: (frames/s, frames/s of the four single-camera
     chains)}."""
     from raw_image_pipeline_tpu_torch import kernels
@@ -1024,23 +1227,23 @@ def check_multicam(tp, torch):
                                             with_state=True, temporal_mode="sequence",
                                             device="cuda")
         cameras_arg = []
-        launch = kernels.REMAP_FLOAT.launch
-        kernels.REMAP_FLOAT.launch = lambda *a: (cameras_arg.append(a[6]), launch(*a))[1]
+        remap = kernels.REMAP_FLOAT if "remap_float" in ch.kernels else kernels.REMAP_LERP
+        launch = remap.launch
+        remap.launch = lambda *a: (cameras_arg.append(a[6]), launch(*a))[1]
         try:
             outs, state = run(shared.fn, shared.params, "sequence")
         finally:
-            del kernels.REMAP_FLOAT.launch  # the class's method again
+            del remap.launch  # the class's method again
         plain_fn = make_isp_fn(config, enc, True, False, temporal_mode="sequence",
                                remap_src_hw=src, n_cameras=cams, plain=True)
         ref, ref_state = run(plain_fn, shared.params, "sequence")
         bad = sum(int((a != b).sum()) for a, b in zip(outs, ref))
         flat = shared.params.remap_base.dim() == 1
         print(f"multicamera {name} with four equal calibrations: one flat map {flat} "
-              f"{tuple(shared.params.remap_base.shape)}, kernel E launched with cameras="
+              f"{tuple(shared.params.remap_base.shape)}, kernel {remap.name} launched with cameras="
               f"{cameras_arg}; {bad} mismatching bytes vs the plain-op chain, Kalman state equal: "
               f"{_same_state(torch, state, ref_state)}")
-        if (not flat or bad or not _same_state(torch, state, ref_state)
-                or ("remap_float" in ch.kernels) != bool(cameras_arg)
+        if (not flat or bad or not _same_state(torch, state, ref_state) or not cameras_arg
                 or any(c != 1 for c in cameras_arg)):
             raise AssertionError(f"multicamera {name}: the shared map's run is wrong")
         del frames, multi, solo, shared, outs, ref
@@ -1109,7 +1312,7 @@ def check_stream(tp, torch, np, root):
     print(f"stream flagship {w}x{h} StreamRunner(batch_size={b}): {count} frames, "
           f"{len(got)} images; kernel launches {counts} ({batches} batches)")
     if count != n or any(counts[k] != batches for k in
-                         ("debayer_bilinear", "ccc_histogram", "ccc_response")):
+                         ("debayer_bilinear", "ccc_histogram", "ccc_response", "remap_lerp")):
         raise AssertionError("stream: frames or launches wrong")
     pipe = tp.build_pipeline(config, "bayer_gbrg8", (h, w), with_state=True,
                              keep_intermediates=True, temporal_mode="sequence", device="cuda")
@@ -1322,7 +1525,7 @@ def check_run_pipeline(tp, torch, np, root, d):
             torch.cuda.synchronize()
             counts = {k.name: k.launches for k in kernels.ALL}
             path_kernels = ("debayer_bilinear", "ccc_histogram", "ccc_response") + (
-                ("remap_float",) if mode == "float" else ())
+                ("remap_float",) if mode == "float" else ("remap_lerp",))
             print(f"{label}: {count} frames written, kernel launches {counts}")
             if count != n or any(counts[k] != n // b for k in path_kernels):
                 raise AssertionError(f"{label}: frames or launches wrong")
@@ -1529,7 +1732,7 @@ def check_mesh(tp, torch, np, root, smi_line):
     over data 2; StreamRunner over (2, 1). The launch counts are set to 0
     just before each sharded run and read just after: every kernel of the
     chain must have launched inside it (A/D and C once per shard and call,
-    B once per shard and call, E once per shard and call). Each sharded
+    B once per shard and call, F or E once per shard and call). Each sharded
     output and state, and the unsharded call's on the card, must equal the
     plain-op unsharded chain on the card on the same frames byte for byte,
     so the kernels are held against their plain versions at the shards'
@@ -1759,11 +1962,11 @@ def check_bench(torch, root):
         raise AssertionError(f"tools/bench.py's last line lacks {sorted(missing)}: {head}")
     if details["checks"] != dict.fromkeys(BENCH_CHECKS, 0):
         raise AssertionError(f"tools/bench.py's checks: {details['checks']}")
-    ccc = ("debayer_bilinear", "ccc_histogram", "ccc_response")
-    runs = {"headline": (details["headline"]["launches"], ccc)}
+    flagship = ("debayer_bilinear", "ccc_histogram", "ccc_response", "remap_lerp")
+    runs = {"headline": (details["headline"]["launches"], flagship)}
     for key, row in details["configs"].items():
-        want = ccc if key.startswith(("config3", "config5", "config6")) else (
-            () if key.startswith("config4") else ccc[:1])
+        want = flagship if key.startswith(("config3", "config5", "config6")) else (
+            () if key.startswith("config4") else flagship[:1])
         runs[key] = (row["launches"], want)
     for run, (launches, want) in runs.items():
         idle = [k for k in want if not launches[k] > 0]
@@ -1835,7 +2038,8 @@ def main() -> int:
         return _fail(repr(e))
 
     names = {"A": kernels.DEBAYER_BILINEAR, "B": kernels.CCC_HISTOGRAM,
-             "C": kernels.CCC_RESPONSE, "D": kernels.DEBAYER_MHT, "E": kernels.REMAP_FLOAT}
+             "C": kernels.CCC_RESPONSE, "D": kernels.DEBAYER_MHT, "E": kernels.REMAP_FLOAT,
+             "F": kernels.REMAP_LERP}
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],
@@ -1849,7 +2053,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh, "card": smi_line,
                       "note": "logical shards on one card, not a scaling figure"}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
-    # that runs the kernel (A, B, C: flagship; D: gpu_parity; E: float);
+    # that runs the kernel (A, B, C, F: flagship; D: gpu_parity; E: float);
     # launches_per_flagship_call: the grids it put on the device per call
     print(f"bound_ms against the H100 SXM's published peaks "
           f"({measure.PEAK_BYTES_PER_S / 1e12} TB/s, {measure.PEAK_F32_FLOP_PER_S / 1e12} "

@@ -32,8 +32,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
-           "remap_float.cu")
-HEADERS = ("debayer_strip.cuh",)  # included by the sources; in the hash too
+           "remap_float.cu", "remap_lerp.cu")
+HEADERS = ("debayer_strip.cuh", "remap_tile.cuh")  # included by the sources; in the hash too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -50,6 +50,7 @@ _SIGNATURES = {
     "isp_ccc_response": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "isp_debayer_mht": (_P, _P, _I, _I, _I, _I, _I, _P),
     "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "isp_remap_lerp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -165,7 +166,14 @@ REMAP_FLOAT = Kernel(
     "raw_image_pipeline_tpu_torch/csrc/remap_float.cu",
     "raw_image_pipeline_tpu/ops/remap_blend_pallas.py:42",
 )
-ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT)
+# the lerp and fixed32 remaps, which the reference package leaves to XLA
+# (`_remap_rows`; lerp branch at line 607, fixed32 at 643)
+REMAP_LERP = Kernel(
+    "remap_lerp", "isp_remap_lerp",
+    "raw_image_pipeline_tpu_torch/csrc/remap_lerp.cu",
+    "raw_image_pipeline_tpu/ops/undistortion.py:478",
+)
+ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT, REMAP_LERP)
 
 
 def reset_launch_counts() -> None:

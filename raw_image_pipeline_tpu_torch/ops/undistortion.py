@@ -14,22 +14,24 @@ from the planes (`remap_planes` picks by mode):
 
 - `remap_lerp_planes`, the x86/IPP "lerp": per pixel two x-lerps and one
   y-lerp, each a single-rounding fma (Dekker-emulated in plain f32 ops);
+  on a CUDA tensor kernel F (csrc/remap_lerp.cu) computes it;
 - `remap_float_planes`, "float": the plain two-rounding blend
   ((t0*w0 + t1*w1) + t2*w2) + t3*w3, then rint; on a CUDA tensor kernel E
   (csrc/remap_float.cu) computes it;
 - `remap_fixed32_planes`, "fixed32": the 2^15-scaled integer blend, exact
-  in f32.
+  in f32; on a CUDA tensor kernel F computes it.
 
 Per-camera maps (the camera-blocked multicamera chain): `remap_planes`
 also takes base [C, N] and weights [C, k, N] stacked over C cameras, with
 the planes' batch camera-major ([C*B'] frames); each camera's block of B'
-frames goes through its own map. Kernel E does so in one launch, the plain
-versions block by block.
+frames goes through its own map. Kernels E and F do so in one launch, the
+plain versions block by block.
 
 The reference package's entry points take frames: `remap_bilinear_u8`
 ([..., H, W, C]), `remap_bilinear_u8_planes` (its batch-minor planes
 [H, W, ...]) and `remap_bilinear_u8_from_maps` (cv2-style maps); each goes
-through `remap_planes`, so float mode reaches kernel E on a CUDA tensor.
+through `remap_planes`, so every mode reaches kernel E or F on a CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -429,6 +431,28 @@ def remap_precompute(
 # ---------------------------------------------------------------------------
 
 
+def lerp_split(fx: torch.Tensor):
+    """Dekker's split of fx into a high half of 12 bits and the rest, (fxh,
+    fxl), shared by a pixel's two x-lerps."""
+    C = 4097.0  # Dekker split constant (2^12 + 1)
+    ca = fx * C
+    fxh = ca - (ca - fx)
+    return fxh, fx - fxh
+
+
+def lerp_x(fx, fxh, fxl, v0, v1) -> torch.Tensor:
+    """v0 + fx*(v1 - v0) with one rounding, emulated in plain f32 ops (the
+    reference package's x-lerp): v0, v1 exact small integers, so Dekker's
+    2Product needs no split of v1 - v0, and fx comes split (lerp_split)."""
+    d = v1 - v0  # exact integer, |d| <= 255
+    pp = fx * d
+    err = (fxh * d - pp) + fxl * d
+    ss = pp + v0
+    bb = ss - pp
+    e2 = (pp - (ss - bb)) + (v0 - bb)
+    return ss + (e2 + err)
+
+
 def remap_lerp_planes(planes, base: torch.Tensor, weights: torch.Tensor,
                       out_hw: Tuple[int, int]) -> torch.Tensor:
     """cv::remap in lerp mode over a tuple of [B, H, W] u8 planes with
@@ -453,24 +477,9 @@ def remap_lerp_planes(planes, base: torch.Tensor, weights: torch.Tensor,
         return src.index_select(1, idx).float() * weights[2 + k][None, :, None]
 
     v00, v01, v10, v11 = tap(0, 0), tap(1, 1), tap(w, 2), tap(w + 1, 3)
-    # the x-lerps' operands v1-v0 and v0 are exact small integers, so
-    # Dekker's 2Product needs no split of them, and fx's split is shared
-    C = 4097.0  # Dekker split constant (2^12 + 1)
-    ca = fx * C
-    fxh = ca - (ca - fx)
-    fxl = fx - fxh
-
-    def lerp_x(v0, v1):
-        d = v1 - v0  # exact integer, |d| <= 255
-        pp = fx * d
-        err = (fxh * d - pp) + fxl * d
-        ss = pp + v0
-        bb = ss - pp
-        e2 = (pp - (ss - bb)) + (v0 - bb)
-        return ss + (e2 + err)
-
-    t = lerp_x(v00, v01)
-    b = lerp_x(v10, v11)
+    fxh, fxl = lerp_split(fx)
+    t = lerp_x(fx, fxh, fxl, v00, v01)
+    b = lerp_x(fx, fxh, fxl, v10, v11)
     out = round_u8(fma_f32(fy, b - t, t))  # [B, N, C]
     return out.reshape(out.shape[0], ho, wo, out.shape[-1])
 
@@ -529,25 +538,26 @@ def remap_fixed32_planes(planes, base: torch.Tensor, weights: torch.Tensor,
     return out.reshape(out.shape[0], *out_hw, out.shape[-1])
 
 
-REMAP_TILE = (8, 64)  # kernel E's output tile (rows, columns): a block of REMAP_BLOCK threads
-REMAP_BLOCK = 128  # kBlock in csrc/remap_float.cu
-REMAP_MIN_BLOCKS = 7  # kMinBlocks there: the blocks resident on an SM
+REMAP_TILE = (8, 64)  # E's and F's output tile (rows, columns): a block of REMAP_BLOCK threads
+REMAP_BLOCK = 128  # kBlock in csrc/remap_tile.cuh
+REMAP_MIN_BLOCKS = 7  # kMinBlocks of every mode in csrc/remap_*.cu: the blocks resident on an SM
+REMAP_WEIGHT_ROWS = {"float": 4, "lerp": 6, "fixed32": 4}  # weight rows a pixel, by mode
 
 
 def remap_run_width(wo: int, out_ptr: int, base_ptr: int, weights_ptr: int) -> int:
-    """Kernel E's store width V for an output Wo pixels wide: 4 where Wo and
-    the output's address are multiples of 4 and the map (base and weights)
-    is 16-byte aligned, so that each thread loads the map of its run of 4
-    pixels as 16-byte words and stores the run's 4C bytes as C aligned
-    4-byte words in every frame; else 1 (byte stores)."""
+    """Kernels E's and F's store width V for an output Wo pixels wide: 4
+    where Wo and the output's address are multiples of 4 and the map (base
+    and weights) is 16-byte aligned, so that each thread loads the map of
+    its run of 4 pixels as 16-byte words and stores the run's 4C bytes as C
+    aligned 4-byte words in every frame; else 1 (byte stores)."""
     if wo % 4 == 0 and out_ptr % 4 == 0 and base_ptr % 16 == 0 and weights_ptr % 16 == 0:
         return 4
     return 1
 
 
 def remap_frame_chunk(batch: int, threads: int, sms: int) -> int:
-    """Frames per grid row of kernel E, whose threads each loop over a range
-    of frames against one load of their map: all of them in one range
+    """Frames per grid row of kernel E or F, whose threads each loop over a
+    range of frames against one load of their map: all of them in one range
     where the `threads` of a frame's tiles fill a card of `sms` SMs
     (REMAP_MIN_BLOCKS resident blocks of REMAP_BLOCK threads each), else as
     many ranges as it takes, up to one frame each. The chains' frames
@@ -558,29 +568,26 @@ def remap_frame_chunk(batch: int, threads: int, sms: int) -> int:
     return -(-batch // ranges)
 
 
-def remap_blocks(batch: int, cameras: int, chunk: int, n: int):
-    """Kernel E's grid rows as csrc/remap_float.cu reads them from blockIdx:
-    for each camera z (grid z) and frame range y (grid y) of that camera's
-    block of batch // cameras frames, (z, y, f0, f1, base offset, weights
-    offset): the frames [f0, f1) of the camera-major batch that its blocks
-    remap, through the map at base + z*n and weights + z*4*n (n output
-    pixels a map)."""
+def remap_blocks(batch: int, cameras: int, chunk: int, n: int, rows: int = 4):
+    """Kernel E's or F's grid rows as csrc/remap_tile.cuh reads them from
+    blockIdx: for each camera z (grid z) and frame range y (grid y) of that
+    camera's block of batch // cameras frames, (z, y, f0, f1, base offset,
+    weights offset): the frames [f0, f1) of the camera-major batch that its
+    blocks remap, through the map at base + z*n and weights + z*rows*n (n
+    output pixels a map, `rows` weight rows a pixel: REMAP_WEIGHT_ROWS)."""
     per = batch // cameras
     return [(z, y, z * per + y * chunk, min(z * per + per, z * per + (y + 1) * chunk),
-             z * n, z * 4 * n)
+             z * n, z * rows * n)
             for z in range(cameras) for y in range(-(-per // chunk))]
 
 
-def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
-                     out_hw: Tuple[int, int], *,
-                     batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
-    """Kernel E: remap_float_planes for one or three contiguous [B, H, W] u8
-    CUDA planes, base [Ho*Wo] int32 and weights [4, Ho*Wo] f32 on the same
-    card, or per-camera maps base [C, Ho*Wo] and weights [C, 4, Ho*Wo] for
-    a camera-major batch of C blocks of B/C frames (remap_blocks). Returns
-    [B, Ho, Wo, C] u8, C = len(planes), in one launch where each camera's
-    block and the cameras fit the grid (batch_limit frames, the grid's
-    limit), else in the launches remap_launches lists."""
+def _remap_cuda(kernel, mode: str, planes, base, weights, out_hw, batch_limit: int,
+                *mode_args) -> torch.Tensor:
+    """Check the arguments of kernel E or F and launch it (remap_launches):
+    one or three contiguous [B, H, W] u8 CUDA planes, base [Ho*Wo] int32 and
+    weights [k, Ho*Wo] f32 (k = REMAP_WEIGHT_ROWS[mode]) on the same card,
+    or per-camera maps [C, Ho*Wo] and [C, k, Ho*Wo]; mode_args end the C
+    entry's arguments before the stream."""
     if len(planes) not in (1, 3):
         raise ValueError(f"planes: expected 1 or 3, got {len(planes)}")
     shape = tuple(planes[0].shape)
@@ -595,7 +602,7 @@ def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
     cameras = base.shape[0] if base.dim() == 2 else 1
     lead = (cameras,) if base.dim() == 2 else ()
     kernels.check_cuda(base, "base", torch.int32, lead + (n,))
-    kernels.check_cuda(weights, "weights", torch.float32, lead + (4, n))
+    kernels.check_cuda(weights, "weights", torch.float32, lead + (REMAP_WEIGHT_ROWS[mode], n))
     if b % cameras:
         raise ValueError(f"planes: batch {b} is not a multiple of the {cameras} cameras' maps")
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=planes[0].device)
@@ -609,18 +616,45 @@ def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
             ptrs = [p[f0].data_ptr() for p in planes]
             dst = out[f0]
             planes16 = w % 16 == 0 and all(p % 16 == 0 for p in ptrs)
-            kernels.REMAP_FLOAT.launch(
+            kernel.launch(
                 *ptrs * (3 // c), zb.data_ptr(), zw.data_ptr(), dst.data_ptr(), cams,
                 nf // cams, h, w, ho, wo, c,
                 remap_run_width(wo, dst.data_ptr(), zb.data_ptr(), zw.data_ptr()),
-                remap_frame_chunk(nf // cams, REMAP_BLOCK * tiles * cams, sms), int(planes16),
-                kernels.stream_handle(out),
+                remap_frame_chunk(nf // cams, REMAP_BLOCK * tiles * cams, sms),
+                int(planes16), *mode_args, kernels.stream_handle(out),
             )
     return out
 
 
+def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
+                     out_hw: Tuple[int, int], *,
+                     batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
+    """Kernel E: remap_float_planes for one or three contiguous [B, H, W] u8
+    CUDA planes, base [Ho*Wo] int32 and weights [4, Ho*Wo] f32 on the same
+    card, or per-camera maps base [C, Ho*Wo] and weights [C, 4, Ho*Wo] for
+    a camera-major batch of C blocks of B/C frames (remap_blocks). Returns
+    [B, Ho, Wo, C] u8, C = len(planes), in one launch where each camera's
+    block and the cameras fit the grid (batch_limit frames, the grid's
+    limit), else in the launches remap_launches lists."""
+    return _remap_cuda(kernels.REMAP_FLOAT, "float", planes, base, weights, out_hw, batch_limit)
+
+
+def remap_lerp_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
+                    out_hw: Tuple[int, int], *, mode: str,
+                    batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
+    """Kernel F: remap_lerp_planes (mode="lerp", weights [6, Ho*Wo]) or
+    remap_fixed32_planes (mode="fixed32", weights [4, Ho*Wo]) for one or
+    three contiguous [B, H, W] u8 CUDA planes, with the map flat or stacked
+    per camera and the launches as remap_float_cuda's (kernel E's). Raises
+    on CPU tensors: there the plain versions are the port's path."""
+    if mode not in ("lerp", "fixed32"):
+        raise ValueError(f"kernel F remaps in lerp or fixed32 mode, not [{mode}]")
+    return _remap_cuda(kernels.REMAP_LERP, mode, planes, base, weights, out_hw, batch_limit,
+                       0 if mode == "lerp" else 1)
+
+
 def remap_launches(batch: int, cameras: int, limit: int = kernels.MAX_BATCH):
-    """Kernel E's launches for a camera-major batch of `cameras` blocks:
+    """Kernel E's or F's launches for a camera-major batch of `cameras` blocks:
     (first frame, frames, cameras in the launch, camera index) each. One
     launch of every camera (grid z, camera index None: the stacked maps)
     where a block of batch // cameras frames and the cameras fit the grid's
@@ -638,7 +672,7 @@ def remap_launches(batch: int, cameras: int, limit: int = kernels.MAX_BATCH):
 
 def remap_channel_groups(planes, remap_fn) -> torch.Tensor:
     """Remap any number of [B, H, W] planes through remap_fn, which takes
-    one or three planes (kernel E's contract) and returns [B, Ho, Wo, c]:
+    one or three planes (kernels E's and F's contract) and returns [B, Ho, Wo, c]:
     groups of three planes, then single planes, stacked along the last axis
     in the planes' order. The channels are independent, so this equals one
     remap of all of them; one or three planes make one call."""
@@ -654,18 +688,22 @@ def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
                  out_hw: Tuple[int, int], mode: str, plain: bool = False) -> torch.Tensor:
     """The remap stage in `mode` ("lerp" | "float" | "fixed32"; base and
     weights from remap_precompute in the same mode, flat or stacked per
-    camera, see the module's docstring). Float mode on CUDA planes goes
-    through kernel E (any number of planes, remap_channel_groups), on CPU
-    planes (or plain=True) through remap_float_planes; lerp and fixed32 are
-    plain torch ops."""
+    camera, see the module's docstring). On CUDA planes float mode goes
+    through kernel E, lerp and fixed32 through kernel F (any number of
+    planes, remap_channel_groups); on CPU planes, or with plain=True, each
+    mode through its plain version."""
     fns = {"lerp": remap_lerp_planes, "float": remap_float_planes,
            "fixed32": remap_fixed32_planes}
     if mode not in fns:
         raise ValueError(f"unknown remap mode [{mode}]")
-    if mode == "float" and not plain and planes[0].device.type != "cpu":
-        return remap_channel_groups(
-            tuple(p.contiguous() for p in planes),
-            lambda group: remap_float_cuda(group, base, weights, out_hw))
+    if not plain and planes[0].device.type != "cpu":
+        if mode == "float":
+            def kernel(group):
+                return remap_float_cuda(group, base, weights, out_hw)
+        else:
+            def kernel(group):
+                return remap_lerp_cuda(group, base, weights, out_hw, mode=mode)
+        return remap_channel_groups(tuple(p.contiguous() for p in planes), kernel)
     if base.dim() == 1:
         return fns[mode](planes, base, weights, out_hw)
     # per-camera maps: camera c's block of frames through map c
@@ -720,10 +758,10 @@ def remap_bilinear_u8(image: torch.Tensor, base, weights, out_hw: Tuple[int, int
     n_cameras > 1: image [n_cameras * B', H, W, C] camera-major (batch-minor:
     [H, W, n_cameras * B', C] -> [n_cameras, Ho, Wo, B', C], as the
     reference package returns it), base [n_cameras, N] and weights
-    [n_cameras, k, N] stacked per camera. Float mode runs kernel E on a
-    CUDA tensor (groups of three channels and single ones), the plain
-    version on a CPU tensor or with plain=True; lerp and fixed32 are plain
-    torch ops. tuning and blend_impl are accepted and ignored: they choose
+    [n_cameras, k, N] stacked per camera. Float mode runs kernel E, lerp
+    and fixed32 kernel F on a CUDA tensor (groups of three channels and
+    single ones), the plain versions on a CPU tensor or with plain=True.
+    tuning and blend_impl are accepted and ignored: they choose
     among the reference package's TPU implementations, which give the same
     bytes."""
     if image.dim() < 3:

@@ -8,7 +8,7 @@ calibration, gamma∘Lab, vignetting, HSV) runs once over all cameras, and
 each of kernels A, B and C launches once per call. Only the undistortion
 remap takes parameters per camera: with distinct calibrations the maps are
 stacked [C, N] / [C, k, N] and each camera's block of frames goes through
-its own map (kernel E in one launch, with grid z over the cameras); with
+its own map (kernel E or F in one launch, with grid z over the cameras); with
 equal calibrations one flat map serves the whole batch. Each camera keeps
 its own Kalman illuminant track.
 

@@ -670,7 +670,7 @@ def _chunked_fn(inner_fn, microbatch: int):
 
 def impls_for_devices(devices) -> Dict[str, Tuple[str, ...]]:
     """The implementation each shard on `devices` runs, per op: "cuda" (the
-    hand-written kernels A/D, B, C, E) on a card, "plain" (the plain
+    hand-written kernels A/D, B, C, E/F) on a card, "plain" (the plain
     PyTorch versions) on the CPU. Unlike the JAX package, which pins
     GSPMD-partitionable XLA formulations on any multi-device mesh (GSPMD
     cannot partition a pallas_call), the port splits the work itself and

@@ -304,7 +304,7 @@ def card_fps(h=1080, w=1920, batches=(16, 64, 128), tag="card full chain", *, de
     GB/s = hbm_bytes / 2^30 / its time, 0.5 GB at the default). Every
     batch runs whole, without microbatch. Returns bench.py's dict plus
     per-batch times, peak device bytes per batch and the launches of
-    kernels A-E over the run."""
+    kernels A-F over the run."""
     config = tp.flagship_config(h, w)
     pipe = tp.build_pipeline(config, "bayer_gbrg8", frame_hw=(h, w), device=device)
     step_fn = chain_step(pipe)

@@ -10,14 +10,17 @@ checkout's tools (measure.py, workloads.py, profile_chains.py, which
 import nothing of the package) and imports the package of its own
 checkout, through functions every version of the port has:
 
-  * kernels A-E as the chains call them at 1920x1080, B=4:
+  * kernels A-F as the chains call them at 1920x1080, B=4:
     ops.debayer.debayer_planes on a seeded mosaic, bilinear (A) and "mht"
     (D, the gpu_parity chain's), ops.ccc.log_chroma_histogram_planes on A's
     planes' working resize (270x360) (B), ops.ccc.ccc_response on that
     histogram (C) and ops.undistortion.remap_planes(..., "float") of A's
     planes through the float chain's fisheye maps (E; "E_off1" the same
     on copies of the planes 1 byte past a 16-byte boundary; "E64" the same
-    at B=64, seeded planes), each with every stream operation its call makes:
+    at B=64, seeded planes) and remap_planes(..., "lerp") through the
+    flagship's maps (F; "F_fixed32" through the fixed32 chain's, "F64" at
+    B=64; a checkout before kernel F runs the plain versions there), each
+    with every stream operation its call makes:
     device ms (measure.device_ms) and ms per call, the host's launches
     included (measure.call_ms);
   * each chain of the flagship family in tools/workloads.py (flagship,
@@ -126,9 +129,13 @@ def _worker(root: str, out: str) -> dict:
     big = [torch.randint(0, 256, (64, 1080, 1920), generator=g, device="cuda", dtype=torch.uint8)
            for _ in range(3)]
 
-    def remap(pl):
-        return undistortion.remap_planes(pl, maps.remap_base, maps.remap_weights, (1080, 1920),
-                                         "float")
+    lerp_maps = {mode: tp.make_params(workloads.chains(tp)[name].config(1080, 1920),
+                                      (1080, 1920), device="cuda")
+                 for mode, name in (("lerp", "flagship"), ("fixed32", "fixed32"))}
+
+    def remap(pl, mode="float"):
+        m = maps if mode == "float" else lerp_maps[mode]
+        return undistortion.remap_planes(pl, m.remap_base, m.remap_weights, (1080, 1920), mode)
 
     calls = {"A": lambda: debayer.debayer_planes(bayer, encoding),
              "B": lambda: ccc.log_chroma_histogram_planes(*small, *cuts),
@@ -136,7 +143,10 @@ def _worker(root: str, out: str) -> dict:
              "D": lambda: debayer.debayer_planes(bayer, encoding, "mht"),
              "E": lambda: remap(planes),
              "E_off1": lambda: remap(unaligned),
-             "E64": lambda: remap(big)}
+             "E64": lambda: remap(big),
+             "F": lambda: remap(planes, "lerp"),
+             "F_fixed32": lambda: remap(planes, "fixed32"),
+             "F64": lambda: remap(big, "lerp")}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},
            "frames_per_s": {}, "profiles": {}}

@@ -68,6 +68,27 @@ def remap_float_work(batch: int, h: int, w: int, n: int, channels: int,
             "ops": batch // maps * channels * live * REMAP_FLOAT_OPS_PER_VALUE}
 
 
+# f32 operations an output value of kernel F's functions: lerp, four mask
+# products, three differences and three fmas (two each); fixed32, four
+# products, three sums, the rounding offset and the scale
+REMAP_LERP_OPS_PER_VALUE = {"lerp": 13, "fixed32": 9}
+
+
+def remap_lerp_work(batch: int, h: int, w: int, n: int, channels: int, mode: str,
+                    live: Optional[int] = None, maps: int = 1) -> dict:
+    """The work of kernel F in `mode` ("lerp" or "fixed32") on `batch`
+    frames of `channels` [h, w] u8 planes remapped to n output pixels
+    through `maps` maps, as remap_float_work counts kernel E's: "bytes", the
+    planes read, the output written and each map read once (a 4-byte base
+    and six 4-byte weights a pixel in lerp mode, four in fixed32);
+    "ops", REMAP_LERP_OPS_PER_VALUE[mode] for each output value of the
+    `live` pixels (a nonzero tap weight; default n a map)."""
+    live = n * maps if live is None else live
+    rows = 6 if mode == "lerp" else 4
+    return {"bytes": batch * channels * (h * w + n) + (4 + 4 * rows) * n * maps,
+            "ops": batch // maps * channels * live * REMAP_LERP_OPS_PER_VALUE[mode]}
+
+
 def ccc_response_work(batch: int, n: int = 256) -> dict:
     """The work of kernel C's function, resp = Re(IDFT2(DFT2(X) * W)) / n^2
     + bias, on `batch` real [n, n] f32 histograms:

@@ -94,10 +94,11 @@ def chains(tp) -> dict:
     full = ((1080, 1920), (1080, 1440))
     ccc = ("ccc_histogram", "ccc_response")
     table = {
-        "flagship": Chain(tp.flagship_config, full, ("debayer_bilinear",) + ccc),
-        "gpu_parity": Chain(gpu_parity, full, ("debayer_mht",) + ccc),
+        "flagship": Chain(tp.flagship_config, full, ("debayer_bilinear",) + ccc + ("remap_lerp",)),
+        "gpu_parity": Chain(gpu_parity, full, ("debayer_mht",) + ccc + ("remap_lerp",)),
         "float": Chain(remap("float"), full[:1], ("debayer_bilinear",) + ccc + ("remap_float",)),
-        "fixed32": Chain(remap("fixed32"), full[:1], ("debayer_bilinear",) + ccc),
+        "fixed32": Chain(remap("fixed32"), full[:1],
+                         ("debayer_bilinear",) + ccc + ("remap_lerp",)),
     }
     for method in ("simple", "grey_world", "pca", "learned"):
         table[f"wb_{method}"] = Chain(config2(method), full[:1], ("debayer_bilinear",),
@@ -125,13 +126,14 @@ STREAM_FRAMES, STREAM_BATCH = 42, 4  # a stream of 10 batches and a stateful tai
 def multicam_chains(tp) -> dict:
     """name -> Chain of the camera-blocked chains (BASELINE config 5 on one
     card): 4 cameras of bayer_gbrg8 1920x1080 frames, MULTICAM_BATCH a
-    camera per call; "multicam4" the flagship (lerp remap, plain ops),
-    "multicam4_float" the float remap (kernel E with per-camera maps).
+    camera per call; "multicam4" the flagship (the lerp remap, kernel F
+    with per-camera maps), "multicam4_float" the float remap (kernel E).
     Their calibrations: multicam_calibrations of the config's."""
     table = chains(tp)
     ccc = ("ccc_histogram", "ccc_response")
     return {
-        "multicam4": Chain(table["flagship"].config, ((1080, 1920),), ("debayer_bilinear",) + ccc,
+        "multicam4": Chain(table["flagship"].config, ((1080, 1920),),
+                           ("debayer_bilinear",) + ccc + ("remap_lerp",),
                            frames=MULTICAM_BATCH * MULTICAM_CALLS, calls=MULTICAM_CALLS, reps=3),
         "multicam4_float": Chain(table["float"].config, ((1080, 1920),),
                                  ("debayer_bilinear",) + ccc + ("remap_float",),
@@ -162,6 +164,28 @@ def hostile_maps(out_hw, src_hw, seed: int):
     (h, w), (sh, sw) = out_hw, src_hw
     return ((rng.random((h, w)) * (sw + 6) - 3).astype(np.float32),
             (rng.random((h, w)) * (sh + 6) - 3).astype(np.float32))
+
+
+def lerp_hostile_maps(out_hw, src_hw, seed: int):
+    """A float32 (map_x, map_y) pair of shape out_hw whose coordinates sit
+    where the lerp remap's arithmetic is hardest: on integers, on halves,
+    within 2^-20 to 2^-24 of an integer, just above 0 (2^-17 and below, down
+    to the smallest subnormal) and just below it (where x - floor(x) rounds
+    to 1), and within two pixels past each border of a source of src_hw;
+    the rest uniform over the source and its borders."""
+    rng = np.random.default_rng(seed)
+    h, w = out_hw
+
+    def coords(n):
+        i = rng.integers(-2, n + 2, (h, w)).astype(np.float64)
+        eps = rng.choice([2.0**-20, 2.0**-22, 2.0**-24], (h, w)) * rng.choice([-1, 1], (h, w))
+        tiny = rng.choice([2.0**-17, 2.0**-18, 2.0**-30, 2.0**-100, 2.0**-140, 2.0**-149], (h, w))
+        kind = rng.integers(0, 7, (h, w))
+        return np.select([kind == 0, kind == 1, kind == 2, kind == 3, kind == 4],
+                         [i, i + 0.5, i + eps, tiny, -tiny],
+                         i + rng.random((h, w))).astype(np.float32)
+
+    return coords(src_hw[1]), coords(src_hw[0])
 
 
 def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int, device="cuda"):

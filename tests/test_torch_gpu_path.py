@@ -4,7 +4,8 @@ float and fixed32 remap modes. Each JAX function and its port get the same
 seeded numpy inputs; the tolerance is 0 mismatching bytes, and the Kalman
 state is held as tests/test_torch_pipeline.py holds it. Kernel E's launch
 helpers (store width, frame ranges) on the CPU; kernels D and E against
-their plain versions on a CUDA card (skipped without one)."""
+their plain versions on a CUDA card (skipped without one), and kernel F
+(the lerp and fixed32 remaps) there too."""
 
 import dataclasses
 import os
@@ -378,9 +379,9 @@ def test_chain_on_card_equals_cpu(name):
         assert torch.equal(getattr(res["cuda"][1], f).cpu(), getattr(res["cpu"][1], f)), f
 
 
-def _camera_maps(hw, scales):
-    """remap_precompute's float-mode maps for the flagship's fisheye
-    calibration with fx and fy scaled per camera, stacked [C, N] / [C, 4,
+def _camera_maps(hw, scales, mode="float"):
+    """remap_precompute's maps in `mode` for the flagship's fisheye
+    calibration with fx and fy scaled per camera, stacked [C, N] / [C, k,
     N]."""
     h, w = hw
     calib = tp.flagship_config(h, w).calibration
@@ -392,7 +393,7 @@ def _camera_maps(hw, scales):
         k[1, 1] *= s
         new_k = jund.estimate_new_camera_matrix(k, calib.D(), size, calib.R(), 0.0, size, 1.0)
         mx, my = jund.init_undistort_rectify_map(k, calib.D(), calib.R(), new_k, size)
-        maps.append(pund.remap_precompute(mx, my, hw, mode="float"))
+        maps.append(pund.remap_precompute(mx, my, hw, mode=mode))
     return np.stack([b for b, _ in maps]), np.stack([wt for _, wt in maps])
 
 
@@ -415,6 +416,43 @@ def test_kernel_e_per_camera_maps_equals_plain_on_card(hw):
             want = pund.remap_float_planes(tuple(p[2 * c:2 * c + 2] for p in pl), base[c],
                                            weights[c], hw)
             assert torch.equal(got[2 * c:2 * c + 2], want), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lerp", "fixed32"])
+@pytest.mark.parametrize("kind", ["fisheye", "hostile", "lerp_hostile"])
+@pytest.mark.parametrize("hw", [(1080, 1920), (91, 117)])
+def test_kernel_f_equals_plain_on_card(hw, kind, mode):
+    # B=4, B=1 and one mono plane, against remap_planes(..., plain=True)
+    dev = _cuda()
+    mx, my = workloads.lerp_hostile_maps(hw, hw, 8) if kind == "lerp_hostile" else _maps(hw, kind)
+    base, weights = (torch.as_tensor(a, device=dev)
+                     for a in pund.remap_precompute(mx, my, hw, mode=mode))
+    planes = tuple(torch.as_tensor(p, device=dev) for p in
+                   np.random.default_rng(5).integers(0, 256, (3, 4) + hw, dtype=np.uint8))
+    for pl in (planes, tuple(p[:1] for p in planes), planes[:1]):
+        got = pund.remap_lerp_cuda(pl, base, weights, hw, mode=mode)
+        assert got.shape == pl[0].shape + (len(pl),)
+        assert torch.equal(got, pund.remap_planes(pl, base, weights, hw, mode, plain=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lerp", "fixed32"])
+@pytest.mark.parametrize("hw", [(91, 117), (96, 128)])  # byte stores (V=1), word stores (V=4)
+def test_kernel_f_per_camera_maps_equals_plain_on_card(hw, mode):
+    # 3 cameras x B=2 in one launch, and past a batch limit of 1 (a launch
+    # per frame), against the plain version camera block by camera block
+    dev = _cuda()
+    base, weights = (torch.as_tensor(a, device=dev)
+                     for a in _camera_maps(hw, (1.0, 1.03, 0.97), mode))
+    planes = tuple(torch.as_tensor(p, device=dev) for p in
+                   np.random.default_rng(7).integers(0, 256, (3, 6) + hw, dtype=np.uint8))
+    want = pund.remap_planes(planes, base, weights, hw, mode, plain=True)
+    for limit in (pund.kernels.MAX_BATCH, 1):
+        before = pund.kernels.REMAP_LERP.launches
+        got = pund.remap_lerp_cuda(planes, base, weights, hw, mode=mode, batch_limit=limit)
+        assert pund.kernels.REMAP_LERP.launches - before == (1 if limit > 1 else 6)
+        assert torch.equal(got, want), limit
 
 
 def test_port_sources_import_no_jax():

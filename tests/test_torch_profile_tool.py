@@ -18,6 +18,7 @@ from raw_image_pipeline_tpu_torch.tools.measure import (
     ccc_response_work,
     debayer_work,
     remap_float_work,
+    remap_lerp_work,
 )
 from raw_image_pipeline_tpu_torch.tools.sass_census import census, pixels_per_thread
 from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time, union_us
@@ -187,6 +188,28 @@ def test_remap_float_work(batch, channels):
     got = bound(w["bytes"], w["ops"])
     assert got["bound_by"] == "bytes"
     assert got["bound_ms"] == pytest.approx(w["bytes"] / 3.35e9, rel=1e-12)
+
+
+@pytest.mark.parametrize("mode, map_bytes, ops", [("lerp", 28, 13), ("fixed32", 20, 9)])
+@pytest.mark.parametrize("batch", [4, 64])
+def test_remap_lerp_work(mode, map_bytes, ops, batch):
+    # kernel F at 1080x1920: the planes in, the output out, a 28-byte (lerp:
+    # base and six weights) or 20-byte (fixed32) map a pixel once; the lerp
+    # bound 0.0322 ms at B=4 and 0.2550 ms at B=64, fixed32 0.0272 at B=4
+    n = 1080 * 1920
+    w = remap_lerp_work(batch, 1080, 1920, n, 3, mode)
+    assert w["bytes"] == 2 * batch * 3 * n + map_bytes * n
+    assert w["ops"] == ops * batch * 3 * n
+    got = bound(w["bytes"], w["ops"])
+    assert got["bound_by"] == "bytes"
+    want = {("lerp", 4): 0.0322, ("lerp", 64): 0.2550, ("fixed32", 4): 0.0272}.get((mode, batch))
+    if want:
+        assert got["bound_ms"] == pytest.approx(want, abs=5e-5)
+    # four cameras' maps read once each, each camera's live pixels blended
+    # in its frames
+    cams = remap_lerp_work(16, 1080, 1920, n, 3, mode, live=n, maps=4)
+    assert cams["bytes"] == 2 * 16 * 3 * n + 4 * map_bytes * n
+    assert cams["ops"] == ops * 4 * 3 * n
 
 
 def test_remap_float_work_per_camera_maps():

@@ -1,0 +1,347 @@
+"""Kernel F (csrc/remap_lerp.cu), the lerp and fixed32 remaps, on the CPU.
+
+(a) The arithmetic that makes F and the plain version one function: the
+plain lerp's x-lerps (ops/undistortion.lerp_x) and its y-lerp
+(ops/common.fma_f32) against one f32 rounding of the exact value
+(fractions.Fraction) on hostile operands, and F's rule (the card's fma
+where it gives the plain bytes, the plain emulation elsewhere) modelled
+with exact fmas against the plain version, operand by operand and over
+whole maps; (b) F's grid rows and launches (remap_blocks, remap_launches)
+for 6 and 4 weight rows, driven over the plain versions; (c) the wrapper
+refuses CPU tensors; (d) F's registration; (e) the plain lerp and fixed32
+remaps against the JAX package on the lerp-hostile maps. F itself runs only
+on a card: tests/test_torch_gpu_path.py holds it there (cuda marker).
+"""
+
+import os
+from fractions import Fraction
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raw_image_pipeline_tpu.ops import undistortion as jund
+from raw_image_pipeline_tpu_torch import kernels
+from raw_image_pipeline_tpu_torch.ops import common as pcommon
+from raw_image_pipeline_tpu_torch.ops import undistortion as pund
+from raw_image_pipeline_tpu_torch.tools import workloads
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+f32 = np.float32
+NATIVE_FX_MIN = f32(2.0**-17)  # F's fma domain for fx: 0 or [2^-17, 1)
+
+
+def _round_f32(q: Fraction) -> f32:
+    """q rounded once to the nearest f32, ties to even, subnormals kept."""
+    if q == 0:
+        return f32(0.0)
+    sign, q = (-1, -q) if q < 0 else (1, q)
+    e = q.numerator.bit_length() - q.denominator.bit_length()
+    if Fraction(2) ** e > q:
+        e -= 1
+    ulp = Fraction(2) ** (max(e, -126) - 23)
+    m = q / ulp
+    k = m.numerator // m.denominator
+    r = m - k
+    if r > Fraction(1, 2) or (r == Fraction(1, 2) and k % 2):
+        k += 1
+    return f32(sign * float(k * ulp))
+
+
+def _fma(a, b, c) -> f32:
+    """The card's __fmaf_rn(a, b, c): a*b + c rounded once."""
+    return _round_f32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x, dtype=f32))
+
+
+def _lerp_x_plain(fx, v0, v1) -> np.ndarray:
+    fx = _t(fx)
+    return pund.lerp_x(fx, *pund.lerp_split(fx), _t(v0), _t(v1)).numpy()
+
+
+def _fma_plain(a, b, c) -> np.ndarray:
+    return pcommon.fma_f32(_t(a), _t(b), _t(c)).numpy()
+
+
+def _byte(y) -> int:
+    return int(pcommon.round_u8(_t([y]))[0])
+
+
+def _f_byte(fx, fy, taps, masks) -> int:
+    """Kernel F's lerp byte (LerpMode::special and ::blend), with each fma
+    rounded once: in its domain, the fmas and, within y * 2^-21 of a
+    half-integer, the plain y-lerp; outside it, the plain lerp throughout."""
+    fx, fy = f32(fx), f32(fy)
+    v = [f32(f32(t) * f32(m)) for t, m in zip(taps, masks)]
+    native = ((fx == 0 or NATIVE_FX_MIN <= fx < 1) and 0 <= fy < 1
+              and all(m in (0.0, 1.0) for m in masks))
+    if native:
+        t = _fma(fx, f32(v[1] - v[0]), v[0])
+        b = _fma(fx, f32(v[3] - v[2]), v[2])
+        d = f32(b - t)
+        y = _fma(fy, d, t)
+        r = f32(f32(y + f32(2.0**23)) - f32(2.0**23))  # rint(y), y in [0, 255]
+        if f32(0.5 - abs(f32(y - r))) <= f32(y * f32(2.0**-21)):
+            y = _fma_plain([fy], [d], [t])[0]
+    else:
+        t = _lerp_x_plain([fx], [v[0]], [v[1]])[0]
+        b = _lerp_x_plain([fx], [v[2]], [v[3]])[0]
+        y = _fma_plain([fy], [f32(b - t)], [t])[0]
+    return _byte(y)
+
+
+def _plain_byte(fx, fy, taps, masks) -> int:
+    """remap_lerp_planes's byte for one pixel of a 2x2 source."""
+    planes = (torch.as_tensor(np.array(taps, np.uint8).reshape(1, 2, 2)),)
+    base = torch.tensor([3], dtype=torch.int32)  # tap 0 at 3 - (2 + 1) = 0
+    weights = _t(np.array([fx, fy, *masks], f32).reshape(6, 1))
+    return int(pund.remap_lerp_planes(planes, base, weights, (1, 1))[0, 0, 0, 0])
+
+
+FX_HOSTILE = [0.0, 2.0**-149, 2.0**-140, 2.0**-126, 2.0**-24 / 3, 2.0**-18, 2.0**-17,
+              2.0**-17 + 2.0**-40, 2.0**-12, 1 / 3, 0.25, 0.5, 0.75, 1 - 2.0**-24]
+TAPS_HOSTILE = [0, 1, 2, 127, 128, 254, 255]
+
+
+# --- (a) the arithmetic -------------------------------------------------------
+
+
+def test_plain_x_lerp_is_one_rounding_in_f_domain():
+    # fx in {0} u [2^-17, 1): the emulation's two error terms are multiples
+    # of ulp(fx) >= 2^-40 below 2^-16, so their sum is exact and the x-lerp
+    # is one rounding, the card's fma; d = v1 - v0 reaches +-255, and fx =
+    # 1/2 gives exact .5 results
+    rng = np.random.default_rng(11)
+    fxs = [f32(x) for x in FX_HOSTILE if x == 0 or f32(x) >= NATIVE_FX_MIN]
+    fxs += list(rng.integers(0x37000000, 0x3F800000, 300, dtype=np.uint32).view(f32))
+    fx, v0, v1 = (np.array(a, f32).ravel() for a in
+                  np.meshgrid(fxs, TAPS_HOSTILE, TAPS_HOSTILE, indexing="ij"))
+    got = _lerp_x_plain(fx, v0, v1)
+    for i in range(fx.size):
+        assert got[i] == _fma(fx[i], f32(v1[i] - v0[i]), v0[i]), (fx[i], v0[i], v1[i])
+
+
+def test_plain_x_lerp_below_f_domain():
+    # below 2^-17 the emulation is one rounding on most operands (subnormal
+    # fx included) but not on all: x = 2^-24 / 3 over taps 1 and 4 leaves
+    # the sum of its error terms inexact, and it rounds a tie the other way
+    # (ROADMAP Queue 3); F computes the emulation there
+    for fx in (f32(x) for x in FX_HOSTILE if 0 < f32(x) < NATIVE_FX_MIN):
+        for v0 in TAPS_HOSTILE:
+            for v1 in (0, 255, v0):
+                got = _lerp_x_plain([fx], [v0], [v1])[0]
+                assert got == _fma(fx, f32(v1 - v0), f32(v0)), (fx, v0, v1)
+    fx = f32(2.0**-24 / 3)
+    got = _lerp_x_plain([fx], [1.0], [4.0])[0]
+    assert got == f32(1.0) and _fma(fx, f32(3.0), f32(1.0)) == np.nextafter(f32(1), f32(2))
+
+
+def _y_operands():
+    """(fy, t, b) for the y-lerp: fy at 0, subnormal, 2^-17, 1/6, 1/2 and
+    1 - 2^-24; t and b at 0 and 255, at exact .5 results and a few ulps
+    apart; then seeded draws over [0, 1) and [0, 255]."""
+    fys = [0.0, 2.0**-149, 2.0**-126, 2.0**-17, 1 / 6, 0.5, 1 - 2.0**-24, 6.6496973e-12]
+    ts = [0.0, 2.0**-24, 0.5, 1.0, 127.5, 254.5, 255.0]
+    out = [(f32(fy), f32(t), f32(b)) for fy in fys for t in ts for b in ts]
+    for t in (f32(1), f32(2), f32(3.5), f32(100), f32(127.5)):
+        for k in (1, 3, 5, 7):
+            out += [(f32(fy), t, f32(t + k * np.spacing(t))) for fy in fys]
+    out.append((f32(6.6496973e-12), f32(3.9818293e-26), f32(24.0)))
+    # the emulation's tie at t = 1.5 goes up where the exact value lies just
+    # below 1.5 - 2^-24: the fma's byte is 1, the emulation's 2
+    out.append((f32(1 / 6), f32(1.5), f32(1.5 - 3 * 2.0**-23)))
+    rng = np.random.default_rng(12)
+    fy = rng.integers(0, 0x3F800000, 1500, dtype=np.uint32).view(f32)
+    tb = (rng.random((2, 1500)) * 255).astype(f32)
+    out += list(zip(fy, tb[0], tb[1]))
+    return out
+
+
+def test_plain_y_lerp_within_one_ulp_and_f_takes_its_byte():
+    # fma_f32 is one rounding of fy*(b - t) + t on almost every operand; where
+    # it is not (a tiny t beside the product, or the product half an ulp of
+    # t with an error below the sum's window: fy = 1/6, b = t + 3 ulps), it
+    # is the neighbouring f32, so the byte can move only within an ulp of a
+    # half-integer, and there F's guard takes the emulation's result
+    ops = _y_operands()
+    fy, t, b = (np.array(c, f32) for c in zip(*ops))
+    d = (b - t).astype(f32)
+    got = _fma_plain(fy, d, t)
+    differ, bytes_differ = 0, 0
+    for i in range(len(ops)):
+        exact = _fma(fy[i], d[i], t[i])
+        if got[i] == exact:
+            continue
+        differ += 1
+        assert got[i] in (np.nextafter(exact, f32(-1)), np.nextafter(exact, f32(256))), ops[i]
+        near_half = abs(f32(exact - f32(np.floor(exact) + f32(0.5)))) <= f32(exact * f32(2.0**-21))
+        bytes_differ += _byte(got[i]) != _byte(exact)
+        assert near_half or _byte(got[i]) == _byte(exact), ops[i]
+    # the recorded cases (ROADMAP Queue 3), one of which moves the byte
+    assert differ >= 3 and bytes_differ >= 1
+
+
+def test_f_byte_equals_plain_on_hostile_pixels():
+    # one pixel of a 2x2 source at a time: F's rule, modelled with exact
+    # fmas, gives remap_lerp_planes's byte on hostile fractions, on taps at
+    # the u8 ends and on exact .5 results, in and outside F's fma domain
+    # (masks other than 0 and 1, fy >= 1)
+    rng = np.random.default_rng(13)
+    fys = [0.0, 2.0**-140, 2.0**-17, 1 / 6, 0.5, 1 - 2.0**-24]
+    taps_sets = [(0, 255, 255, 0), (1, 2, 3, 4), (254, 255, 255, 254), (0, 0, 0, 1),
+                 (128, 127, 0, 255)]
+    cases = [(f32(fx), f32(fy), taps, (1.0, 1.0, 1.0, 1.0))
+             for fx in FX_HOSTILE for fy in fys for taps in taps_sets]
+    cases += [(f32(0.5), f32(0.5), (0, 1, 0, 1), masks)
+              for masks in ((1.0, 0.0, 1.0, 1.0), (0.0, 0.0, 1.0, 1.0), (0.5, 1.0, 1.0, 1.0))]
+    cases += [(f32(0.25), f32(1.0), (10, 20, 30, 40), (1.0,) * 4),
+              (f32(1.0), f32(0.5), (10, 20, 30, 41), (0.0, 1.0, 0.0, 1.0))]
+    for _ in range(400):
+        fx, fy = rng.integers(0x36000000, 0x3F800000, 2, dtype=np.uint32).view(f32)
+        cases.append((fx, fy, tuple(int(v) for v in rng.integers(0, 256, 4)), (1.0,) * 4))
+    for fx, fy, taps, masks in cases:
+        assert _f_byte(fx, fy, taps, masks) == _plain_byte(fx, fy, taps, masks), (fx, fy, taps)
+
+
+@pytest.mark.parametrize("kind", ["lerp_hostile", "fisheye"])
+def test_f_rule_equals_plain_over_a_map(kind):
+    # F's rule over every live pixel of a 24x32 map (remap_precompute of a
+    # lerp-hostile map or of the flagship's fisheye map, cropped) and three
+    # seeded channels against remap_lerp_planes, byte for byte
+    hw = (24, 32)
+    if kind == "fisheye":
+        import raw_image_pipeline_tpu_torch as tp
+
+        p = tp.make_params(tp.flagship_config(240, 320), (240, 320), device="cpu")
+        base = p.remap_base.numpy().reshape(240, 320)[100:124, 140:172]
+        weights = p.remap_weights.numpy().reshape(6, 240, 320)[:, 100:124, 140:172]
+        base, weights, src = base.reshape(-1), weights.reshape(6, -1), (240, 320)
+    else:
+        src = hw
+        base, weights = pund.remap_precompute(*workloads.lerp_hostile_maps(hw, hw, 5), hw,
+                                              mode="lerp")
+    planes = np.random.default_rng(14).integers(0, 256, (3, 1) + src, dtype=np.uint8)
+    want = pund.remap_lerp_planes(tuple(torch.as_tensor(p) for p in planes),
+                                  torch.as_tensor(base), torch.as_tensor(weights), hw).numpy()
+    flat = planes.reshape(3, -1)
+    h, w = src
+    for q in np.nonzero((weights[2:] != 0).any(0))[0]:
+        a = int(base[q]) - (w + 1)
+        idx = [min(max(a + off, 0), h * w - 1) for off in (0, 1, w, w + 1)]
+        for c in range(3):
+            got = _f_byte(weights[0, q], weights[1, q], flat[c, idx], tuple(weights[2:, q]))
+            assert got == want[0].reshape(-1, 3)[q, c], (q, c)
+
+
+# --- (b) grid rows and launches over the plain versions ------------------------
+
+
+def _camera_maps(mode, cameras, hw):
+    maps = [pund.remap_precompute(*workloads.lerp_hostile_maps(hw, hw, 20 + c), hw, mode=mode)
+            for c in range(cameras)]
+    return (torch.as_tensor(np.stack([m[0] for m in maps])),
+            torch.as_tensor(np.stack([m[1] for m in maps])))
+
+
+PLAIN = {"lerp": pund.remap_lerp_planes, "fixed32": pund.remap_fixed32_planes}
+
+
+@pytest.mark.parametrize("mode", ["lerp", "fixed32"])
+@pytest.mark.parametrize("batch,cameras,chunk", [(12, 3, 2), (8, 4, 3), (5, 1, 2)])
+def test_remap_blocks_drive_the_plain_versions(mode, batch, cameras, chunk):
+    # each grid row through the map at its base and weights offsets into
+    # the stacked maps (rows = 6 for lerp, 4 for fixed32) equals
+    # remap_planes's per-camera loop
+    hw = (6, 8)
+    n = hw[0] * hw[1]
+    rows = pund.REMAP_WEIGHT_ROWS[mode]
+    base, weights = _camera_maps(mode, cameras, hw)
+    planes = tuple(torch.as_tensor(p) for p in np.random.default_rng(batch).integers(
+        0, 256, (3, batch) + hw, dtype=np.uint8))
+    flat_b, flat_w = base.reshape(-1), weights.reshape(-1)
+    got = torch.zeros((batch,) + hw + (3,), dtype=torch.uint8)
+    seen = []
+    for z, y, f0, f1, boff, woff in pund.remap_blocks(batch, cameras, chunk, n, rows):
+        assert (boff, woff) == (z * n, z * rows * n)
+        got[f0:f1] = PLAIN[mode](tuple(p[f0:f1] for p in planes), flat_b[boff:boff + n],
+                                 flat_w[woff:woff + rows * n].view(rows, n), hw)
+        seen += range(f0, f1)
+    assert sorted(seen) == list(range(batch))
+    stacked = (base, weights) if cameras > 1 else (base[0], weights[0])
+    assert torch.equal(got, pund.remap_planes(planes, *stacked, hw, mode))
+
+
+@pytest.mark.parametrize("mode", ["lerp", "fixed32"])
+@pytest.mark.parametrize("batch,cameras,limit", [(12, 3, 3), (12, 4, 2), (9, 1, 4)])
+def test_remap_launches_drive_the_plain_versions(mode, batch, cameras, limit):
+    # the launches past a lowered batch limit, each through its camera's
+    # map (or every camera's, grid z), cover the batch as remap_planes does
+    hw = (5, 7)
+    base, weights = _camera_maps(mode, cameras, hw)
+    if cameras == 1:
+        base, weights = base[0], weights[0]
+    planes = tuple(torch.as_tensor(p) for p in np.random.default_rng(batch + 1).integers(
+        0, 256, (3, batch) + hw, dtype=np.uint8))
+    got = torch.zeros((batch,) + hw + (3,), dtype=torch.uint8)
+    for f0, nf, cams, z in pund.remap_launches(batch, cameras, limit):
+        zb, zw = (base, weights) if z is None else (base[z], weights[z])
+        got[f0:f0 + nf] = pund.remap_planes(tuple(p[f0:f0 + nf] for p in planes), zb, zw, hw,
+                                            mode)
+    assert torch.equal(got, pund.remap_planes(planes, base, weights, hw, mode))
+
+
+# --- (c), (d) the wrapper and the registration ---------------------------------
+
+
+@pytest.mark.parametrize("mode", ["lerp", "fixed32"])
+def test_remap_lerp_cuda_refuses_cpu_tensors(mode):
+    rows = pund.REMAP_WEIGHT_ROWS[mode]
+    planes = tuple(torch.zeros((2, 4, 6), dtype=torch.uint8) for _ in range(3))
+    base, weights = torch.zeros(24, dtype=torch.int32), torch.zeros((rows, 24))
+    with pytest.raises(ValueError, match="CUDA"):
+        pund.remap_lerp_cuda(planes, base, weights, (4, 6), mode=mode)
+    with pytest.raises(ValueError):
+        pund.remap_lerp_cuda(planes, base, weights, (4, 6), mode="float")
+    # on CPU tensors remap_planes takes the plain version, never the kernel
+    before = kernels.REMAP_LERP.launches
+    assert torch.equal(pund.remap_planes(planes, base, weights, (4, 6), mode),
+                       PLAIN[mode](planes, base, weights, (4, 6)))
+    assert kernels.REMAP_LERP.launches == before
+
+
+def test_kernel_f_is_registered():
+    assert kernels.REMAP_LERP in kernels.ALL
+    assert kernels.REMAP_LERP.entry in kernels._SIGNATURES
+    assert "remap_lerp.cu" in kernels.SOURCES and "remap_tile.cuh" in kernels.HEADERS
+    assert os.path.exists(os.path.join(REPO, kernels.REMAP_LERP.source))
+    path, line = kernels.REMAP_LERP.replaces.split(":")
+    with open(os.path.join(REPO, path)) as f:
+        assert f.readlines()[int(line) - 1].startswith("def _remap_rows(")
+    assert len({k.name for k in kernels.ALL}) == len(kernels.ALL) == 6
+
+
+# --- (e) the plain versions against the JAX package ---------------------------
+
+
+@pytest.mark.parametrize("mode", ["lerp", "fixed32"])
+def test_plain_remaps_equal_reference_on_lerp_hostile_maps(mode):
+    # coordinates on integers and halves, within 2^-20 of integers, just
+    # above and below 0 and past each border: the port's remap_precompute
+    # and plain remap against the JAX package's, 0 mismatching bytes
+    hw = (37, 45)
+    mx, my = workloads.lerp_hostile_maps(hw, hw, 31)
+    base, weights = jund.remap_precompute(mx, my, hw, mode=mode)
+    pbase, pweights = pund.remap_precompute(mx, my, hw, mode=mode)
+    np.testing.assert_array_equal(pbase, base)
+    np.testing.assert_array_equal(pweights, weights)
+    planes = np.random.default_rng(32).integers(0, 256, (3, 2) + hw, dtype=np.uint8)
+    want = np.asarray(jund.remap_bilinear_u8_planes(
+        tuple(jnp.asarray(np.moveaxis(p, 0, -1)) for p in planes), base, weights, hw, hw,
+        mode=mode))
+    got = pund.remap_planes(tuple(torch.as_tensor(p) for p in planes), torch.as_tensor(base),
+                            torch.as_tensor(weights), hw, mode)
+    np.testing.assert_array_equal(got.numpy(), np.moveaxis(want, -1, 0))

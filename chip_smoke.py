@@ -55,13 +55,25 @@ per source, into build/kernels/), then:
                        beside the plain version and the bound, and 4
                        cameras x B=4 (lerp under the row's main keys,
                        fixed32 under *_fixed32);
+       G pointwise stretch — 0 mismatching bytes against
+                       pointwise_planes(..., plain=True) with each step
+                       alone (per-frame gains, calibration, the BT.709
+                       table, vignetting with either linearize table, the
+                       enhancer) and with the flagship's and gpu_parity's
+                       sets at B=4 1080x1920, 1079x1439, 1080x1444, 17x31
+                       and 3x5 and at B=64 1080x1920, on views of a
+                       [B, 3, H, W] tensor, past a batch limit lowered to
+                       3, and on all 2^24 BGR triples as one 4096x4096
+                       frame; timed at B=4 and B=64 beside the plain
+                       version and the bound (operations);
      then the ops phase (check_ops): the reference package's entry points
      that reach a kernel, on [..., H, W(, 3)] CUDA frames at 1080x1920
      (leading dims (4,)) and at a random odd crop (leading dims (2, 3)):
      debayer bilinear (A) and MHT (D) in the four encodings,
      log_chroma_histogram and _rt (B) on the 270x360 resize, ccc_response
      (C), remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with
-     one map and with per-camera maps; each against plain=True on the card and the planar
+     one map and with per-camera maps, color_correct, vignetting.correct
+     and enhance (G); each against plain=True on the card and the planar
      path of the chain, 0 mismatching bytes, with its device time; then
      (check_ops_contract) the calls the JAX package takes that the kernels
      once refused: the histograms over kernel B's 524160 pixels (1080x1920,
@@ -74,19 +86,20 @@ per source, into build/kernels/), then:
   2. drives each chain through build_pipeline(config, encoding,
      with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
      state carried across the calls, at 1920x1080:
-       flagship   — flagship_config(h, w), also at 1440x1080 (A, B, C, F);
+       flagship   — flagship_config(h, w), also at 1440x1080 (A, B, C, G, F);
        gpu_parity — MHT demosaic and the BT.709 gamma, the reference's
-                    use_gpu=True semantics, also at 1440x1080 (D, B, C, F);
-       float      — the float remap (A, B, C, E);
-       fixed32    — the fixed32 remap (A, B, C, F);
+                    use_gpu=True semantics, also at 1440x1080 (D, B, C, G,
+                    F);
+       float      — the float remap (A, B, C, G, E);
+       fixed32    — the fixed32 remap (A, B, C, G, F);
          (each 8 seeded frames in 2 calls)
        wb_simple, wb_grey_world, wb_pca, wb_learned — BASELINE config 2:
                     debayer, flip 90 and the statistical white balance,
                     128 frames made on the card in 2 calls of B=64 (A);
        pointwise_bgr8 — BASELINE config 4: colour calibration, vignetting
                     and the HSV enhancer on 512 bgr8 frames in one call
-                    with microbatch=128 (no kernel), its peak device
-                    memory printed;
+                    with microbatch=128 (G), its peak device memory
+                    printed;
      the launch counts are set to 0 just before each chain's 1920x1080 run
      and read just after, and each kernel of that chain must have launched
      in each of its calls;
@@ -577,6 +590,140 @@ def check_remap_lerp(tp, torch, rng, planes):
     return row
 
 
+# (frames, H, W) at which kernel G is held against its plain version:
+# 1080p, W % 32 != 0 with odd H, W % 32 != 0 with even H, W < 32, tiny
+POINTWISE_SHAPES = ((4, 1080, 1920), (4, 1079, 1439), (4, 1080, 1444), (4, 17, 31), (4, 3, 5))
+POINTWISE_B64 = (64, 1080, 1920)
+POINTWISE_LIMIT = (10, 3)  # frames, lowered batch limit: 4 launches
+# kernel G's step sets: name -> steps (the flagship's call first)
+POINTWISE_SETS = {
+    "flagship (gains, calibration, gamma∘Lab vignetting, enhancer)":
+        ("gains", "calibration", "gamma_vignetting", "enhancer"),
+    "gpu_parity (gains, calibration, BT.709 LUT, vignetting, enhancer)":
+        ("gains", "calibration", "lut", "vignetting", "enhancer"),
+    **{s: (s,) for s in ("gains", "calibration", "lut", "vignetting", "gamma_vignetting",
+                         "enhancer")},
+}
+
+
+def check_pointwise(tp, torch, rng):
+    """Phase 1: kernel G (ops/pointwise.pointwise_cuda) against
+    pointwise_planes(..., plain=True), 0 mismatching bytes, with each step
+    alone and with the flagship's and gpu_parity's step sets
+    (POINTWISE_SETS: per-frame gains, a seeded calibration, the BT.709
+    table, vignetting with OpenCV's linearize table and with the k=0.9
+    gamma composed into it, the flagship's enhancer gains) at
+    POINTWISE_SHAPES and POINTWISE_B64; the flagship's set on the chain's
+    debayered planes (views of a [B, 3, H, W] tensor) and past a batch
+    limit lowered to 3 (POINTWISE_LIMIT: four launches); then all 2^24 BGR
+    triples as one 4096x4096 frame with its vignetting mask through both
+    sets, with unit gains and an identity calibration (so every triple
+    reaches every step) and with the seeded ones. Then G's device time at
+    B=4 and B=64 1080x1920 with the flagship's set (the main path's call),
+    the plain version's, and the bound (tools/measure.pointwise_work).
+    Returns G's row."""
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.ops import pointwise
+    from raw_image_pipeline_tpu_torch.ops.color_enhancer import gain_tables
+    from raw_image_pipeline_tpu_torch.ops.colorspace import _GAMMA_TAB
+    from raw_image_pipeline_tpu_torch.ops.gamma import build_bt709_lut
+    from raw_image_pipeline_tpu_torch.ops.vignetting import (
+        build_vignetting_mask,
+        composed_gamma_lab_table,
+    )
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, device_ms, pointwise_work
+
+    dev = torch.device("cuda")
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, device=dev, dtype=dtype)
+
+    matrix = t(rng.uniform(-0.6, 1.6, (3, 3)).astype("float32"))
+    bias = t(rng.uniform(-20, 20, 3).astype("float32"))
+    tables = dict(lut=t(build_bt709_lut(True)), enhancer_tables=t(gain_tables((1.0, 1.2, 1.0))),
+                  composed=t(composed_gamma_lab_table(0.9)), opencv=t(_GAMMA_TAB, torch.int32))
+
+    def args(steps, b, h, w, unit=False):
+        out = {}
+        for step in steps:
+            if step == "gains":
+                out["gains"] = (torch.ones((b, 3), device=dev) if unit else
+                                t(rng.uniform(0.4, 2.6, (b, 3)).astype("float32")))
+            elif step == "calibration":
+                out.update(matrix=torch.eye(3, device=dev) if unit else matrix,
+                           bias=torch.zeros(3, device=dev) if unit else bias)
+            elif step == "lut":
+                out["lut"] = tables["lut"]
+            elif step in ("vignetting", "gamma_vignetting"):
+                out.update(mask=t(build_vignetting_mask(h, w, 1.5, 1e-3, 1e-6)),
+                           lab_tab=tables["composed" if step == "gamma_vignetting" else "opencv"])
+            elif step == "enhancer":
+                out["enhancer_tables"] = tables["enhancer_tables"]
+        return out
+
+    def held(label, planes, kw, **extra):
+        got = pointwise.pointwise_cuda(planes, **kw, **extra)
+        want = pointwise.pointwise_planes(*planes, **kw, plain=True)
+        bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+        print(f"kernel G {label}: {bad} mismatching bytes")
+        if bad:
+            raise AssertionError(f"kernel G: {bad} mismatching bytes at {label}")
+
+    def frames(b, h, w):
+        return [t(rng.integers(0, 256, (b, h, w), dtype="uint8")) for _ in range(3)]
+
+    flagship = next(iter(POINTWISE_SETS.values()))
+    for b, h, w in POINTWISE_SHAPES + (POINTWISE_B64,):
+        planes = frames(b, h, w)
+        sets = POINTWISE_SETS if (b, h, w) != POINTWISE_B64 else dict(
+            list(POINTWISE_SETS.items())[:2])
+        for name, steps in sets.items():
+            held(f"B={b} {h}x{w} {name}", planes, args(steps, b, h, w))
+        del planes
+    b, h, w = POINTWISE_SHAPES[0]
+    x = t(rng.integers(0, 256, (b, 3, h, w), dtype="uint8"))
+    held(f"B={b} {h}x{w} on views of a [B, 3, H, W] tensor, flagship", [x[:, c] for c in range(3)],
+         args(flagship, b, h, w))
+    n, limit = POINTWISE_LIMIT
+    planes = frames(n, 17, 31)
+    before = kernels.POINTWISE.launches
+    held(f"B={n} 17x31, batch limit {limit}, flagship", planes, args(flagship, n, 17, 31),
+         batch_limit=limit)
+    made = kernels.POINTWISE.launches - before
+    print(f"kernel G B={n}, batch limit {limit}: {made} launches")
+    if made != -(-n // limit):
+        raise AssertionError(f"kernel G: {made} launches past the batch limit")
+    i = torch.arange(1 << 24, device=dev, dtype=torch.int32)
+    triples = [((i >> s) & 255).to(torch.uint8).view(1, 4096, 4096) for s in (0, 8, 16)]
+    for name, steps in list(POINTWISE_SETS.items())[:2]:
+        for unit in (True, False):
+            held(f"all 2^24 triples as one 4096x4096 frame, {name}, "
+                 f"{'unit gains and calibration' if unit else 'seeded gains and calibration'}",
+                 triples, args(steps, 1, 4096, 4096, unit))
+    del triples, i, x
+    torch.cuda.empty_cache()
+
+    def timed(b, h, w, n):
+        planes = frames(b, h, w)
+        kw = args(flagship, b, h, w)
+        ms = device_ms(lambda: pointwise.pointwise_cuda(planes, **kw))
+        plain_ms = device_ms(lambda: pointwise.pointwise_planes(*planes, **kw, plain=True), n=n)
+        work = pointwise_work(b, h, w, ("gains", "calibration", "vignetting", "enhancer"))
+        return ms, plain_ms, bound(bytes_=work["bytes"], ops=work["ops"])
+
+    ms, plain_ms, bd = timed(*POINTWISE_SHAPES[0], 5)
+    ms64, plain64, bd64 = timed(*POINTWISE_B64, 2)
+    torch.cuda.empty_cache()
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
+               share=bd["bound_ms"] / ms, ms_b64=ms64, plain_ms_b64=plain64,
+               bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64)
+    print(f"kernel G time B=4 1080x1920, the flagship's steps: {ms:.4f} ms (bound "
+          f"{bd['bound_ms']:.4f}, {bd['bound_by']}; {100 * row['share']:.1f}%), plain "
+          f"{plain_ms:.4f} ms; B=64: {ms64:.4f} ms (bound {bd64['bound_ms']:.4f}; "
+          f"{100 * row['share_b64']:.1f}%), plain {plain64:.4f} ms; no PyTorch call computes it")
+    return row
+
+
 def check_kernels(tp, torch, rng):
     """Phase 1: each kernel against its plain version on the card."""
     import numpy as np
@@ -662,6 +809,7 @@ def check_kernels(tp, torch, rng):
     rows["E"] = check_remap(tp, torch, rng, planes)
     check_remap_cameras(tp, torch, rng, rows["E"])
     rows["F"] = check_remap_lerp(tp, torch, rng, planes)
+    rows["G"] = check_pointwise(tp, torch, rng)
     for k in kernels.ALL:
         k.launches = 0  # the comparisons above are not the main path's
     return rows
@@ -826,11 +974,14 @@ def check_ops(tp, torch, rng, smi_line):
     270x360 resize, ccc_response (C) on those histograms, and
     remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with one map
     and with per-camera maps (four at 1080x1920, the multicamera chain's;
-    two at the crop).
+    two at the crop), and kernel G's steps one at a time:
+    color_calibration.color_correct (a seeded matrix and bias),
+    vignetting.correct (the frame's vignetting mask) and
+    color_enhancer.enhance (gains 1.1, 1.2, 0.9).
     Each is held against the same call with plain=True on the card and
     against the planar path the chain runs (debayer_planes,
     log_chroma_histogram_planes, ccc_response on [B, 256, 256],
-    remap_planes): 0 mismatching bytes (f32 values for the histograms; for
+    remap_planes, pointwise_planes): 0 mismatching bytes (f32 values for the histograms; for
     ccc_response the argmax, and the values against the plain version
     within 1e-4 of max |response| as phase 1 holds kernel C). One line per
     function with its device time. Returns each kernel's launches in the
@@ -842,8 +993,17 @@ def check_ops(tp, torch, rng, smi_line):
 
     from raw_image_pipeline_tpu_torch import kernels
     from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
-    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, undistortion
+    from raw_image_pipeline_tpu_torch.ops import (
+        ccc,
+        color_calibration,
+        color_enhancer,
+        debayer,
+        pointwise,
+        undistortion,
+        vignetting,
+    )
     from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8
+    from raw_image_pipeline_tpu_torch.ops.vignetting import build_vignetting_mask
     from raw_image_pipeline_tpu_torch.parallel import build_multicamera_pipeline
     from raw_image_pipeline_tpu_torch.tools import workloads
     from raw_image_pipeline_tpu_torch.tools.measure import device_ms
@@ -851,6 +1011,9 @@ def check_ops(tp, torch, rng, smi_line):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(int(rng.integers(1 << 31)))
+    cc = tuple(torch.as_tensor(a.astype("float32"), device=dev)
+               for a in (rng.uniform(-0.6, 1.6, (3, 3)), rng.uniform(-20, 20, 3)))
+    enh_gains = (1.1, 1.2, 0.9)
     crop = (2 * int(rng.integers(100, 540)) + 1, 2 * int(rng.integers(100, 960)) + 1)
     launches = {k.name: 0 for k in kernels.ALL}
     cfg = tp.flagship_config(1080, 1920).white_balance
@@ -951,6 +1114,20 @@ def check_ops(tp, torch, rng, smi_line):
             planar = undistortion.remap_planes(planes_of(img), base, weights, hw, mode)
             bad += int((got != planar.reshape(got.shape)).sum())
             report(f"remap_bilinear_u8 {mode} {size}, {cameras} map(s)", bad, device_ms(remap))
+        # kernel G's steps one at a time, on NHWC frames
+        mask = torch.as_tensor(build_vignetting_mask(*hw, 1.5, 1e-3, 1e-6), device=dev)
+        for name, fn, args, steps in (
+                ("color_calibration.color_correct", color_calibration.color_correct, cc,
+                 dict(matrix=cc[0], bias=cc[1])),
+                ("vignetting.correct", vignetting.correct, (mask,), dict(mask=mask)),
+                ("color_enhancer.enhance", color_enhancer.enhance, (enh_gains,),
+                 dict(enhancer_tables=torch.as_tensor(color_enhancer.gain_tables(enh_gains),
+                                                      device=dev)))):
+            got = counted(lambda: fn(bgr, *args))
+            bad = int((got != fn(bgr, *args, plain=True)).sum())
+            planar = torch.stack(pointwise.pointwise_planes(*planes_of(bgr), **steps), dim=-1)
+            bad += int((got != planar.reshape(got.shape)).sum())
+            report(f"{name} {size}", bad, device_ms(lambda: fn(bgr, *args)))
         del bayer, flat, bgr, small
     torch.cuda.empty_cache()
     check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line)
@@ -1311,8 +1488,9 @@ def check_stream(tp, torch, np, root):
     batches = -(-n // b)
     print(f"stream flagship {w}x{h} StreamRunner(batch_size={b}): {count} frames, "
           f"{len(got)} images; kernel launches {counts} ({batches} batches)")
-    if count != n or any(counts[k] != batches for k in
-                         ("debayer_bilinear", "ccc_histogram", "ccc_response", "remap_lerp")):
+    if count != n or any(counts[k] != batches for k in ("debayer_bilinear", "ccc_histogram",
+                                                        "ccc_response", "pointwise",
+                                                        "remap_lerp")):
         raise AssertionError("stream: frames or launches wrong")
     pipe = tp.build_pipeline(config, "bayer_gbrg8", (h, w), with_state=True,
                              keep_intermediates=True, temporal_mode="sequence", device="cuda")
@@ -1524,7 +1702,8 @@ def check_run_pipeline(tp, torch, np, root, d):
             count, text = _captured(run_pipeline.main, argv)
             torch.cuda.synchronize()
             counts = {k.name: k.launches for k in kernels.ALL}
-            path_kernels = ("debayer_bilinear", "ccc_histogram", "ccc_response") + (
+            # G applies the CCC gains: the profile runs no other pointwise step
+            path_kernels = ("debayer_bilinear", "ccc_histogram", "ccc_response", "pointwise") + (
                 ("remap_float",) if mode == "float" else ("remap_lerp",))
             print(f"{label}: {count} frames written, kernel launches {counts}")
             if count != n or any(counts[k] != n // b for k in path_kernels):
@@ -1962,11 +2141,13 @@ def check_bench(torch, root):
         raise AssertionError(f"tools/bench.py's last line lacks {sorted(missing)}: {head}")
     if details["checks"] != dict.fromkeys(BENCH_CHECKS, 0):
         raise AssertionError(f"tools/bench.py's checks: {details['checks']}")
-    flagship = ("debayer_bilinear", "ccc_histogram", "ccc_response", "remap_lerp")
+    flagship = ("debayer_bilinear", "ccc_histogram", "ccc_response", "pointwise", "remap_lerp")
     runs = {"headline": (details["headline"]["launches"], flagship)}
     for key, row in details["configs"].items():
-        want = flagship if key.startswith(("config3", "config5", "config6")) else (
-            () if key.startswith("config4") else flagship[:1])
+        # config 1 runs its gamma table through G, config 4 is G alone
+        want = flagship if key.startswith(("config3", "config5", "config6")) else {
+            "config1": ("debayer_bilinear", "pointwise"), "config4": ("pointwise",)}.get(
+            key.split("_")[0], flagship[:1])
         runs[key] = (row["launches"], want)
     for run, (launches, want) in runs.items():
         idle = [k for k in want if not launches[k] > 0]
@@ -2039,7 +2220,7 @@ def main() -> int:
 
     names = {"A": kernels.DEBAYER_BILINEAR, "B": kernels.CCC_HISTOGRAM,
              "C": kernels.CCC_RESPONSE, "D": kernels.DEBAYER_MHT, "E": kernels.REMAP_FLOAT,
-             "F": kernels.REMAP_LERP}
+             "F": kernels.REMAP_LERP, "G": kernels.POINTWISE}
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],

@@ -32,7 +32,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
-           "remap_float.cu", "remap_lerp.cu")
+           "remap_float.cu", "remap_lerp.cu", "pointwise.cu")
 HEADERS = ("debayer_strip.cuh", "remap_tile.cuh")  # included by the sources; in the hash too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry -> argtypes (every pointer and the stream as c_void_p, so ctypes
 # never narrows a 64-bit address)
 _SIGNATURES = {
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "isp_debayer_mht": (_P, _P, _I, _I, _I, _I, _I, _P),
     "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "isp_remap_lerp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "isp_pointwise": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -173,7 +176,18 @@ REMAP_LERP = Kernel(
     "raw_image_pipeline_tpu_torch/csrc/remap_lerp.cu",
     "raw_image_pipeline_tpu/ops/undistortion.py:478",
 )
-ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT, REMAP_LERP)
+# the pointwise stretch, which the reference package leaves to XLA: the
+# functions it composes, "file:line function" each
+POINTWISE = Kernel(
+    "pointwise", "isp_pointwise",
+    "raw_image_pipeline_tpu_torch/csrc/pointwise.cu",
+    "; ".join(f"raw_image_pipeline_tpu/ops/{site}" for site in (
+        "ccc.py:447 apply_gains_planes", "color_calibration.py:22 color_correct_planes",
+        "vignetting.py:44 correct_planes", "vignetting.py:122 composed_gamma_lab_fn",
+        "color_enhancer.py:119 enhance_planes")),
+)
+ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT, REMAP_LERP,
+       POINTWISE)
 
 
 def reset_launch_counts() -> None:

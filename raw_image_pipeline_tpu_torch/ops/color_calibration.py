@@ -27,13 +27,18 @@ def color_correct_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
     )
 
 
-def color_correct(image: torch.Tensor, matrix, bias) -> torch.Tensor:
+def color_correct(image: torch.Tensor, matrix, bias, *, plain: bool = False) -> torch.Tensor:
     """[..., H, W, 3] u8 BGR frames -> the same, through
     color_correct_planes. matrix [3, 3] and bias [3] f32 (tensors or
-    arrays)."""
+    arrays). On a CUDA tensor kernel G's colour-calibration step
+    (ops/pointwise); on a CPU tensor, or with plain=True, the plain chain."""
     if image.dim() < 3 or image.shape[-1] != 3:
         raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
     m = as_tensor_on(matrix, image.device, torch.float32).reshape(3, 3)
     b = as_tensor_on(bias, image.device, torch.float32).reshape(3)
+    if not plain and image.device.type != "cpu":
+        from raw_image_pipeline_tpu_torch.ops.pointwise import pointwise_image
+
+        return pointwise_image(image, matrix=m, bias=b)
     return torch.stack(color_correct_planes(image[..., 0], image[..., 1], image[..., 2], m, b),
                        dim=-1)

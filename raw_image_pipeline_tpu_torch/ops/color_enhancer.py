@@ -63,11 +63,17 @@ def enhance_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
     return _hsv_to_bgr_mixed(hs, ss, vs)
 
 
-def enhance(image: torch.Tensor, gains) -> torch.Tensor:
+def enhance(image: torch.Tensor, gains, *, plain: bool = False) -> torch.Tensor:
     """[..., H, W, 3] u8 BGR frames -> the same, with three host float gains
-    (hue, saturation, value) served as their exact tables (gain_tables)."""
+    (hue, saturation, value) served as their exact tables (gain_tables).
+    On a CUDA tensor kernel G's enhancer step (ops/pointwise); on a CPU
+    tensor, or with plain=True, enhance_planes."""
     if image.dim() < 3 or image.shape[-1] != 3:
         raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
     tables = torch.as_tensor(gain_tables(gains), device=image.device)
+    if not plain and image.device.type != "cpu":
+        from raw_image_pipeline_tpu_torch.ops.pointwise import pointwise_image
+
+        return pointwise_image(image, enhancer_tables=tables)
     return torch.stack(enhance_planes(image[..., 0], image[..., 1], image[..., 2], tables),
                        dim=-1)

@@ -1,0 +1,181 @@
+"""The chain's pointwise stretch as one kernel (kernel G,
+csrc/pointwise.cu): the CCC gains, colour calibration, a u8 LUT,
+vignetting through the exact Lab roundtrip and the HSV enhancer, each
+optional, in the chain's order, planes in and planes out.
+
+It composes the JAX package's stage functions, which it leaves to XLA:
+ops/ccc.py `apply_gains_planes`, ops/color_calibration.py
+`color_correct_planes`, ops/gamma.py `apply_lut`, ops/vignetting.py
+`correct_planes` (with `composed_gamma_lab_fn`'s table) and
+ops/color_enhancer.py `enhance_planes`. The plain version
+(`pointwise_plain`) is the composition of the port's own stage functions,
+unchanged; `pointwise_planes` takes it for CPU planes or plain=True and
+launches G for CUDA planes.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from raw_image_pipeline_tpu_torch import kernels
+from raw_image_pipeline_tpu_torch.ops import colorspace as cs
+from raw_image_pipeline_tpu_torch.ops.ccc import apply_gains_planes
+from raw_image_pipeline_tpu_torch.ops.color_calibration import color_correct_planes
+from raw_image_pipeline_tpu_torch.ops.color_enhancer import enhance_planes
+from raw_image_pipeline_tpu_torch.ops.common import as_tensor_on, image_planes
+from raw_image_pipeline_tpu_torch.ops.gamma import apply_lut
+from raw_image_pipeline_tpu_torch.ops.vignetting import correct_planes
+
+FRAMES_PER_TASK = 4  # csrc/pointwise.cu's kFrames: a task is a row of up to 4 frames
+
+
+def const_tables() -> np.ndarray:
+    """The int32 tables kernel G stages, in its layout: sdiv and hdiv (256
+    each), the Lab cbrt table (3072), Lab2BGR's y and ify (256 each) and
+    inverse gamma (8192), BGR2Lab's and Lab2BGR's coefficients (9 each)."""
+    return np.concatenate([
+        cs._SDIV_TAB, cs._HDIV_TAB, cs._CBRT_TAB, cs._LAB2_Y_TAB, cs._LAB2_IFY_TAB,
+        cs._LAB2_INV_GAMMA_TAB, cs._LAB_COEF, np.asarray(cs._LAB2_COEF).reshape(-1),
+    ]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _const_tables_on(device: str) -> torch.Tensor:
+    return torch.as_tensor(const_tables(), device=device)
+
+
+def _check_steps(matrix, bias, mask, lab_tab) -> None:
+    if (matrix is None) != (bias is None):
+        raise ValueError("colour calibration takes both matrix and bias")
+    if lab_tab is not None and mask is None:
+        raise ValueError("lab_tab is the vignetting step's table: it needs a mask")
+
+
+def pointwise_plain(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor, *, gains=None,
+                    matrix=None, bias=None, lut=None, mask=None, lab_tab=None,
+                    enhancer_tables=None):
+    """Kernel G's plain version: the stage functions in the chain's order,
+    each where its argument is given. gains [B, 3] f32 (apply_gains_planes);
+    matrix [3, 3] and bias [3] f32 (color_correct_planes); lut [256]
+    (apply_lut); mask [h, W] f32 with lab_tab, the int32 [256] linearize
+    table or None for OpenCV's (vignetting.correct_planes);
+    enhancer_tables [3, 256] u8 (enhance_planes)."""
+    _check_steps(matrix, bias, mask, lab_tab)
+    planes = (b, g, r)
+    if gains is not None:
+        planes = apply_gains_planes(planes, gains)
+    if matrix is not None:
+        planes = color_correct_planes(*planes, matrix, bias)
+    if lut is not None:
+        planes = tuple(apply_lut(p, lut) for p in planes)
+    if mask is not None:
+        planes = correct_planes(*planes, mask, gamma_tab=lab_tab)
+    if enhancer_tables is not None:
+        planes = enhance_planes(*planes, enhancer_tables)
+    return planes
+
+
+def _same_strides(planes):
+    if len({p.stride() for p in planes}) == 1:
+        return planes
+    return tuple(p.contiguous() for p in planes)
+
+
+def pointwise_cuda(planes, *, gains=None, matrix=None, bias=None, lut=None, mask=None,
+                   lab_tab=None, enhancer_tables=None, out=None,
+                   batch_limit: int = kernels.MAX_BATCH):
+    """Kernel G: pointwise_plain for three [B, h, W] u8 CUDA planes of any
+    strides (planes of unequal strides are copied to contiguous ones), the
+    steps' arguments as pointwise_plain's (on the planes' card; mask
+    broadcast to [h, W]). Writes into `out`, three [B, h, W] u8 planes of
+    equal strides, or into three new contiguous planes, and returns them;
+    one launch per run of kernels.batch_runs(B, batch_limit)."""
+    _check_steps(matrix, bias, mask, lab_tab)
+    if len(planes) != 3:
+        raise ValueError(f"planes: expected 3, got {len(planes)}")
+    shape = tuple(planes[0].shape)
+    if len(shape) != 3:
+        raise ValueError(f"planes: expected [B, H, W], got {shape}")
+    for i, p in enumerate(planes):
+        if p.device != planes[0].device:
+            raise ValueError(f"planes[{i}]: on {p.device}, planes[0] on {planes[0].device}")
+        if p.device.type != "cuda" or p.dtype != torch.uint8 or tuple(p.shape) != shape:
+            raise ValueError(f"planes[{i}]: expected a [B, H, W] uint8 CUDA tensor of shape "
+                             f"{shape}, got {tuple(p.shape)} {p.dtype} on {p.device}")
+    dev = planes[0].device
+    bsz, h, w = shape
+    planes = _same_strides(planes)
+    if out is None:
+        buf = torch.empty((3,) + shape, dtype=torch.uint8, device=dev)
+        out = (buf[0], buf[1], buf[2])
+    out = tuple(out)
+    if len(out) != 3 or len({o.stride() for o in out}) != 1:
+        raise ValueError("out: expected three planes of equal strides")
+    for i, o in enumerate(out):
+        if o.device != dev or o.dtype != torch.uint8 or tuple(o.shape) != shape:
+            raise ValueError(f"out[{i}]: expected {shape} uint8 on {dev}")
+    args = {}
+    if gains is not None:
+        args["gains"] = as_tensor_on(gains, dev, torch.float32).reshape(bsz, 3).contiguous()
+    if matrix is not None:
+        args["matrix"] = as_tensor_on(matrix, dev, torch.float32).reshape(3, 3).contiguous()
+        args["bias"] = as_tensor_on(bias, dev, torch.float32).reshape(3).contiguous()
+    if lut is not None:
+        args["lut"] = as_tensor_on(lut, dev)
+        kernels.check_cuda(args["lut"], "lut", torch.uint8, (256,))
+    if mask is not None:
+        m = as_tensor_on(mask, dev, torch.float32)
+        if m.dim() > 2:
+            raise ValueError(f"mask: expected [{h}, {w}] (shared by every frame), got "
+                             f"{tuple(m.shape)}")
+        args["mask"] = m.expand(h, w).contiguous()
+        lab = cs._tables_on(str(dev))["lab_gamma"] if lab_tab is None else as_tensor_on(lab_tab,
+                                                                                         dev)
+        kernels.check_cuda(lab, "lab_tab", torch.int32, (256,))
+        args["lab"] = lab
+    if enhancer_tables is not None:
+        args["enh"] = as_tensor_on(enhancer_tables, dev).contiguous()
+        kernels.check_cuda(args["enh"], "enhancer_tables", torch.uint8, (3, 256))
+    groups = -(-min(bsz, batch_limit) // FRAMES_PER_TASK)
+    if h * groups >= 2**31:
+        raise ValueError(f"kernel G: {h} rows x {groups} frame groups exceed its task count")
+    tables = _const_tables_on(str(dev))
+    ptr = {k: v.data_ptr() for k, v in args.items()}
+    with torch.cuda.device(dev):
+        for f0, n in kernels.batch_runs(bsz, batch_limit):
+            kernels.POINTWISE.launch(
+                *(p[f0].data_ptr() for p in planes), *(o[f0].data_ptr() for o in out),
+                *planes[0].stride(), *out[0].stride(), n, h, w,
+                ptr["gains"] + 12 * f0 if "gains" in ptr else None, ptr.get("matrix"),
+                ptr.get("bias"), ptr.get("lut"), ptr.get("mask"), ptr.get("lab"), ptr.get("enh"),
+                tables.data_ptr(), kernels.stream_handle(out[0]),
+            )
+    return out
+
+
+def pointwise_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor, *, gains=None,
+                     matrix=None, bias=None, lut=None, mask=None, lab_tab=None,
+                     enhancer_tables=None, plain: bool = False):
+    """The pointwise stretch on three [B, h, W] u8 planes: kernel G on CUDA
+    planes (pointwise_cuda), pointwise_plain on CPU planes or with
+    plain=True. With no step given the planes come back as they are."""
+    steps = dict(gains=gains, matrix=matrix, bias=bias, lut=lut, mask=mask, lab_tab=lab_tab,
+                 enhancer_tables=enhancer_tables)
+    if all(v is None for v in steps.values()):
+        return b, g, r
+    if plain or b.device.type == "cpu":
+        return pointwise_plain(b, g, r, **steps)
+    return pointwise_cuda((b, g, r), **steps)
+
+
+def pointwise_image(image: torch.Tensor, **steps) -> torch.Tensor:
+    """Kernel G on [..., H, W, 3] u8 CUDA frames, written straight into a
+    new [..., H, W, 3] tensor: the op layer's NHWC entry points."""
+    lead, planes = image_planes(image)
+    out = torch.empty(image.shape, dtype=torch.uint8, device=image.device)
+    flat = out.reshape((-1,) + tuple(out.shape[-3:]))
+    pointwise_cuda(planes, out=(flat[..., 0], flat[..., 1], flat[..., 2]), **steps)
+    return out

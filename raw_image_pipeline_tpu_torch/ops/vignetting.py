@@ -57,10 +57,16 @@ def correct_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
     return lab_to_bgr_planes(L, a, bb)
 
 
-def correct(image: torch.Tensor, mask) -> torch.Tensor:
+def correct(image: torch.Tensor, mask, *, plain: bool = False) -> torch.Tensor:
     """[..., H, W, 3] u8 BGR frames and an [H, W] f32 mask (tensor or
-    array) -> the same: the exact Lab roundtrip with L scaled by the mask."""
+    array) -> the same: the exact Lab roundtrip with L scaled by the mask.
+    On a CUDA tensor kernel G's vignetting step (ops/pointwise); on a CPU
+    tensor, or with plain=True, correct_planes."""
     if image.dim() < 3 or image.shape[-1] != 3:
         raise ValueError(f"image: expected [..., H, W, 3], got {tuple(image.shape)}")
     m = as_tensor_on(mask, image.device, torch.float32)
+    if not plain and image.device.type != "cpu":
+        from raw_image_pipeline_tpu_torch.ops.pointwise import pointwise_image
+
+        return pointwise_image(image, mask=m)
     return torch.stack(correct_planes(image[..., 0], image[..., 1], image[..., 2], m), dim=-1)

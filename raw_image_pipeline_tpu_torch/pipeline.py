@@ -12,11 +12,13 @@ int32 and scaled to 8 bits; colour and mono frames pass through) -> white
 balance (CCC: resize, histogram = kernel B, response = kernel C, argmax,
 Kalman, gains; or simple, grey_world, learned, pca) -> colour calibration
 -> gamma (the k table, or the GPU backend's BT.709 table) -> vignetting ->
-HSV enhancer -> fisheye undistortion (lerp, float = kernel E on CUDA, or
-fixed32 remap). Numeric parameters live in `IspParams`, tensors on the
-pipeline's device; every small table is its exact host table, applied as
-a gather. Mono frames skip white balance, colour calibration, vignetting
-and the enhancer, as the reference does.
+HSV enhancer (the pointwise stretch, with the CCC gains: one launch of
+kernel G on CUDA, STRETCH and pointwise_steps) -> fisheye undistortion
+(lerp and fixed32 = kernel F, float = kernel E on CUDA). Numeric
+parameters live in `IspParams`, tensors on the pipeline's device; every
+small table is its exact host table, applied as a gather. Mono frames
+skip white balance, colour calibration, vignetting and the enhancer, as
+the reference does.
 
 The camera-blocked multicamera form (make_isp_fn(..., n_cameras=C), built
 by parallel/multicamera.py) flattens [C, B, ...] frames camera-major into
@@ -38,8 +40,7 @@ from torch.profiler import record_function as stage
 from raw_image_pipeline_tpu_torch.config import PipelineConfig
 from raw_image_pipeline_tpu_torch.models.ccc_model import CCCModel, load_ccc_model
 from raw_image_pipeline_tpu_torch.ops import ccc as ccc_ops
-from raw_image_pipeline_tpu_torch.ops.color_calibration import color_correct_planes
-from raw_image_pipeline_tpu_torch.ops.color_enhancer import enhance_planes, gain_tables
+from raw_image_pipeline_tpu_torch.ops.color_enhancer import gain_tables
 from raw_image_pipeline_tpu_torch.ops.colorspace import _GAMMA_TAB
 from raw_image_pipeline_tpu_torch.ops.common import resolve_device
 from raw_image_pipeline_tpu_torch.ops.debayer import (
@@ -60,12 +61,10 @@ from raw_image_pipeline_tpu_torch.ops.undistortion import (
     remap_planes,
     remap_precompute,
 )
+from raw_image_pipeline_tpu_torch.ops.pointwise import pointwise_planes
 from raw_image_pipeline_tpu_torch.ops.vignetting import (
     build_vignetting_mask,
     composed_gamma_lab_table,
-)
-from raw_image_pipeline_tpu_torch.ops.vignetting import (
-    correct_planes as vignetting_correct_planes,
 )
 from raw_image_pipeline_tpu_torch.ops.learned_wb import balance_white_learned_planes
 from raw_image_pipeline_tpu_torch.ops.white_balance import (
@@ -134,6 +133,69 @@ def _uses_bt709(config: PipelineConfig) -> bool:
     """The GPU backend's "default" gamma: the fixed BT.709 table."""
     gc = config.gamma_correction
     return gc.gpu and gc.method == "default"
+
+
+# the pointwise stretch's steps (kernel G's, ops/pointwise.py) in the chain's
+# order, each with its stage's profiler range and the dump point after it:
+# the CCC gains, colour calibration, the gamma table as its own step, the
+# vignetting with OpenCV's linearize table or with the k gamma composed into
+# it, the HSV enhancer
+STRETCH = (
+    ("gains", "isp_white_balance", "02_white_balancing"),
+    ("calibration", "isp_color_calibration", "03_color_calibration"),
+    ("lut", "isp_gamma", "04_gamma_correction"),
+    ("vignetting", "isp_vignetting", "05_vignetting_correction"),
+    ("gamma_vignetting", "isp_vignetting", "05_vignetting_correction"),
+    ("enhancer", "isp_color_enhancer", "06_color_enhancer"),
+)
+
+
+def pointwise_steps(config: PipelineConfig, is_color: bool, debug: bool) -> Tuple[str, ...]:
+    """The pointwise stretch's steps (STRETCH's names) the chain runs on
+    colour frames, in order; none on mono frames, which skip all but the
+    gamma table, and run it as their own stage. The k gamma table folds
+    into vignetting's linearize table ("gamma_vignetting") where it feeds
+    straight into it, except in debug mode, whose 04 dump needs it; the
+    BT.709 table never folds."""
+    if not is_color:
+        return ()
+    gc, vig = config.gamma_correction, config.vignetting_correction
+    fold = gc.enabled and not _uses_bt709(config) and vig.enabled and not debug
+    on = {"gains": _uses_ccc(config), "calibration": config.color_calibration.enabled,
+          "lut": gc.enabled and not fold, "vignetting": vig.enabled and not fold,
+          "gamma_vignetting": fold, "enhancer": config.color_enhancer.enabled}
+    return tuple(name for name, _, _ in STRETCH if on[name])
+
+
+def pointwise_launches(config: PipelineConfig, is_color: bool, debug: bool,
+                       on_card: bool = True) -> Tuple[Tuple[str, ...], ...]:
+    """The calls of the stretch the chain makes, each a tuple of steps: on
+    the card one call of kernel G for all the steps (none without a step),
+    in debug mode or with the plain versions (on_card False) one call a
+    step, each in its stage's range."""
+    steps = pointwise_steps(config, is_color, debug)
+    if on_card and not debug:
+        return (steps,) if steps else ()
+    return tuple((s,) for s in steps)
+
+
+def _step_args(steps, params: IspParams, gains) -> dict:
+    """pointwise_planes's arguments for `steps` (STRETCH's names)."""
+    args = {}
+    for step in steps:
+        if step == "gains":
+            args["gains"] = gains
+        elif step == "calibration":
+            args.update(matrix=params.color_matrix, bias=params.color_bias)
+        elif step == "lut":
+            args["lut"] = params.gamma_lut
+        elif step == "vignetting":
+            args["mask"] = params.vignetting_mask
+        elif step == "gamma_vignetting":
+            args.update(mask=params.vignetting_mask, lab_tab=params.lab_gamma_tab)
+        elif step == "enhancer":
+            args["enhancer_tables"] = params.enhancer_tables
+    return args
 
 
 def _statistical_wb(wb):
@@ -416,7 +478,6 @@ def make_isp_chain(
     stat_wb = _statistical_wb(wb)
     run_undist = _runs_undistortion(config)
     gc = config.gamma_correction
-    vig = config.vignetting_correction
     calib = config.calibration
     flip_angle = config.flip.angle if config.flip.enabled else 0
     # the CPU-parity demosaic carries the reference CPU path's R<->B swap
@@ -524,6 +585,11 @@ def make_isp_chain(
             keep("debayered", planes, h)
         dump("01_flip", planes)
 
+        # the pointwise stretch's calls (pointwise_launches): one of kernel G
+        # on the card, under the range isp_pointwise
+        launches = pointwise_launches(config, is_color, debug,
+                                      not plain and planes[0].device.type != "cpu")
+        gains = None
         # the statistical methods, colour calibration, vignetting and the
         # enhancer are skipped for mono frames (white_balance.hpp:50-52)
         if wb.enabled and is_color:
@@ -571,7 +637,8 @@ def make_isp_chain(
                         else:
                             state, uv = ccc_ops.kalman_update(state, uv)
                     gains = ccc_ops.gains_from_uv_table(uv, params.ccc_exp_tab)
-                    planes = ccc_ops.apply_gains_planes(planes, gains)
+                    if ("gains",) in launches:  # a call of its own: else G's first step
+                        planes = pointwise_planes(*planes, gains=gains, plain=plain)
                 elif stat_wb is not None:
                     # the gather rule: the frame's statistics need all rows
                     full = yield Fetch(planes, rows, (0, h))
@@ -580,30 +647,21 @@ def make_isp_chain(
                     raise ValueError(f"White Balance method [{wb.method}] not supported")
         dump("02_white_balancing", planes)
 
-        if config.color_calibration.enabled and is_color:
-            with stage("isp_color_calibration"):
-                planes = color_correct_planes(*planes, params.color_matrix, params.color_bias)
-        dump("03_color_calibration", planes)
-        # the k LUT is folded into the vignetting forward's linearize table
-        # (params.lab_gamma_tab) when it feeds straight into vignetting; the
-        # BT.709 table, mono frames and debug mode run it as its own stage
-        fold_gamma = (gc.enabled and not _uses_bt709(config) and vig.enabled and is_color
-                      and not debug)
-        if gc.enabled and not fold_gamma:
-            with stage("isp_gamma"):
-                planes = tuple(apply_lut(p, params.gamma_lut) for p in planes)
-        dump("04_gamma_correction", planes)
-        if vig.enabled and is_color:
-            with stage("isp_vignetting"):
-                planes = vignetting_correct_planes(
-                    *planes, params.vignetting_mask,
-                    gamma_tab=params.lab_gamma_tab if fold_gamma else None,
-                )
-        dump("05_vignetting_correction", planes)
-        if config.color_enhancer.enabled and is_color:
-            with stage("isp_color_enhancer"):
-                planes = enhance_planes(*planes, params.enhancer_tables)
-        dump("06_color_enhancer", planes)
+        # the other calls, each after the stage of its last step; every dump
+        # point after its stage (a dump point is reached whether or not its
+        # stage runs)
+        last = {launch[-1]: launch for launch in launches if launch != ("gains",)}
+        for i, (name, stage_range, point) in enumerate(STRETCH[1:], start=1):
+            launch = last.get(name)
+            if launch is not None:
+                with stage(stage_range if len(launch) == 1 else "isp_pointwise"):
+                    planes = pointwise_planes(*planes, plain=plain,
+                                              **_step_args(launch, params, gains))
+            elif name == "lut" and gc.enabled and not is_color:
+                with stage("isp_gamma"):
+                    planes = tuple(apply_lut(p, params.gamma_lut) for p in planes)
+            if i + 1 == len(STRETCH) or STRETCH[i + 1][2] != point:
+                dump(point, planes)
 
         if keep_intermediates:
             keep("dist_color", planes, h)

@@ -677,11 +677,13 @@ def ccc_response_precision_check(n=64, *, device="cuda"):
 
 
 def colorcal_semantics_check(*, device="cuda"):
-    """color_correct_planes over all 2^24 u8 triples against bench.py's
-    f64-step oracle of the plain left-associative two-rounding chain
-    (cv::gemm's): each f32 op is the exact f64 op rounded to f32, so no
-    contraction into an fma can pass. Matrix and bias: bench.py's."""
-    from raw_image_pipeline_tpu_torch.ops.color_calibration import color_correct_planes
+    """The chain's colour calibration (kernel G's step on the card, the
+    plain chain on the CPU: ops/pointwise.pointwise_planes) over all 2^24
+    u8 triples against bench.py's f64-step oracle of the plain
+    left-associative two-rounding chain (cv::gemm's): each f32 op is the
+    exact f64 op rounded to f32, so no contraction into an fma can pass.
+    Matrix and bias: bench.py's."""
+    from raw_image_pipeline_tpu_torch.ops.pointwise import pointwise_planes
 
     f32, f64 = torch.float32, torch.float64
     m = torch.tensor([[1.8, -0.3, 0.1], [0.09, 1.2, -0.1], [-0.24, -0.22, 2.1]], dtype=f32,
@@ -694,7 +696,8 @@ def colorcal_semantics_check(*, device="cuda"):
         b = ((i >> 16) & 0xFF).to(torch.uint8)
         g = ((i >> 8) & 0xFF).to(torch.uint8)
         r = (i & 0xFF).to(torch.uint8)
-        got = color_correct_planes(b, g, r, m, bias)
+        got = [x.view(-1) for x in pointwise_planes(*(x.view(1, 1, -1) for x in (b, g, r)),
+                                                       matrix=m, bias=bias)]
         bf, gf, rf = (x.to(f64) for x in (b, g, r))
         for o in range(3):
             p0 = (bf * m64[o, 0]).to(f32).to(f64)

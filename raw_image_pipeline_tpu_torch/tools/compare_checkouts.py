@@ -10,7 +10,7 @@ checkout's tools (measure.py, workloads.py, profile_chains.py, which
 import nothing of the package) and imports the package of its own
 checkout, through functions every version of the port has:
 
-  * kernels A-F as the chains call them at 1920x1080, B=4:
+  * kernels A-G as the chains call them at 1920x1080, B=4:
     ops.debayer.debayer_planes on a seeded mosaic, bilinear (A) and "mht"
     (D, the gpu_parity chain's), ops.ccc.log_chroma_histogram_planes on A's
     planes' working resize (270x360) (B), ops.ccc.ccc_response on that
@@ -19,8 +19,11 @@ checkout, through functions every version of the port has:
     on copies of the planes 1 byte past a 16-byte boundary; "E64" the same
     at B=64, seeded planes) and remap_planes(..., "lerp") through the
     flagship's maps (F; "F_fixed32" through the fixed32 chain's, "F64" at
-    B=64; a checkout before kernel F runs the plain versions there), each
-    with every stream operation its call makes:
+    B=64; a checkout before kernel F runs the plain versions there) and
+    the flagship's pointwise stretch on A's planes with seeded per-frame
+    gains (G: ops.pointwise.pointwise_planes with the flagship's
+    parameters; "G64" at B=64; a checkout before kernel G runs the stage
+    functions it replaced), each with every stream operation its call makes:
     device ms (measure.device_ms) and ms per call, the host's launches
     included (measure.call_ms);
   * each chain of the flagship family in tools/workloads.py (flagship,
@@ -133,6 +136,28 @@ def _worker(root: str, out: str) -> dict:
                                       (1080, 1920), device="cuda")
                  for mode, name in (("lerp", "flagship"), ("fixed32", "fixed32"))}
 
+    fl = tp.make_params(tp.flagship_config(1080, 1920), (1080, 1920), device="cuda")
+    gains = {b: 0.5 + 1.5 * torch.rand((b, 3), generator=g, device="cuda") for b in (4, 64)}
+    try:
+        from raw_image_pipeline_tpu_torch.ops.pointwise import pointwise_planes
+    except ImportError:  # a checkout before kernel G
+        pointwise_planes = None
+
+    def stretch(pl):
+        """The flagship's pointwise stretch (gains, calibration, gamma∘Lab
+        vignetting, enhancer) on three planes."""
+        gn = gains[pl[0].shape[0]]
+        if pointwise_planes is not None:
+            return pointwise_planes(*pl, gains=gn, matrix=fl.color_matrix, bias=fl.color_bias,
+                                    mask=fl.vignetting_mask, lab_tab=fl.lab_gamma_tab,
+                                    enhancer_tables=fl.enhancer_tables)
+        from raw_image_pipeline_tpu_torch.ops import color_calibration, color_enhancer, vignetting
+
+        pl = ccc.apply_gains_planes(pl, gn)
+        pl = color_calibration.color_correct_planes(*pl, fl.color_matrix, fl.color_bias)
+        pl = vignetting.correct_planes(*pl, fl.vignetting_mask, gamma_tab=fl.lab_gamma_tab)
+        return color_enhancer.enhance_planes(*pl, fl.enhancer_tables)
+
     def remap(pl, mode="float"):
         m = maps if mode == "float" else lerp_maps[mode]
         return undistortion.remap_planes(pl, m.remap_base, m.remap_weights, (1080, 1920), mode)
@@ -146,7 +171,9 @@ def _worker(root: str, out: str) -> dict:
              "E64": lambda: remap(big),
              "F": lambda: remap(planes, "lerp"),
              "F_fixed32": lambda: remap(planes, "fixed32"),
-             "F64": lambda: remap(big, "lerp")}
+             "F64": lambda: remap(big, "lerp"),
+             "G": lambda: stretch(planes),
+             "G64": lambda: stretch(big)}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},
            "frames_per_s": {}, "profiles": {}}

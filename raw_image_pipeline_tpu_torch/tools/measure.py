@@ -89,6 +89,35 @@ def remap_lerp_work(batch: int, h: int, w: int, n: int, channels: int, mode: str
             "ops": batch // maps * channels * live * REMAP_LERP_OPS_PER_VALUE[mode]}
 
 
+# integer and f32 operations a pixel of kernel G's steps, counted from the
+# plain formulas (ops/ccc.apply_gains_planes, color_calibration,
+# vignetting, color_enhancer, colorspace; a multiply, add, shift, compare,
+# select, min, max or rounding is one operation, an fma two, a table gather
+# none, the linear branch of Lab2BGR's ab_to_xz and cv2's SIMD HSV2BGR
+# kernel): the gains, three products, roundings and two-sided clamps (12);
+# colour calibration, three rows of three products and three sums, a
+# rounding and a clamp (27); vignetting, BGR2Lab's three fixed-point dot
+# products, descales and index clamps (27), L, a and b (20), the mask's
+# product (4), Lab2BGR's a and b divisions (9), two ab_to_xz (14) and three
+# output rows (27) (101 together); the enhancer, BGR2HSV (19) and HSV2BGR
+# (25) (44). bound() counts them at the f32 rate, as it does A's and D's.
+POINTWISE_OPS = {"gains": 12, "calibration": 27, "lut": 0, "vignetting": 101, "enhancer": 44}
+
+
+def pointwise_work(batch: int, h: int, w: int, steps) -> dict:
+    """The work of kernel G on `batch` frames of three [h, w] u8 planes
+    with `steps` (POINTWISE_OPS's keys) on: "bytes", the planes read and
+    written once, the [h, w] f32 mask read once with vignetting, the gains
+    ([batch, 3] f32) and the call's small tables (linearize 1 KB, LUT 256
+    bytes, enhancer 768 bytes) read once; "ops", POINTWISE_OPS a pixel."""
+    steps = tuple(steps)
+    pixels = batch * h * w
+    small = {"gains": 12 * batch, "lut": 256, "vignetting": 4 * h * w + 1024,
+             "enhancer": 768, "calibration": 48}
+    return {"bytes": 6 * pixels + sum(small.get(s, 0) for s in steps),
+            "ops": pixels * sum(POINTWISE_OPS[s] for s in steps)}
+
+
 def ccc_response_work(batch: int, n: int = 256) -> dict:
     """The work of kernel C's function, resp = Re(IDFT2(DFT2(X) * W)) / n^2
     + bias, on `batch` real [n, n] f32 histograms:

@@ -92,7 +92,8 @@ def chains(tp) -> dict:
         return c.replace(debayer=dataclasses.replace(c.debayer, bayer16="scale8"))
 
     full = ((1080, 1920), (1080, 1440))
-    ccc = ("ccc_histogram", "ccc_response")
+    # the CCC kernels, and the pointwise stretch (G) before the remap
+    ccc = ("ccc_histogram", "ccc_response", "pointwise")
     table = {
         "flagship": Chain(tp.flagship_config, full, ("debayer_bilinear",) + ccc + ("remap_lerp",)),
         "gpu_parity": Chain(gpu_parity, full, ("debayer_mht",) + ccc + ("remap_lerp",)),
@@ -103,7 +104,8 @@ def chains(tp) -> dict:
     for method in ("simple", "grey_world", "pca", "learned"):
         table[f"wb_{method}"] = Chain(config2(method), full[:1], ("debayer_bilinear",),
                                       frames=128, calls=2, reps=3, cpu_frames=3)
-    table["pointwise_bgr8"] = Chain(config4, full[:1], (), encoding="bgr8", kind="color",
+    table["pointwise_bgr8"] = Chain(config4, full[:1], ("pointwise",), encoding="bgr8",
+                                    kind="color",
                                     frames=512, calls=1, microbatch=128, reps=3,
                                     cpu_frames=128)
     # small size only: the other inputs on the flagship configuration (mono
@@ -130,7 +132,7 @@ def multicam_chains(tp) -> dict:
     with per-camera maps), "multicam4_float" the float remap (kernel E).
     Their calibrations: multicam_calibrations of the config's."""
     table = chains(tp)
-    ccc = ("ccc_histogram", "ccc_response")
+    ccc = ("ccc_histogram", "ccc_response", "pointwise")
     return {
         "multicam4": Chain(table["flagship"].config, ((1080, 1920),),
                            ("debayer_bilinear",) + ccc + ("remap_lerp",),

@@ -455,6 +455,72 @@ def test_kernel_f_per_camera_maps_equals_plain_on_card(hw, mode):
         assert torch.equal(got, want), limit
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 96, 128), (3, 17, 31), (2, 91, 117), (1, 3, 5)])
+def test_kernel_g_equals_plain_on_card(shape):
+    # every step alone, the flagship's and gpu_parity's step sets, on
+    # contiguous planes and on views of a [B, 3, H, W] tensor, and past a
+    # batch limit of 1 (a launch per frame), against the plain version
+    from raw_image_pipeline_tpu_torch.ops import color_enhancer, pointwise, vignetting
+
+    dev = _cuda()
+    b, h, w = shape
+    rng = np.random.default_rng(sum(shape))
+    x = torch.as_tensor(rng.integers(0, 256, (b, 3, h, w), dtype=np.uint8), device=dev)
+    mask = torch.as_tensor(vignetting.build_vignetting_mask(h, w, 1.5, 1e-3, 1e-6), device=dev)
+    steps = dict(
+        gains=dict(gains=torch.as_tensor(rng.uniform(0.4, 2.6, (b, 3)).astype(np.float32),
+                                         device=dev)),
+        calibration=dict(matrix=torch.as_tensor(rng.uniform(-0.6, 1.6, (3, 3)).astype(
+            np.float32), device=dev), bias=torch.as_tensor(rng.uniform(-20, 20, 3).astype(
+                np.float32), device=dev)),
+        lut=dict(lut=torch.as_tensor(pgamma.build_bt709_lut(True), device=dev)),
+        vignetting=dict(mask=mask),
+        gamma_vignetting=dict(mask=mask, lab_tab=torch.as_tensor(
+            vignetting.composed_gamma_lab_table(0.9), device=dev)),
+        enhancer=dict(enhancer_tables=torch.as_tensor(
+            color_enhancer.gain_tables((1.1, 1.2, 0.9)), device=dev)))
+    sets = [(s,) for s in steps] + [("gains", "calibration", "gamma_vignetting", "enhancer"),
+                                    ("gains", "calibration", "lut", "vignetting", "enhancer")]
+    for names in sets:
+        kw = {k: v for n in names for k, v in steps[n].items()}
+        for planes in (tuple(x[:, c].contiguous() for c in range(3)),
+                       tuple(x[:, c] for c in range(3))):
+            want = pointwise.pointwise_planes(*planes, plain=True, **kw)
+            before = pointwise.kernels.POINTWISE.launches
+            got = pointwise.pointwise_planes(*planes, **kw)
+            assert pointwise.kernels.POINTWISE.launches - before == 1
+            for a, c in zip(got, want):
+                assert torch.equal(a, c), names
+        got = pointwise.pointwise_cuda(planes, batch_limit=1, **kw)
+        assert pointwise.kernels.POINTWISE.launches - before == 1 + b
+        for a, c in zip(got, want):
+            assert torch.equal(a, c), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("debug", [False, True])
+def test_kernel_g_once_a_flagship_call_on_card(debug):
+    # the flagship chain runs its whole stretch as one launch of G (one a
+    # stage in debug mode), and equals the plain-op chain
+    from raw_image_pipeline_tpu_torch import kernels
+
+    dev = _cuda()
+    config = tp.flagship_config(96, 128)
+    pipe = tp.build_pipeline(config, "bayer_gbrg8", frame_hw=(96, 128), with_state=True,
+                             temporal_mode="sequence", device=dev, debug=debug)
+    frames = workloads.card_frames(torch, "bayer", 4, 96, 128, 3, device=dev)
+    kernels.reset_launch_counts()
+    out, _ = pipe(frames, tp.init_state((), device=dev))
+    assert kernels.POINTWISE.launches == (5 if debug else 1)
+    plain = tp.make_isp_fn(config, "bayer_gbrg8", True, False, temporal_mode="sequence",
+                           debug=debug, plain=True)
+    ref, _ = plain(pipe.params, frames, tp.init_state((), device=dev))
+    assert sorted(out) == sorted(ref)
+    for key, v in ref.items():
+        assert torch.equal(out[key], v), key
+
+
 def test_port_sources_import_no_jax():
     # every module of the port, and chip_smoke.py, imports neither jax nor
     # anything of the JAX package (the card's machine has no jax)

@@ -224,6 +224,19 @@ DEBAYER_B64 = (64, 1920, 1080)  # the wb_* chains' call: ten times the L2 cache
 PHASES = ("rggb", "grbg", "gbrg", "bggr")
 
 
+def _fixture_planes(torch, n: int, h: int, w: int):
+    """The chain's debayered views of n frames of the Alphasense fixture
+    (workloads.fixture_frames, kernel A): natural content, whose
+    neighbouring pixels share table entries and tap boxes."""
+    from raw_image_pipeline_tpu_torch.ops import debayer
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.utils import image_io
+
+    bgr = image_io.imread(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                       "fixtures", "alphasense.png"))
+    return debayer.debayer_planes(workloads.fixture_frames(torch, bgr, n, h, w), "bayer_grbg8")
+
+
 def check_debayer(torch, rng, key, algorithm, cuda_fn, plain_fn, phase):
     """Phase 1: kernel A or D against its plain version, 0 mismatching bytes
     in all four phases, at each of DEBAYER_SHAPES[key] at B=4 and B=1, on
@@ -445,14 +458,19 @@ def check_remap_lerp(tp, torch, rng, planes):
     of a B=4 batch, hostile maps (workloads.hostile_maps) and lerp-hostile
     maps (workloads.lerp_hostile_maps: coordinates on integers and halves,
     within 2^-20 of integers, near 0 and past each border) at 1079x1439 and
-    91x117, a source of height 1, planes 1 and 8 bytes and the weights 4
-    bytes past a 16-byte boundary, one mono plane; then 4 cameras x B=4
-    1080x1920 through the four distinct fisheye maps of the multicam4
-    chain in one launch, B=64 1080x1920, and REMAP_LERP_LIMIT's 2 cameras
-    x 10 frames past a batch limit lowered to 7 (four launches). Each line
-    names the store width V of its launch. Then the device times at B=4
-    1080x1920 on `planes` (kernel D's output) and at REMAP_B64, and the
-    plain versions' at both, beside each bound. Returns F's row: lerp, the
+    91x117, border maps (workloads.border_maps: taps past every border of
+    the source, in tiles F stages; each case names its tiles by the host
+    model workloads.remap_tile_census, which no kernel reports) at
+    1080x1920 and 96x128, a source of height 1, planes 1 and 8 bytes and
+    the weights 4 bytes past a 16-byte boundary, one mono plane; then 4
+    cameras x B=4 1080x1920 through the four distinct fisheye maps of the
+    multicam4 chain in one launch, B=64 1080x1920, and REMAP_LERP_LIMIT's 2
+    cameras x 10 frames past a batch limit lowered to 7 (four launches).
+    Each line names the store width V of its launch. Then the flagship
+    map's tiles by that host model, on a line of their own, and the device
+    times at B=4 1080x1920 on `planes` (kernel D's output) and on the
+    fixture frames (_fixture_planes), at REMAP_B64, and the plain versions'
+    at both, beside each bound. Returns F's row: lerp, the
     main path's mode, under the main keys, fixed32 under *_fixed32."""
     import dataclasses
 
@@ -488,7 +506,8 @@ def check_remap_lerp(tp, torch, rng, planes):
                 config = with_mode(tp.flagship_config(*out_hw), mode)
                 p = tp.make_params(config, out_hw, device=dev)
                 return p.remap_base, p.remap_weights
-            fn = workloads.hostile_maps if kind == "hostile" else workloads.lerp_hostile_maps
+            fn = {"hostile": workloads.hostile_maps, "lerp-hostile": workloads.lerp_hostile_maps,
+                  "border": workloads.border_maps}[kind]
             mx, my = fn(out_hw, src_hw, out_hw[0] * out_hw[1])
             return tuple(torch.as_tensor(a, device=dev)
                          for a in undistortion.remap_precompute(mx, my, src_hw, mode=mode))
@@ -510,6 +529,12 @@ def check_remap_lerp(tp, torch, rng, planes):
                           .contiguous(), (h, w)))
         cases += [(f"{kind} B=4 {h}x{w}", frames(4, h, w), *maps((h, w), (h, w), kind), (h, w))
                   for kind in ("hostile", "lerp-hostile") for (h, w) in ((1079, 1439), (91, 117))]
+        # taps past every border of the source, in tiles that stay staged
+        for h, w in (hw, (96, 128)):
+            bb, bw = maps((h, w), (h, w), "border")
+            census = workloads.remap_tile_census(bb.cpu(), bw.cpu(), (h, w), (h, w), mode)
+            cases.append((f"border B=4 {h}x{w} (tiles by the host model: {census})",
+                          frames(4, h, w), bb, bw, (h, w)))
         cases.append(("hostile B=4 1x128 source to 96x128", frames(4, 1, 128),
                       *maps((96, 128), (1, 128), "hostile"), (96, 128)))
         flat = torch.as_tensor(rng.integers(0, 256, 16 + 2 * hw[0] * hw[1], dtype="uint8"),
@@ -560,6 +585,10 @@ def check_remap_lerp(tp, torch, rng, planes):
         def plain(pl_):
             return lambda: undistortion.remap_planes(pl_, base, weights, hw, mode, plain=True)
 
+        census = workloads.remap_tile_census(base.cpu(), weights.cpu(), hw, hw, mode)
+        print(f"kernel F {mode} flagship map's tiles at 1080x1920 by the host model "
+              f"(workloads.remap_tile_census, not counted on the card): {census}")
+        fixture = [p.contiguous() for p in _fixture_planes(torch, 4, *hw)]
         live = int((weights[undistortion.REMAP_WEIGHT_ROWS[mode] - 4:] != 0).any(0).sum())
         work = remap_lerp_work(planes[0].shape[0], *hw, base.numel(), 3, mode, live)
         work64 = remap_lerp_work(REMAP_B64[0], *hw, base.numel(), 3, mode, live)
@@ -568,16 +597,18 @@ def check_remap_lerp(tp, torch, rng, planes):
         work_cams = remap_lerp_work(4 * len(cams), *hw, base.numel(), 3, mode, cam_live,
                                     maps=len(cams))
         cam_planes = cameras4[1]
-        times = dict(ms=device_ms(fn(planes)), plain_ms=device_ms(plain(planes), n=5),
+        times = dict(ms=device_ms(fn(planes)), ms_fixture=device_ms(fn(fixture)),
+                     plain_ms=device_ms(plain(planes), n=5),
                      **bound(bytes_=work["bytes"], ops=work["ops"]),
                      ms_b64=device_ms(fn(big)), plain_ms_b64=device_ms(plain(big), n=3),
                      bound_ms_b64=bound(bytes_=work64["bytes"], ops=work64["ops"])["bound_ms"],
                      ms_cameras4=device_ms(fn(cam_planes, cb, cw)),
                      bound_ms_cameras4=bound(bytes_=work_cams["bytes"],
                                              ops=work_cams["ops"])["bound_ms"])
-        del cameras4, cam_planes, mp
+        del cameras4, cam_planes, mp, fixture
         print(f"kernel F {mode} time B=4 1080x1920: {times['ms']:.4f} ms (bound "
-              f"{times['bound_ms']:.4f}, {times['bound_by']}), plain {times['plain_ms']:.4f} ms; "
+              f"{times['bound_ms']:.4f}, {times['bound_by']}; fixture frames "
+              f"{times['ms_fixture']:.4f} ms), plain {times['plain_ms']:.4f} ms; "
               f"B={REMAP_B64[0]}: {times['ms_b64']:.4f} ms (bound {times['bound_ms_b64']:.4f}), "
               f"plain {times['plain_ms_b64']:.4f} ms; {len(cams)} cameras x B=4 in one launch: "
               f"{times['ms_cameras4']:.4f} ms (bound {times['bound_ms_cameras4']:.4f})")
@@ -614,14 +645,18 @@ def check_pointwise(tp, torch, rng):
     table, vignetting with OpenCV's linearize table and with the k=0.9
     gamma composed into it, the flagship's enhancer gains) at
     POINTWISE_SHAPES and POINTWISE_B64; the flagship's set on the chain's
-    debayered planes (views of a [B, 3, H, W] tensor) and past a batch
+    debayered planes (views of a [B, 3, H, W] tensor), in the word layouts
+    in and out (interleaved [B, H, W, 3] in and out, and either with
+    planes) at 1080x1920 and 1079x1436, on planes and interleaved frames 1
+    and 2 bytes past a 16-byte boundary (the byte path), and past a batch
     limit lowered to 3 (POINTWISE_LIMIT: four launches); then all 2^24 BGR
     triples as one 4096x4096 frame with its vignetting mask through both
     sets, with unit gains and an identity calibration (so every triple
     reaches every step) and with the seeded ones. Then G's device time at
     B=4 and B=64 1080x1920 with the flagship's set (the main path's call),
-    the plain version's, and the bound (tools/measure.pointwise_work).
-    Returns G's row."""
+    at B=4 also on the fixture frames (_fixture_planes), the plain
+    version's, and the bound (tools/measure.pointwise_work). Returns G's
+    row."""
     from raw_image_pipeline_tpu_torch import kernels
     from raw_image_pipeline_tpu_torch.ops import pointwise
     from raw_image_pipeline_tpu_torch.ops.color_enhancer import gain_tables
@@ -684,6 +719,27 @@ def check_pointwise(tp, torch, rng):
     x = t(rng.integers(0, 256, (b, 3, h, w), dtype="uint8"))
     held(f"B={b} {h}x{w} on views of a [B, 3, H, W] tensor, flagship", [x[:, c] for c in range(3)],
          args(flagship, b, h, w))
+    # the word layouts in and out (interleaved [B, H, W, 3], config 4's),
+    # and planes off a 4-byte boundary, which take the byte path
+    for hh, ww in ((h, w), (1079, 1436)):
+        nhwc = t(rng.integers(0, 256, (b, hh, ww, 3), dtype="uint8"))
+        dst = torch.empty_like(nhwc)
+        kw = args(flagship, b, hh, ww)
+        for label, src, out in (("[B, H, W, 3] in and out", nhwc.unbind(-1), dst.unbind(-1)),
+                                ("[B, H, W, 3] in, planes out", nhwc.unbind(-1), None),
+                                ("planes in, [B, H, W, 3] out", frames(b, hh, ww), dst.unbind(-1))):
+            held(f"B={b} {hh}x{ww} {label}, flagship", src, kw, out=out)
+        n = b * hh * ww
+        flat = torch.empty(16 + 3 * n, dtype=torch.uint8, device=dev)
+        for off in (1, 2):
+            src = [flat[off + c * n:off + (c + 1) * n].view(b, hh, ww) for c in range(3)]
+            for p in src:
+                p.copy_(t(rng.integers(0, 256, (b, hh, ww), dtype="uint8")))
+            held(f"B={b} {hh}x{ww} planes {off} bytes past a 16-byte boundary, flagship", src, kw)
+            inter = flat[off:off + 3 * n].view(b, hh, ww, 3).unbind(-1)
+            held(f"B={b} {hh}x{ww} [B, H, W, 3] {off} bytes past a 16-byte boundary in and out, "
+                 f"flagship", inter, kw, out=dst.unbind(-1))
+        del nhwc, dst, flat, src, inter
     n, limit = POINTWISE_LIMIT
     planes = frames(n, 17, 31)
     before = kernels.POINTWISE.launches
@@ -713,14 +769,19 @@ def check_pointwise(tp, torch, rng):
 
     ms, plain_ms, bd = timed(*POINTWISE_SHAPES[0], 5)
     ms64, plain64, bd64 = timed(*POINTWISE_B64, 2)
+    fixture = _fixture_planes(torch, *POINTWISE_SHAPES[0])
+    kw = args(flagship, *POINTWISE_SHAPES[0])
+    ms_fixture = device_ms(lambda: pointwise.pointwise_cuda(fixture, **kw))
+    del fixture
     torch.cuda.empty_cache()
-    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
-               share=bd["bound_ms"] / ms, ms_b64=ms64, plain_ms_b64=plain64,
+    row = dict(max_abs_err=0.0, ms=ms, ms_fixture=ms_fixture, plain_ms=plain_ms, library_ms=None,
+               **bd, share=bd["bound_ms"] / ms, ms_b64=ms64, plain_ms_b64=plain64,
                bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64)
     print(f"kernel G time B=4 1080x1920, the flagship's steps: {ms:.4f} ms (bound "
-          f"{bd['bound_ms']:.4f}, {bd['bound_by']}; {100 * row['share']:.1f}%), plain "
-          f"{plain_ms:.4f} ms; B=64: {ms64:.4f} ms (bound {bd64['bound_ms']:.4f}; "
-          f"{100 * row['share_b64']:.1f}%), plain {plain64:.4f} ms; no PyTorch call computes it")
+          f"{bd['bound_ms']:.4f}, {bd['bound_by']}; {100 * row['share']:.1f}%; fixture frames "
+          f"{ms_fixture:.4f} ms), plain {plain_ms:.4f} ms; B=64: {ms64:.4f} ms (bound "
+          f"{bd64['bound_ms']:.4f}; {100 * row['share_b64']:.1f}%), plain {plain64:.4f} ms; no "
+          f"PyTorch call computes it")
     return row
 
 

@@ -41,7 +41,7 @@ struct FloatMode : isp_remap::AnchorTaps<FloatMode> {
   __device__ __forceinline__ static uint32_t blend(uint32_t u0, uint32_t u1, uint32_t u2,
                                                    uint32_t u3,
                                                    const float (&wt)[kRows][isp_remap::kRun],
-                                                   int j, bool) {
+                                                   int j) {
     float acc = __fadd_rn(__fmul_rn(u8_to_f32(u0), wt[0][j]), __fmul_rn(u8_to_f32(u1), wt[1][j]));
     acc = __fadd_rn(acc, __fmul_rn(u8_to_f32(u2), wt[2][j]));
     acc = __fadd_rn(acc, __fmul_rn(u8_to_f32(u3), wt[3][j]));
@@ -65,6 +65,7 @@ extern "C" int isp_remap_float(const void* p0, const void* p1, const void* p2, c
                                const void* weights, void* out, int cameras, int batch, int h,
                                int w, int ho, int wo, int channels, int v, int chunk,
                                int planes16, void* stream) {
-  return isp_remap::dispatch<FloatMode>(p0, p1, p2, base, weights, out, cameras, batch, h, w, ho,
-                                        wo, channels, v, chunk, planes16, stream);
+  return isp_remap::dispatch<isp_remap::Tiles<FloatMode>>(p0, p1, p2, base, weights, out, cameras,
+                                                         batch, h, w, ho, wo, channels, v, chunk,
+                                                         planes16, stream);
 }

@@ -1,9 +1,13 @@
 // Output tiles of the fisheye remap, shared by kernel E (remap_float.cu,
-// "float") and kernel F (remap_lerp.cu, "lerp" and "fixed32"): cv::remap
-// (INTER_LINEAR, BORDER_CONSTANT=0) over remap_precompute's factors, one
-// anchor index and a few weights per output pixel. The kernels differ only
-// in the weights a pixel carries, where its four taps sit and how they are
-// blended: a Mode (below) says so, and everything else is here.
+// "float") and kernel F (remap_lerp.cu): cv::remap (INTER_LINEAR,
+// BORDER_CONSTANT=0) over remap_precompute's factors, one anchor index and
+// a few weights per output pixel. remap_kernel runs the modes whose taps
+// sit at base + {0, 1, w, w + 1} (float, fixed32), which differ only in how
+// the four taps are blended: a Mode (below) says so. F's lerp kernel holds
+// its map in a form of its own and calls the same pieces: a thread's run
+// (run_of), the block's source box (block_box), the staged frames
+// (staged_frames), the word stores (put_byte, store_words) and the C
+// entry's checks and launch (dispatch).
 //
 // Design:
 // - A block of 128 threads owns a tile of 8 x 64 output pixels and a
@@ -25,32 +29,28 @@
 //   frame ahead of the frame it blends; the taps are then read from shared
 //   memory. A tile whose box exceeds the buffer, or whose taps leave the
 //   plane or wrap past a row's end (hostile maps, sources of height or
-//   width 1, the lerp's pixels on the source's border), gathers from global
-//   memory instead, each tap read by the mode's border rule; so does every
-//   tile where W or a plane's address is not a multiple of 16 (no chain
-//   gives such planes).
-// - A pixel whose tap weights (Mode::kTapRow..+3) are all zero (about 10%
-//   of a fisheye map) is not gathered: its output is exactly 0 in every
-//   mode.
+//   width 1), gathers from global
+//   memory instead, a tap outside the plane reading 0; so does every tile
+//   where W or a plane's address is not a multiple of 16 (no chain gives
+//   such planes).
+// - A pixel whose four weights are all zero (about 10% of a fisheye map)
+//   is not gathered: its output is exactly 0 in every mode.
 // - The run's 4C output bytes (C = 1 or 3 interleaved channels, a template
-//   argument) go out as C 4-byte words where the output's width and
-//   address allow it (ops/undistortion.remap_run_width), else byte by byte.
-//   16-byte words of whole tile rows, through shared memory, were measured
-//   and were no faster (kernel E, PERF.md section 6).
+//   argument) are packed into C words as they are made and go out as C
+//   4-byte words where the output's width and address allow it
+//   (ops/undistortion.remap_run_width), else byte by byte. 16-byte words of
+//   whole tile rows, through shared memory, were measured and were no
+//   faster (kernel E, PERF.md section 6).
 //
-// A Mode is a struct of:
-//   kRows       weight rows a pixel (4; the lerp's 6);
-//   kTapRow     the first of the four rows whose zeros mark a pixel live
-//               or not (0; the lerp's masks, 2);
+// A Mode (AnchorTaps<Blend>: the taps at base + {0, 1, w, w + 1}) is a
+// struct of:
+//   kRows       weight rows a pixel (4);
 //   kMinBlocks  resident blocks an SM (the registers a thread may hold);
-//   origin(w)   tap 0's place below base (0; the lerp's pack margin w + 1):
-//               the taps sit at base - origin + {0, 1, w, w + 1};
-//   special(wt, j)  a flag of pixel j computed once for all frames;
-//   blend(u0, u1, u2, u3, wt, j, special)  the output byte (in the low bits
-//               of the result) from the four u8 taps of pixel j;
-//   gather(plane, a, w, size, wt, j, special)  the same, the taps read from
-//               global memory at a + {0, 1, w, w + 1} by the mode's rule for
-//               taps outside [0, size).
+//   blend(u0, u1, u2, u3, wt, j)  the output byte (in the low bits of the
+//               result) from the four u8 taps of pixel j;
+//   gather(plane, a, w, size, wt, j)  the same, the taps read from global
+//               memory at a + {0, 1, w, w + 1}, a tap outside [0, size)
+//               reading 0.
 
 #pragma once
 
@@ -101,188 +101,116 @@ __device__ __forceinline__ uint32_t tap(const uint8_t* __restrict__ plane, long 
   return (idx >= 0 && idx < size) ? (uint32_t)__ldg(plane + idx) : 0u;
 }
 
-// the low bytes of a, b, c, d as one word, a lowest
-__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+// A run's output bytes packed as they are made, byte i = j * C + c (pixel
+// j, channel c) in byte i % 4 of word i / 4: C words live where the bytes
+// of the 4C outputs would be. v's low byte is the byte.
+template <int C>
+__device__ __forceinline__ void put_byte(uint32_t (&words)[C], int i, uint32_t v) {
+  const uint32_t sel = i % 4 == 0 ? 0x3214 : i % 4 == 1 ? 0x3240 : i % 4 == 2 ? 0x3410 : 0x4210;
+  words[i / 4] = __byte_perm(words[i / 4], v, sel);  // i is a constant once unrolled
 }
 
-// A run's output bytes (the low byte of each px[], [pixel][channel]) to
-// dst: as C 4-byte words (WORDS), else the first `left` pixels byte by byte.
+// the run's words to dst: as C 4-byte words (WORDS), else the first `left`
+// pixels byte by byte
 template <int C, bool WORDS>
-__device__ __forceinline__ void store_run(uint8_t* dst, const uint32_t* px, int left) {
+__device__ __forceinline__ void store_words(uint8_t* dst, const uint32_t (&words)[C], int left) {
   if constexpr (WORDS) {
 #pragma unroll
-    for (int i = 0; i < C; ++i) {
-      reinterpret_cast<uint32_t*>(dst)[i] =
-          pack4(px[4 * i], px[4 * i + 1], px[4 * i + 2], px[4 * i + 3]);
-    }
+    for (int i = 0; i < C; ++i) reinterpret_cast<uint32_t*>(dst)[i] = words[i];
   } else {
 #pragma unroll
-    for (int j = 0; j < kRun; ++j) {
-      if (j < left) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) dst[j * C + c] = (uint8_t)px[j * C + c];
-      }
+    for (int i = 0; i < kRun * C; ++i) {
+      if (i / C < left) dst[i] = (uint8_t)(words[i / 4] >> (8 * (i % 4)));
     }
   }
 }
 
-// The modes whose taps sit at base + {0, 1, w, w+1}, a tap outside the
-// frame reading 0 (float and fixed32: 4 weight rows, 72 registers):
-// everything but Blend::blend, which gather reaches through the derived
-// mode.
-template <class Blend>
-struct AnchorTaps {
-  static constexpr int kRows = 4, kTapRow = 0, kMinBlocks = 7;
-  __device__ static constexpr long long origin(int) { return 0; }
-  __device__ static constexpr bool special(const float (&)[kRows][kRun], int) { return false; }
-  __device__ __forceinline__ static uint32_t gather(const uint8_t* __restrict__ src, long long a,
-                                                    int w, long long size,
-                                                    const float (&wt)[kRows][kRun], int j,
-                                                    bool sp) {
-    return Blend::blend(tap(src, a, size), tap(src, a + 1, size), tap(src, a + w, size),
-                        tap(src, a + w + 1, size), wt, j, sp);
-  }
+// A thread's run: output row r and first column c0, its place q0 = r * wo
+// + c0 in a map of n = ho * wo pixels, whether it lies in the output
+// (stores), and its block's frames [f0, f1): grid y's range of `chunk`
+// frames within camera blockIdx.z's block of `batch`.
+struct Run {
+  int r, c0, f0, f1;
+  long long n, q0;
+  bool stores;
 };
 
-// WORDS: Wo and the output's address are multiples of 4 and the map is
-// 16-byte aligned; planes16: W and every plane's address are multiples of 16
-// (else every tile gathers from global memory). batch: frames of one camera
-// (blockIdx.z); base and weights: that camera's map at blockIdx.z * N.
-template <class Mode, int C, bool WORDS>
-__global__ void __launch_bounds__(kBlock, Mode::kMinBlocks)
-    remap_kernel(const uint8_t* __restrict__ p0, const uint8_t* __restrict__ p1,
-                 const uint8_t* __restrict__ p2, const int32_t* __restrict__ base,
-                 const float* __restrict__ weights, uint8_t* __restrict__ out, int batch, int h,
-                 int w, int ho, int wo, int chunk, bool planes16) {
-  constexpr int R = Mode::kRows, T = Mode::kTapRow;
-  __shared__ __align__(16) uint8_t stage[kStages][C][kStage];
-  __shared__ int box[4][kBlock / 32];
-
+__device__ __forceinline__ Run run_of(int ho, int wo, int batch, int chunk) {
   const int t = threadIdx.x;
   const int tiles_x = (wo + kTileW - 1) / kTileW;
-  const int r = (blockIdx.x / tiles_x) * kTileH + t / kRunsPerRow;
-  const int c0 = (blockIdx.x % tiles_x) * kTileW + (t % kRunsPerRow) * kRun;
-  const long long n = (long long)ho * wo;
-  const long long q0 = (long long)r * wo + c0;
-  const long long size = (long long)h * w;
-  base += blockIdx.z * n;  // this camera's map
-  weights += blockIdx.z * R * n;
+  Run u;
+  u.r = (blockIdx.x / tiles_x) * kTileH + t / kRunsPerRow;
+  u.c0 = (blockIdx.x % tiles_x) * kTileW + (t % kRunsPerRow) * kRun;
+  u.n = (long long)ho * wo;
+  u.q0 = (long long)u.r * wo + u.c0;
+  u.stores = u.r < ho && u.c0 < wo;
+  const int first = blockIdx.z * batch;  // this camera's first frame
+  u.f0 = first + blockIdx.y * chunk;
+  u.f1 = min(first + batch, u.f0 + chunk);
+  return u;
+}
 
-  // the run's map, once for all frames
-  int b[kRun];
-  float wt[R][kRun];
-  if (WORDS && r < ho && c0 < wo) {
-    const int4 q = __ldg(reinterpret_cast<const int4*>(base + q0));
-    b[0] = q.x, b[1] = q.y, b[2] = q.z, b[3] = q.w;
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(weights + k * n + q0));
-      wt[k][0] = f.x, wt[k][1] = f.y, wt[k][2] = f.z, wt[k][3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kRun; ++j) {
-      const bool in = r < ho && c0 + j < wo;
-      b[j] = in ? __ldg(base + q0 + j) : 0;
-#pragma unroll
-      for (int k = 0; k < R; ++k) wt[k][j] = in ? __ldg(weights + k * n + q0 + j) : 0.0f;
-    }
-  }
+// The block's source box, rows [rmin, rmin + rows) and columns [xa, xa +
+// pitch) (pitch a multiple of 16), around every thread's bounds of its live
+// taps (rmin, rmax, cmin, cmax: INT_MAX, -1 where it has none); whether a
+// thread of the block is live; and whether the box is staged: W and the
+// planes 16-byte aligned (planes16), a live pixel, no unsafe one and the
+// box within kStage. Every thread of the block calls it.
+struct Box {
+  int rmin, xa, pitch, rows;
+  bool any_live, staged;
+};
 
-  // live pixels, each one's flag, and the bounding box of their taps in the
-  // source
-  uint32_t live = 0, special = 0;
-  bool unsafe = false;
-  int by[kRun], bx[kRun];
-  int rmin = INT_MAX, rmax = -1, cmin = INT_MAX, cmax = -1;
-#pragma unroll
-  for (int j = 0; j < kRun; ++j) {
-    by[j] = bx[j] = 0;
-    if (wt[T][j] != 0.0f || wt[T + 1][j] != 0.0f || wt[T + 2][j] != 0.0f ||
-        wt[T + 3][j] != 0.0f) {
-      live |= 1u << j;
-      if (Mode::special(wt, j)) special |= 1u << j;
-      const long long a = (long long)b[j] - Mode::origin(w);  // tap 0
-      if (a < 0 || a + w + 1 >= size) {
-        unsafe = true;
-      } else {
-        const int ai = (int)a;
-        by[j] = ai / w;
-        bx[j] = ai - by[j] * w;
-        unsafe = unsafe || bx[j] == w - 1;  // tap a+1 wraps to the next row
-        rmin = min(rmin, by[j]), rmax = max(rmax, by[j] + 1);
-        cmin = min(cmin, bx[j]), cmax = max(cmax, bx[j] + 1);
-      }
-    }
-  }
-  const int lane = t & 31, warp = t >> 5;
+__device__ __forceinline__ Box block_box(int rmin, int rmax, int cmin, int cmax, bool live,
+                                         bool unsafe, bool planes16,
+                                         int (&part)[4][kBlock / 32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   rmin = __reduce_min_sync(0xffffffffu, rmin);
   rmax = __reduce_max_sync(0xffffffffu, rmax);
   cmin = __reduce_min_sync(0xffffffffu, cmin);
   cmax = __reduce_max_sync(0xffffffffu, cmax);
   if (lane == 0) {
-    box[0][warp] = rmin, box[1][warp] = rmax, box[2][warp] = cmin, box[3][warp] = cmax;
+    part[0][warp] = rmin, part[1][warp] = rmax, part[2][warp] = cmin, part[3][warp] = cmax;
   }
-  const bool any_live = __syncthreads_or(live != 0);
+  Box x;
+  x.any_live = __syncthreads_or(live);
   const bool any_unsafe = __syncthreads_or(unsafe);
 #pragma unroll
   for (int i = 0; i < kBlock / 32; ++i) {
-    rmin = min(rmin, box[0][i]), rmax = max(rmax, box[1][i]);
-    cmin = min(cmin, box[2][i]), cmax = max(cmax, box[3][i]);
+    rmin = min(rmin, part[0][i]), rmax = max(rmax, part[1][i]);
+    cmin = min(cmin, part[2][i]), cmax = max(cmax, part[3][i]);
   }
-  const int xa = cmin & ~15;                   // the box's columns [xa, xa + pitch)
-  const int pitch = ((cmax + 16) & ~15) - xa;  // a multiple of 16
-  const int rows = rmax - rmin + 1;            // and its rows [rmin, rmax]
-  const bool staged =
-      planes16 && any_live && !any_unsafe && (long long)rows * pitch <= kStage;
+  x.rmin = rmin;
+  x.xa = cmin & ~15;
+  x.pitch = ((cmax + 16) & ~15) - x.xa;
+  x.rows = rmax - rmin + 1;
+  x.staged = planes16 && x.any_live && !any_unsafe && (long long)x.rows * x.pitch <= kStage;
+  return x;
+}
 
+// The frames [f0, f1) of a staged box: each frame's boxes of the C planes
+// are copied into `stage` with 16-byte cp.async, one frame ahead, and
+// blend(f, sb) runs once every thread's copies of frame f have landed (sb:
+// the frame's buffer, plane c's box at sb + c * kStage, its row i at
+// i * pitch).
+template <int C, class Blend>
+__device__ __forceinline__ void staged_frames(uint8_t (&stage)[kStages][C][kStage],
+                                              const uint8_t* (&planes)[3], long long size,
+                                              int w, const Box& box, int f0, int f1,
+                                              Blend&& blend) {
   // this thread's part of a box: copy k is the 16 bytes at goff[k] of the
   // plane and soff[k] of the buffer
+  const int t = threadIdx.x, per_row = box.pitch / 16;
   int goff[kChunks], soff[kChunks];
   bool has[kChunks];
-  const int per_row = staged ? pitch / 16 : 1;
 #pragma unroll
   for (int k = 0; k < kChunks; ++k) {
     const int i = t + k * kBlock;
-    has[k] = staged && i < rows * per_row;
+    has[k] = i < box.rows * per_row;
     const int sr = has[k] ? i / per_row : 0, sc = has[k] ? i - sr * per_row : 0;
-    goff[k] = has[k] ? (rmin + sr) * w + xa + 16 * sc : 0;
-    soff[k] = sr * pitch + 16 * sc;
+    goff[k] = has[k] ? (box.rmin + sr) * w + box.xa + 16 * sc : 0;
+    soff[k] = sr * box.pitch + 16 * sc;
   }
-  int s[kRun];  // tap 0's place in the box
-#pragma unroll
-  for (int j = 0; j < kRun; ++j) s[j] = staged ? (by[j] - rmin) * pitch + bx[j] - xa : 0;
-
-  const uint8_t* planes[3] = {p0, p1, p2};
-  const int first = blockIdx.z * batch;  // this camera's first frame
-  const int f0 = first + blockIdx.y * chunk;
-  const int f1 = min(first + batch, f0 + chunk);
-  const bool stores = r < ho && c0 < wo;
-  uint8_t* dst = out + ((size_t)f0 * n + q0) * C;
-  const size_t frame_out = (size_t)n * C;
-
-  if (!staged) {
-#pragma unroll 1
-    for (int f = f0; f < f1; ++f, dst += frame_out) {
-      uint32_t px[kRun * C] = {};  // the run's output bytes, [pixel][channel]
-      if (any_live) {
-#pragma unroll
-        for (int j = 0; j < kRun; ++j) {
-          if (!((live >> j) & 1)) continue;
-          const long long a = (long long)b[j] - Mode::origin(w);
-          const bool sp = (special >> j) & 1;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            px[j * C + c] = Mode::gather(planes[c] + (size_t)f * size, a, w, size, wt, j, sp);
-          }
-        }
-      }
-      if (stores) store_run<C, WORDS>(dst, px, wo - c0);
-    }
-    return;
-  }
-
   // frame f's boxes into stage[buf]: one cp.async group per call, empty past
   // the range
   const unsigned stage_at = (unsigned)__cvta_generic_to_shared(&stage[0][0][0]);
@@ -302,48 +230,161 @@ __global__ void __launch_bounds__(kBlock, Mode::kMinBlocks)
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(f0 + i, i);
 #pragma unroll 1
-  for (int f = f0; f < f1; ++f, dst += frame_out) {
+  for (int f = f0; f < f1; ++f) {
     const int buf = (f - f0) % kStages;
     cp_async_wait<kStages - 2>();  // this thread's copies of frame f have landed
     // every thread's copies of frame f have landed, and every thread is done
     // with frame f - 1's buffer, which the next line refills
     __syncthreads();
     issue(f + kStages - 1, (f - f0 + kStages - 1) % kStages);
-    uint32_t px[kRun * C] = {};
-    const uint8_t* sb = &stage[buf][0][0];
+    blend(f, &stage[buf][0][0]);
+  }
+}
+
+// The modes whose taps sit at base + {0, 1, w, w+1}, a tap outside the
+// frame reading 0 (float and fixed32: 4 weight rows, 72 registers):
+// everything but Blend::blend, which gather reaches through the derived
+// mode.
+template <class Blend>
+struct AnchorTaps {
+  static constexpr int kRows = 4, kMinBlocks = 7;
+  __device__ __forceinline__ static uint32_t gather(const uint8_t* __restrict__ src, long long a,
+                                                    int w, long long size,
+                                                    const float (&wt)[kRows][kRun], int j) {
+    return Blend::blend(tap(src, a, size), tap(src, a + 1, size), tap(src, a + w, size),
+                        tap(src, a + w + 1, size), wt, j);
+  }
+};
+
+// WORDS: Wo and the output's address are multiples of 4 and the map is
+// 16-byte aligned; planes16: W and every plane's address are multiples of 16
+// (else every tile gathers from global memory). batch: frames of one camera
+// (blockIdx.z); base and weights: that camera's map at blockIdx.z * N.
+template <class Mode, int C, bool WORDS>
+__global__ void __launch_bounds__(kBlock, Mode::kMinBlocks)
+    remap_kernel(const uint8_t* __restrict__ p0, const uint8_t* __restrict__ p1,
+                 const uint8_t* __restrict__ p2, const int32_t* __restrict__ base,
+                 const float* __restrict__ weights, uint8_t* __restrict__ out, int batch, int h,
+                 int w, int ho, int wo, int chunk, bool planes16) {
+  constexpr int R = Mode::kRows;
+  __shared__ __align__(16) uint8_t stage[kStages][C][kStage];
+  __shared__ int part[4][kBlock / 32];
+
+  const Run u = run_of(ho, wo, batch, chunk);
+  const long long n = u.n, q0 = u.q0;
+  const long long size = (long long)h * w;
+  base += blockIdx.z * n;  // this camera's map
+  weights += blockIdx.z * R * n;
+
+  // the run's map, once for all frames
+  int b[kRun];
+  float wt[R][kRun];
+  if (WORDS && u.stores) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(base + q0));
+    b[0] = q.x, b[1] = q.y, b[2] = q.z, b[3] = q.w;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(weights + k * n + q0));
+      wt[k][0] = f.x, wt[k][1] = f.y, wt[k][2] = f.z, wt[k][3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      const bool in = u.r < ho && u.c0 + j < wo;
+      b[j] = in ? __ldg(base + q0 + j) : 0;
+#pragma unroll
+      for (int k = 0; k < R; ++k) wt[k][j] = in ? __ldg(weights + k * n + q0 + j) : 0.0f;
+    }
+  }
+
+  // live pixels and the bounding box of their taps in the source
+  uint32_t live = 0;
+  bool unsafe = false;
+  int by[kRun], bx[kRun];
+  int rmin = INT_MAX, rmax = -1, cmin = INT_MAX, cmax = -1;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    by[j] = bx[j] = 0;
+    if (wt[0][j] != 0.0f || wt[1][j] != 0.0f || wt[2][j] != 0.0f || wt[3][j] != 0.0f) {
+      live |= 1u << j;
+      const long long a = b[j];  // tap 0
+      if (a < 0 || a + w + 1 >= size) {
+        unsafe = true;
+      } else {
+        const int ai = (int)a;
+        by[j] = ai / w;
+        bx[j] = ai - by[j] * w;
+        unsafe = unsafe || bx[j] == w - 1;  // tap a+1 wraps to the next row
+        rmin = min(rmin, by[j]), rmax = max(rmax, by[j] + 1);
+        cmin = min(cmin, bx[j]), cmax = max(cmax, bx[j] + 1);
+      }
+    }
+  }
+  const Box box = block_box(rmin, rmax, cmin, cmax, live != 0, unsafe, planes16, part);
+
+  const uint8_t* planes[3] = {p0, p1, p2};
+  uint8_t* dst = out + ((size_t)u.f0 * n + q0) * C;
+  const size_t frame_out = (size_t)n * C;
+
+  if (!box.staged) {
+#pragma unroll 1
+    for (int f = u.f0; f < u.f1; ++f, dst += frame_out) {
+      uint32_t words[C] = {};  // the run's output bytes (put_byte)
+      if (box.any_live) {
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          if (!((live >> j) & 1)) continue;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            put_byte(words, j * C + c,
+                     Mode::gather(planes[c] + (size_t)f * size, b[j], w, size, wt, j));
+          }
+        }
+      }
+      if (u.stores) store_words<C, WORDS>(dst, words, wo - u.c0);
+    }
+    return;
+  }
+
+  int s[kRun];  // tap 0's place in the box
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) s[j] = (by[j] - box.rmin) * box.pitch + bx[j] - box.xa;
+  staged_frames<C>(stage, planes, size, w, box, u.f0, u.f1, [&](int, const uint8_t* sb) {
+    uint32_t words[C] = {};
 #pragma unroll
     for (int j = 0; j < kRun; ++j) {
       if (!((live >> j) & 1)) continue;
       const uint8_t* top = sb + s[j];
-      const uint8_t* bottom = top + pitch;
-      const bool sp = (special >> j) & 1;
+      const uint8_t* bottom = top + box.pitch;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        px[j * C + c] = Mode::blend(top[c * kStage], top[c * kStage + 1], bottom[c * kStage],
-                                    bottom[c * kStage + 1], wt, j, sp);
+        put_byte(words, j * C + c,
+                 Mode::blend(top[c * kStage], top[c * kStage + 1], bottom[c * kStage],
+                             bottom[c * kStage + 1], wt, j));
       }
     }
-    if (stores) store_run<C, WORDS>(dst, px, wo - c0);
-  }
+    if (u.stores) store_words<C, WORDS>(dst, words, wo - u.c0);
+    dst += frame_out;
+  });
 }
 
-template <class Mode, int C, bool WORDS>
-int launch(const void* p0, const void* p1, const void* p2, const void* base,
-           const void* weights, void* out, int cameras, int batch, int h, int w, int ho, int wo,
-           int chunk, bool planes16, cudaStream_t stream) {
-  const long long tiles =
-      (long long)((ho + kTileH - 1) / kTileH) * ((wo + kTileW - 1) / kTileW);
-  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (unsigned)((batch + chunk - 1) / chunk), (unsigned)cameras);
-  remap_kernel<Mode, C, WORDS><<<grid, kBlock, 0, stream>>>(
-      (const uint8_t*)p0, (const uint8_t*)p1, (const uint8_t*)p2, (const int32_t*)base,
-      (const float*)weights, (uint8_t*)out, batch, h, w, ho, wo, chunk, planes16);
-  return (int)cudaGetLastError();
-}
+// a kernel of remap_kernel's signature
+using Kernel = void (*)(const uint8_t*, const uint8_t*, const uint8_t*, const int32_t*,
+                        const float*, uint8_t*, int, int, int, int, int, int, bool);
 
-// The C entry's checks and dispatch: channels 1 (p0 only) or 3 (p0, p1, p2
-// interleaved into the output), v 4 (word stores) or 1 (byte stores).
+// remap_kernel of a Mode, as dispatch takes it
 template <class Mode>
+struct Tiles {
+  template <int C, bool WORDS>
+  static Kernel kernel() {
+    return remap_kernel<Mode, C, WORDS>;
+  }
+};
+
+// The C entry's checks and launch: channels 1 (p0 only) or 3 (p0, p1, p2
+// interleaved into the output), v 4 (word stores) or 1 (byte stores), each
+// through K::kernel<C, WORDS>().
+template <class K>
 int dispatch(const void* p0, const void* p1, const void* p2, const void* base,
              const void* weights, void* out, int cameras, int batch, int h, int w, int ho, int wo,
              int channels, int v, int chunk, int planes16, void* stream) {
@@ -351,18 +392,17 @@ int dispatch(const void* p0, const void* p1, const void* p2, const void* base,
       (v == 4 && wo % 4 != 0) || (channels != 1 && channels != 3)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t s = (cudaStream_t)stream;
-  const bool p16 = planes16 != 0;
-  if (channels == 1) {
-    return v == 4 ? launch<Mode, 1, true>(p0, p1, p2, base, weights, out, cameras, batch, h, w,
-                                          ho, wo, chunk, p16, s)
-                  : launch<Mode, 1, false>(p0, p1, p2, base, weights, out, cameras, batch, h, w,
-                                           ho, wo, chunk, p16, s);
-  }
-  return v == 4 ? launch<Mode, 3, true>(p0, p1, p2, base, weights, out, cameras, batch, h, w, ho,
-                                        wo, chunk, p16, s)
-                : launch<Mode, 3, false>(p0, p1, p2, base, weights, out, cameras, batch, h, w,
-                                         ho, wo, chunk, p16, s);
+  const long long tiles =
+      (long long)((ho + kTileH - 1) / kTileH) * ((wo + kTileW - 1) / kTileW);
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)((batch + chunk - 1) / chunk), (unsigned)cameras);
+  const Kernel kernel =
+      channels == 1 ? (v == 4 ? K::template kernel<1, true>() : K::template kernel<1, false>())
+                    : (v == 4 ? K::template kernel<3, true>() : K::template kernel<3, false>());
+  kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)p0, (const uint8_t*)p1, (const uint8_t*)p2, (const int32_t*)base,
+      (const float*)weights, (uint8_t*)out, batch, h, w, ho, wo, chunk, planes16 != 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace isp_remap

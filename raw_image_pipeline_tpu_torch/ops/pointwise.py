@@ -29,17 +29,54 @@ from raw_image_pipeline_tpu_torch.ops.common import as_tensor_on, image_planes
 from raw_image_pipeline_tpu_torch.ops.gamma import apply_lut
 from raw_image_pipeline_tpu_torch.ops.vignetting import correct_planes
 
-FRAMES_PER_TASK = 4  # csrc/pointwise.cu's kFrames: a task is a row of up to 4 frames
+PIXELS_PER_THREAD = 4  # csrc/pointwise.cu's kPx: a thread's group of a row's pixels
+
+# const_tables' layout (csrc/pointwise.cu's kYIfy ... kConstBytes): name ->
+# (byte offset, entries, type); "yify" is Lab2BGR's y | ify << 16
+CONST_LAYOUT = {
+    "yify": (0, 256, np.uint32),
+    "cbrt": (1024, 3072, np.uint16),
+    "inv_gamma": (7168, 8192, np.uint8),
+    "hdiv": (15360, 256, np.int32),
+    "sdiv": (16384, 256, np.int32),
+}
+CONST_BYTES = 17408
+SDIV_BITS = 24  # the kernel packs the V gain above sdiv in one 32-bit entry
+
+
+def _narrowed(values, dtype, name: str, bits: int = 0) -> np.ndarray:
+    """values as dtype, raising unless every value fits it (and, with bits,
+    fits that many low bits)."""
+    a = np.asarray(values, np.int64)
+    info = np.iinfo(dtype)
+    hi = min(info.max, (1 << bits) - 1) if bits else info.max
+    if a.size and (a.min() < info.min or a.max() > hi):
+        raise ValueError(f"kernel G's {name} table: values in [{a.min()}, {a.max()}] do not "
+                         f"fit {np.dtype(dtype).name}" + (f" in {bits} bits" if bits else ""))
+    return a.astype(dtype)
 
 
 def const_tables() -> np.ndarray:
-    """The int32 tables kernel G stages, in its layout: sdiv and hdiv (256
-    each), the Lab cbrt table (3072), Lab2BGR's y and ify (256 each) and
-    inverse gamma (8192), BGR2Lab's and Lab2BGR's coefficients (9 each)."""
-    return np.concatenate([
-        cs._SDIV_TAB, cs._HDIV_TAB, cs._CBRT_TAB, cs._LAB2_Y_TAB, cs._LAB2_IFY_TAB,
-        cs._LAB2_INV_GAMMA_TAB, cs._LAB_COEF, np.asarray(cs._LAB2_COEF).reshape(-1),
-    ]).astype(np.int32)
+    """The constant tables kernel G stages, as CONST_BYTES bytes in its
+    layout (CONST_LAYOUT, little-endian), each in the narrowest type that
+    holds its values (checked here): Lab2BGR's y and ify (u16 each, one
+    u32 entry), the Lab cbrt table (u16), Lab2BGR's inverse gamma (u8),
+    BGR2HSV's hdiv and sdiv (int32, sdiv below 2^SDIV_BITS)."""
+    parts = {
+        "yify": _narrowed(cs._LAB2_Y_TAB, np.uint16, "y").astype(np.uint32)
+        | (_narrowed(cs._LAB2_IFY_TAB, np.uint16, "ify").astype(np.uint32) << 16),
+        "cbrt": _narrowed(cs._CBRT_TAB, np.uint16, "cbrt"),
+        "inv_gamma": _narrowed(cs._LAB2_INV_GAMMA_TAB, np.uint8, "inv_gamma"),
+        "hdiv": _narrowed(cs._HDIV_TAB, np.int32, "hdiv"),
+        "sdiv": _narrowed(cs._SDIV_TAB, np.int32, "sdiv", SDIV_BITS),
+    }
+    out = np.zeros(CONST_BYTES, np.uint8)
+    for name, (at, n, dtype) in CONST_LAYOUT.items():
+        raw = np.ascontiguousarray(parts[name], np.dtype(dtype).newbyteorder("<")).view(np.uint8)
+        if raw.size != n * np.dtype(dtype).itemsize:
+            raise AssertionError(f"kernel G's {name} table: {raw.size} bytes")
+        out[at:at + raw.size] = raw
+    return out
 
 
 @functools.lru_cache(maxsize=8)
@@ -139,9 +176,11 @@ def pointwise_cuda(planes, *, gains=None, matrix=None, bias=None, lut=None, mask
     if enhancer_tables is not None:
         args["enh"] = as_tensor_on(enhancer_tables, dev).contiguous()
         kernels.check_cuda(args["enh"], "enhancer_tables", torch.uint8, (3, 256))
-    groups = -(-min(bsz, batch_limit) // FRAMES_PER_TASK)
-    if h * groups >= 2**31:
-        raise ValueError(f"kernel G: {h} rows x {groups} frame groups exceed its task count")
+    if h * -(-w // PIXELS_PER_THREAD) >= 2**31:
+        raise ValueError(f"kernel G: {h} rows of {w} pixels exceed its task count")
+    for name, t in (("planes", planes[0]), ("out", out[0])):
+        if (h - 1) * t.stride(1) + (w - 1) * t.stride(2) + 3 >= 2**31:
+            raise ValueError(f"kernel G: a frame of {name} spans 2^31 bytes or more")
     tables = _const_tables_on(str(dev))
     ptr = {k: v.data_ptr() for k, v in args.items()}
     with torch.cuda.device(dev):
@@ -158,17 +197,24 @@ def pointwise_cuda(planes, *, gains=None, matrix=None, bias=None, lut=None, mask
 
 def pointwise_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor, *, gains=None,
                      matrix=None, bias=None, lut=None, mask=None, lab_tab=None,
-                     enhancer_tables=None, plain: bool = False):
+                     enhancer_tables=None, out=None, plain: bool = False):
     """The pointwise stretch on three [B, h, W] u8 planes: kernel G on CUDA
     planes (pointwise_cuda), pointwise_plain on CPU planes or with
-    plain=True. With no step given the planes come back as they are."""
+    plain=True. With no step given the planes come back as they are. With
+    `out`, three planes of the input's shape (views of one [B, h, W, 3]
+    tensor, say), the result is written there (G writes it directly) and
+    `out` comes back."""
     steps = dict(gains=gains, matrix=matrix, bias=bias, lut=lut, mask=mask, lab_tab=lab_tab,
                  enhancer_tables=enhancer_tables)
-    if all(v is None for v in steps.values()):
-        return b, g, r
-    if plain or b.device.type == "cpu":
-        return pointwise_plain(b, g, r, **steps)
-    return pointwise_cuda((b, g, r), **steps)
+    if not plain and b.device.type != "cpu" and any(v is not None for v in steps.values()):
+        return pointwise_cuda((b, g, r), out=out, **steps)
+    planes = (pointwise_plain(b, g, r, **steps)
+              if any(v is not None for v in steps.values()) else (b, g, r))
+    if out is None:
+        return planes
+    for o, p in zip(out, planes):
+        o.copy_(p)
+    return tuple(out)
 
 
 def pointwise_image(image: torch.Tensor, **steps) -> torch.Tensor:

@@ -540,7 +540,7 @@ def remap_fixed32_planes(planes, base: torch.Tensor, weights: torch.Tensor,
 
 REMAP_TILE = (8, 64)  # E's and F's output tile (rows, columns): a block of REMAP_BLOCK threads
 REMAP_BLOCK = 128  # kBlock in csrc/remap_tile.cuh
-REMAP_MIN_BLOCKS = 7  # kMinBlocks of every mode in csrc/remap_*.cu: the blocks resident on an SM
+REMAP_MIN_BLOCKS = 7  # kMinBlocks of csrc/remap_tile.cuh (E, fixed32; F's lerp: 9): blocks an SM
 REMAP_WEIGHT_ROWS = {"float": 4, "lerp": 6, "fixed32": 4}  # weight rows a pixel, by mode
 
 

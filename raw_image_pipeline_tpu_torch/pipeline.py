@@ -649,13 +649,22 @@ def make_isp_chain(
 
         # the other calls, each after the stage of its last step; every dump
         # point after its stage (a dump point is reached whether or not its
-        # stage runs)
+        # stage runs). Where the stretch's last call ends the chain (no remap,
+        # no debug dumps), it writes straight into the [B, H, W, 3] output,
+        # `packed` (on the card G writes it), so that no stack of the planes
+        # follows it.
         last = {launch[-1]: launch for launch in launches if launch != ("gains",)}
+        final = launches[-1] if launches and not run_undist and not debug else None
+        packed = None
         for i, (name, stage_range, point) in enumerate(STRETCH[1:], start=1):
             launch = last.get(name)
             if launch is not None:
                 with stage(stage_range if len(launch) == 1 else "isp_pointwise"):
+                    if launch == final:
+                        packed = torch.empty(tuple(planes[0].shape) + (3,), dtype=torch.uint8,
+                                             device=planes[0].device)
                     planes = pointwise_planes(*planes, plain=plain,
+                                              out=None if packed is None else packed.unbind(-1),
                                               **_step_args(launch, params, gains))
             elif name == "lut" and gc.enabled and not is_color:
                 with stage("isp_gamma"):
@@ -684,7 +693,7 @@ def make_isp_chain(
                     img = img[..., 0]
                 h = ho
             else:
-                img = pack(planes)
+                img = packed if packed is not None else pack(planes)
         if debug:
             outputs["debug/07_undistortion"] = img
             heights["debug/07_undistortion"] = h

@@ -16,7 +16,10 @@ instructions once) by opcode and by class:
 
 For kernels A's and D's instantiations (`<KINDS, V>`) it also gives the
 count per pixel: a thread's straight-line strip computes 2 x max(V, 2)
-pixels. Prints one JSON line per function and writes nothing.
+pixels. Beside the counts, each function's resources from `cuobjdump
+-res-usage`: registers a thread, stack and local bytes (spills show
+there) and static shared bytes. Prints one JSON line per function and
+writes nothing.
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 # "debayer_mht_kernel<78, 16>", or demangled "debayer_mht_kernel<(int)78, (int)16>"
 # (kernel A's with a third argument, "(bool)0")
+# " Function _Z...:" then "  REG:58 STACK:0 SHARED:26624 LOCAL:0 ..."
+_RES_FUNCTION = re.compile(r"^\s*Function\s+(\S+):\s*$")
+_RES_FIELD = re.compile(r"\b(REG|STACK|SHARED|LOCAL):(\d+)")
 _STRIP = re.compile(r"debayer_(?:bilinear|mht)_kernel<(?:\(int\))?(\d+),\s*(?:\(int\))?(\d+)[,>]")
 
 
@@ -73,6 +79,24 @@ def census(listing: Iterable[str], names: Optional[Dict[str, str]] = None) -> Di
             f["by_opcode"][op] = f["by_opcode"].get(op, 0) + 1
             cls = opcode_class(op)
             f["by_class"][cls] = f["by_class"].get(cls, 0) + 1
+    return out
+
+
+def resources(listing: Iterable[str]) -> Dict[str, dict]:
+    """{mangled function: {"registers", "stack", "shared", "local"}} from a
+    `cuobjdump -res-usage` listing."""
+    keys = {"REG": "registers", "STACK": "stack", "SHARED": "shared", "LOCAL": "local"}
+    out: Dict[str, dict] = {}
+    current = None
+    for line in listing:
+        m = _RES_FUNCTION.match(line)
+        if m:
+            current = m.group(1)
+            continue
+        fields = _RES_FIELD.findall(line)
+        if fields and current is not None:
+            out[current] = {keys[k]: int(v) for k, v in fields}
+            current = None
     return out
 
 
@@ -109,11 +133,14 @@ def main(argv=None) -> int:
     lines = run.stdout.splitlines()
     mangled = [m.group(1) for m in map(_FUNCTION.match, lines) if m]
     names = _demangle(mangled, os.path.join(CUDA_HOME, "bin", "cu++filt"))
+    res = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-res-usage", lib],
+                         capture_output=True, text=True, check=True)
+    used = {names.get(k, k): v for k, v in resources(res.stdout.splitlines()).items()}
     for name, f in census(lines, names).items():
         if args.match not in name:
             continue
         px = pixels_per_thread(name)
-        row = {"function": name, **f}
+        row = {"function": name, **f, **used.get(name, {})}
         if px:
             row["pixels_per_thread"] = px
             row["per_pixel"] = {"instructions": f["instructions"] / px,

@@ -1,8 +1,8 @@
 """The chains and seeded inputs that chip_smoke.py and the port's tools run
 on a CUDA card: the table of chains (each a configuration, its sizes, its
 kernels and its batch), frames made on the card from a seed, hostile remap
-maps for kernel E, and the two-peak CCC histogram that holds kernel C's
-argmax on a near-tie.
+maps for kernels E and F with a host model of their tiles, and the
+two-peak CCC histogram that holds kernel C's argmax on a near-tie.
 
 This module imports nothing of the package (a chain's configuration is
 built from the package module it is given): compare_checkouts.py loads
@@ -188,6 +188,91 @@ def lerp_hostile_maps(out_hw, src_hw, seed: int):
                          i + rng.random((h, w))).astype(np.float32)
 
     return coords(src_hw[1]), coords(src_hw[0])
+
+
+def border_maps(out_hw, src_hw, seed: int):
+    """A float32 (map_x, map_y) pair of shape out_hw that zooms a source of
+    src_hw out by 0.4% about its centre, with a seeded jitter of up to
+    0.3 pixels: smooth, so that a tile's taps stay within a small box, and
+    crossing every border of the source, so that the tiles along the
+    borders hold pixels whose taps past the border are masked (the lerp's)
+    or read 0 (the other modes'), beside pixels that leave it altogether."""
+    rng = np.random.default_rng(seed)
+    (h, w), (sh, sw) = out_hw, src_hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    jitter = rng.uniform(-0.3, 0.3, (2, h, w))
+    mx = (sw - 1) / 2 + (xx * (sw - 1) / max(w - 1, 1) - (sw - 1) / 2) * 1.004 + jitter[0]
+    my = (sh - 1) / 2 + (yy * (sh - 1) / max(h - 1, 1) - (sh - 1) / 2) * 1.004 + jitter[1]
+    return mx.astype(np.float32), my.astype(np.float32)
+
+
+REMAP_TILE = (8, 64)  # kTileH, kTileW in csrc/remap_tile.cuh: output pixels of a tile
+REMAP_STAGE_BYTES = 4096  # kStage there: a plane's box in shared memory
+
+
+def remap_tile_census(base, weights, src_hw, out_hw, mode: str) -> dict:
+    """A host model of how kernels E and F treat the output tiles of one map
+    (base [N], weights [k, N] of remap_precompute in `mode`; numpy or CPU
+    tensors), by the staging rule of csrc/remap_tile.cuh (float, fixed32)
+    and csrc/remap_lerp.cu (lerp), for planes whose width and addresses are
+    multiples of 16: "tiles", "empty" (no live pixel: stores only), "staged"
+    (the tile's source box copied into shared memory) and "global" (taps
+    gathered from global memory). No kernel reports these counts.
+
+    A tile is staged when the bounding box of its live pixels' taps fits
+    REMAP_STAGE_BYTES as rows of 16-byte-aligned columns and no live pixel
+    is unsafe. Float and fixed32: the four taps at base + {0, 1, w, w + 1}
+    are all in the box, and a pixel is unsafe where one of them leaves the
+    plane or tap 1 wraps past a row's end. Lerp: the box holds only the
+    taps whose mask is 1 (tap 0 at base - (w + 1)), and a pixel is unsafe
+    where a mask is neither 0 nor 1 or a mask-1 tap lies outside the
+    frame."""
+    h, w = src_hw
+    ho, wo = out_hw
+    base = np.asarray(base, np.int64).reshape(ho, wo)
+    wt = np.asarray(weights, np.float32).reshape(-1, ho, wo)
+    taps = wt[-4:]  # the lerp's masks, the other modes' weights
+    live = (taps != 0).any(0)
+    size = h * w
+    if mode == "lerp":
+        ones = taps == 1
+        m = ones.astype(np.int64)
+        k = np.argmax(ones, axis=0)  # the first mask-1 tap
+        at = base - (w + 1) + (k >> 1) * w + (k & 1)
+        unsafe = ((taps != 0) & ~ones).any(0) | ~ones.any(0) | (at < 0) | (at >= size)
+        ry = np.floor_divide(at, w)
+        ty, tx = ry - (k >> 1), at - ry * w - (k & 1)
+        r0 = ty + 1 - (m[0] | m[1])
+        r1 = ty + (m[2] | m[3])
+        c0 = tx + 1 - (m[0] | m[2])
+        c1 = tx + (m[1] | m[3])
+        unsafe |= (r0 < 0) | (r1 >= h) | (c0 < 0) | (c1 >= w)
+    else:
+        r0 = np.floor_divide(base, w)
+        c0 = base - r0 * w
+        r1, c1 = r0 + 1, c0 + 1
+        unsafe = (base < 0) | (base + w + 1 >= size) | (c0 == w - 1)
+    th, tw = REMAP_TILE
+    ny, nx = -(-ho // th), -(-wo // tw)
+
+    def per_tile(x, fill, reduce):
+        out = np.full((ny * th, nx * tw), fill, x.dtype)
+        out[:ho, :wo] = x
+        return reduce(reduce(out.reshape(ny, th, nx, tw), axis=3), axis=1)
+
+    big = np.iinfo(np.int64).max
+    any_live = per_tile(live, False, np.any)
+    any_unsafe = per_tile(live & unsafe, False, np.any)
+    ok = live & ~unsafe
+    rmin = per_tile(np.where(ok, r0, big), big, np.min)
+    rmax = per_tile(np.where(ok, r1, -1), -1, np.max)
+    cmin = per_tile(np.where(ok, c0, big), big, np.min)
+    cmax = per_tile(np.where(ok, c1, -1), -1, np.max)
+    with np.errstate(over="ignore"):
+        pitch = ((cmax + 16) & ~15) - (cmin & ~15)
+        staged = any_live & ~any_unsafe & ((rmax - rmin + 1) * pitch <= REMAP_STAGE_BYTES)
+    return {"tiles": ny * nx, "empty": int((~any_live).sum()), "staged": int(staged.sum()),
+            "global": int((any_live & ~staged).sum())}
 
 
 def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int, device="cuda"):

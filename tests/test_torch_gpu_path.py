@@ -521,6 +521,89 @@ def test_kernel_g_once_a_flagship_call_on_card(debug):
         assert torch.equal(out[key], v), key
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 96, 128), (3, 17, 36), (2, 9, 31)])
+def test_kernel_g_word_and_byte_layouts_on_card(shape):
+    # the flagship's, config 4's and gpu_parity's step sets (the first two
+    # with instantiations of their own) with [B, H, W, 3] frames in and out,
+    # either with planes, and planes and frames 1 and 2 bytes past a 16-byte
+    # boundary (the byte path; W % 4 != 0 takes it too), against the plain
+    # version
+    from raw_image_pipeline_tpu_torch.ops import color_enhancer, pointwise, vignetting
+
+    dev = _cuda()
+    b, h, w = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    mask = torch.as_tensor(vignetting.build_vignetting_mask(h, w, 1.5, 1e-3, 1e-6), device=dev)
+    calib = dict(matrix=torch.as_tensor(rng.uniform(-0.6, 1.6, (3, 3)).astype(np.float32),
+                                        device=dev),
+                 bias=torch.as_tensor(rng.uniform(-20, 20, 3).astype(np.float32), device=dev))
+    enh = dict(enhancer_tables=torch.as_tensor(color_enhancer.gain_tables((1.0, 1.2, 1.0)),
+                                               device=dev))
+    gains = dict(gains=torch.as_tensor(rng.uniform(0.4, 2.6, (b, 3)).astype(np.float32),
+                                       device=dev))
+    sets = {
+        "flagship": dict(**gains, **calib, **enh, mask=mask, lab_tab=torch.as_tensor(
+            vignetting.composed_gamma_lab_table(0.9), device=dev)),
+        "config4": dict(**calib, **enh, mask=mask),
+        "gpu_parity": dict(**gains, **calib, **enh, mask=mask, lut=torch.as_tensor(
+            pgamma.build_bt709_lut(True), device=dev)),
+    }
+    nhwc = torch.as_tensor(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8), device=dev)
+    planes = tuple(torch.as_tensor(rng.integers(0, 256, (b, h, w), dtype=np.uint8), device=dev)
+                   for _ in range(3))
+    n = b * h * w
+    flat = torch.as_tensor(rng.integers(0, 256, 16 + 3 * n, dtype=np.uint8), device=dev)
+    cases = [(nhwc.unbind(-1), True), (nhwc.unbind(-1), False), (planes, True)]
+    for off in (1, 2):
+        cases += [(tuple(flat[off + c * n:off + (c + 1) * n].view(b, h, w) for c in range(3)),
+                   False), (flat[off:off + 3 * n].view(b, h, w, 3).unbind(-1), True)]
+    for name, kw in sets.items():
+        for src, interleaved_out in cases:
+            want = pointwise.pointwise_planes(*src, plain=True, **kw)
+            out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=dev).unbind(-1)
+            got = pointwise.pointwise_cuda(src, out=out if interleaved_out else None, **kw)
+            for a, c in zip(got, want):
+                assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lerp", "fixed32"])
+@pytest.mark.parametrize("hw", [(96, 128), (1080, 1920)])
+def test_kernel_f_border_map_on_card(hw, mode):
+    # taps past every border of the source in tiles that F stages
+    # (workloads.border_maps, by the host model remap_tile_census), B=4 and
+    # one plane, against the plain version
+    dev = _cuda()
+    base, weights = (torch.as_tensor(a, device=dev) for a in pund.remap_precompute(
+        *workloads.border_maps(hw, hw, 4), hw, mode=mode))
+    assert workloads.remap_tile_census(base.cpu(), weights.cpu(), hw, hw, mode)["global"] == 0
+    planes = tuple(torch.as_tensor(p, device=dev) for p in
+                   np.random.default_rng(6).integers(0, 256, (3, 4) + hw, dtype=np.uint8))
+    for pl in (planes, planes[:1]):
+        got = pund.remap_lerp_cuda(pl, base, weights, hw, mode=mode)
+        assert torch.equal(got, pund.remap_planes(pl, base, weights, hw, mode, plain=True))
+
+
+@pytest.mark.cuda
+def test_kernel_g_writes_config4_output_on_card():
+    # config 4's chain (no remap) runs its stretch as one launch of G, which
+    # writes the [B, H, W, 3] output itself, equal to the plain-op chain
+    from raw_image_pipeline_tpu_torch import kernels
+
+    dev = _cuda()
+    ch = workloads.chains(tp)["pointwise_bgr8"]
+    config = ch.config(45, 64)
+    pipe = tp.build_pipeline(config, "bgr8", frame_hw=(45, 64), device=dev)
+    frames = workloads.card_frames(torch, "color", 3, 45, 64, 4, device=dev)
+    kernels.reset_launch_counts()
+    out, _ = pipe(frames, None)
+    assert kernels.POINTWISE.launches == 1
+    plain = tp.make_isp_fn(config, "bgr8", False, False, plain=True)
+    ref, _ = plain(pipe.params, frames, None)
+    assert out["processed"].is_contiguous() and torch.equal(out["processed"], ref["processed"])
+
+
 def test_port_sources_import_no_jax():
     # every module of the port, and chip_smoke.py, imports neither jax nor
     # anything of the JAX package (the card's machine has no jax)

@@ -243,21 +243,140 @@ def test_wrapper_bookkeeping():
         ppw.pointwise_cuda(planes, lut=torch.arange(256, dtype=torch.uint8))
 
 
+def _kernel_source() -> str:
+    with open(os.path.join(REPO, kernels.POINTWISE.source)) as f:
+        return f.read()
+
+
+def _const_parts(t):
+    """const_tables' bytes back to each table, by CONST_LAYOUT."""
+    return {name: t[at:at + n * np.dtype(dtype).itemsize].view(np.dtype(dtype).newbyteorder("<"))
+            for name, (at, n, dtype) in ppw.CONST_LAYOUT.items()}
+
+
 def test_const_tables_match_the_kernels_layout():
-    src = open(os.path.join(REPO, kernels.POINTWISE.source)).read()
+    src = _kernel_source()
     offsets = {k: int(v) for k, v in re.findall(r"\b(k[A-Z]\w*) = (\d+)", src)}
-    sizes = (("kSdiv", 256), ("kHdiv", 256), ("kCbrt", 3072), ("kY", 256), ("kIfy", 256),
-             ("kInvGamma", 8192), ("kLabCoef", 9), ("kLab2Coef", 9))
+    names = {"yify": "kYIfy", "cbrt": "kCbrt", "inv_gamma": "kInvGamma", "hdiv": "kHdiv",
+             "sdiv": "kSdiv"}
     at = 0
-    for name, size in sizes:
-        assert offsets[name] == at, name
-        at += size
-    assert offsets["kConstTables"] == at == ppw.const_tables().size
-    t = ppw.const_tables()
-    np.testing.assert_array_equal(t[offsets["kCbrt"]:offsets["kY"]], pcs._CBRT_TAB)
-    np.testing.assert_array_equal(t[offsets["kLab2Coef"]:], np.ravel(pcs._LAB2_COEF))
-    assert offsets["kFrames"] == ppw.FRAMES_PER_TASK
+    for name, (off, n, dtype) in ppw.CONST_LAYOUT.items():
+        assert offsets[names[name]] == off == at, name
+        at += n * np.dtype(dtype).itemsize
+    assert offsets["kConstBytes"] == at == ppw.CONST_BYTES == ppw.const_tables().size
+    assert offsets["kPx"] == ppw.PIXELS_PER_THREAD
     assert int(re.search(r"kSimdPx = (\d+)", src).group(1)) == pce.CV_SIMD_PX
+    # W - W % 32 falls on a group boundary, so a group lies on one side of it
+    assert pce.CV_SIMD_PX % ppw.PIXELS_PER_THREAD == 0
+
+
+def test_const_tables_hold_the_old_tables_entry_for_entry():
+    t = ppw.const_tables()
+    assert t.dtype == np.uint8
+    parts = _const_parts(t)
+    np.testing.assert_array_equal(parts["yify"] & 0xFFFF, pcs._LAB2_Y_TAB)
+    np.testing.assert_array_equal(parts["yify"] >> 16, pcs._LAB2_IFY_TAB)
+    np.testing.assert_array_equal(parts["cbrt"], pcs._CBRT_TAB)
+    np.testing.assert_array_equal(parts["inv_gamma"], pcs._LAB2_INV_GAMMA_TAB)
+    np.testing.assert_array_equal(parts["hdiv"], pcs._HDIV_TAB)
+    np.testing.assert_array_equal(parts["sdiv"], pcs._SDIV_TAB)
+    # each old table's values fit the narrower type (and sdiv the bits below
+    # the V gain the kernel packs above it)
+    for name, tab, dtype in (("y", pcs._LAB2_Y_TAB, np.uint16), ("ify", pcs._LAB2_IFY_TAB, np.uint16),
+                             ("cbrt", pcs._CBRT_TAB, np.uint16),
+                             ("inv_gamma", pcs._LAB2_INV_GAMMA_TAB, np.uint8)):
+        info = np.iinfo(dtype)
+        assert info.min <= np.min(tab) and np.max(tab) <= info.max, name
+    assert 0 <= np.min(pcs._SDIV_TAB) and np.max(pcs._SDIV_TAB) < 1 << ppw.SDIV_BITS
+
+
+@pytest.mark.parametrize("table,value", [("_CBRT_TAB", 1 << 16), ("_LAB2_INV_GAMMA_TAB", 256),
+                                         ("_LAB2_Y_TAB", -1), ("_SDIV_TAB", 1 << 24)])
+def test_const_tables_refuse_values_that_do_not_fit(table, value, monkeypatch):
+    tab = np.array(getattr(pcs, table))
+    tab[7] = value
+    monkeypatch.setattr(pcs, table, tab)
+    with pytest.raises(ValueError, match="do not fit"):
+        ppw.const_tables()
+
+
+def test_kernel_constants_are_colorspaces():
+    # the Lab coefficients G holds as immediates, and its sector selectors
+    src = _kernel_source()
+
+    def array(name):
+        body = re.search(name + r"\[\d+\] = \{([^}]*)\}", src).group(1)
+        return [int(v, 0) for v in body.replace("\n", " ").split(",")]
+
+    assert array("kLabCoef") == [int(v) for v in np.ravel(pcs._LAB_COEF)]
+    assert array("kLab2Coef") == [int(v) for v in np.ravel(pcs._LAB2_COEF)]
+    sel = array("kSectorSel")
+    assert len(sel) == 9  # floor(h * 6/180) for h <= 255
+    for k, s in enumerate(sel):
+        assert [(s >> (4 * c)) & 15 for c in range(3)] == list(pcs._SECTOR_DATA[k % 6]), k
+    assert int(np.floor(np.float32(255) * np.float32(float.fromhex("0x1.111112p-5")))) <= 8
+
+
+def test_hsv_indices_stay_in_the_gain_tables():
+    # G reads the enhancer's H and S gain tables at BGR2HSV's hue and sat
+    # with no mask: over all 2^24 triples (r a chunk at a time) hue lies in
+    # [0, 180) and sat in [0, 255], by the kernel's integer formulas
+    sdiv = np.asarray(pcs._SDIV_TAB, np.int64)
+    hdiv = np.asarray(pcs._HDIV_TAB, np.int64)
+    bg = np.arange(1 << 16, dtype=np.int64)
+    b, g = bg & 255, bg >> 8
+    lo, hi = [1 << 30] * 2, [-1] * 2
+    for r in range(256):
+        v = np.maximum(np.maximum(b, g), r)
+        diff = v - np.minimum(np.minimum(b, g), r)
+        sat = (diff * sdiv[v] + (1 << 11)) >> 12
+        hnum = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+        hue = (hnum * hdiv[diff] + (1 << 11)) >> 12
+        hue = hue + np.where(hue < 0, 180, 0)
+        for k, a in enumerate((hue, sat)):
+            lo[k], hi[k] = min(lo[k], int(a.min())), max(hi[k], int(a.max()))
+    assert lo[0] >= 0 and hi[0] < 180 and lo[1] >= 0 and hi[1] <= 255, (lo, hi)
+
+
+def _f32_add_down(x, c):
+    """f32(x + c) rounded toward minus infinity (__fadd_rd), x and c f32."""
+    exact = x.astype(np.float64) + np.float64(c)  # exact: both within 2^24 ulps of c
+    r = exact.astype(np.float32)
+    return np.where(r.astype(np.float64) > exact, np.nextafter(r, np.float32(-np.inf)), r)
+
+
+def test_byte_tricks_equal_rounding_and_floor():
+    # kernel G's u8f, to_u8 and floor_u8, on the values its steps reach:
+    # every byte; products below 0 and above 255, halves and their
+    # neighbouring f32s, NaN and the infinities for the rounding; every
+    # HSV2BGR product (the four candidates over all table bytes) and a
+    # spread of floats in (-2^22, 2^22) for the floor
+    f32 = np.float32
+    v = np.arange(256, dtype=np.uint32)
+    np.testing.assert_array_equal(
+        ((v | np.uint32(0x4B000000)).view(f32) - f32(2.0**23)), v.astype(f32))
+    rng = np.random.default_rng(4)
+    halves = np.arange(-4, 520, dtype=np.float64) / 2
+    x = np.concatenate([
+        halves, np.nextafter(halves.astype(f32), f32(np.inf)),
+        np.nextafter(halves.astype(f32), f32(-np.inf)), rng.uniform(-300, 600, 20000),
+        [np.nan, np.inf, -np.inf, 1e30, -1e30, -0.0],
+    ]).astype(f32)
+    with np.errstate(invalid="ignore"):
+        clamped = np.minimum(np.maximum(np.nan_to_num(x, nan=0.0), f32(0)), f32(255))
+        to_u8 = (clamped + f32(2.0**23)).view(np.uint32) & 255
+        want = np.clip(np.rint(np.nan_to_num(x, nan=0.0, posinf=255, neginf=0)), 0, 255)
+    np.testing.assert_array_equal(to_u8, want.astype(np.uint32))
+    inv255 = f32(float.fromhex("0x1.010102p-8"))
+    vv = (np.arange(256, dtype=f32) * inv255).astype(f32)
+    ff = rng.uniform(0, 1, 4000).astype(f32)
+    cand = np.concatenate([(vv * f32(255)).astype(f32),
+                           (vv[:, None] * ff[None, :100]).astype(f32).ravel() * f32(255),
+                           rng.uniform(-2.0**22 + 1, 2.0**22 - 1, 20000).astype(f32),
+                           np.arange(-600, 600, dtype=f32) / f32(4)]).astype(f32)
+    got = _f32_add_down(cand, f32(1.5 * 2.0**23)).view(np.uint32) & 255
+    want = (np.floor(cand).astype(np.int64) & 255).astype(np.uint32)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_kernel_g_is_bound():
@@ -291,3 +410,44 @@ def test_pointwise_bgr8_chain_config_is_config4():
     c = CHAINS["pointwise_bgr8"].config(48, 64)
     assert c.color_calibration.enabled and c.vignetting_correction.enabled
     assert ppipe.pointwise_steps(c, True, False) == ("calibration", "vignetting", "enhancer")
+
+
+# --- the chain that ends on the stretch ----------------------------------------
+
+
+@pytest.mark.parametrize("debug", [False, True], ids=["direct", "debug"])
+def test_chain_without_remap_writes_its_output_and_equals_jax(debug):
+    # config 4 (calibration, vignetting, enhancer on bgr8, no remap): the
+    # stretch's last call writes straight into the [B, H, W, 3] output
+    # (pointwise_planes(out=...); G on the card), except with debug dumps,
+    # which stack the planes; both equal the JAX package's chain byte for
+    # byte, keep_intermediates on
+    import jax
+
+    from raw_image_pipeline_tpu.pipeline import build_pipeline as jax_build_pipeline
+
+    hw = (24, 45)
+    config = CHAINS["pointwise_bgr8"].config(*hw)
+    rng = np.random.default_rng(21)
+    frames = rng.integers(0, 256, (2, *hw, 3), dtype=np.uint8)
+    jp = jax_build_pipeline(config, "bgr8", frame_hw=hw, keep_intermediates=True, debug=debug)
+    pp = tp.build_pipeline(config, "bgr8", hw, keep_intermediates=True, device="cpu",
+                           debug=debug)
+    pp.params = tp.params_from_numpy(jax.tree.map(np.asarray, jp.params), config, device="cpu")
+    written = []
+    real = ppw.pointwise_planes
+
+    def spy(*planes, out=None, **kw):
+        written.append(out is not None)
+        return real(*planes, out=out, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ppipe, "pointwise_planes", spy)
+        po, _ = pp(torch.as_tensor(frames), None)
+    jo, _ = jp(frames, None)
+    assert written[-1] is not debug and not any(written[:-1])
+    assert set(po) == set(jo)
+    for k in po:
+        assert po[k].shape == np.asarray(jo[k]).shape, k
+        assert int((po[k].numpy() != np.asarray(jo[k])).sum()) == 0, k
+    assert po["processed"].is_contiguous() and po["processed"].shape == (2, *hw, 3)

@@ -20,7 +20,7 @@ from raw_image_pipeline_tpu_torch.tools.measure import (
     remap_float_work,
     remap_lerp_work,
 )
-from raw_image_pipeline_tpu_torch.tools.sass_census import census, pixels_per_thread
+from raw_image_pipeline_tpu_torch.tools.sass_census import census, pixels_per_thread, resources
 from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time, union_us
 
 
@@ -260,6 +260,22 @@ def test_sass_census_counts_by_class():
     assert pixels_per_thread("void <unnamed>::debayer_mht_kernel<(int)27, (int)8>(...)") == 16
     assert pixels_per_thread("debayer_bilinear_kernel<(int)27, (int)4, (bool)1>(...)") == 8
     assert pixels_per_thread("ccc_response_stage") is None
+
+
+def test_sass_census_reads_resource_usage():
+    # `cuobjdump -res-usage`'s lines: each function's registers, stack
+    # (where spills go), shared and local bytes
+    listing = """Resource usage:
+ Common:
+  GLOBAL:0
+ Function _Z5otherv:
+  REG:56 STACK:144 SHARED:25664 LOCAL:0 CONSTANT[0]:600 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _Z4mainv:
+  REG:48 STACK:0 SHARED:20272 LOCAL:0 CONSTANT[0]:504
+"""
+    assert resources(listing.splitlines()) == {
+        "_Z5otherv": {"registers": 56, "stack": 144, "shared": 25664, "local": 0},
+        "_Z4mainv": {"registers": 48, "stack": 0, "shared": 20272, "local": 0}}
 
 
 def test_card_tests_collects_the_cuda_tests_with_jax_stubbed():

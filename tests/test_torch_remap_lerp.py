@@ -72,9 +72,10 @@ def _byte(y) -> int:
 
 
 def _f_byte(fx, fy, taps, masks) -> int:
-    """Kernel F's lerp byte (LerpMode::special and ::blend), with each fma
-    rounded once: in its domain, the fmas and, within y * 2^-21 of a
-    half-integer, the plain y-lerp; outside it, the plain lerp throughout."""
+    """Kernel F's lerp byte (remap_lerp_kernel's rule, lerp_native and
+    lerp_emulated), with each fma rounded once: in its domain, the fmas
+    and, within 2^-14 of a half-integer, the plain y-lerp; outside it, the
+    plain lerp throughout."""
     fx, fy = f32(fx), f32(fy)
     v = [f32(f32(t) * f32(m)) for t, m in zip(taps, masks)]
     native = ((fx == 0 or NATIVE_FX_MIN <= fx < 1) and 0 <= fy < 1
@@ -85,7 +86,7 @@ def _f_byte(fx, fy, taps, masks) -> int:
         d = f32(b - t)
         y = _fma(fy, d, t)
         r = f32(f32(y + f32(2.0**23)) - f32(2.0**23))  # rint(y), y in [0, 255]
-        if f32(0.5 - abs(f32(y - r))) <= f32(y * f32(2.0**-21)):
+        if abs(f32(y - r)) >= f32(0.5 - 2.0**-14):
             y = _fma_plain([fy], [d], [t])[0]
     else:
         t = _lerp_x_plain([fx], [v[0]], [v[1]])[0]
@@ -311,6 +312,85 @@ def test_remap_lerp_cuda_refuses_cpu_tensors(mode):
     assert torch.equal(pund.remap_planes(planes, base, weights, (4, 6), mode),
                        PLAIN[mode](planes, base, weights, (4, 6)))
     assert kernels.REMAP_LERP.launches == before
+
+
+def _native(fx, fy):
+    """remap_lerp_kernel's fma domain for fx and fy (the rest of its
+    native rule is the masks being 0 or 1)."""
+    return ((fx == 0) | ((fx >= NATIVE_FX_MIN) & (fx < 1))) & (fy >= 0) & (fy < 1)
+
+
+def _lerp_maps(kind, hw):
+    if kind == "lerp_hostile":
+        return pund.remap_precompute(*workloads.lerp_hostile_maps(hw, hw, 9), hw, mode="lerp")
+    if kind == "border":
+        return pund.remap_precompute(*workloads.border_maps(hw, hw, 9), hw, mode="lerp")
+    import dataclasses
+
+    import raw_image_pipeline_tpu_torch as tp
+
+    config = workloads.chains(tp)[kind].config(*hw)
+    config = config.replace(undistortion=dataclasses.replace(config.undistortion,
+                                                             interpolation="lerp"))
+    p = tp.make_params(config, hw, device="cpu")
+    return p.remap_base.numpy(), p.remap_weights.numpy()
+
+
+@pytest.mark.parametrize("kind", ["flagship", "float", "fixed32", "lerp_hostile", "border"])
+def test_lerp_masks_are_zero_or_one_where_f_holds_mask_bits(kind):
+    # F keeps a pixel's four masks as bits and selects a tap or 0 by them,
+    # which is the plain tap * mask only for masks 0 and 1: on the chains'
+    # maps (their calibration's, in lerp mode) and the lerp-hostile and
+    # border maps, every pixel in F's fma domain, and every pixel at all,
+    # has masks of exactly 0.0 or 1.0, and a mask-1 tap lies in the frame
+    hw = (60, 80)
+    base, weights = _lerp_maps(kind, hw)
+    masks = weights[2:]
+    assert np.isin(masks[:, _native(weights[0], weights[1])], (0.0, 1.0)).all()
+    assert np.isin(masks, (0.0, 1.0)).all()
+    h, w = hw
+    for k, off in enumerate((0, 1, w, w + 1)):
+        at = base.astype(np.int64) - (w + 1) + off
+        assert ((at >= 0) & (at < h * w))[masks[k] == 1].all()
+
+
+@pytest.mark.parametrize("kind", ["flagship", "border"])
+def test_f_stages_the_border_tiles(kind):
+    # workloads.remap_tile_census, a host model of the kernels' staging
+    # rule: the flagship's and the border map hold live pixels with a tap
+    # past the source's border (a mask of 0), and under F's lerp rule no
+    # tile of either gathers from global memory
+    hw = (240, 320)
+    base, weights = _lerp_maps(kind, hw)
+    masks = weights[2:]
+    assert ((masks != 0).any(0) & (masks == 0).any(0)).sum() > 0
+    c = workloads.remap_tile_census(base, weights, hw, hw, "lerp")
+    assert c["tiles"] == 30 * 5 and c["global"] == 0
+    assert c["staged"] + c["empty"] == c["tiles"]
+    # hostile maps scatter a tile's taps past the buffer: those gather
+    mx, my = workloads.hostile_maps(hw, hw, 3)
+    hb, hwts = pund.remap_precompute(mx, my, hw, mode="lerp")
+    assert workloads.remap_tile_census(hb, hwts, hw, hw, "lerp")["global"] > 0
+
+
+def test_remap_tile_census_counts_the_template_modes():
+    # float and fixed32 keep the template's rule: the flagship's map in
+    # those modes stages every live tile but those with a tap on the
+    # source's last column or row; the model's tile and box sizes are the
+    # kernels'
+    hw = (240, 320)
+    import raw_image_pipeline_tpu_torch as tp
+
+    with open(os.path.join(REPO, "raw_image_pipeline_tpu_torch", "csrc", "remap_tile.cuh")) as f:
+        header = f.read()
+    assert f"kStage = {workloads.REMAP_STAGE_BYTES};" in header
+    assert f"kTileH = {workloads.REMAP_TILE[0]}, kTileW = {workloads.REMAP_TILE[1]};" in header
+    assert workloads.REMAP_TILE == pund.REMAP_TILE
+    for mode in ("float", "fixed32"):
+        p = tp.make_params(workloads.chains(tp)[mode].config(*hw), hw, device="cpu")
+        c = workloads.remap_tile_census(p.remap_base, p.remap_weights, hw, hw, mode)
+        assert c["tiles"] == 150 and c["staged"] + c["empty"] + c["global"] == 150
+        assert c["staged"] > 100, c
 
 
 def test_kernel_f_is_registered():

@@ -66,12 +66,43 @@ per source, into build/kernels/), then:
                        3, and on all 2^24 BGR triples as one 4096x4096
                        frame; timed at B=4 and B=64 beside the plain
                        version and the bound (operations);
+     then the ccc_range phase (check_ccc_range): the CCC range's own
+     kernels against their plain versions, at the shapes the chain gives
+     them:
+       H working resize — 0 mismatching bytes: the chain's three planes at
+                       1920x1080 and 1440x1080, B=4 and B=64, every slab of
+                       a 2- and 4-way row split against the whole frame's
+                       rows, an odd crop (1079x1439), upsamples (91x117,
+                       269x361, 3x5), past a batch limit lowered to 7 and
+                       the op layer's strided [B, H, W, 3] input written
+                       interleaved, and planes of two strides refused;
+                       timed at B=4 and B=64;
+       I argmax      — equal int32 peaks against torch.argmax and numpy on
+                       real responses (fixture and noise frames), planted
+                       ties, +0.0/-0.0, equal, -inf, +inf, NaN and
+                       last-index frames, and frames off a 16-byte
+                       boundary; the f64 responses and the planted frames
+                       in f16, bf16 and the integer dtypes through
+                       response_argmax; timed beside torch.argmax
+                       (library_ms);
+       J track       — equal gains and Kalman state bit for bit in
+                       the "cameras", "sequence", camera-blocked and
+                       gathered layouts and without the filter, fresh,
+                       seeded and carried states, a 512-frame track, the
+                       given state untouched; timed at B=4 and B=64;
+     then one flagship call at 1920x1080, B=4, must launch H, B, C, I and J
+     once each (8 grids), and its profiled isp_white_balance range must
+     hold those 8 kernels and no copy, set or synchronising API call (the
+     call profiled up to 3 times until a trace shows the range; none
+     fails the phase);
      then the ops phase (check_ops): the reference package's entry points
      that reach a kernel, on [..., H, W(, 3)] CUDA frames at 1080x1920
      (leading dims (4,)) and at a random odd crop (leading dims (2, 3)):
      debayer bilinear (A) and MHT (D) in the four encodings,
-     log_chroma_histogram and _rt (B) on the 270x360 resize, ccc_response
-     (C), remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with
+     resize_linear_u8 (H), log_chroma_histogram and _rt (B) on the 270x360
+     resize, ccc_response (C), response_argmax (I), estimate_illuminant (H,
+     B, C, I), ccc_balance_white (and J, two calls with the state carried),
+     remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with
      one map and with per-camera maps, color_correct, vignetting.correct
      and enhance (G); each against plain=True on the card and the planar
      path of the chain, 0 mismatching bytes, with its device time; then
@@ -86,12 +117,13 @@ per source, into build/kernels/), then:
   2. drives each chain through build_pipeline(config, encoding,
      with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
      state carried across the calls, at 1920x1080:
-       flagship   — flagship_config(h, w), also at 1440x1080 (A, B, C, G, F);
+       flagship   — flagship_config(h, w), also at 1440x1080 (A, H, B, C, I,
+                    J, G, F);
        gpu_parity — MHT demosaic and the BT.709 gamma, the reference's
-                    use_gpu=True semantics, also at 1440x1080 (D, B, C, G,
-                    F);
-       float      — the float remap (A, B, C, G, E);
-       fixed32    — the fixed32 remap (A, B, C, G, F);
+                    use_gpu=True semantics, also at 1440x1080 (D, H, B, C,
+                    I, J, G, F);
+       float      — the float remap (A, H, B, C, I, J, G, E);
+       fixed32    — the fixed32 remap (A, H, B, C, I, J, G, F);
          (each 8 seeded frames in 2 calls)
        wb_simple, wb_grey_world, wb_pca, wb_learned — BASELINE config 2:
                     debayer, flip 90 and the statistical white balance,
@@ -785,6 +817,378 @@ def check_pointwise(tp, torch, rng):
     return row
 
 
+CCC_RESIZE_SHAPES = ((4, 1080, 1920), (4, 1080, 1440), (64, 1080, 1920), (64, 1080, 1440))
+# an odd crop, upsamples (height and width below 270x360) and a 3x5 frame
+CCC_RESIZE_ODD = ((4, 1079, 1439), (4, 91, 117), (4, 269, 361), (3, 3, 5))
+CCC_RESIZE_LIMIT = (20, 7)  # frames, lowered batch limit: 3 launches
+CCC_TRACK_LONG = 512  # a "sequence" track this long: every rounding of the filter, many times
+
+
+def _bits(torch, t):
+    """A tensor's bits, for a bitwise comparison of f32 values (-0.0 and
+    NaN included)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def check_ccc_range(tp, torch, rng, root, smi_line):
+    """Phase ccc_range: the CCC range's own kernels against their plain
+    versions on the card, then the flagship's isp_white_balance range.
+
+      H working resize — 0 mismatching bytes against resize_planes(...,
+                  plain=True): the chain's three planes (views of a [B, 3, H,
+                  W] tensor) at CCC_RESIZE_SHAPES (1920x1080 and 1440x1080,
+                  B=4 and B=64), every slab (y0, y1, row0) of a 2- and a
+                  4-way row split of the 1080-row frame equal to those rows
+                  of the whole frame, CCC_RESIZE_ODD (an odd crop and
+                  upsamples), the op layer's strided [B, H, W, 3] input
+                  written interleaved (resize_linear_u8, one launch) and past
+                  a batch limit lowered to 7 (CCC_RESIZE_LIMIT), and three
+                  planes of two strides refused (ValueError, no launch);
+                  timed at B=4 and B=64;
+      I argmax   — equal int32 peaks against torch.argmax
+                  (response_argmax_plain) and numpy's argmax on the host: the
+                  responses of the fixture frames and of noise (B=4, B=64),
+                  planted ties, +0.0/-0.0 ties, frames of equal values, -inf
+                  and +inf frames, NaNs (the first wins), a peak at the last
+                  index, and a batch 4 bytes off a 16-byte boundary (the
+                  scalar loads); response_argmax (one launch each) on the
+                  fixture's responses in f64 and the planted frames in f16,
+                  bf16, u8, i8, i16, i32 and i64; timed beside torch.argmax;
+      J track    — equal gains and Kalman state bit for bit
+                  against track_plain in the four layouts ("cameras",
+                  "sequence", camera-blocked, the mesh's gathered peaks)
+                  and without the filter, from fresh and from seeded
+                  states, two calls with the state carried, and a 512-frame
+                  track; the given state left as it was; timed at the
+                  flagship's B=4 and config 3's B=64 "sequence" calls.
+
+    Then the flagship at 1920x1080, B=4, "sequence" mode: one call with the
+    counts set to 0 must launch H, B, C, I and J once each (8 grids), and
+    its profiled call's isp_white_balance range must hold those 8 kernels
+    and no copy, set or synchronising API call: the call is profiled up to
+    3 times until a trace shows the range with the device's work, and the
+    phase fails if none does. Returns {"H", "I", "J": the kernels line's
+    row}."""
+    import json
+
+    import numpy as np
+
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
+    from raw_image_pipeline_tpu_torch.ops import ccc
+    from raw_image_pipeline_tpu_torch.ops.resize import (
+        _tables_x,
+        _tables_y,
+        resize_linear_u8,
+        resize_planes,
+        resize_rows_cuda,
+    )
+    from raw_image_pipeline_tpu_torch.parallel.mesh import split_rows
+    from raw_image_pipeline_tpu_torch.parallel.spatial import resize_slab
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.tools.measure import (
+        bound,
+        ccc_argmax_work,
+        ccc_resize_work,
+        ccc_track_work,
+        device_ms,
+    )
+    from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time
+
+    dev = torch.device("cuda")
+    sh, sw = ccc.SMALL_H, ccc.SMALL_W
+
+    def u8(shape):
+        return torch.as_tensor(rng.integers(0, 256, shape, dtype="uint8"), device=dev)
+
+    # --- H ---
+    def held_h(label, planes, src_h, y0=0, y1=sh, row0=0, launches=1, **kw):
+        before = kernels.CCC_RESIZE.launches
+        got = resize_rows_cuda(planes, src_h, sh, sw, y0, y1, row0, **kw)
+        made = kernels.CCC_RESIZE.launches - before
+        want = resize_planes(planes, src_h, sh, sw, y0, y1, row0, plain=True)
+        bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+        print(f"kernel H {label}: {bad} mismatching bytes, {made} launches")
+        if bad or made != launches:
+            raise AssertionError(f"kernel H: {bad} mismatching bytes, {made} launches "
+                                 f"(expected {launches}) at {label}")
+        return got
+
+    def read(src_h, src_w):  # the distinct source rows and columns the taps read
+        sx, sx2, _, _ = _tables_x(src_w, sw)
+        sy, sy2, _, _ = _tables_y(src_h, sh)
+        return len(set(sy) | set(sy2)), len(set(sx) | set(sx2))
+
+    timed = {}
+    for b, h, w in CCC_RESIZE_SHAPES:
+        x = u8((b, 3, h, w))
+        planes = [x[:, c] for c in (2, 1, 0)]  # the chain's R<->B swapped views
+        whole = held_h(f"B={b} {h}x{w} -> {sh}x{sw}, views of a [B, 3, H, W] tensor", planes, h)
+        if b == 4 and w == 1920:
+            for space in (2, 4):
+                for r0, r1 in split_rows(h, space):
+                    y0, y1, a, e = resize_slab(h, sh, r0, r1)
+                    got = held_h(f"B={b} {h}x{w} slab {space}-way rows [{r0}, {r1}): output "
+                                 f"rows [{y0}, {y1}) from source rows [{a}, {e})",
+                                 [p[:, a:e] for p in planes], h, y0, y1, a)
+                    bad = sum(int((g != wh[:, y0:y1]).sum()) for g, wh in zip(got, whole))
+                    if bad:
+                        raise AssertionError(f"kernel H: slab [{r0}, {r1}) differs from the "
+                                             f"whole frame's rows by {bad} bytes")
+        if w == 1920:
+            rows_read, cols_read = read(h, w)
+            work = ccc_resize_work(b, 3, rows_read, cols_read, sh, sw)
+            timed[b] = (device_ms(lambda: resize_rows_cuda(planes, h, sh, sw, 0, sh, 0)),
+                        device_ms(lambda: resize_planes(planes, h, sh, sw, plain=True),
+                                  n=20 if b == 4 else 3),
+                        bound(bytes_=work["bytes"], ops=work["ops"]))
+        del x, planes, whole
+    for b, h, w in CCC_RESIZE_ODD:
+        x = u8((b, 3, h, w))
+        held_h(f"B={b} {h}x{w} -> {sh}x{sw}", [x[:, c] for c in range(3)], h)
+    x = u8((4, 3, 1080, 1920))
+    before = kernels.CCC_RESIZE.launches
+    try:
+        resize_rows_cuda([x[:, 0], x[:, 1].contiguous(), x[:, 2]], 1080, sh, sw, 0, sh, 0)
+    except ValueError as e:
+        print(f"kernel H B=4 1080x1920, planes of two strides: refused ({e})"[:200])
+    else:
+        raise AssertionError("kernel H: planes of two strides were not refused")
+    if kernels.CCC_RESIZE.launches != before:
+        raise AssertionError("kernel H: launched on planes of two strides")
+    n, limit = CCC_RESIZE_LIMIT
+    x = u8((n, 3, 91, 117))
+    held_h(f"B={n} 91x117, batch limit {limit}", [x[:, c] for c in range(3)], 91,
+           launches=-(-n // limit), batch_limit=limit)
+    img = u8((4, 1080, 1920, 3))
+    before = kernels.CCC_RESIZE.launches
+    got = resize_linear_u8(img, sh, sw)
+    made = kernels.CCC_RESIZE.launches - before
+    bad = int((got != resize_linear_u8(img, sh, sw, plain=True)).sum())
+    print(f"kernel H resize_linear_u8 [4, 1080, 1920, 3] -> [4, {sh}, {sw}, 3] (strided planes "
+          f"in, interleaved out): {bad} mismatching bytes, {made} launches")
+    if bad or made != 1 or not got.is_contiguous():
+        raise AssertionError("kernel H: the op layer's strided resize")
+    del x, img, got
+    torch.cuda.empty_cache()
+    (ms, plain_ms, bd), (ms64, plain64, bd64) = timed[4], timed[64]
+    rows = {"H": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
+                      share=bd["bound_ms"] / ms, ms_b64=ms64, plain_ms_b64=plain64,
+                      bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64)}
+    print(f"kernel H time B=4 1080x1920 -> {sh}x{sw}, three planes: {ms:.4f} ms (bound "
+          f"{bd['bound_ms']:.5f}, {bd['bound_by']}), plain {plain_ms:.4f} ms; B=64 {ms64:.4f} "
+          f"ms (bound {bd64['bound_ms']:.5f}), plain {plain64:.4f} ms; no PyTorch call "
+          f"computes it [{smi_line}]")
+
+    # --- I ---
+    cfg = tp.flagship_config(1080, 1920).white_balance
+    model = load_ccc_model(cfg.ccc_model_path)
+    filt = tuple(torch.as_tensor(a, device=dev)
+                 for a in (model.filt_dft_re, model.filt_dft_im, model.bias))
+    cuts = tuple(float(np.float32(v)) for v in (255.0 * cfg.saturation_bright_thr,
+                                                255.0 * cfg.saturation_dark_thr, cfg.ccc_uv0))
+
+    def responses(planes):
+        small = resize_planes(planes, planes[0].shape[-2], sh, sw)
+        return ccc.ccc_response(ccc.log_chroma_histogram_planes(*small, *cuts), *filt)
+
+    def held_i(label, resp):
+        got = ccc.response_argmax_cuda(resp)
+        want = ccc.response_argmax_plain(resp)
+        flat = resp.reshape(resp.shape[0], -1).cpu().numpy()
+        idx = np.argmax(flat, axis=-1)
+        host = np.stack([idx % ccc.HIST_N, idx // ccc.HIST_N], -1).astype(np.int32)
+        bad = int((got != want).sum()) + int((got.cpu().numpy() != host).sum())
+        print(f"kernel I {label}: {bad} mismatching int32 values against torch.argmax and "
+              f"numpy's argmax (peaks {got[:4].tolist()})")
+        if bad:
+            raise AssertionError(f"kernel I: {bad} mismatching values at {label}")
+
+    fixture = responses(_fixture_planes(torch, 4, 1080, 1920))
+    noise = responses([u8((64, 1080, 1920)) for _ in range(3)])
+    held_i("B=4 the fixture frames' responses", fixture)
+    held_i("B=64 the noise frames' responses", noise)
+    n2 = ccc.HIST_N ** 2
+    planted = torch.as_tensor(rng.normal(0, 1, (12, n2)).astype("float32"), device=dev)
+    planted[0, [1234, 40000]] = 50.0  # a tie: the lower index
+    planted[1] = 5.0  # all equal: index 0
+    planted[2] = -float("inf")
+    planted[3] = -1.0
+    planted[3, 9000], planted[3, 700] = 0.0, -0.0  # +0.0 and -0.0 tie: the first
+    planted[4] = -1.0
+    planted[4, 700], planted[4, 9000] = 0.0, -0.0
+    planted[5, [30000, 60000]] = float("nan")  # the first NaN
+    planted[6, 0], planted[6, n2 - 1] = 1e38, float("nan")
+    planted[7, 0] = float("nan")
+    planted[8, [100, 200]] = float("inf")
+    planted[9, n2 - 1] = 100.0  # the last index
+    planted[10] = -0.0
+    planted[10, 5] = 0.0  # +0.0 after -0.0: the first (index 0)
+    planted[11, 1023] = 20.0  # a warp's and a block's reduction boundary
+    planted[11, 1024] = 20.0
+    held_i("planted ties, +0.0/-0.0, equal, -inf, +inf, NaN and last-index frames",
+           planted.view(12, ccc.HIST_N, ccc.HIST_N))
+    buf = torch.empty(12 * n2 + 1, dtype=torch.float32, device=dev)
+    off = buf[1:].view(12, ccc.HIST_N, ccc.HIST_N)
+    off.copy_(planted.view(12, ccc.HIST_N, ccc.HIST_N))
+    held_i("the planted frames 4 bytes off a 16-byte boundary (scalar loads)", off)
+    typed = [("the fixture frames' responses in f64", fixture.double())]
+    for dtype in (torch.float16, torch.bfloat16):
+        typed.append((f"the planted frames in {dtype}", planted.view(12, ccc.HIST_N,
+                                                                     ccc.HIST_N).to(dtype)))
+    ints = torch.nan_to_num(planted * 8, posinf=100, neginf=-100).view(12, ccc.HIST_N,
+                                                                        ccc.HIST_N)
+    for dtype in (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64):
+        typed.append((f"the planted frames x8 in {dtype}", ints.to(dtype)))
+    for label, resp in typed:
+        before = kernels.CCC_ARGMAX.launches
+        got = ccc.response_argmax(resp)
+        made = kernels.CCC_ARGMAX.launches - before
+        bad = int((got != ccc.response_argmax_plain(resp)).sum())
+        print(f"kernel I response_argmax, {label}: {bad} mismatching int32 values against "
+              f"torch.argmax, {made} launches")
+        if bad or made != 1:
+            raise AssertionError(f"kernel I: {bad} mismatching values, {made} launches at "
+                                 f"{label}")
+    ms = device_ms(lambda: ccc.response_argmax_cuda(fixture))
+    plain_ms = device_ms(lambda: ccc.response_argmax_plain(fixture))
+    library_ms = device_ms(lambda: torch.argmax(fixture.view(4, -1), dim=-1))
+    ms64 = device_ms(lambda: ccc.response_argmax_cuda(noise))
+    library64 = device_ms(lambda: torch.argmax(noise.view(64, -1), dim=-1))
+    bd, bd64 = (bound(bytes_=w["bytes"], ops=w["ops"]) for w in (ccc_argmax_work(4),
+                                                                   ccc_argmax_work(64)))
+    rows["I"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bd,
+                     share=bd["bound_ms"] / ms, ms_b64=ms64, library_ms_b64=library64,
+                     bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64)
+    print(f"kernel I time B=4: {ms:.4f} ms (bound {bd['bound_ms']:.5f}, {bd['bound_by']}), "
+          f"plain {plain_ms:.4f} ms, torch.argmax {library_ms:.4f} ms; B=64 {ms64:.4f} ms "
+          f"(bound {bd64['bound_ms']:.5f}), torch.argmax {library64:.4f} ms [{smi_line}]")
+    uv4 = ccc.response_argmax(fixture)
+    del noise, planted, buf, off, ints, typed
+    torch.cuda.empty_cache()
+
+    # --- J ---
+    exp_tab = torch.as_tensor(ccc.exp_table(cuts[2]), device=dev)
+
+    def peaks(n):
+        return torch.as_tensor(rng.integers(0, 256, (n, 2), dtype="int32"), device=dev)
+
+    def seeded_state(shape):
+        return ccc.KalmanState(
+            x=torch.as_tensor(rng.uniform(0, 255, shape + (2,)).astype("float32"), device=dev),
+            p=torch.as_tensor(rng.uniform(0, 9, shape).astype("float32"), device=dev),
+            initialized=torch.as_tensor(rng.integers(0, 2, shape).astype(bool), device=dev))
+
+    fields = ("x", "p", "initialized")
+
+    def held_j(label, uv, state, **kw):
+        kept = None if state is None else [getattr(state, f).clone() for f in fields]
+        before = kernels.CCC_TRACK.launches
+        got = ccc.track_cuda(uv, exp_tab, state, **kw)
+        made = kernels.CCC_TRACK.launches - before
+        want = ccc.track_plain(uv, exp_tab, state, **kw)
+        bad = int((_bits(torch, got[1]) != _bits(torch, want[1])).sum())
+        same = (got[0] is None) == (want[0] is None) and (got[0] is None or all(
+            getattr(got[0], f).shape == getattr(want[0], f).shape and torch.equal(
+                _bits(torch, getattr(got[0], f)), _bits(torch, getattr(want[0], f)))
+            for f in fields))
+        untouched = kept is None or all(torch.equal(_bits(torch, k), _bits(torch, getattr(
+            state, f))) for k, f in zip(kept, fields))
+        print(f"kernel J {label}: {bad} mismatching gains (bits), state equal bit for "
+              f"bit: {same}, the given state untouched: {untouched}, {made} launches")
+        if bad or not same or not untouched or made != 1:
+            raise AssertionError(f"kernel J disagrees with its plain version at {label}")
+        return got
+
+    fresh = lambda shape=(): ccc.kalman_init(shape, device=dev)  # noqa: E731
+    held_j("cameras B=4, fresh state ()", uv4, fresh(), track_shape=(4,))
+    st = held_j("cameras B=64, seeded state (64,)", peaks(64), seeded_state((64,)),
+                track_shape=(64,))[0]
+    held_j("cameras B=64, the state carried", peaks(64), st, track_shape=(64,))
+    st = held_j("sequence B=4 (the flagship's call), fresh", uv4, fresh(), track_shape=(),
+                steps=4)[0]
+    held_j("sequence B=4, the state carried", peaks(4), st, track_shape=(), steps=4)
+    held_j("sequence B=64 (config 3's call), seeded", peaks(64), seeded_state(()),
+           track_shape=(), steps=64)
+    held_j(f"sequence {CCC_TRACK_LONG} frames, fresh", peaks(CCC_TRACK_LONG), fresh(),
+           track_shape=(), steps=CCC_TRACK_LONG)
+    held_j("camera-blocked 4 cameras x 16, fresh (4,)", peaks(64), fresh((4,)),
+           track_shape=(4,), steps=16)
+    held_j("camera-blocked 4 cameras x 4, seeded (4,)", peaks(16), seeded_state((4,)),
+           track_shape=(4,), steps=4)
+    every = torch.cat([uv4, peaks(4)])  # the mesh's gathered peaks of 2 data shards
+    held_j("gathered peaks of 2 data shards x 4 frames", every, fresh(), track_shape=(),
+           steps=8)
+    held_j("no Kalman B=4", uv4, None, track_shape=(4,))
+    held_j("no Kalman B=64", peaks(64), None, track_shape=(64,))
+    uv64, st0 = peaks(64), fresh()
+    seq = dict(track_shape=())
+    ms = device_ms(lambda: ccc.track_cuda(uv4, exp_tab, st0, steps=4, **seq))
+    plain_ms = device_ms(lambda: ccc.track_plain(uv4, exp_tab, st0, steps=4, **seq))
+    ms64 = device_ms(lambda: ccc.track_cuda(uv64, exp_tab, st0, steps=64, **seq))
+    plain64 = device_ms(lambda: ccc.track_plain(uv64, exp_tab, st0, steps=64, **seq), n=5)
+    bd, bd64 = (bound(bytes_=w["bytes"], ops=w["ops"]) for w in (
+        ccc_track_work(4, 1, True), ccc_track_work(64, 1, True)))
+    rows["J"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
+                     share=bd["bound_ms"] / ms, ms_b64=ms64, plain_ms_b64=plain64,
+                     bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64)
+    print(f"kernel J time, a sequence track of B=4: {ms:.4f} ms (bound {bd['bound_ms']:.2e}, "
+          f"{bd['bound_by']}), plain {plain_ms:.4f} ms; B=64 {ms64:.4f} ms, plain "
+          f"{plain64:.4f} ms; no PyTorch call computes it [{smi_line}]")
+
+    # --- the flagship's isp_white_balance range ---
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = tp.build_pipeline(tp.flagship_config(1080, 1920), "bayer_gbrg8",
+                             frame_hw=(1080, 1920), with_state=True, temporal_mode="sequence",
+                             device="cuda")
+    frames = workloads.card_frames(torch, "bayer", 4, 1080, 1920, workloads.SEED + 16)
+    state = tp.init_state((), device="cuda")
+    pipe(frames, state)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pipe(frames, state)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels.ALL}
+    mine = [k for k in kernels.ALL if k.name in workloads.CCC_KERNELS]
+    grids = sum(k.launches * k.grids for k in mine)
+    print(f"flagship 1920x1080 B=4, one call: CCC range launches "
+          f"{ {k.name: k.launches for k in mine} } ({grids} grids); all {counts}")
+    if any(k.launches != 1 for k in mine):
+        raise AssertionError(f"the flagship's CCC range: a kernel not launched once: {counts}")
+    path = os.path.join(root, "build", "ccc_range_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    for attempt in range(1, 4):  # a trace may come back without the device's work
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe(frames, state)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = device_time(json.load(f))
+        os.remove(path)
+        wb = trace["stages"].get("isp_white_balance")
+        if trace["kernels"] and wb is not None:
+            break
+        print(f"flagship isp_white_balance range, profile {attempt}: the trace shows no "
+              f"device work or no such range")
+    else:
+        raise AssertionError("the flagship's isp_white_balance range: no trace of 3 showed "
+                             "it, so its kernels, copies and syncs went unchecked")
+    syncs = {a: n for a, (n, _) in wb["host_api"].items()
+             if "Synchronize" in a or "Memcpy" in a or "Memset" in a}
+    print(f"flagship isp_white_balance range, profiled: {wb['kernels']} kernels, "
+          f"{wb['copies']} copies, {wb['sets']} sets, span {wb['span_us']:.1f} us, busy "
+          f"{wb['busy_us']:.1f} us, host {wb['host_us']:.1f} us, synchronising or copying "
+          f"API calls {syncs} [{smi_line}]")
+    if wb["kernels"] != grids or wb["copies"] or wb["sets"] or syncs:
+        raise AssertionError(f"the flagship's isp_white_balance range runs more than "
+                             f"kernels H, B, C, I and J: {wb}")
+    del frames, pipe, fixture
+    kernels.reset_launch_counts()  # the comparisons above are not the main path's
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_kernels(tp, torch, rng):
     """Phase 1: each kernel against its plain version on the card."""
     import numpy as np
@@ -1031,8 +1435,11 @@ def check_ops(tp, torch, rng, smi_line):
     called as its users call them on [..., H, W(, 3)] CUDA frames, at
     1080x1920 with leading dims (4,) and at a random odd crop with leading
     dims OPS_CROP_LEAD: debayer bilinear (A) and MHT (D) in the four
-    encodings, log_chroma_histogram and log_chroma_histogram_rt (B) on the
-    270x360 resize, ccc_response (C) on those histograms, and
+    encodings, resize_linear_u8 (H) to 270x360, log_chroma_histogram and
+    log_chroma_histogram_rt (B) on that resize, ccc_response (C) on those
+    histograms, response_argmax (I) of the responses, estimate_illuminant
+    (H, B, C, I) and ccc_balance_white (and J; two calls, the state
+    carried: bytes and state against plain=True), and
     remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with one map
     and with per-camera maps (four at 1080x1920, the multicamera chain's;
     two at the crop), and kernel G's steps one at a time:
@@ -1040,8 +1447,9 @@ def check_ops(tp, torch, rng, smi_line):
     vignetting.correct (the frame's vignetting mask) and
     color_enhancer.enhance (gains 1.1, 1.2, 0.9).
     Each is held against the same call with plain=True on the card and
-    against the planar path the chain runs (debayer_planes,
+    against the planar path the chain runs (debayer_planes, resize_planes,
     log_chroma_histogram_planes, ccc_response on [B, 256, 256],
+    response_argmax_cuda on [B, 256, 256],
     remap_planes, pointwise_planes): 0 mismatching bytes (f32 values for the histograms; for
     ccc_response the argmax, and the values against the plain version
     within 1e-4 of max |response| as phase 1 holds kernel C). One line per
@@ -1063,7 +1471,7 @@ def check_ops(tp, torch, rng, smi_line):
         undistortion,
         vignetting,
     )
-    from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8
+    from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8, resize_planes
     from raw_image_pipeline_tpu_torch.ops.vignetting import build_vignetting_mask
     from raw_image_pipeline_tpu_torch.parallel import build_multicamera_pipeline
     from raw_image_pipeline_tpu_torch.tools import workloads
@@ -1140,7 +1548,12 @@ def check_ops(tp, torch, rng, smi_line):
             ms = device_ms(lambda: debayer.debayer(bayer, "bayer_gbrg8", algorithm))
             report(f"debayer {algorithm} {size} in 4 encodings", bad, ms)
         bgr = debayer.debayer(bayer, "bayer_gbrg8")
-        small = resize_linear_u8(bgr, ccc.SMALL_H, ccc.SMALL_W)
+        small = counted(lambda: resize_linear_u8(bgr, ccc.SMALL_H, ccc.SMALL_W))
+        bad = int((small != resize_linear_u8(bgr, ccc.SMALL_H, ccc.SMALL_W, plain=True)).sum())
+        planar = torch.stack(resize_planes(planes_of(bgr), hw[0], ccc.SMALL_H, ccc.SMALL_W), -1)
+        bad += int((small != planar.reshape(small.shape)).sum())
+        report(f"resize_linear_u8 {size} -> {ccc.SMALL_H}x{ccc.SMALL_W}", bad,
+               device_ms(lambda: resize_linear_u8(bgr, ccc.SMALL_H, ccc.SMALL_W)))
         planar_hist = ccc.log_chroma_histogram_planes(*planes_of(small), *cuts).reshape(
             lead + (ccc.HIST_N, ccc.HIST_N))
         thr = (cfg.saturation_bright_thr, cfg.saturation_dark_thr, cfg.ccc_uv0)
@@ -1161,6 +1574,25 @@ def check_ops(tp, torch, rng, smi_line):
         report(f"ccc_response {size}", bad + int(err > 1e-4 * scale),
                device_ms(lambda: ccc.ccc_response(hist, *filt)),
                f" (argmax against plain=True; max |diff| {err:.3e}, limit {1e-4 * scale:.3e})")
+        uv = counted(lambda: ccc.response_argmax(resp))
+        bad = int((uv != ccc.response_argmax(resp, plain=True)).sum())
+        bad += int((uv != ccc.response_argmax_cuda(flat_resp).reshape(uv.shape)).sum())
+        report(f"response_argmax {size}", bad, device_ms(lambda: ccc.response_argmax(resp)))
+        got = counted(lambda: ccc.estimate_illuminant(bgr, model))
+        bad = int((got != ccc.estimate_illuminant(bgr, model, plain=True)).sum())
+        bad += int((got != uv).sum())
+        report(f"estimate_illuminant {size}", bad,
+               device_ms(lambda: ccc.estimate_illuminant(bgr, model)))
+        state = want_state = ccc.kalman_init(lead, device=dev)
+        bad = 0
+        for _ in range(2):  # the state carried
+            img, state = counted(lambda: ccc.ccc_balance_white(bgr, model, state=state))
+            want, want_state = ccc.ccc_balance_white(bgr, model, state=want_state, plain=True)
+            bad += int((img != want).sum()) + sum(
+                int((getattr(state, f) != getattr(want_state, f)).sum())
+                for f in ("x", "p", "initialized"))
+        report(f"ccc_balance_white {size}, two calls, the state carried", bad,
+               device_ms(lambda: ccc.ccc_balance_white(bgr, model, state=state)))
         for mode, cameras in itertools.product(("float", "lerp", "fixed32"),
                                                (1, 4 if len(lead) == 1 else lead[0])):
             base, weights = remap_maps(hw, cameras, mode)
@@ -1549,9 +1981,8 @@ def check_stream(tp, torch, np, root):
     batches = -(-n // b)
     print(f"stream flagship {w}x{h} StreamRunner(batch_size={b}): {count} frames, "
           f"{len(got)} images; kernel launches {counts} ({batches} batches)")
-    if count != n or any(counts[k] != batches for k in ("debayer_bilinear", "ccc_histogram",
-                                                        "ccc_response", "pointwise",
-                                                        "remap_lerp")):
+    if count != n or any(counts[k] != batches for k in ("debayer_bilinear",)
+                         + workloads.CCC_KERNELS + ("pointwise", "remap_lerp")):
         raise AssertionError("stream: frames or launches wrong")
     pipe = tp.build_pipeline(config, "bayer_gbrg8", (h, w), with_state=True,
                              keep_intermediates=True, temporal_mode="sequence", device="cuda")
@@ -1764,7 +2195,7 @@ def check_run_pipeline(tp, torch, np, root, d):
             torch.cuda.synchronize()
             counts = {k.name: k.launches for k in kernels.ALL}
             # G applies the CCC gains: the profile runs no other pointwise step
-            path_kernels = ("debayer_bilinear", "ccc_histogram", "ccc_response", "pointwise") + (
+            path_kernels = ("debayer_bilinear",) + workloads.CCC_KERNELS + ("pointwise",) + (
                 ("remap_float",) if mode == "float" else ("remap_lerp",))
             print(f"{label}: {count} frames written, kernel launches {counts}")
             if count != n or any(counts[k] != n // b for k in path_kernels):
@@ -2186,7 +2617,7 @@ def check_bench(torch, root):
     and read just after). Prints the headline line."""
     import gc
 
-    from raw_image_pipeline_tpu_torch.tools import bench
+    from raw_image_pipeline_tpu_torch.tools import bench, workloads
 
     gc.collect()
     torch.cuda.empty_cache()  # the card's memory for the child's 128-frame batches
@@ -2202,7 +2633,7 @@ def check_bench(torch, root):
         raise AssertionError(f"tools/bench.py's last line lacks {sorted(missing)}: {head}")
     if details["checks"] != dict.fromkeys(BENCH_CHECKS, 0):
         raise AssertionError(f"tools/bench.py's checks: {details['checks']}")
-    flagship = ("debayer_bilinear", "ccc_histogram", "ccc_response", "pointwise", "remap_lerp")
+    flagship = ("debayer_bilinear",) + workloads.CCC_KERNELS + ("pointwise", "remap_lerp")
     runs = {"headline": (details["headline"]["launches"], flagship)}
     for key, row in details["configs"].items():
         # config 1 runs its gamma table through G, config 4 is G alone
@@ -2262,6 +2693,9 @@ def main() -> int:
     try:
         rows = phase("kernels", check_kernels, tp, torch, rng)
         # its own generator: the later phases' inputs stay what they were
+        rows.update(phase("ccc_range", check_ccc_range, tp, torch,
+                          np.random.default_rng(workloads.SEED + 2), root, smi_line))
+        # its own generator: the later phases' inputs stay what they were
         ops_launches = phase("ops", check_ops, tp, torch,
                              np.random.default_rng(workloads.SEED + 1), smi_line)
         launches, per_flagship_call, fps, peak = phase("chains", check_chains, tp, torch, rng)
@@ -2281,7 +2715,8 @@ def main() -> int:
 
     names = {"A": kernels.DEBAYER_BILINEAR, "B": kernels.CCC_HISTOGRAM,
              "C": kernels.CCC_RESPONSE, "D": kernels.DEBAYER_MHT, "E": kernels.REMAP_FLOAT,
-             "F": kernels.REMAP_LERP, "G": kernels.POINTWISE}
+             "F": kernels.REMAP_LERP, "G": kernels.POINTWISE, "H": kernels.CCC_RESIZE,
+             "I": kernels.CCC_ARGMAX, "J": kernels.CCC_TRACK}
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],
@@ -2295,7 +2730,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh, "card": smi_line,
                       "note": "logical shards on one card, not a scaling figure"}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
-    # that runs the kernel (A, B, C, F: flagship; D: gpu_parity; E: float);
+    # that runs the kernel (A, B, C, F-J: flagship; D: gpu_parity; E: float);
     # launches_per_flagship_call: the grids it put on the device per call
     print(f"bound_ms against the H100 SXM's published peaks "
           f"({measure.PEAK_BYTES_PER_S / 1e12} TB/s, {measure.PEAK_F32_FLOP_PER_S / 1e12} "

@@ -32,7 +32,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
-           "remap_float.cu", "remap_lerp.cu", "pointwise.cu")
+           "remap_float.cu", "remap_lerp.cu", "pointwise.cu", "ccc_resize.cu", "ccc_argmax.cu",
+           "ccc_track.cu")
 HEADERS = ("debayer_strip.cuh", "remap_tile.cuh")  # included by the sources; in the hash too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,6 +55,9 @@ _SIGNATURES = {
     "isp_remap_lerp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "isp_pointwise": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "isp_ccc_resize": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P),
+    "isp_ccc_argmax": (_P, _P, _I, _I, _P),
+    "isp_ccc_track": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L, _I, _I, _P),
 }
 
 
@@ -186,8 +190,27 @@ POINTWISE = Kernel(
         "vignetting.py:44 correct_planes", "vignetting.py:122 composed_gamma_lab_fn",
         "color_enhancer.py:119 enhance_planes")),
 )
+# the CCC range around B and C, which the reference package leaves to XLA:
+# the working resize (H), the response's argmax (I), the Kalman track and
+# the gains (J)
+CCC_RESIZE = Kernel(
+    "ccc_resize", "isp_ccc_resize",
+    "raw_image_pipeline_tpu_torch/csrc/ccc_resize.cu",
+    "raw_image_pipeline_tpu/ops/resize.py:192 resize_linear_u8_plane",
+)
+CCC_ARGMAX = Kernel(
+    "ccc_argmax", "isp_ccc_argmax",
+    "raw_image_pipeline_tpu_torch/csrc/ccc_argmax.cu",
+    "raw_image_pipeline_tpu/ops/ccc.py:401 response_argmax",
+)
+CCC_TRACK = Kernel(
+    "ccc_track", "isp_ccc_track",
+    "raw_image_pipeline_tpu_torch/csrc/ccc_track.cu",
+    "; ".join(f"raw_image_pipeline_tpu/ops/ccc.py:{site}" for site in (
+        "511 kalman_update", "492 kalman_scan", "425 gains_from_uv")),
+)
 ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT, REMAP_LERP,
-       POINTWISE)
+       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK)
 
 
 def reset_launch_counts() -> None:

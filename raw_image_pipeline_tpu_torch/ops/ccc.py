@@ -17,11 +17,14 @@ Per frame (reference balanceWhite, ccc.cpp:91-113):
 `log` and `exp` are served as exact host tables over their 256-value
 domains (u8 pixel values; Lu/Lv are multiples of 1/64 offset by uv0), built
 with libm — the reference's std::log/std::exp — so every device computes
-the same numbers; each table is uploaded once per device. The histogram and
-the response each have a plain version here and a hand-written CUDA kernel
-(kernel B, csrc/ccc_histogram.cu; kernel C, csrc/ccc_response.cu);
-`log_chroma_histogram_planes` and `ccc_response` launch the kernel for a
-CUDA tensor and run the plain version for a CPU one.
+the same numbers; each table is uploaded once per device. The histogram,
+the response, the argmax and the track with the gains each have a plain
+version here and a hand-written CUDA kernel (kernel B,
+csrc/ccc_histogram.cu; C, csrc/ccc_response.cu; I, csrc/ccc_argmax.cu; J,
+csrc/ccc_track.cu; the resize before them is kernel H, ops/resize.py);
+`log_chroma_histogram_planes`, `ccc_response`, `response_argmax` and
+`track_gains` launch the kernel for a CUDA tensor and run the plain version
+for a CPU one (or with plain=True).
 
 The chain works on planes; the image-level API of the reference package
 (`log_chroma_histogram`, `log_chroma_histogram_rt`, `estimate_illuminant`,
@@ -323,13 +326,54 @@ def ccc_response(hist: torch.Tensor, filt_dft_re, filt_dft_im, bias_spatial, *,
     return resp.reshape(lead + (HIST_N, HIST_N))
 
 
-def response_argmax(response: torch.Tensor) -> torch.Tensor:
-    """Row-major first-occurrence argmax -> [..., 2] int32 (x=col, y=row),
-    matching cv::minMaxLoc's maxLoc Point convention (ccc.cpp:295).
-    torch.argmax returns the first maximal index."""
+# ---------------------------------------------------------------------------
+# Argmax (kernel I)
+# ---------------------------------------------------------------------------
+
+
+def response_argmax_plain(response: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel I: row-major first-occurrence argmax ->
+    [..., 2] int32 (x=col, y=row), matching cv::minMaxLoc's maxLoc Point
+    convention (ccc.cpp:295). torch.argmax returns the first maximal index
+    (a NaN counting as the maximum, the first NaN winning)."""
     lead = response.shape[:-2]
     idx = torch.argmax(response.reshape(lead + (-1,)), dim=-1)
     return torch.stack([idx % HIST_N, idx // HIST_N], dim=-1).to(torch.int32)
+
+
+# the dtypes kernel I reads, each with its code in the C entry
+ARGMAX_DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3,
+                 torch.uint8: 4, torch.int8: 5, torch.int16: 6, torch.int32: 7, torch.int64: 8}
+
+
+def response_argmax_cuda(response: torch.Tensor) -> torch.Tensor:
+    """Kernel I: response_argmax_plain of a contiguous CUDA [B, 256, 256]
+    tensor of any dtype in ARGMAX_DTYPES, [B, 2] int32; one launch (a block
+    a frame)."""
+    if response.dtype not in ARGMAX_DTYPES:
+        raise ValueError(f"response: expected one of {tuple(ARGMAX_DTYPES)}, got "
+                         f"{response.dtype}")
+    kernels.check_cuda(response, "response", response.dtype)
+    if response.dim() != 3 or tuple(response.shape[1:]) != (HIST_N, HIST_N):
+        raise ValueError(f"response: expected [B, 256, 256], got {tuple(response.shape)}")
+    uv = torch.empty((response.shape[0], 2), dtype=torch.int32, device=response.device)
+    if response.shape[0]:
+        with torch.cuda.device(response.device):
+            kernels.CCC_ARGMAX.launch(response.data_ptr(), uv.data_ptr(), response.shape[0],
+                                      ARGMAX_DTYPES[response.dtype],
+                                      kernels.stream_handle(response))
+    return uv
+
+
+def response_argmax(response: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """[..., 256, 256] responses -> the first-occurrence peak [..., 2]
+    int32 (x=col, y=row): kernel I on a CUDA tensor, the plain version on a
+    CPU tensor or with plain=True."""
+    if plain or response.device.type == "cpu":
+        return response_argmax_plain(response)
+    lead = tuple(response.shape[:-2])
+    flat = response.reshape((-1, HIST_N, HIST_N)).contiguous()
+    return response_argmax_cuda(flat).reshape(lead + (2,))
 
 
 @functools.lru_cache(maxsize=8)
@@ -445,6 +489,105 @@ def kalman_scan(state: KalmanState, meas: torch.Tensor) -> Tuple[KalmanState, to
 
 
 # ---------------------------------------------------------------------------
+# The track and the gains (kernel J)
+# ---------------------------------------------------------------------------
+#
+# The chain's peaks uv [R, 2] are walked as tracks: the frame of track t at
+# step s is row t * steps + s, tracks = prod(track_shape):
+#   "cameras" mode     track_shape (B,), steps 1;
+#   "sequence" mode    track_shape (),   steps B (also the mesh's gathered
+#                      peaks of every frame);
+#   camera-blocked     track_shape (n_cameras,), steps cam_b;
+#   sequence
+#   no Kalman          state None: the gains of the measured peaks.
+
+
+def _check_layout(uv: torch.Tensor, track_shape, steps: int) -> int:
+    """The number of tracks; raises unless uv [R, 2] holds one step of one
+    track in each row."""
+    tracks = math.prod(track_shape)
+    if uv.dim() != 2 or uv.shape[-1] != 2 or tracks * steps != uv.shape[0]:
+        raise ValueError(f"uv: {tracks} tracks of {steps} steps do not walk the rows of "
+                         f"uv {tuple(uv.shape)}")
+    return tracks
+
+
+def track_plain(uv: torch.Tensor, exp_tab: torch.Tensor, state: Optional[KalmanState], *,
+                track_shape=(), steps: int = 1) -> Tuple[Optional[KalmanState], torch.Tensor]:
+    """Plain version of kernel J: the peaks uv [R, 2] int32 walked as
+    tracks (see above), gathered as measurements [steps, *track_shape, 2]
+    and filtered by kalman_scan (kalman_update for one step of a track a
+    frame, "cameras" mode; no filter where state is None), then
+    gains_from_uv_table. Returns (new state, the gains [R, 3] f32)."""
+    tracks = _check_layout(uv, track_shape, steps)
+    track_shape = tuple(track_shape)
+    meas = uv.reshape(tracks, steps, 2).transpose(0, 1).reshape((steps,) + track_shape + (2,))
+    if state is None:
+        filtered = meas
+    elif steps == 1 and track_shape:
+        state, filtered = kalman_update(state, meas[0])
+    else:
+        state, filtered = kalman_scan(state, meas)
+    filtered = filtered.reshape(steps, tracks, 2).transpose(0, 1).reshape(-1, 2)
+    return state, gains_from_uv_table(filtered, exp_tab)
+
+
+def track_cuda(uv: torch.Tensor, exp_tab: torch.Tensor, state: Optional[KalmanState], *,
+               track_shape=(), steps: int = 1) -> Tuple[Optional[KalmanState], torch.Tensor]:
+    """Kernel J: track_plain's contract on CUDA tensors, one launch. Each
+    field of the state has the shape () (one value for every track) or
+    track_shape; the new state has the shapes track_plain gives it, in new
+    tensors (the given one is left as it was)."""
+    kernels.check_cuda(uv, "uv", torch.int32)
+    kernels.check_cuda(exp_tab, "exp_tab", torch.float32, (HIST_N,))
+    tracks = _check_layout(uv, track_shape, steps)
+    track_shape = tuple(track_shape)
+    dev = uv.device
+    gains = torch.empty((uv.shape[0], 3), dtype=torch.float32, device=dev)
+    x_in = p_in = init_in = x_out = p_out = init_out = None
+    strides, new = [0] * 5, None
+    if state is not None:
+        # each field of shape () (one value for every track) or track_shape;
+        # the new state's shapes are the plain form's: x a pair a track, p
+        # broadcast against initialized, initialized as it was
+        x, p, init = (t.contiguous() for t in (state.x, state.p, state.initialized))
+        shapes = (tuple(x.shape[:-1]) if x.dim() else None, tuple(p.shape), tuple(init.shape))
+        if any(s not in ((), track_shape) for s in shapes) or x.shape[-1:] != (2,):
+            raise ValueError(f"state: expected fields of shape () or {track_shape} (x with a "
+                             f"last axis of 2), got x {tuple(x.shape)}, p {shapes[1]}, "
+                             f"initialized {shapes[2]}")
+        for name, t, dtype in (("x", x, torch.float32), ("p", p, torch.float32),
+                               ("initialized", init, torch.bool)):
+            kernels.check_cuda(t, f"state.{name}", dtype)
+        p_shape = track_shape if track_shape in shapes[1:] else ()
+        new = KalmanState(x=torch.empty(track_shape + (2,), dtype=torch.float32, device=dev),
+                          p=torch.empty(p_shape, dtype=torch.float32, device=dev),
+                          initialized=torch.empty(shapes[2], dtype=torch.bool, device=dev))
+        x_in, p_in, init_in = x.data_ptr(), p.data_ptr(), init.data_ptr()
+        x_out, p_out, init_out = (t.data_ptr() for t in (new.x, new.p, new.initialized))
+        strides = [int(s != ()) for s in shapes + (p_shape, shapes[2])]
+    if tracks:
+        with torch.cuda.device(dev):
+            kernels.CCC_TRACK.launch(uv.data_ptr(), gains.data_ptr(), exp_tab.data_ptr(), x_in,
+                                     p_in, init_in, *strides[:3], x_out, p_out, init_out,
+                                     *strides[3:], tracks, steps, kernels.stream_handle(uv))
+    return new, gains
+
+
+def track_gains(uv: torch.Tensor, exp_tab: torch.Tensor, state: Optional[KalmanState] = None,
+                *, track_shape=(), steps: int = 1,
+                plain: bool = False) -> Tuple[Optional[KalmanState], torch.Tensor]:
+    """The peaks uv [R, 2] int32 walked as tracks (the layouts above)
+    through the Kalman filter (state None: none) to (new state, gains
+    [R, 3]): kernel J on CUDA tensors, track_plain on CPU tensors or with
+    plain=True."""
+    kw = dict(track_shape=tuple(track_shape), steps=steps)
+    if plain or uv.device.type == "cpu":
+        return track_plain(uv, exp_tab, state, **kw)
+    return track_cuda(uv.contiguous(), exp_tab.contiguous(), state, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Image-level CCC ([..., H, W, 3] BGR frames, the reference package's API)
 # ---------------------------------------------------------------------------
 
@@ -472,25 +615,29 @@ def log_chroma_histogram_rt(image: torch.Tensor, bright_cut, dark_cut, uv0, *,
 
 
 def estimate_illuminant(image: torch.Tensor, model, bright_thr: float = 0.9,
-                        dark_thr: float = 0.1, uv0: float = UV0) -> torch.Tensor:
+                        dark_thr: float = 0.1, uv0: float = UV0, *,
+                        plain: bool = False) -> torch.Tensor:
     """[..., H, W, 3] u8 BGR frames and a CCCModel (models/ccc_model.py) ->
-    the response's first-occurrence peak [..., 2] int32 (x, y): the
-    360x270 resize, the histogram (kernel B) and the response (kernel C)
-    on a CUDA tensor, the argmax."""
-    hist = log_chroma_histogram(resize_linear_u8(image, SMALL_H, SMALL_W), bright_thr,
-                                dark_thr, uv0)
+    the response's first-occurrence peak [..., 2] int32 (x, y): on a CUDA
+    tensor the 360x270 resize (kernel H), the histogram (B), the response
+    (C) and the argmax (I); the plain versions on a CPU tensor or with
+    plain=True."""
+    hist = log_chroma_histogram(resize_linear_u8(image, SMALL_H, SMALL_W, plain=plain),
+                                bright_thr, dark_thr, uv0, plain=plain)
     return response_argmax(ccc_response(hist, model.filt_dft_re, model.filt_dft_im,
-                                        model.bias))
+                                        model.bias, plain=plain), plain=plain)
 
 
 def ccc_balance_white(image: torch.Tensor, model, bright_thr: float = 0.9,
-                      dark_thr: float = 0.1, state=None, uv0: float = UV0):
+                      dark_thr: float = 0.1, state=None, uv0: float = UV0, *,
+                      plain: bool = False):
     """Full CCC white balance on [..., H, W, 3] u8 BGR frames: the peak
     (estimate_illuminant), the Kalman step where `state` is given, and the
-    gains (libm's exp, exp_table). Returns (balanced image, new state);
-    with state=None the raw per-frame peak drives the gains and the new
-    state is None."""
-    uv = estimate_illuminant(image, model, bright_thr, dark_thr, uv0)
-    if state is not None:
-        state, uv = kalman_update(state, uv)
-    return apply_gains(image, gains_from_uv(uv, uv0)), state
+    gains (libm's exp, exp_table), the last two in kernel J on a CUDA
+    tensor. Returns (balanced image, new state); with state=None the raw
+    per-frame peak drives the gains and the new state is None."""
+    uv = estimate_illuminant(image, model, bright_thr, dark_thr, uv0, plain=plain)
+    lead = tuple(uv.shape[:-1])
+    state, gains = track_gains(uv.reshape(-1, 2), _exp_tab_on(float(uv0), str(uv.device)),
+                               state, track_shape=lead, plain=plain)
+    return apply_gains(image, gains.reshape(lead + (3,))), state

@@ -16,17 +16,23 @@ Replicates OpenCV's 8u fixed-point bilinear resize (imgproc resize.cpp):
 
 The host tables (`_coords`, `_quant`, `_tables_x`, `_tables_y`) are copied
 verbatim and held equal to the originals by tests/test_torch_ops.py. The
-device form is the plain one: two row selects, two column selects and the
-integer multiply-adds, horizontal pass first (the truncating vertical
-shifts do not commute).
+plain form (`resize_linear_u8_rows`): two row selects, two column selects
+and the integer multiply-adds, horizontal pass first (the truncating
+vertical shifts do not commute). On a CUDA tensor the entry points launch
+kernel H (csrc/ccc_resize.cu) instead, which reads the same tables narrowed
+to int32 (`resize_table`), up to three planes a launch.
 """
 
 from __future__ import annotations
 
 import functools
+import math
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from raw_image_pipeline_tpu_torch import kernels
 
 
 def _coords(src: int, dst: int):
@@ -100,28 +106,39 @@ def _rows_on(src_h: int, src_w: int, dst_h: int, dst_w: int, device: str,
     return x, (sy[y0:y1] - row0, sy2[y0:y1] - row0, b0[y0:y1], b1[y0:y1])
 
 
-def resize_linear_u8_plane(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+def resize_linear_u8_plane(img: torch.Tensor, dst_h: int, dst_w: int, *,
+                           plain: bool = False) -> torch.Tensor:
     """[..., H, W] uint8 -> [..., dst_h, dst_w] uint8, bit-exact vs
-    cv::resize(INTER_LINEAR). Only the rows the vertical pass reads go
-    through the horizontal pass (identical values, fewer operations)."""
-    return resize_linear_u8_rows(img, img.shape[-2], dst_h, dst_w, 0, dst_h, 0)
+    cv::resize(INTER_LINEAR): kernel H on a CUDA tensor, the plain version
+    on a CPU tensor or with plain=True."""
+    return resize_planes((img,), img.shape[-2], dst_h, dst_w, plain=plain)[0]
 
 
-def resize_linear_u8(image: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+def resize_linear_u8(image: torch.Tensor, dst_h: int, dst_w: int, *,
+                     plain: bool = False) -> torch.Tensor:
     """[..., H, W, C] uint8 -> [..., dst_h, dst_w, C] uint8, each channel
-    through resize_linear_u8_plane."""
+    resized as resize_linear_u8_plane; on a CUDA tensor kernel H reads the
+    channels as strided planes and writes the interleaved output itself."""
     if image.dim() < 3:
         raise ValueError(f"image: expected [..., H, W, C], got {tuple(image.shape)}")
-    out = resize_linear_u8_plane(image.movedim(-1, 0), dst_h, dst_w)
-    return out.movedim(0, -1).contiguous()
+    h, w, c = image.shape[-3:]
+    planes = image.unbind(-1)
+    if plain or image.device.type == "cpu":
+        out = resize_planes(planes, h, dst_h, dst_w, plain=True)
+        return torch.stack(out, dim=-1)
+    out = torch.empty(tuple(image.shape[:-3]) + (dst_h, dst_w, c), dtype=torch.uint8,
+                      device=image.device)
+    resize_rows_cuda(planes, h, dst_h, dst_w, 0, dst_h, 0, out=out.unbind(-1))
+    return out
 
 
 def resize_linear_u8_rows(img: torch.Tensor, src_h: int, dst_h: int, dst_w: int,
                           y0: int, y1: int, row0: int) -> torch.Tensor:
-    """Rows [y0, y1) of the resize of an src_h-row frame to dst_h x dst_w,
-    from `img` [..., h, W], the frame's rows [row0, row0 + h) (which must
-    hold every source row those output rows read): [..., y1 - y0, dst_w]
-    uint8, equal to those rows of resize_linear_u8_plane of the frame."""
+    """Plain version of kernel H: rows [y0, y1) of the resize of an
+    src_h-row frame to dst_h x dst_w, from `img` [..., h, W], the frame's
+    rows [row0, row0 + h) (which must hold every source row those output
+    rows read): [..., y1 - y0, dst_w] uint8, equal to those rows of
+    resize_linear_u8_plane of the frame."""
     (sx, sx2, a0, a1), (sy, sy2, b0, b1) = _rows_on(
         src_h, img.shape[-1], dst_h, dst_w, str(img.device), y0, y1, row0
     )
@@ -135,3 +152,99 @@ def resize_linear_u8_rows(img: torch.Tensor, src_h: int, dst_h: int, dst_w: int,
     acc = (((b0[:, None] * s0) >> 16) + ((b1[:, None] * s1) >> 16) + 2) >> 2
     # the arithmetic cannot exceed 255; clamp is a guard
     return torch.clamp(acc, 0, 255).to(torch.uint8)
+
+
+def resize_table(src_h: int, src_w: int, dst_h: int, dst_w: int, y0: int, y1: int,
+                 row0: int) -> np.ndarray:
+    """Kernel H's table for the output rows [y0, y1) of an src_h x src_w ->
+    dst_h x dst_w resize, the source rows counted from the frame's row
+    row0: _rows_on's host tables narrowed to int32 and laid end to end,
+    sx, sx2, a0, a1 (dst_w each), then sy, sy2, b0, b1 (y1 - y0 each)."""
+    sx, sx2, a0, a1 = _tables_x(src_w, dst_w)
+    sy, sy2, b0, b1 = _tables_y(src_h, dst_h)
+    ys = (sy[y0:y1] - row0, sy2[y0:y1] - row0, b0[y0:y1], b1[y0:y1])
+    return np.concatenate([np.asarray(a, np.int32) for a in (sx, sx2, a0, a1) + ys])
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_table_on(src_h: int, src_w: int, dst_h: int, dst_w: int, device: str,
+                     y0: int, y1: int, row0: int) -> Tuple[torch.Tensor, int, int]:
+    """resize_table on `device`, uploaded once per shape and slab, and the
+    lowest and highest source row it reads (counted from row0)."""
+    table = resize_table(src_h, src_w, dst_h, dst_w, y0, y1, row0)
+    ys = table[4 * dst_w:4 * dst_w + 2 * (y1 - y0)]
+    lo, hi = (int(ys.min()), int(ys.max())) if ys.size else (0, -1)
+    return torch.as_tensor(table, device=device), lo, hi
+
+
+def resize_rows_cuda(planes: Sequence[torch.Tensor], src_h: int, dst_h: int, dst_w: int,
+                     y0: int, y1: int, row0: int, *, out=None,
+                     batch_limit: int = kernels.MAX_BATCH) -> Tuple[torch.Tensor, ...]:
+    """Kernel H: resize_linear_u8_rows of each of `planes` (CUDA u8 tensors
+    [..., h, W] of one shape and one set of strides, any), as a tuple.
+    `out`, if given, is one u8 tensor [..., y1 - y0, dst_w] a plane (of one
+    set of strides, any) that H writes in place. One launch for every three
+    planes, per batch_limit frames (kernels.batch_runs)."""
+    planes = tuple(planes)
+    if not planes:
+        return ()
+    shape = tuple(planes[0].shape)
+    if len(shape) < 2:
+        raise ValueError(f"planes: expected [..., h, W], got {shape}")
+    for i, p in enumerate(planes):
+        if p.device.type != "cuda" or p.dtype != torch.uint8 or tuple(p.shape) != shape:
+            raise ValueError(f"planes[{i}]: expected a CUDA uint8 tensor of shape {shape}, "
+                             f"got {p.device} {p.dtype} {tuple(p.shape)}")
+    h, w = shape[-2:]
+    rows = y1 - y0
+    lead = shape[:-2]
+    table, lo, hi = _resize_table_on(src_h, w, dst_h, dst_w, str(planes[0].device), y0, y1, row0)
+    if rows and (lo < 0 or hi >= h):
+        raise ValueError(f"planes: the output rows [{y0}, {y1}) read the frame's rows "
+                         f"[{row0 + lo}, {row0 + hi}] but the planes hold [{row0}, {row0 + h})")
+    if out is None:
+        dst = torch.empty((len(planes),) + lead + (rows, dst_w), dtype=torch.uint8,
+                          device=planes[0].device)
+        out = tuple(dst.unbind(0))
+    out = tuple(out)
+    for i, o in enumerate(out):
+        if o.device != planes[0].device or o.dtype != torch.uint8 or \
+                tuple(o.shape) != lead + (rows, dst_w):
+            raise ValueError(f"out[{i}]: expected a uint8 tensor of shape "
+                             f"{lead + (rows, dst_w)} on {planes[0].device}")
+    if not rows or not dst_w or not math.prod(lead):
+        return out
+    # [N, h, W] views (a copy only where the leading dims do not fold)
+    src = [p.reshape((-1, h, w)) for p in planes]
+    dst = [o.reshape((-1, rows, dst_w)) for o in out]
+    if any(d.data_ptr() != o.data_ptr() for d, o in zip(dst, out)):  # reshape copied
+        raise ValueError("out: the leading dims of an output plane must fold into one")
+    for name, ts in (("planes", src), ("out", dst)):
+        if len({t.stride() for t in ts}) > 1:
+            raise ValueError(f"{name}: expected one set of strides, got "
+                             f"{[t.stride() for t in ts]}")
+    (fs, rs, cs), (fo, ro, co) = src[0].stride(), dst[0].stride()
+    with torch.cuda.device(src[0].device):
+        for k in range(0, len(src), 3):
+            n_planes = len(src[k:k + 3])
+            for s, n in kernels.batch_runs(src[0].shape[0], batch_limit):
+                ptr_in = [p[s].data_ptr() for p in src[k:k + 3]] + [None] * (3 - n_planes)
+                ptr_out = [o[s].data_ptr() for o in dst[k:k + 3]] + [None] * (3 - n_planes)
+                kernels.CCC_RESIZE.launch(*ptr_in, *ptr_out, n_planes, table.data_ptr(), n,
+                                          dst_w, rows, fs, rs, cs, fo, ro, co,
+                                          kernels.stream_handle(src[0]))
+    return out
+
+
+def resize_planes(planes: Sequence[torch.Tensor], src_h: int, dst_h: int, dst_w: int,
+                  y0: int = 0, y1=None, row0: int = 0, *,
+                  plain: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Rows [y0, y1) (default all) of the resize of each of `planes` ([...,
+    h, W] u8, the frame's rows [row0, row0 + h) of src_h) to dst_h x dst_w:
+    kernel H on CUDA tensors (resize_rows_cuda: the chain's three planes in
+    one launch), resize_linear_u8_rows on CPU tensors or with plain=True."""
+    y1 = dst_h if y1 is None else y1
+    if plain or planes[0].device.type == "cpu":
+        return tuple(resize_linear_u8_rows(p, src_h, dst_h, dst_w, y0, y1, row0)
+                     for p in planes)
+    return resize_rows_cuda(planes, src_h, dst_h, dst_w, y0, y1, row0)

@@ -54,7 +54,7 @@ from raw_image_pipeline_tpu_torch.ops.debayer import (
 from raw_image_pipeline_tpu_torch.ops.flip import flip as flip_op
 from raw_image_pipeline_tpu_torch.ops.flip import flipped_bayer_encoding
 from raw_image_pipeline_tpu_torch.ops.gamma import apply_lut, build_bt709_lut, build_gamma_lut
-from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane, resize_linear_u8_rows
+from raw_image_pipeline_tpu_torch.ops.resize import resize_planes
 from raw_image_pipeline_tpu_torch.ops.undistortion import (
     estimate_new_camera_matrix,
     init_undistort_rectify_map,
@@ -595,9 +595,11 @@ def make_isp_chain(
         if wb.enabled and is_color:
             with stage("isp_white_balance"):
                 if use_ccc:
+                    # on the card kernels H, B, C, I and J, one launch each
+                    # (C four grids), no copy and no sync
                     if part.count == 1:
-                        small = [resize_linear_u8_plane(p, ccc_ops.SMALL_H, ccc_ops.SMALL_W)
-                                 for p in planes]
+                        small = resize_planes(planes, h, ccc_ops.SMALL_H, ccc_ops.SMALL_W,
+                                              plain=plain)
                         hist = ccc_ops.log_chroma_histogram_planes(
                             *small, params.ccc_bright_cut, params.ccc_dark_cut,
                             params.ccc_uv0, plain=plain,
@@ -607,8 +609,8 @@ def make_isp_chain(
                         # summed over the slabs, scaled once
                         y0, y1, a, b = resize_slab(h, ccc_ops.SMALL_H, *rows)
                         src = yield Fetch(planes, rows, (a, b))
-                        small = [resize_linear_u8_rows(p, h, ccc_ops.SMALL_H, ccc_ops.SMALL_W,
-                                                       y0, y1, a) for p in src]
+                        small = resize_planes(src, h, ccc_ops.SMALL_H, ccc_ops.SMALL_W, y0, y1,
+                                              a, plain=plain)
                         counts = ccc_ops.log_chroma_histogram_planes(
                             *small, params.ccc_bright_cut, params.ccc_dark_cut,
                             params.ccc_uv0, plain=plain, pixel_weight=1.0,
@@ -620,23 +622,26 @@ def make_isp_chain(
                         hist, params.ccc_filt_dft_re, params.ccc_filt_dft_im, params.ccc_bias,
                         plain=plain,
                     )
-                    uv = ccc_ops.response_argmax(resp)
-                    if use_kalman:
-                        if temporal_mode == "sequence" and blocked:
-                            # one track per camera through its own block's
-                            # frames: time first, the cameras as the batch
-                            uvc = uv.reshape(n_cameras, cam_b, -1).transpose(0, 1)
-                            state, uvc = ccc_ops.kalman_scan(state, uvc)
-                            uv = uvc.transpose(0, 1).reshape(n_cameras * cam_b, -1)
-                        elif temporal_mode == "sequence":
+                    uv = ccc_ops.response_argmax(resp, plain=plain)
+                    # the peaks walked as Kalman tracks (ccc_ops.track_gains):
+                    # a track a frame ("cameras" mode, or the gains alone)
+                    n, first = uv.shape[0], 0
+                    track = dict(track_shape=(n,))
+                    if use_kalman and temporal_mode == "sequence":
+                        if blocked:
+                            # one track per camera through its own block's frames
+                            track = dict(track_shape=(n_cameras,), steps=cam_b)
+                        else:
                             # batch axis = time: one track advanced through
                             # every frame of the batch (of every data shard)
-                            every, first = yield GatherData(uv)
-                            state, uv_all = ccc_ops.kalman_scan(state, every)
-                            uv = uv_all[first:first + uv.shape[0]]
-                        else:
-                            state, uv = ccc_ops.kalman_update(state, uv)
-                    gains = ccc_ops.gains_from_uv_table(uv, params.ccc_exp_tab)
+                            uv, first = yield GatherData(uv)
+                            track = dict(track_shape=(), steps=uv.shape[0])
+                    new_state, gains = ccc_ops.track_gains(
+                        uv, params.ccc_exp_tab, state if use_kalman else None, plain=plain,
+                        **track)
+                    if use_kalman:
+                        state = new_state
+                    gains = gains[first:first + n]
                     if ("gains",) in launches:  # a call of its own: else G's first step
                         planes = pointwise_planes(*planes, gains=gains, plain=plain)
                 elif stat_wb is not None:

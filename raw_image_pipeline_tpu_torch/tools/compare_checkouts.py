@@ -10,7 +10,7 @@ checkout's tools (measure.py, workloads.py, profile_chains.py, which
 import nothing of the package) and imports the package of its own
 checkout, through functions every version of the port has:
 
-  * kernels A-G as the chains call them at 1920x1080, B=4:
+  * kernels A-J as the chains call them at 1920x1080, B=4:
     ops.debayer.debayer_planes on a seeded mosaic, bilinear (A) and "mht"
     (D, the gpu_parity chain's), ops.ccc.log_chroma_histogram_planes on A's
     planes' working resize (270x360) (B), ops.ccc.ccc_response on that
@@ -23,7 +23,14 @@ checkout, through functions every version of the port has:
     the flagship's pointwise stretch on A's planes with seeded per-frame
     gains (G: ops.pointwise.pointwise_planes with the flagship's
     parameters; "G64" at B=64; a checkout before kernel G runs the stage
-    functions it replaced), each with every stream operation its call makes:
+    functions it replaced), the working resize of A's planes (H:
+    ops.resize.resize_planes, or resize_linear_u8_plane a plane before
+    kernel H), ops.ccc.response_argmax of C's response (I), "sequence"
+    mode's track and gains of its peaks from a fresh state (J: ops.ccc.
+    track_gains, or kalman_scan and gains_from_uv_table before kernel J;
+    "J64" 64 seeded peaks, config 3's batch) and the chain's whole CCC
+    range, H to J, on A's planes ("CCC"; "CCC64" at B=64, seeded planes),
+    each with every stream operation its call makes:
     device ms (measure.device_ms) and ms per call, the host's launches
     included (measure.call_ms);
   * each chain of the flagship family in tools/workloads.py (flagship,
@@ -158,6 +165,36 @@ def _worker(root: str, out: str) -> dict:
         pl = vignetting.correct_planes(*pl, fl.vignetting_mask, gamma_tab=fl.lab_gamma_tab)
         return color_enhancer.enhance_planes(*pl, fl.enhancer_tables)
 
+    try:
+        from raw_image_pipeline_tpu_torch.ops.resize import resize_planes
+        from raw_image_pipeline_tpu_torch.ops.ccc import track_gains
+    except ImportError:  # a checkout before kernels H and J
+        resize_planes = track_gains = None
+    exp_tab = torch.as_tensor(ccc.exp_table(cuts[2]), device="cuda")
+    fresh = ccc.kalman_init((), device="cuda")
+    resp = ccc.ccc_response(hist, wr, wi, bias)
+    uv = {4: ccc.response_argmax(resp),
+          64: torch.randint(0, 256, (64, 2), generator=g, device="cuda", dtype=torch.int32)}
+
+    def resize(pl):
+        """The working resize of three planes (H)."""
+        if resize_planes is not None:
+            return resize_planes(pl, pl[0].shape[-2], ccc.SMALL_H, ccc.SMALL_W)
+        return [resize_linear_u8_plane(p, ccc.SMALL_H, ccc.SMALL_W) for p in pl]
+
+    def track(peaks):
+        """"Sequence" mode's track of the peaks from a fresh state and the
+        gains (J)."""
+        if track_gains is not None:
+            return track_gains(peaks, exp_tab, fresh, track_shape=(), steps=peaks.shape[0])
+        _, filtered = ccc.kalman_scan(fresh, peaks)
+        return ccc.gains_from_uv_table(filtered, exp_tab)
+
+    def ccc_range(pl):
+        """The chain's CCC range on three planes: H, B, C, I, J."""
+        h = ccc.log_chroma_histogram_planes(*resize(pl), *cuts)
+        return track(ccc.response_argmax(ccc.ccc_response(h, wr, wi, bias)))
+
     def remap(pl, mode="float"):
         m = maps if mode == "float" else lerp_maps[mode]
         return undistortion.remap_planes(pl, m.remap_base, m.remap_weights, (1080, 1920), mode)
@@ -173,7 +210,13 @@ def _worker(root: str, out: str) -> dict:
              "F_fixed32": lambda: remap(planes, "fixed32"),
              "F64": lambda: remap(big, "lerp"),
              "G": lambda: stretch(planes),
-             "G64": lambda: stretch(big)}
+             "G64": lambda: stretch(big),
+             "H": lambda: resize(planes),
+             "I": lambda: ccc.response_argmax(resp),
+             "J": lambda: track(uv[4]),
+             "J64": lambda: track(uv[64]),
+             "CCC": lambda: ccc_range(planes),
+             "CCC64": lambda: ccc_range(big)}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},
            "frames_per_s": {}, "profiles": {}}
@@ -202,9 +245,29 @@ def _summary(r: dict) -> dict:
         ccc[name] = {"wall_ms": p["wall_ms"], "busy_ms": p["busy_ms"],
                      "idle_share": p["idle_share_unprofiled"],
                      "ccc_span_ms": st.get("span_ms"), "ccc_busy_ms": st.get("busy_ms"),
-                     "ccc_host_ms": st.get("host_ms"),
+                     "ccc_host_ms": st.get("host_ms"), "ccc_kernels": st.get("kernels"),
                      "ccc_host_api_ms": dict(api[:4])}
     return {"kernels": r["kernels"], "frames_per_s": r["frames_per_s"], "chains": ccc}
+
+
+def turn_line(s: dict) -> str:
+    """The printed line of one turn's summary (_summary); a chain whose
+    trace lacks the CCC range gets its line without the range's fields."""
+    def chain(n, c):
+        line = (f"{n} wall {c['wall_ms']:.3f} busy {c['busy_ms']:.3f} idle "
+                f"{100 * c['idle_share']:.1f}%")
+        if c["ccc_span_ms"] is None:
+            return line + ", no CCC range in the trace"
+        return (line + f", CCC span {c['ccc_span_ms']:.3f} busy {c['ccc_busy_ms']:.3f} host "
+                f"{c['ccc_host_ms']:.3f}, kernels {c['ccc_kernels']}, API "
+                + ", ".join(f"{a} {n_calls}x {ms:.3f}" for a, (n_calls, ms)
+                            in c["ccc_host_api_ms"].items()))
+
+    return (f"turn {s['turn']} {s['version']}: kernels (device / per call ms) "
+            + ", ".join(f"{k} {v['device_ms']:.5f} / {v['call_ms']:.5f}"
+                        for k, v in s["kernels"].items())
+            + "; frames/s " + ", ".join(f"{k} {v:.2f}" for k, v in s["frames_per_s"].items())
+            + "; " + "; ".join(chain(n, c) for n, c in s["chains"].items()))
 
 
 def _stages(turns, chain: str) -> list:
@@ -297,17 +360,7 @@ def main(argv=None) -> int:
         full.append({"turn": i, "version": version, **r})
         s = {"turn": i, "version": version, **_summary(r)}
         summary.append(s)
-        print(f"turn {i} {version}: kernels (device / per call ms) "
-              + ", ".join(f"{k} {v['device_ms']:.5f} / {v['call_ms']:.5f}"
-                          for k, v in s["kernels"].items())
-              + "; frames/s " + ", ".join(f"{k} {v:.2f}" for k, v in s["frames_per_s"].items())
-              + "; " + "; ".join(
-                  f"{n} wall {c['wall_ms']:.3f} busy {c['busy_ms']:.3f} idle "
-                  f"{100 * c['idle_share']:.1f}%, CCC span {c['ccc_span_ms']:.3f} busy "
-                  f"{c['ccc_busy_ms']:.3f} host {c['ccc_host_ms']:.3f}, API "
-                  + ", ".join(f"{a} {n_calls}x {ms:.3f}" for a, (n_calls, ms)
-                              in c["ccc_host_api_ms"].items())
-                  for n, c in s["chains"].items()), flush=True)
+        print(turn_line(s), flush=True)
     with open(os.path.join(args.out, "compare.json"), "w") as f:
         json.dump({"card": card, "roots": roots, "turns": full}, f)
     _print_medians(full)

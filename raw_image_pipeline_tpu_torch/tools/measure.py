@@ -144,6 +144,50 @@ def ccc_response_work(batch: int, n: int = 256) -> dict:
     }
 
 
+# integer operations an output value of kernel H's function: two
+# horizontal taps of two rows (4 products, 2 sums), their descales (2), the
+# vertical weights (2 products, 2 shifts, 2 sums), the rounding shift and
+# the clamp (2)
+CCC_RESIZE_OPS_PER_VALUE = 16
+
+
+def ccc_resize_work(batch: int, planes: int, rows_read: int, cols_read: int, dst_h: int,
+                    dst_w: int) -> dict:
+    """The work of kernel H on `batch` frames of `planes` u8 planes resized
+    to dst_h x dst_w: "bytes", the source pixels the function reads (the
+    rows_read x cols_read taps of each plane: a 1920x1080 -> 360x270
+    resize reads 720 of the columns and 540 of the rows, not the whole
+    plane), the output written and the int32 table (4 entries an output
+    row and column) read once; "ops", CCC_RESIZE_OPS_PER_VALUE an output
+    value."""
+    out = batch * planes * dst_h * dst_w
+    return {"bytes": batch * planes * rows_read * cols_read + out + 16 * (dst_h + dst_w),
+            "ops": out * CCC_RESIZE_OPS_PER_VALUE}
+
+
+def ccc_argmax_work(batch: int, n: int = 256) -> dict:
+    """The work of kernel I on `batch` [n, n] f32 responses: "bytes", the
+    responses read and the [batch, 2] int32 peaks written once; "ops", one
+    comparison a value."""
+    return {"bytes": batch * (4 * n * n + 8), "ops": batch * n * n}
+
+
+# f32 operations a frame of kernel J's function: the filter step (p + 1,
+# p' + 10, the division, two differences, two products, two sums, 1 - k
+# and its product: 11) and the gains (two minimums, three divisions: 5)
+CCC_TRACK_OPS = {"kalman": 11, "gains": 5}
+
+
+def ccc_track_work(rows: int, tracks: int, kalman: bool) -> dict:
+    """The work of kernel J on `rows` peaks walked as `tracks` tracks:
+    "bytes", the peaks [rows, 2] int32 read and the gains [rows, 3] f32
+    written, the 1 KB exp table read once and, with the Kalman filter, each
+    track's state (x, p, initialized: 13 bytes) read and written once;
+    "ops", CCC_TRACK_OPS a frame."""
+    per = CCC_TRACK_OPS["gains"] + (CCC_TRACK_OPS["kalman"] if kalman else 0)
+    return {"bytes": rows * 20 + 1024 + (26 * tracks if kalman else 0), "ops": rows * per}
+
+
 def device_ms(fn, n: int = 20) -> float:
     """Device time of one fn() in ms, by CUDA events around n back-to-back
     calls, the median of 5 such runs (after one warm-up call). Each run

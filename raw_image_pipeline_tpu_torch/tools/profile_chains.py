@@ -13,8 +13,8 @@ call under torch.profiler. From that call's trace:
     sets (a time never counted twice, so never above the wall);
   * idle share: 1 - busy / wall, of the profiled and the unprofiled wall;
   * per isp_* stage: the GPU span of its profiler range, the busy time
-    inside that span and the copies and sets (memcpy, memset) that start
-    in it; and on the host, the range's duration and the CUDA runtime and
+    inside that span and the kernels, copies and sets (memcpy, memset)
+    that start in it; and on the host, the range's duration and the CUDA runtime and
     driver calls that start in it (count and time per API).
 
 Prints one line per chain and, last, a JSON line of every number; writes
@@ -61,11 +61,12 @@ def device_time(trace: dict) -> dict:
     """From a torch.profiler chrome trace: busy us (the union of the device
     work), the sum of the work's durations, the number of kernels, the
     device window (first start to last end) and, per isp_* range, its GPU
-    span, the busy time inside it and the copies and sets that start in it,
+    span, the busy time inside it and the kernels, copies and sets that
+    start in it,
     its duration on the host and {API: [calls, us]} of the CUDA runtime and
     driver calls that start in it there (each summed over the range's
     occurrences)."""
-    work, spans, moves = [], {}, {"gpu_memcpy": [], "gpu_memset": []}
+    work, spans, moves = [], {}, {"kernel": [], "gpu_memcpy": [], "gpu_memset": []}
     host_spans, api = {}, []
     n_kernels = 0
     for ev in trace.get("traceEvents", []):
@@ -99,6 +100,7 @@ def device_time(trace: dict) -> dict:
     stages = {
         name: {"span_us": sum(e - s for s, e in occ),
                "busy_us": sum(union_us(_clip(work, s, e)) for s, e in occ),
+               "kernels": starting_in(moves["kernel"], occ),
                "copies": starting_in(moves["gpu_memcpy"], occ),
                "sets": starting_in(moves["gpu_memset"], occ),
                "host_us": sum(e - s for s, e in host_spans.get(name, ())),
@@ -155,7 +157,7 @@ def profile_chain(tp, torch, workloads, name: str, out_dir: str) -> dict:
             "idle_share_profiled": 1.0 - dev["busy_us"] / prof_us,
             "idle_share_unprofiled": 1.0 - dev["busy_us"] / wall_us,
             "stages": {k: {"span_ms": v["span_us"] / 1e3, "busy_ms": v["busy_us"] / 1e3,
-                           "copies": v["copies"], "sets": v["sets"],
+                           "kernels": v["kernels"], "copies": v["copies"], "sets": v["sets"],
                            "host_ms": v["host_us"] / 1e3,
                            "host_api_ms": {a: [n, us / 1e3] for a, (n, us) in
                                            v["host_api"].items()}}
@@ -185,7 +187,8 @@ def main(argv=None) -> int:
     for name in names:
         r = profile_chain(tp, torch, workloads, name, args.out)
         rows.append(r)
-        stages = ", ".join(f"{k} {v['span_ms']:.3f}/{v['busy_ms']:.3f} ({v['copies']} copies, "
+        stages = ", ".join(f"{k} {v['span_ms']:.3f}/{v['busy_ms']:.3f} ({v['kernels']} kernels, "
+                           f"{v['copies']} copies, "
                            f"{v['sets']} sets, host {v['host_ms']:.3f})" for k, v in
                            sorted(r["stages"].items(), key=lambda kv: -kv[1]["span_ms"]))
         print(f"{name} B={r['batch']}: wall {r['wall_ms']:.3f} ms (profiled "

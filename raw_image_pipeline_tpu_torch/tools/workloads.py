@@ -25,6 +25,12 @@ LAUNCH_PROFILE = ("configs/alphasense_launch_profile.yaml",
 LAUNCH_PROFILE_HW = (1080, 1440)
 
 
+# the kernels of the chain's CCC range, in their order: the working resize
+# (H), the histogram (B), the response (C), the argmax (I), the track and
+# the gains (J)
+CCC_KERNELS = ("ccc_resize", "ccc_histogram", "ccc_response", "ccc_argmax", "ccc_track")
+
+
 class Chain:
     """One chain: its config for (h, w), the full sizes, the kernels it
     runs, its encoding, its input ("bayer", "color", "mono" or "bayer16"),
@@ -92,8 +98,9 @@ def chains(tp) -> dict:
         return c.replace(debayer=dataclasses.replace(c.debayer, bayer16="scale8"))
 
     full = ((1080, 1920), (1080, 1440))
-    # the CCC kernels, and the pointwise stretch (G) before the remap
-    ccc = ("ccc_histogram", "ccc_response", "pointwise")
+    # the CCC range's kernels (H, B, C, I, J), and the pointwise stretch (G)
+    # before the remap
+    ccc = CCC_KERNELS + ("pointwise",)
     table = {
         "flagship": Chain(tp.flagship_config, full, ("debayer_bilinear",) + ccc + ("remap_lerp",)),
         "gpu_parity": Chain(gpu_parity, full, ("debayer_mht",) + ccc + ("remap_lerp",)),
@@ -132,7 +139,7 @@ def multicam_chains(tp) -> dict:
     with per-camera maps), "multicam4_float" the float remap (kernel E).
     Their calibrations: multicam_calibrations of the config's."""
     table = chains(tp)
-    ccc = ("ccc_histogram", "ccc_response", "pointwise")
+    ccc = CCC_KERNELS + ("pointwise",)
     return {
         "multicam4": Chain(table["flagship"].config, ((1080, 1920),),
                            ("debayer_bilinear",) + ccc + ("remap_lerp",),

@@ -1,0 +1,445 @@
+"""The chain's CCC range around kernels B and C: the working resize (kernel
+H's plain version, ops/resize.py), the response's argmax (kernel I's,
+ops/ccc.response_argmax_plain) and the Kalman track with the gains (kernel
+J's, ops/ccc.track_plain), held to the JAX package on the CPU, and each
+kernel held to its plain version on a CUDA card (the cuda-marked tests,
+skipped without one).
+
+On the CPU, at small sizes and on seeded numpy inputs:
+  * the resize at the flagship's ratios scaled down (4 and 16/3: 108x192 ->
+    27x36; 4 and 4: 108x144 -> 27x36), at an odd size and at an upsample,
+    0 mismatching bytes against JAX resize_linear_u8_plane, and every slab
+    (y0, y1, row0) of a 2- and a 4-way row split equal to those rows of the
+    whole frame; kernel H's table (resize_table) equal to the plain
+    version's;
+  * the argmax on planted ties, +0.0/-0.0, frames of equal values, -inf,
+    +inf and NaNs against JAX response_argmax (jnp.argmax's rule), and a
+    numpy model of kernel I's reduction (a thread's strided scan, then the
+    warps' shuffle trees) equal to it; kernel I's dtype codes equal to its C
+    entry's;
+  * the track walked as kernel J walks it (row t * steps + s is step s of
+    track t) in the "cameras", "sequence", camera-blocked and gathered
+    layouts and without the filter: the gains and the state equal to
+    kalman_scan / kalman_update + gains_from_uv_table as the chain called
+    them before, to a numpy model of J's arithmetic
+    (every operation rounded to f32, none fused), and to JAX kalman_scan /
+    kalman_update within the recorded 1-ulp rule (test_torch_pipeline.
+    assert_states_match).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raw_image_pipeline_tpu.ops import ccc as jccc
+from raw_image_pipeline_tpu.ops import resize as jres
+from raw_image_pipeline_tpu_torch.ops import ccc as pccc
+from raw_image_pipeline_tpu_torch.ops import resize as pres
+from raw_image_pipeline_tpu_torch.parallel.mesh import split_rows
+from raw_image_pipeline_tpu_torch.parallel.spatial import resize_slab
+from test_torch_pipeline import _p_after, _track_x, assert_states_match
+
+F32 = np.float32
+DST = (27, 36)  # the working resize's 270x360 scaled down by 10
+# (B, H, W): the flagship's ratios (1080x1920 and 1080x1440 -> 270x360)
+# scaled down, an odd size, an upsample
+RESIZE_SHAPES = [(3, 108, 192), (2, 108, 144), (2, 97, 131), (2, 13, 17)]
+UV0 = F32(-1.421875)
+EXP_TAB = pccc.exp_table(float(UV0))
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _u8(seed, shape):
+    return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+
+
+# --- the working resize (kernel H's plain version) -------------------------
+
+
+@pytest.mark.parametrize("b,h,w", RESIZE_SHAPES)
+def test_resize_planes_equal_jax(b, h, w):
+    x = _u8(h * w, (b, 3, h, w))
+    want = [np.asarray(jres.resize_linear_u8_plane(x[:, c], *DST)) for c in range(3)]
+    # the chain's views of a [B, 3, H, W] tensor, three planes in one call
+    got = pres.resize_planes([torch.as_tensor(x)[:, c] for c in range(3)], h, *DST)
+    for g, wnt in zip(got, want):
+        assert g.shape == (b,) + DST and g.dtype == torch.uint8
+        assert int((g.numpy() != wnt).sum()) == 0
+    # the op layer: a plane, and [..., H, W, 3] frames (strided planes)
+    plane = pres.resize_linear_u8_plane(torch.as_tensor(x[:, 1]), *DST)
+    assert np.array_equal(plane.numpy(), want[1])
+    nhwc = pres.resize_linear_u8(torch.as_tensor(np.ascontiguousarray(x.transpose(0, 2, 3, 1))),
+                                 *DST)
+    assert np.array_equal(nhwc.numpy(), np.stack(want, -1))
+
+
+@pytest.mark.parametrize("space", [2, 4])
+@pytest.mark.parametrize("b,h,w", RESIZE_SHAPES[:1] + RESIZE_SHAPES[2:3])
+def test_resize_slabs_equal_the_whole_frame(b, h, w, space):
+    x = torch.as_tensor(_u8(space + h, (b, h, w)))
+    whole = pres.resize_planes([x], h, *DST)[0]
+    for r0, r1 in split_rows(h, space):
+        y0, y1, a, e = resize_slab(h, DST[0], r0, r1)
+        got = pres.resize_planes([x[:, a:e]], h, *DST, y0, y1, a)[0]
+        assert torch.equal(got, whole[:, y0:y1]), (r0, r1)
+
+
+@pytest.mark.parametrize("src,slab", [((108, 192), (0, 27, 0)), ((108, 192), (7, 19, 26)),
+                                      ((13, 17), (3, 11, 0)), ((97, 131), (0, 0, 0))])
+def test_resize_table_is_the_plain_tables_narrowed(src, slab):
+    (h, w), (y0, y1, row0) = src, slab
+    table = pres.resize_table(h, w, *DST, y0, y1, row0)
+    (sx, sx2, a0, a1), (sy, sy2, b0, b1) = pres._rows_on(h, w, *DST, "cpu", y0, y1, row0)
+    assert table.dtype == np.int32 and table.shape == (4 * DST[1] + 4 * (y1 - y0),)
+    want = np.concatenate([t.numpy() for t in (sx, sx2, a0, a1, sy, sy2, b0, b1)])
+    assert np.array_equal(table, want.astype(np.int64))
+    on, lo, hi = pres._resize_table_on(h, w, *DST, "cpu", y0, y1, row0)
+    assert np.array_equal(on.numpy(), table)
+    if y1 > y0:
+        assert (lo, hi) == (int(min(sy.min(), sy2.min())), int(max(sy.max(), sy2.max())))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((1, 8, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pres.resize_rows_cuda([x], 8, 4, 4, 0, 4, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        pccc.response_argmax_cuda(torch.zeros((1, 256, 256)))
+    with pytest.raises(ValueError, match="CUDA"):
+        pccc.track_cuda(torch.zeros((1, 2), dtype=torch.int32),
+                        torch.as_tensor(EXP_TAB), None, track_shape=(1,))
+
+
+# --- the argmax (kernel I's plain version) ---------------------------------
+
+
+N2 = 256 * 256
+
+
+def _planted(seed):
+    """Frames that test the first-occurrence rule: ties, +0.0/-0.0, equal
+    values, -inf, +inf, NaNs, a peak at the last index, and ties across a
+    warp's and a block's reduction boundaries."""
+    r = np.random.default_rng(seed).normal(0, 1, (12, N2)).astype(F32)
+    r[0, [1234, 40000]] = 50.0
+    r[1] = 5.0
+    r[2] = -np.inf
+    r[3] = -1.0
+    r[3, 9000], r[3, 700] = 0.0, -0.0
+    r[4] = -1.0
+    r[4, 700], r[4, 9000] = 0.0, -0.0
+    r[5, [30000, 60000]] = np.nan
+    r[6, 0], r[6, N2 - 1] = 1e38, np.nan
+    r[7, 0] = np.nan
+    r[8, [100, 200]] = np.inf
+    r[9, N2 - 1] = 100.0
+    r[10] = -0.0
+    r[10, 5] = 0.0
+    r[11, [31, 32, 1023, 1024, 4095]] = 20.0
+    return r.reshape(12, 256, 256)
+
+
+def _better(v, i, w, j):
+    """Kernel I's order: NaN above every number, then the larger value,
+    then the lower index."""
+    vn, wn = np.isnan(v), np.isnan(w)
+    num = ~vn & ~wn
+    return np.where(vn | wn, vn & (~wn | (i < j)), num & ((v > w) | ((v == w) & (i < j))))
+
+
+def _kernel_i_model(frame):
+    """Kernel I's reduction in numpy: 1024 threads each scan their 16-byte
+    groups (4 values) in index order keeping the first best, then a
+    shuffle-down tree in each warp and one over the 32 warps' results."""
+    flat = frame.reshape(-1)
+    idx = np.arange(N2).reshape(16, 1024, 4)  # [pass, thread, lane of the group]
+    best, at = flat[idx[0, :, 0]], idx[0, :, 0]
+    for k in range(16):
+        for q in range(4):
+            if k == 0 and q == 0:
+                continue
+            i = idx[k, :, q]
+            take = _better(flat[i], i, best, at)
+            best, at = np.where(take, flat[i], best), np.where(take, i, at)
+
+    def warp_tree(best, at):  # [..., 32] lanes
+        for d in (16, 8, 4, 2, 1):
+            v = np.concatenate([best[..., d:], best[..., -d:]], -1)  # lanes past 31 keep theirs
+            i = np.concatenate([at[..., d:], at[..., -d:]], -1)
+            lanes = np.arange(32) + d < 32
+            take = lanes & _better(v, i, best, at)
+            best, at = np.where(take, v, best), np.where(take, i, at)
+        return best[..., 0], at[..., 0]
+
+    best, at = warp_tree(best.reshape(32, 32), at.reshape(32, 32))
+    _, at = warp_tree(best, at)
+    return np.array([at % 256, at // 256], np.int32)
+
+
+def test_argmax_rule_equals_jax_and_the_kernels_reduction():
+    frames = np.concatenate([_planted(1), np.random.default_rng(2).normal(
+        0, 1, (2, 256, 256)).astype(F32)])
+    want = np.asarray(jccc.response_argmax(jnp.asarray(frames)))
+    got = pccc.response_argmax(torch.as_tensor(frames))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(pccc.response_argmax_plain(torch.as_tensor(frames)).numpy(), want)
+    flat = np.argmax(frames.reshape(len(frames), -1), axis=-1)  # numpy's rule, the same
+    assert np.array_equal(want, np.stack([flat % 256, flat // 256], -1))
+    assert want[:11].tolist() == [[1234 % 256, 1234 // 256], [0, 0], [0, 0], [700 % 256, 2],
+                                  [700 % 256, 2], [30000 % 256, 30000 // 256], [255, 255],
+                                  [0, 0], [100, 0], [255, 255], [0, 0]]
+    for f, w in zip(frames, want):
+        assert np.array_equal(_kernel_i_model(f), w)
+    # leading dims
+    lead = pccc.response_argmax(torch.as_tensor(frames[:12].reshape(3, 4, 256, 256)))
+    assert np.array_equal(lead.numpy().reshape(12, 2), want[:12])
+
+
+def test_argmax_dtype_codes_are_the_c_entrys():
+    """ARGMAX_DTYPES names each dtype by the code under which
+    isp_ccc_argmax launches the kernel for its C type."""
+    import os
+    import re
+
+    c_types = {"float": torch.float32, "double": torch.float64, "__half": torch.float16,
+               "__nv_bfloat16": torch.bfloat16, "uint8_t": torch.uint8, "int8_t": torch.int8,
+               "int16_t": torch.int16, "int32_t": torch.int32, "long long": torch.int64}
+    src = open(os.path.join(os.path.dirname(pccc.__file__), os.pardir, "csrc",
+                            "ccc_argmax.cu")).read()
+    cases = re.findall(r"case (\d+): return launch<([\w ]+)>", src)
+    assert {c_types[t]: int(code) for code, t in cases} == pccc.ARGMAX_DTYPES
+
+
+# --- the track and the gains (kernel J's plain version) ---------------------
+
+
+def _peaks(seed, n):
+    return np.random.default_rng(seed).integers(0, 256, (n, 2)).astype(np.int32)
+
+
+def _state(x, p, init):
+    return pccc.KalmanState(x=torch.as_tensor(np.asarray(x, F32)),
+                            p=torch.as_tensor(np.asarray(p, F32)),
+                            initialized=torch.as_tensor(np.asarray(init, bool)))
+
+
+def _seeded_state(seed, shape):
+    """A state of `shape`, or for ("x", n) x a pair for each of n tracks with
+    one p and one initialized for all (the plain form's state after a
+    "cameras" call from a fresh state of shape ())."""
+    rng = np.random.default_rng(seed)
+    xs, ps = ((shape[1],), ()) if shape[:1] == ("x",) else (shape, shape)
+    return _state(rng.uniform(0, 255, xs + (2,)), rng.uniform(0, 9, ps),
+                  rng.integers(0, 2, ps).astype(bool))
+
+
+def _fresh(shape):
+    if shape[:1] == ("x",):
+        return pccc.KalmanState(**{**vars(pccc.kalman_init((), device="cpu")),
+                                   "x": pccc.kalman_init((shape[1],), device="cpu").x})
+    return pccc.kalman_init(shape, device="cpu")
+
+
+def _j_model(uv, state, track_shape, steps):
+    """Kernel J's arithmetic in numpy, one track at a time, every
+    operation rounded to f32 (none fused): (new x, p, initialized, gains)."""
+    tracks = int(np.prod(track_shape))
+    gains = np.empty((len(uv), 3), F32)
+    x = p = init = None
+    if state is not None:
+        bx, bp, bi = (np.broadcast_to(getattr(state, f).numpy(), tuple(track_shape) + s)
+                      .reshape((tracks,) + s) for f, s in (("x", (2,)), ("p", ()),
+                                                            ("initialized", ())))
+        x, p, init = bx.astype(F32).copy(), bp.astype(F32).copy(), bi.copy()
+    for t in range(tracks):
+        for s in range(steps):
+            row = t * steps + s
+            u = uv[row].copy()
+            if state is not None:
+                z = u.astype(F32)
+                if init[t]:
+                    pp = F32(p[t] + F32(1))
+                    k = F32(pp / F32(pp + F32(10)))
+                    x[t] = (x[t] + (k * (z - x[t]).astype(F32)).astype(F32)).astype(F32)
+                    p[t] = F32(F32(F32(1) - k) * pp)
+                else:
+                    x[t] = z
+                init[t] = True
+                u = np.trunc(x[t]).astype(np.int32)
+            g_r, g_b = EXP_TAB[u[0]], EXP_TAB[u[1]]
+            m = min(g_b, F32(1), g_r)
+            gains[row] = [F32(g_b / m), F32(F32(1) / m), F32(g_r / m)]
+    return x, p, init, gains
+
+
+# (name, rows, track_shape, steps, state shape)
+LAYOUTS = [
+    ("cameras", 6, (6,), 1, ()),
+    ("cameras, a state a frame", 6, (6,), 1, (6,)),
+    ("cameras, x a frame, one p", 6, (6,), 1, ("x", 6)),
+    ("sequence", 9, (), 9, ()),
+    ("blocked 3 cameras x 4", 12, (3,), 4, (3,)),
+    ("gathered 2 shards x 5", 10, (), 10, ()),
+    ("no Kalman", 7, (7,), 1, None),
+]
+
+
+@pytest.mark.parametrize("name,rows,track_shape,steps,shape", LAYOUTS)
+@pytest.mark.parametrize("start", ["fresh", "seeded"])
+def test_track_plain_walks_the_chains_layouts(name, rows, track_shape, steps, shape, start):
+    uv = _peaks(rows, rows)
+    exp_tab = torch.as_tensor(EXP_TAB)
+    state = None if shape is None else (
+        _fresh(shape) if start == "fresh" else _seeded_state(rows, shape))
+    new, gains = pccc.track_gains(torch.as_tensor(uv), exp_tab, state,
+                                  track_shape=track_shape, steps=steps)
+    # the chain's former calls: kalman_update ("cameras"), kalman_scan over
+    # the frames ("sequence", gathered) or over [cam_b, cameras] (blocked)
+    t = torch.as_tensor(uv)
+    if shape is None:
+        old, filtered = None, t
+    elif name.startswith("cameras"):
+        old, filtered = pccc.kalman_update(state, t)
+    elif name.startswith("blocked"):
+        old, f = pccc.kalman_scan(state, t.reshape(track_shape[0], steps, 2).transpose(0, 1))
+        filtered = f.transpose(0, 1).reshape(-1, 2)
+    else:
+        old, filtered = pccc.kalman_scan(state, t)
+    assert torch.equal(gains.view(torch.int32),
+                       pccc.gains_from_uv_table(filtered, exp_tab).view(torch.int32))
+    mx, mp, mi, mgains = _j_model(uv, state, track_shape, steps)
+    assert np.array_equal(gains.numpy().view(np.int32), mgains.view(np.int32))
+    if shape is None:
+        assert new is None
+        return
+    for f in ("x", "p", "initialized"):
+        assert getattr(new, f).shape == getattr(old, f).shape
+        assert torch.equal(getattr(new, f), getattr(old, f)), f
+    tracks = int(np.prod(track_shape))
+    assert np.array_equal(new.x.numpy().reshape(-1, 2).view(np.int32), mx.view(np.int32))
+    assert np.array_equal(np.broadcast_to(new.p.numpy(), track_shape).reshape(tracks)
+                          .view(np.int32), mp.view(np.int32))
+    assert new.initialized.all()
+
+
+@pytest.mark.parametrize("temporal_mode", ["sequence", "cameras"])
+def test_track_holds_to_jax_within_the_recorded_rule(temporal_mode):
+    # two calls with the state carried, as test_torch_pipeline's chains
+    n = 8
+    calls = [_peaks(40 + c, n) for c in range(2)]
+    shape = () if temporal_mode == "sequence" else (n,)
+    js, ps = jccc.kalman_init(shape), pccc.kalman_init(shape, device="cpu")
+    jstates, pstates = [], []
+    kw = (dict(track_shape=(), steps=n) if temporal_mode == "sequence"
+          else dict(track_shape=(n,)))
+    for uv in calls:
+        js, _ = (jccc.kalman_scan if temporal_mode == "sequence" else jccc.kalman_update)(
+            js, jnp.asarray(uv))
+        ps, _ = pccc.track_gains(torch.as_tensor(uv), torch.as_tensor(EXP_TAB), ps, **kw)
+        jstates.append(js)
+        pstates.append(ps)
+    meas = np.concatenate(calls)
+    if temporal_mode == "cameras":
+        assert_states_match(jstates, pstates, temporal_mode, meas)
+        return
+    # the recorded rule for one track: the port's x and p keep every
+    # rounding; the JAX package's, here outside a chain's program, are one
+    # of the two formulas (assert_states_match pins the fused p that
+    # XLA:CPU compiles into the chains)
+    js, ps = jstates[-1], pstates[-1]
+    assert bool(ps.initialized) and bool(js.initialized)
+    assert np.array_equal(ps.x.numpy(), _track_x(meas, fused=False))
+    assert any(np.array_equal(np.asarray(js.x), _track_x(meas, fused=f)) for f in (False, True))
+    assert ps.p.numpy() == _p_after(len(meas) - 1, fused=False)
+    assert np.asarray(js.p) in (_p_after(len(meas) - 1, fused=False),
+                                _p_after(len(meas) - 1, fused=True))
+
+
+@pytest.mark.parametrize("bad", [dict(track_shape=(3,), steps=2),  # 6 frames for 5 rows
+                                 dict(track_shape=(4,), steps=1),  # 4 frames for 5 rows
+                                 dict(track_shape=(), steps=6)])
+def test_track_refuses_a_layout_that_misses_its_rows(bad):
+    with pytest.raises(ValueError, match="do not walk"):
+        pccc.track_gains(torch.as_tensor(_peaks(1, 5)), torch.as_tensor(EXP_TAB), None, **bad)
+
+
+# --- kernels H, I and J on the card -----------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(1080, 1920), (1080, 1440), (1079, 1439), (91, 117)])
+def test_kernel_h_equals_plain_on_card(hw):
+    dev = _cuda()
+    h, w = hw
+    x = torch.as_tensor(_u8(h, (4, 3, h, w)), device=dev)
+    planes = [x[:, c] for c in (2, 1, 0)]
+    got = pres.resize_rows_cuda(planes, h, 270, 360, 0, 270, 0)
+    want = pres.resize_planes(planes, h, 270, 360, plain=True)
+    for g, wnt in zip(got, want):
+        assert torch.equal(g, wnt)
+    for r0, r1 in split_rows(h, 4):
+        y0, y1, a, e = resize_slab(h, 270, r0, r1)
+        slab = pres.resize_rows_cuda([p[:, a:e] for p in planes], h, 270, 360, y0, y1, a)
+        for g, wnt in zip(slab, want):
+            assert torch.equal(g, wnt[:, y0:y1])
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+    assert torch.equal(pres.resize_linear_u8(nhwc, 270, 360),
+                       pres.resize_linear_u8(nhwc, 270, 360, plain=True))
+    with pytest.raises(ValueError, match="one set of strides"):
+        pres.resize_rows_cuda([planes[0], planes[1].contiguous()], h, 270, 360, 0, 270, 0)
+
+
+@pytest.mark.cuda
+def test_kernel_i_equals_plain_on_card():
+    dev = _cuda()
+    frames = torch.as_tensor(_planted(3), device=dev)
+    assert torch.equal(pccc.response_argmax_cuda(frames), pccc.response_argmax_plain(frames))
+    buf = torch.empty(frames.numel() + 1, device=dev)
+    off = buf[1:].view(frames.shape)  # 4 bytes off: the scalar loads
+    off.copy_(frames)
+    assert torch.equal(pccc.response_argmax_cuda(off), pccc.response_argmax_plain(frames))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16, torch.bfloat16, torch.uint8,
+                                   torch.int8, torch.int16, torch.int32, torch.int64])
+def test_kernel_i_takes_every_argmax_dtype_on_card(dtype):
+    dev = _cuda()
+    frames = torch.as_tensor(_planted(4))
+    if not dtype.is_floating_point:  # ties and the last index as integers
+        frames = torch.nan_to_num(frames * 8, posinf=100, neginf=-100)
+    frames = frames.to(device=dev, dtype=dtype)
+    got = pccc.response_argmax(frames)
+    assert torch.equal(got, pccc.response_argmax_plain(frames))
+    off = torch.empty(frames.numel() + 1, dtype=dtype, device=dev)[1:].view(frames.shape)
+    off.copy_(frames)  # off a 16-byte boundary: the scalar loads
+    assert torch.equal(pccc.response_argmax_cuda(off), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rows,track_shape,steps,shape", LAYOUTS)
+def test_kernel_j_equals_plain_on_card(name, rows, track_shape, steps, shape):
+    dev = _cuda()
+    uv = torch.as_tensor(_peaks(rows, rows), device=dev)
+    exp_tab = torch.as_tensor(EXP_TAB, device=dev)
+    kw = dict(track_shape=track_shape, steps=steps)
+    for start in ("fresh", "seeded"):
+        state = None
+        if shape is not None:
+            s = _fresh(shape) if start == "fresh" else _seeded_state(rows, shape)
+            state = pccc.KalmanState(s.x.to(dev), s.p.to(dev), s.initialized.to(dev))
+        got = pccc.track_cuda(uv, exp_tab, state, **kw)
+        want = pccc.track_plain(uv, exp_tab, state, **kw)
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+        if shape is not None:
+            for f in ("x", "p", "initialized"):
+                a, b = getattr(got[0], f), getattr(want[0], f)
+                assert a.shape == b.shape and torch.equal(
+                    a.view(torch.int32) if a.dtype == torch.float32 else a,
+                    b.view(torch.int32) if b.dtype == torch.float32 else b)

@@ -7,10 +7,13 @@ C's, A's, D's and E's work (tools/measure), the order of compare_checkouts'
 turns, sass_census on a listing in cuobjdump's format, and card_tests'
 collection of the cuda-marked tests with jax stubbed."""
 
+import json
 import math
+import subprocess
 
 import pytest
 
+from raw_image_pipeline_tpu_torch.tools import compare_checkouts
 from raw_image_pipeline_tpu_torch.tools.compare_checkouts import TURNS, _summary, medians
 from raw_image_pipeline_tpu_torch.tools.measure import (
     DEBAYER_OPS_PER_PIXEL,
@@ -61,11 +64,12 @@ def test_device_time_counts_work_once_and_ranges_as_spans():
     assert d["work_sum_us"] == 30 + 20 + 20 + 10 + 10
     assert d["kernels"] == 3
     assert d["window_us"] == 210
-    # the copy starts in the white-balance range, the set in the debayer range
+    # the copy starts in the white-balance range, the set in the debayer
+    # range; the three kernels in the white-balance range's two chunks
     assert d["stages"]["isp_white_balance"] == {
-        "span_us": 140.0, "busy_us": 40 + 10 + 10, "copies": 1, "sets": 0,
+        "span_us": 140.0, "busy_us": 40 + 10 + 10, "kernels": 3, "copies": 1, "sets": 0,
         "host_us": 300.0, "host_api": {"cudaLaunchKernel": [1, 4.0]}}
-    assert d["stages"]["isp_debayer"] == {"span_us": 50.0, "busy_us": 10 + 10,
+    assert d["stages"]["isp_debayer"] == {"span_us": 50.0, "busy_us": 10 + 10, "kernels": 0,
                                           "copies": 0, "sets": 1, "host_us": 0,
                                           "host_api": {}}
     assert d["busy_us"] <= d["window_us"]
@@ -133,6 +137,44 @@ def test_compare_turns_alternate_and_summary_reads_the_ccc_range():
     assert (c["ccc_span_ms"], c["ccc_busy_ms"], c["ccc_host_ms"]) == (4.0, 0.8, 3.9)
     # the four costliest API calls, costliest first
     assert list(c["ccc_host_api_ms"]) == ["api5", "api4", "api3", "api2"]
+
+
+def test_compare_completes_on_a_turn_without_the_ccc_range(tmp_path, monkeypatch, capsys):
+    # a turn whose trace lacks the isp_white_balance range: its line is
+    # printed without the range's fields and compare.json is written
+    stage = {"span_ms": 4.0, "busy_ms": 0.8, "kernels": 8, "copies": 0, "sets": 0,
+             "host_ms": 3.9, "host_api_ms": {"cudaLaunchKernel": [8, 0.1]}}
+
+    def turn(stages):
+        return {"kernels": {"H": {"device_ms": 0.005, "call_ms": 0.02}},
+                "frames_per_s": {"flagship 1920x1080": 2000.0},
+                "profiles": {"flagship": {"wall_ms": 2.0, "busy_ms": 0.6,
+                                          "idle_share_unprofiled": 0.7, "stages": stages}}}
+
+    calls = []
+
+    def run(cmd, **kw):
+        if cmd[0] == "nvidia-smi":
+            return subprocess.CompletedProcess(cmd, 0, "NVIDIA H100 80GB HBM3, 700.00 W\n", "")
+        calls.append(cmd)
+        stages = {"isp_debayer": dict(stage)} if len(calls) == 2 else {
+            "isp_white_balance": stage}
+        return subprocess.CompletedProcess(cmd, 0, "log\n" + json.dumps(turn(stages)) + "\n", "")
+
+    monkeypatch.setattr(compare_checkouts.subprocess, "run", run)
+    out = tmp_path / "compare"
+    assert compare_checkouts.main([str(tmp_path / "old"), "--out", str(out)]) == 0
+    assert len(calls) == len(TURNS)
+    saved = json.loads((out / "compare.json").read_text())
+    assert [t["version"] for t in saved["turns"]] == list(TURNS)
+    printed = capsys.readouterr().out
+    assert "turn 1 new: " in printed and "no CCC range in the trace" in printed
+    assert printed.count("CCC span 4.000 busy 0.800") == len(TURNS) - 1
+    assert "kernels 8, API cudaLaunchKernel 8x 0.100" in printed
+    # the medians: the range's busy time over the turns that show it
+    m = medians(saved["turns"])
+    assert m["new"]["profiles"]["flagship"]["isp_white_balance"] == [0.8, 0.8, 0.8]
+    assert m["new"]["profiles"]["flagship"]["isp_debayer"] == [0.8, 0.8, 0.8]
 
 
 def test_compare_medians_per_version():

@@ -69,22 +69,28 @@ per source, into build/kernels/), then:
      then the ccc_range phase (check_ccc_range): the CCC range's own
      kernels against their plain versions, at the shapes the chain gives
      them:
-       H working resize — 0 mismatching bytes: the chain's three planes at
+       H working resize — 0 mismatching bytes on both paths (rows, the
+                       chain's; gather) where the rows path applies, else
+                       on the gather path: the chain's three planes at
                        1920x1080 and 1440x1080, B=4 and B=64, every slab of
                        a 2- and 4-way row split against the whole frame's
                        rows, an odd crop (1079x1439), upsamples (91x117,
-                       269x361, 3x5), past a batch limit lowered to 7 and
-                       the op layer's strided [B, H, W, 3] input written
-                       interleaved, and planes of two strides refused;
-                       timed at B=4 and B=64;
-       I argmax      — equal int32 peaks against torch.argmax and numpy on
+                       269x361, 3x5), planes off a 16-byte boundary, past a
+                       batch limit lowered to 7, the op layer's strided
+                       [B, H, W, 3] input (also written interleaved), and
+                       planes of two strides refused; timed at B=4 and B=64
+                       on both paths beside the sector floor and the tap
+                       bound;
+       I argmax      — equal int32 peaks against torch.argmax and numpy at
+                       every cluster size forced and at its own choice, on
                        real responses (fixture and noise frames), planted
                        ties, +0.0/-0.0, equal, -inf, +inf, NaN and
-                       last-index frames, and frames off a 16-byte
-                       boundary; the f64 responses and the planted frames
-                       in f16, bf16 and the integer dtypes through
-                       response_argmax; timed beside torch.argmax
-                       (library_ms);
+                       last-index frames, frames off a 16-byte boundary,
+                       and traps across the slices' boundaries at B = 1,
+                       4, 16, 64, 140 in all nine dtypes; the f64 responses
+                       and the planted frames in f16, bf16 and the integer
+                       dtypes through response_argmax; timed at B = 1, 4,
+                       16, 64 beside torch.argmax (library_ms);
        J track       — equal gains and Kalman state bit for bit in
                        the "cameras", "sequence", camera-blocked and
                        gathered layouts and without the filter, fresh,
@@ -821,6 +827,14 @@ CCC_RESIZE_SHAPES = ((4, 1080, 1920), (4, 1080, 1440), (64, 1080, 1920), (64, 10
 # an odd crop, upsamples (height and width below 270x360) and a 3x5 frame
 CCC_RESIZE_ODD = ((4, 1079, 1439), (4, 91, 117), (4, 269, 361), (3, 3, 5))
 CCC_RESIZE_LIMIT = (20, 7)  # frames, lowered batch limit: 3 launches
+ARGMAX_CLUSTERS = (1, 2, 4, 8, 16)  # kernel I's cluster sizes, each forced in ccc_range
+ARGMAX_BATCHES = (1, 4, 16, 64, 140)  # kernel I's batches with the traps across its slices
+# the earlier designs' device ms (H a thread an output pixel, I a block a
+# frame) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table),
+# printed beside this run's: H three planes to 270x360 by (batch, width),
+# I by batch
+CCC_EARLIER_MS = {("H", 4, 1920): 0.0055, ("H", 64, 1920): 0.0852, ("I", 4): 0.0079,
+               ("I", 64): 0.0082}
 CCC_TRACK_LONG = 512  # a "sequence" track this long: every rounding of the filter, many times
 
 
@@ -835,25 +849,36 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     versions on the card, then the flagship's isp_white_balance range.
 
       H working resize — 0 mismatching bytes against resize_planes(...,
-                  plain=True): the chain's three planes (views of a [B, 3, H,
-                  W] tensor) at CCC_RESIZE_SHAPES (1920x1080 and 1440x1080,
-                  B=4 and B=64), every slab (y0, y1, row0) of a 2- and a
-                  4-way row split of the 1080-row frame equal to those rows
-                  of the whole frame, CCC_RESIZE_ODD (an odd crop and
-                  upsamples), the op layer's strided [B, H, W, 3] input
-                  written interleaved (resize_linear_u8, one launch) and past
-                  a batch limit lowered to 7 (CCC_RESIZE_LIMIT), and three
-                  planes of two strides refused (ValueError, no launch);
-                  timed at B=4 and B=64;
+                  plain=True) on both of its paths wherever the rows path
+                  applies (the default there, then "gather" forced), else on
+                  the gather path: the chain's three planes (views of a [B,
+                  3, H, W] tensor, which must take the rows path) at
+                  CCC_RESIZE_SHAPES (1920x1080 and 1440x1080, B=4 and B=64),
+                  every slab (y0, y1, row0) of a 2- and a 4-way row split of
+                  the 1080-row frame equal to those rows of the whole frame,
+                  CCC_RESIZE_ODD (an odd crop and upsamples), planes 1 and 8
+                  bytes off a 16-byte boundary, a batch limit lowered to 7
+                  (CCC_RESIZE_LIMIT), the op layer's strided planes of a [B,
+                  H, W, 3] frame and its resize_linear_u8 (interleaved out,
+                  one launch), and three planes of two strides refused
+                  (ValueError, no launch); timed at B=4 and B=64 on both
+                  paths beside the sector floor (the tapped rows read whole,
+                  what the rows path is judged against) and the tap bound;
       I argmax   — equal int32 peaks against torch.argmax
-                  (response_argmax_plain) and numpy's argmax on the host: the
-                  responses of the fixture frames and of noise (B=4, B=64),
-                  planted ties, +0.0/-0.0 ties, frames of equal values, -inf
-                  and +inf frames, NaNs (the first wins), a peak at the last
-                  index, and a batch 4 bytes off a 16-byte boundary (the
-                  scalar loads); response_argmax (one launch each) on the
+                  (response_argmax_plain) and numpy's argmax on the host, at
+                  every cluster size forced (ARGMAX_CLUSTERS) and at the
+                  kernel's own choice: the responses of the fixture frames
+                  and of noise (B=4, B=64, B=140), planted ties, +0.0/-0.0
+                  ties, frames of equal values, -inf and +inf frames, NaNs
+                  (the first wins), a peak at the last index, a batch 4
+                  bytes off a 16-byte boundary (the scalar loads), and the
+                  traps across the slices' boundaries
+                  (workloads.argmax_across_slices) at ARGMAX_BATCHES in all
+                  nine dtypes; response_argmax (one launch each) on the
                   fixture's responses in f64 and the planted frames in f16,
-                  bf16, u8, i8, i16, i32 and i64; timed beside torch.argmax;
+                  bf16, u8, i8, i16, i32 and i64; timed at B = 1, 4, 16, 64
+                  at its own cluster and at each forced one, beside
+                  torch.argmax;
       J track    — equal gains and Kalman state bit for bit
                   against track_plain in the four layouts ("cameras",
                   "sequence", camera-blocked, the mesh's gathered peaks)
@@ -867,8 +892,8 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     its profiled call's isp_white_balance range must hold those 8 kernels
     and no copy, set or synchronising API call: the call is profiled up to
     3 times until a trace shows the range with the device's work, and the
-    phase fails if none does. Returns {"H", "I", "J": the kernels line's
-    row}."""
+    phase fails if none does. Each time is printed beside the earlier
+    design's (CCC_EARLIER_MS). Returns {"H", "I", "J": the kernels line's row}."""
     import json
 
     import numpy as np
@@ -877,9 +902,11 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
     from raw_image_pipeline_tpu_torch.ops import ccc
     from raw_image_pipeline_tpu_torch.ops.resize import (
+        _resize_bands_on,
         _tables_x,
         _tables_y,
         resize_linear_u8,
+        resize_path,
         resize_planes,
         resize_rows_cuda,
     )
@@ -903,16 +930,28 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
 
     # --- H ---
     def held_h(label, planes, src_h, y0=0, y1=sh, row0=0, launches=1, **kw):
-        before = kernels.CCC_RESIZE.launches
-        got = resize_rows_cuda(planes, src_h, sh, sw, y0, y1, row0, **kw)
-        made = kernels.CCC_RESIZE.launches - before
+        """Kernel H on both paths where the rows path applies (default, then
+        "gather" forced), else the gather path alone: 0 mismatching bytes
+        against the plain version and `launches` launches each."""
+        h, w = planes[0].shape[-2:]
+        cs = planes[0].reshape(-1, h, w).stride(-1)
+        slots = _resize_bands_on(src_h, w, sh, sw, str(planes[0].device), y0, y1, row0)[1]
+        default = resize_path(cs, 1, w, min(3, len(planes)), slots)
         want = resize_planes(planes, src_h, sh, sw, y0, y1, row0, plain=True)
-        bad = sum(int((a != b).sum()) for a, b in zip(got, want))
-        print(f"kernel H {label}: {bad} mismatching bytes, {made} launches")
-        if bad or made != launches:
-            raise AssertionError(f"kernel H: {bad} mismatching bytes, {made} launches "
-                                 f"(expected {launches}) at {label}")
-        return got
+        got = None
+        for path in dict.fromkeys((default, "gather")):
+            before = kernels.CCC_RESIZE.launches
+            out = resize_rows_cuda(planes, src_h, sh, sw, y0, y1, row0,
+                                   path=None if path == default else path, **kw)
+            made = kernels.CCC_RESIZE.launches - before
+            bad = sum(int((a != b).sum()) for a, b in zip(out, want))
+            print(f"kernel H {label}, {path} path{' (default)' if path == default else ''}: "
+                  f"{bad} mismatching bytes, {made} launches")
+            if bad or made != launches:
+                raise AssertionError(f"kernel H: {bad} mismatching bytes, {made} launches "
+                                     f"(expected {launches}) at {label}, {path} path")
+            got = out if got is None else got
+        return got, default
 
     def read(src_h, src_w):  # the distinct source rows and columns the taps read
         sx, sx2, _, _ = _tables_x(src_w, sw)
@@ -923,29 +962,39 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     for b, h, w in CCC_RESIZE_SHAPES:
         x = u8((b, 3, h, w))
         planes = [x[:, c] for c in (2, 1, 0)]  # the chain's R<->B swapped views
-        whole = held_h(f"B={b} {h}x{w} -> {sh}x{sw}, views of a [B, 3, H, W] tensor", planes, h)
+        whole, path = held_h(f"B={b} {h}x{w} -> {sh}x{sw}, views of a [B, 3, H, W] tensor",
+                             planes, h)
+        if path != "rows":
+            raise AssertionError(f"kernel H: the chain's planes at {h}x{w} took the {path} path")
         if b == 4 and w == 1920:
             for space in (2, 4):
                 for r0, r1 in split_rows(h, space):
                     y0, y1, a, e = resize_slab(h, sh, r0, r1)
-                    got = held_h(f"B={b} {h}x{w} slab {space}-way rows [{r0}, {r1}): output "
-                                 f"rows [{y0}, {y1}) from source rows [{a}, {e})",
-                                 [p[:, a:e] for p in planes], h, y0, y1, a)
+                    got, _ = held_h(f"B={b} {h}x{w} slab {space}-way rows [{r0}, {r1}): output "
+                                    f"rows [{y0}, {y1}) from source rows [{a}, {e})",
+                                    [p[:, a:e] for p in planes], h, y0, y1, a)
                     bad = sum(int((g != wh[:, y0:y1]).sum()) for g, wh in zip(got, whole))
                     if bad:
                         raise AssertionError(f"kernel H: slab [{r0}, {r1}) differs from the "
                                              f"whole frame's rows by {bad} bytes")
-        if w == 1920:
-            rows_read, cols_read = read(h, w)
-            work = ccc_resize_work(b, 3, rows_read, cols_read, sh, sw)
-            timed[b] = (device_ms(lambda: resize_rows_cuda(planes, h, sh, sw, 0, sh, 0)),
-                        device_ms(lambda: resize_planes(planes, h, sh, sw, plain=True),
-                                  n=20 if b == 4 else 3),
-                        bound(bytes_=work["bytes"], ops=work["ops"]))
+        rows_read, cols_read = read(h, w)
+        work = ccc_resize_work(b, 3, rows_read, cols_read, sh, sw, w)
+        timed[b, w] = (device_ms(lambda: resize_rows_cuda(planes, h, sh, sw, 0, sh, 0)),
+                       device_ms(lambda: resize_rows_cuda(planes, h, sh, sw, 0, sh, 0,
+                                                          path="gather")),
+                       device_ms(lambda: resize_planes(planes, h, sh, sw, plain=True),
+                                 n=20 if b == 4 else 3) if w == 1920 else None,
+                       bound(bytes_=work["bytes"], ops=work["ops"]),
+                       bound(bytes_=work["sector_bytes"], ops=work["ops"]))
         del x, planes, whole
     for b, h, w in CCC_RESIZE_ODD:
         x = u8((b, 3, h, w))
         held_h(f"B={b} {h}x{w} -> {sh}x{sw}", [x[:, c] for c in range(3)], h)
+    for off in (1, 8):  # planes whose every row starts off a 16-byte boundary
+        buf = u8((4 * 3 * 1080 * 1920 + off,))
+        x = buf[off:].view(4, 3, 1080, 1920)
+        held_h(f"B=4 1080x1920 planes {off} bytes off a 16-byte boundary",
+               [x[:, c] for c in range(3)], 1080)
     x = u8((4, 3, 1080, 1920))
     before = kernels.CCC_RESIZE.launches
     try:
@@ -961,24 +1010,38 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     held_h(f"B={n} 91x117, batch limit {limit}", [x[:, c] for c in range(3)], 91,
            launches=-(-n // limit), batch_limit=limit)
     img = u8((4, 1080, 1920, 3))
+    held_h("B=4 1080x1920, the op layer's strided planes of a [B, H, W, 3] frame",
+           img.unbind(-1), 1080)
     before = kernels.CCC_RESIZE.launches
     got = resize_linear_u8(img, sh, sw)
     made = kernels.CCC_RESIZE.launches - before
     bad = int((got != resize_linear_u8(img, sh, sw, plain=True)).sum())
     print(f"kernel H resize_linear_u8 [4, 1080, 1920, 3] -> [4, {sh}, {sw}, 3] (strided planes "
-          f"in, interleaved out): {bad} mismatching bytes, {made} launches")
+          f"in, interleaved out: the gather path): {bad} mismatching bytes, {made} launches")
     if bad or made != 1 or not got.is_contiguous():
         raise AssertionError("kernel H: the op layer's strided resize")
-    del x, img, got
+    del x, img, got, buf
     torch.cuda.empty_cache()
-    (ms, plain_ms, bd), (ms64, plain64, bd64) = timed[4], timed[64]
-    rows = {"H": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
-                      share=bd["bound_ms"] / ms, ms_b64=ms64, plain_ms_b64=plain64,
-                      bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64)}
-    print(f"kernel H time B=4 1080x1920 -> {sh}x{sw}, three planes: {ms:.4f} ms (bound "
-          f"{bd['bound_ms']:.5f}, {bd['bound_by']}), plain {plain_ms:.4f} ms; B=64 {ms64:.4f} "
-          f"ms (bound {bd64['bound_ms']:.5f}), plain {plain64:.4f} ms; no PyTorch call "
-          f"computes it [{smi_line}]")
+    rows = {}
+    for (b, w), (ms, gather_ms, plain_ms, bd, sec) in sorted(timed.items()):
+        print(f"kernel H time B={b} 1080x{w} -> {sh}x{sw}, three planes: rows path {ms:.4f} "
+              f"ms, gather path {gather_ms:.4f} ms (the earlier design: "
+              f"{CCC_EARLIER_MS.get(('H', b, w), 'not timed')}); sector floor "
+              f"{sec['bound_ms']:.5f} ms ({100 * sec['bound_ms'] / ms:.1f}%, what the rows path "
+              f"is judged against), tap bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}; "
+              f"{100 * bd['bound_ms'] / ms:.1f}%)"
+              + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
+              + f"; no PyTorch call computes it [{smi_line}]")
+    (ms, gms, plain_ms, bd, sec), (ms64, gms64, plain64, bd64, sec64) = (timed[4, 1920],
+                                                                          timed[64, 1920])
+    rows["H"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
+                     share=bd["bound_ms"] / ms, path="rows",
+                     sector_bound_ms=sec["bound_ms"], sector_share=sec["bound_ms"] / ms,
+                     gather_ms=gms, ms_b64=ms64, plain_ms_b64=plain64,
+                     bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64,
+                     sector_bound_ms_b64=sec64["bound_ms"],
+                     sector_share_b64=sec64["bound_ms"] / ms64, gather_ms_b64=gms64,
+                     ms_1440=timed[4, 1440][0], ms_b64_1440=timed[64, 1440][0])
 
     # --- I ---
     cfg = tp.flagship_config(1080, 1920).white_balance
@@ -992,22 +1055,41 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
         small = resize_planes(planes, planes[0].shape[-2], sh, sw)
         return ccc.ccc_response(ccc.log_chroma_histogram_planes(*small, *cuts), *filt)
 
-    def held_i(label, resp):
-        got = ccc.response_argmax_cuda(resp)
-        want = ccc.response_argmax_plain(resp)
-        flat = resp.reshape(resp.shape[0], -1).cpu().numpy()
-        idx = np.argmax(flat, axis=-1)
-        host = np.stack([idx % ccc.HIST_N, idx // ccc.HIST_N], -1).astype(np.int32)
-        bad = int((got != want).sum()) + int((got.cpu().numpy() != host).sum())
-        print(f"kernel I {label}: {bad} mismatching int32 values against torch.argmax and "
-              f"numpy's argmax (peaks {got[:4].tolist()})")
-        if bad:
-            raise AssertionError(f"kernel I: {bad} mismatching values at {label}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
+    def chosen(resp):
+        """The cluster size response_argmax_cuda picks for resp."""
+        _, largest = ccc._argmax_card(resp.device.index, ccc.ARGMAX_DTYPES[resp.dtype],
+                                      resp.data_ptr() % 16 == 0)
+        return ccc.argmax_cluster(resp.shape[0], sms, largest)
+
+    def held_i(label, resp, clusters=(0,)):
+        """Kernel I at each of `clusters` (0: its own choice) against
+        torch.argmax and numpy's argmax on the host."""
+        want = ccc.response_argmax_plain(resp)
+        flat = resp.reshape(resp.shape[0], -1)
+        flat = (flat.float() if flat.dtype == torch.bfloat16 else flat).cpu().numpy()
+        idx = np.argmax(flat, axis=-1)
+        host = torch.as_tensor(np.stack([idx % ccc.HIST_N, idx // ccc.HIST_N], -1)
+                               .astype(np.int32), device=dev)
+        for c in clusters:
+            before = kernels.CCC_ARGMAX.launches
+            got = ccc.response_argmax_cuda(resp, cluster=c)
+            made = kernels.CCC_ARGMAX.launches - before
+            bad = int((got != want).sum()) + int((got != host).sum())
+            size = c or chosen(resp)
+            print(f"kernel I {label}, cluster {size}{'' if c else ' (its choice)'}: {bad} "
+                  f"mismatching int32 values against torch.argmax and numpy's argmax, {made} "
+                  f"launches (peaks {got[:2].tolist()})")
+            if bad or made != 1:
+                raise AssertionError(f"kernel I: {bad} mismatching values, {made} launches at "
+                                     f"{label}, cluster {size}")
+
+    every = (0,) + ARGMAX_CLUSTERS
     fixture = responses(_fixture_planes(torch, 4, 1080, 1920))
     noise = responses([u8((64, 1080, 1920)) for _ in range(3)])
-    held_i("B=4 the fixture frames' responses", fixture)
-    held_i("B=64 the noise frames' responses", noise)
+    held_i("B=4 the fixture frames' responses", fixture, every)
+    held_i("B=64 the noise frames' responses", noise, every)
     n2 = ccc.HIST_N ** 2
     planted = torch.as_tensor(rng.normal(0, 1, (12, n2)).astype("float32"), device=dev)
     planted[0, [1234, 40000]] = 50.0  # a tie: the lower index
@@ -1026,18 +1108,27 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     planted[10, 5] = 0.0  # +0.0 after -0.0: the first (index 0)
     planted[11, 1023] = 20.0  # a warp's and a block's reduction boundary
     planted[11, 1024] = 20.0
-    held_i("planted ties, +0.0/-0.0, equal, -inf, +inf, NaN and last-index frames",
-           planted.view(12, ccc.HIST_N, ccc.HIST_N))
+    planted = planted.view(12, ccc.HIST_N, ccc.HIST_N)
+    held_i("planted ties, +0.0/-0.0, equal, -inf, +inf, NaN and last-index frames", planted,
+           every)
     buf = torch.empty(12 * n2 + 1, dtype=torch.float32, device=dev)
     off = buf[1:].view(12, ccc.HIST_N, ccc.HIST_N)
-    off.copy_(planted.view(12, ccc.HIST_N, ccc.HIST_N))
-    held_i("the planted frames 4 bytes off a 16-byte boundary (scalar loads)", off)
+    off.copy_(planted)
+    held_i("the planted frames 4 bytes off a 16-byte boundary (scalar loads)", off, every)
+    # ties planted across every cluster size's slice boundaries, at each
+    # batch, in every dtype: each cluster size forced and the kernel's choice
+    for b in ARGMAX_BATCHES:
+        frames = torch.as_tensor(workloads.argmax_across_slices(workloads.SEED + b, b),
+                                 device=dev)
+        ints = torch.nan_to_num(frames * 8, posinf=100, neginf=-100)
+        for dtype in ccc.ARGMAX_DTYPES:
+            resp = (frames if dtype.is_floating_point else ints).to(dtype)
+            held_i(f"B={b} ties across the slices' boundaries, {dtype}", resp, every)
+        del frames, ints, resp
     typed = [("the fixture frames' responses in f64", fixture.double())]
     for dtype in (torch.float16, torch.bfloat16):
-        typed.append((f"the planted frames in {dtype}", planted.view(12, ccc.HIST_N,
-                                                                     ccc.HIST_N).to(dtype)))
-    ints = torch.nan_to_num(planted * 8, posinf=100, neginf=-100).view(12, ccc.HIST_N,
-                                                                        ccc.HIST_N)
+        typed.append((f"the planted frames in {dtype}", planted.to(dtype)))
+    ints = torch.nan_to_num(planted * 8, posinf=100, neginf=-100)
     for dtype in (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64):
         typed.append((f"the planted frames x8 in {dtype}", ints.to(dtype)))
     for label, resp in typed:
@@ -1050,21 +1141,33 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
         if bad or made != 1:
             raise AssertionError(f"kernel I: {bad} mismatching values, {made} launches at "
                                  f"{label}")
-    ms = device_ms(lambda: ccc.response_argmax_cuda(fixture))
+    big = torch.cat([noise, noise, noise[:12]])  # B=140: past the SMs, cluster 1
+    held_i(f"B={big.shape[0]} the noise frames' responses", big, every)
+    by_batch = {1: fixture[:1], 4: fixture, 16: noise[:16], 64: noise}
+    i_ms = {}
+    for b, resp in by_batch.items():
+        i_ms[b] = (device_ms(lambda: ccc.response_argmax_cuda(resp)), chosen(resp))
+        forced = {c: device_ms(lambda: ccc.response_argmax_cuda(resp, cluster=c))
+                  for c in ARGMAX_CLUSTERS}
+        print(f"kernel I time B={b}: {i_ms[b][0]:.4f} ms at its cluster {i_ms[b][1]} (the earlier "
+              f"design: {CCC_EARLIER_MS.get(('I', b), 'not timed')}); forced "
+              + ", ".join(f"{c}: {t:.4f}" for c, t in forced.items()) + f" ms [{smi_line}]")
+    ms, ms64 = i_ms[4][0], i_ms[64][0]
     plain_ms = device_ms(lambda: ccc.response_argmax_plain(fixture))
     library_ms = device_ms(lambda: torch.argmax(fixture.view(4, -1), dim=-1))
-    ms64 = device_ms(lambda: ccc.response_argmax_cuda(noise))
     library64 = device_ms(lambda: torch.argmax(noise.view(64, -1), dim=-1))
     bd, bd64 = (bound(bytes_=w["bytes"], ops=w["ops"]) for w in (ccc_argmax_work(4),
                                                                    ccc_argmax_work(64)))
     rows["I"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bd,
-                     share=bd["bound_ms"] / ms, ms_b64=ms64, library_ms_b64=library64,
-                     bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64)
+                     share=bd["bound_ms"] / ms, cluster=i_ms[4][1], ms_b64=ms64,
+                     cluster_b64=i_ms[64][1], library_ms_b64=library64,
+                     bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64,
+                     ms_b1=i_ms[1][0], ms_b16=i_ms[16][0])
     print(f"kernel I time B=4: {ms:.4f} ms (bound {bd['bound_ms']:.5f}, {bd['bound_by']}), "
           f"plain {plain_ms:.4f} ms, torch.argmax {library_ms:.4f} ms; B=64 {ms64:.4f} ms "
           f"(bound {bd64['bound_ms']:.5f}), torch.argmax {library64:.4f} ms [{smi_line}]")
     uv4 = ccc.response_argmax(fixture)
-    del noise, planted, buf, off, ints, typed
+    del noise, planted, buf, off, ints, typed, big, by_batch
     torch.cuda.empty_cache()
 
     # --- J ---

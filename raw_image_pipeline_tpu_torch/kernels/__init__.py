@@ -44,6 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # C entry -> argtypes (every pointer and the stream as c_void_p, so ctypes
 # never narrows a 64-bit address)
 _SIGNATURES = {
@@ -55,8 +56,10 @@ _SIGNATURES = {
     "isp_remap_lerp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "isp_pointwise": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "isp_ccc_resize": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P),
-    "isp_ccc_argmax": (_P, _P, _I, _I, _P),
+    "isp_ccc_resize": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _P),
+    "isp_ccc_argmax": (_P, _P, _I, _I, _I, _P),
+    "isp_ccc_argmax_cluster_limit": (_I, _I, _IP),
     "isp_ccc_track": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L, _I, _I, _P),
 }
 

@@ -34,6 +34,7 @@ frames into planes and goes through the same functions.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -346,21 +347,60 @@ ARGMAX_DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfl
                  torch.uint8: 4, torch.int8: 5, torch.int16: 6, torch.int32: 7, torch.int64: 8}
 
 
-def response_argmax_cuda(response: torch.Tensor) -> torch.Tensor:
+MAX_ARGMAX_CLUSTER = 16  # kernel I's largest cluster (above 8 a non-portable size)
+
+
+def argmax_cluster(batch: int, sms: int, largest: int = MAX_ARGMAX_CLUSTER) -> int:
+    """Kernel I's blocks a frame (a thread-block cluster): the largest power
+    of two of at most `largest` (the largest size that can be resident) for
+    which batch x cluster stays within the card's `sms` SMs, at least 1. A
+    power of two divides the frame's 65536 values; at the chain's B=4 it is
+    16 on an H100 (132 SMs), 2 at B=64, 1 once the batch alone fills the
+    SMs."""
+    cluster = 1
+    while 2 * cluster <= largest and batch * 2 * cluster <= sms:
+        cluster *= 2
+    return cluster
+
+
+@functools.lru_cache(maxsize=64)
+def _argmax_card(index: int, code: int, vec: bool) -> Tuple[int, int]:
+    """The SM count of CUDA device `index` and the largest cluster of kernel
+    I that can be resident there for the dtype code and load width."""
+    size = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = kernels.LIBRARY.get().isp_ccc_argmax_cluster_limit(code, int(vec),
+                                                                 ctypes.byref(size))
+    if err != 0:
+        raise RuntimeError(f"{kernels.CCC_ARGMAX.name}: CUDA error {err} querying the "
+                           f"resident cluster size")
+    return torch.cuda.get_device_properties(index).multi_processor_count, size.value
+
+
+def response_argmax_cuda(response: torch.Tensor, *, cluster: int = 0) -> torch.Tensor:
     """Kernel I: response_argmax_plain of a contiguous CUDA [B, 256, 256]
-    tensor of any dtype in ARGMAX_DTYPES, [B, 2] int32; one launch (a block
-    a frame)."""
+    tensor of any dtype in ARGMAX_DTYPES, [B, 2] int32; one launch, a
+    cluster of `cluster` blocks a frame (0: argmax_cluster's choice for the
+    batch on this card; 1, 2, 4, 8 or 16 forces a size)."""
     if response.dtype not in ARGMAX_DTYPES:
         raise ValueError(f"response: expected one of {tuple(ARGMAX_DTYPES)}, got "
                          f"{response.dtype}")
     kernels.check_cuda(response, "response", response.dtype)
     if response.dim() != 3 or tuple(response.shape[1:]) != (HIST_N, HIST_N):
         raise ValueError(f"response: expected [B, 256, 256], got {tuple(response.shape)}")
+    if cluster not in (0, 1, 2, 4, 8, MAX_ARGMAX_CLUSTER):
+        raise ValueError(f"cluster: expected 0, 1, 2, 4, 8 or 16, got {cluster}")
     uv = torch.empty((response.shape[0], 2), dtype=torch.int32, device=response.device)
-    if response.shape[0]:
+    code = ARGMAX_DTYPES[response.dtype]
+    frame_bytes = HIST_N * HIST_N * response.element_size()
+    for s, n in kernels.batch_runs(response.shape[0]):  # the grid's y is the frame
+        ptr = response.data_ptr() + s * frame_bytes
+        size = cluster
+        if not size:
+            sms, largest = _argmax_card(response.device.index, code, ptr % 16 == 0)
+            size = argmax_cluster(n, sms, largest)
         with torch.cuda.device(response.device):
-            kernels.CCC_ARGMAX.launch(response.data_ptr(), uv.data_ptr(), response.shape[0],
-                                      ARGMAX_DTYPES[response.dtype],
+            kernels.CCC_ARGMAX.launch(ptr, uv.data_ptr() + 8 * s, n, code, size,
                                       kernels.stream_handle(response))
     return uv
 

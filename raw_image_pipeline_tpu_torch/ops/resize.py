@@ -20,14 +20,17 @@ plain form (`resize_linear_u8_rows`): two row selects, two column selects
 and the integer multiply-adds, horizontal pass first (the truncating
 vertical shifts do not commute). On a CUDA tensor the entry points launch
 kernel H (csrc/ccc_resize.cu) instead, which reads the same tables narrowed
-to int32 (`resize_table`), up to three planes a launch.
+to int32 (`resize_table`), up to three planes a launch: on its rows path
+(planes and output of column stride 1, `resize_path`) with the bands of
+staged source rows `resize_bands` makes from those tables, else on its
+gather path.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -177,14 +180,82 @@ def _resize_table_on(src_h: int, src_w: int, dst_h: int, dst_w: int, device: str
     return torch.as_tensor(table, device=device), lo, hi
 
 
+BAND_ROWS = 2  # output rows an item of kernel H's rows path (the C entry's)
+ROWS_STAGES = 2  # items a block of the rows path stages ahead (the C entry's)
+ROWS_SMEM_LIMIT = 96 * 1024  # shared memory a block of the rows path may use (the C entry's)
+
+
+def row_pitch(src_w: int) -> int:
+    """Shared-memory bytes kernel H's rows path gives a staged source row:
+    the 16-byte chunks from the one holding its first byte to the one
+    holding its last, whatever the row's alignment."""
+    return 16 * (src_w // 16 + 2)
+
+
+def rows_smem(planes: int, slots: int, src_w: int) -> int:
+    """Shared-memory bytes a block of kernel H's rows path uses: ROWS_STAGES
+    buffers of `slots` staged rows of each of `planes` planes, filled ahead
+    of the rows being read."""
+    return ROWS_STAGES * planes * slots * row_pitch(src_w)
+
+
+def resize_bands(table: np.ndarray, dst_w: int) -> Tuple[int, np.ndarray]:
+    """Kernel H's bands on its rows path, from a resize_table of dst_w
+    output columns: output rows [k * BAND_ROWS, (k + 1) * BAND_ROWS) form
+    band k. Returns (slots, bands), bands int32 [n_bands, slots + 2 *
+    BAND_ROWS]: each band's distinct source rows, the table's sy and sy2 of
+    its output rows (counted as the table counts them, from row0) in
+    increasing order and -1 past them (slots: the most any band has), then
+    for each of its output rows the slots of its sy and its sy2 (-1 past the
+    slab's last row). A block stages its band's rows once each."""
+    rows = (len(table) - 4 * dst_w) // 4
+    sy = table[4 * dst_w:4 * dst_w + rows]
+    sy2 = table[4 * dst_w + rows:4 * dst_w + 2 * rows]
+    starts = range(0, rows, BAND_ROWS)
+    staged = [np.union1d(sy[y:y + BAND_ROWS], sy2[y:y + BAND_ROWS]) for y in starts]
+    slots = max((len(r) for r in staged), default=1)
+    bands = np.full((len(staged), slots + 2 * BAND_ROWS), -1, np.int32)
+    for k, (y, r) in enumerate(zip(starts, staged)):
+        n = min(BAND_ROWS, rows - y)
+        bands[k, :len(r)] = r
+        bands[k, slots:slots + 2 * n:2] = np.searchsorted(r, sy[y:y + n])
+        bands[k, slots + 1:slots + 2 * n:2] = np.searchsorted(r, sy2[y:y + n])
+    return slots, bands
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_bands_on(src_h: int, src_w: int, dst_h: int, dst_w: int, device: str,
+                     y0: int, y1: int, row0: int) -> Tuple[torch.Tensor, int]:
+    """resize_bands of the slab's table on `device`, uploaded once per shape
+    and slab, and its slots."""
+    slots, bands = resize_bands(resize_table(src_h, src_w, dst_h, dst_w, y0, y1, row0), dst_w)
+    return torch.as_tensor(bands, device=device), slots
+
+
+def resize_path(in_col: int, out_col: int, src_w: int, planes: int, slots: int) -> str:
+    """Kernel H's path for planes of column stride in_col (elements) and
+    src_w columns, written with column stride out_col, `planes` a launch
+    and `slots` staged rows a band: "rows" (stage each tapped source row
+    whole in shared memory) where both column strides are 1 and the block's
+    rows_smem fits ROWS_SMEM_LIMIT, else "gather" (a thread an output
+    pixel)."""
+    fits = rows_smem(planes, slots, src_w) <= ROWS_SMEM_LIMIT
+    return "rows" if in_col == 1 and out_col == 1 and fits else "gather"
+
+
 def resize_rows_cuda(planes: Sequence[torch.Tensor], src_h: int, dst_h: int, dst_w: int,
                      y0: int, y1: int, row0: int, *, out=None,
-                     batch_limit: int = kernels.MAX_BATCH) -> Tuple[torch.Tensor, ...]:
+                     batch_limit: int = kernels.MAX_BATCH,
+                     path: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
     """Kernel H: resize_linear_u8_rows of each of `planes` (CUDA u8 tensors
     [..., h, W] of one shape and one set of strides, any), as a tuple.
     `out`, if given, is one u8 tensor [..., y1 - y0, dst_w] a plane (of one
     set of strides, any) that H writes in place. One launch for every three
-    planes, per batch_limit frames (kernels.batch_runs)."""
+    planes, per batch_limit frames (kernels.batch_runs). `path` forces
+    "rows" or "gather" (default: resize_path's choice; "rows" where it does
+    not apply raises ValueError)."""
+    if path not in (None, "rows", "gather"):
+        raise ValueError(f"path: expected None, 'rows' or 'gather', got {path!r}")
     planes = tuple(planes)
     if not planes:
         return ()
@@ -198,7 +269,8 @@ def resize_rows_cuda(planes: Sequence[torch.Tensor], src_h: int, dst_h: int, dst
     h, w = shape[-2:]
     rows = y1 - y0
     lead = shape[:-2]
-    table, lo, hi = _resize_table_on(src_h, w, dst_h, dst_w, str(planes[0].device), y0, y1, row0)
+    device = str(planes[0].device)
+    table, lo, hi = _resize_table_on(src_h, w, dst_h, dst_w, device, y0, y1, row0)
     if rows and (lo < 0 or hi >= h):
         raise ValueError(f"planes: the output rows [{y0}, {y1}) read the frame's rows "
                          f"[{row0 + lo}, {row0 + hi}] but the planes hold [{row0}, {row0 + h})")
@@ -224,15 +296,22 @@ def resize_rows_cuda(planes: Sequence[torch.Tensor], src_h: int, dst_h: int, dst
             raise ValueError(f"{name}: expected one set of strides, got "
                              f"{[t.stride() for t in ts]}")
     (fs, rs, cs), (fo, ro, co) = src[0].stride(), dst[0].stride()
+    bands, slots = _resize_bands_on(src_h, w, dst_h, dst_w, device, y0, y1, row0)
+    chosen = resize_path(cs, co, w, min(3, len(src)), slots)
+    if path == "rows" and chosen != "rows":
+        raise ValueError(f"path: the rows path needs column strides of 1 (got {cs} in, {co} "
+                         f"out) and {rows_smem(min(3, len(src)), slots, w)} bytes of "
+                         f"shared memory within {ROWS_SMEM_LIMIT}")
+    band_ptr = None if (path or chosen) == "gather" else bands.data_ptr()
     with torch.cuda.device(src[0].device):
         for k in range(0, len(src), 3):
             n_planes = len(src[k:k + 3])
             for s, n in kernels.batch_runs(src[0].shape[0], batch_limit):
                 ptr_in = [p[s].data_ptr() for p in src[k:k + 3]] + [None] * (3 - n_planes)
                 ptr_out = [o[s].data_ptr() for o in dst[k:k + 3]] + [None] * (3 - n_planes)
-                kernels.CCC_RESIZE.launch(*ptr_in, *ptr_out, n_planes, table.data_ptr(), n,
-                                          dst_w, rows, fs, rs, cs, fo, ro, co,
-                                          kernels.stream_handle(src[0]))
+                kernels.CCC_RESIZE.launch(*ptr_in, *ptr_out, n_planes, table.data_ptr(),
+                                          band_ptr, n, dst_w, rows, w, slots, fs, rs, cs, fo,
+                                          ro, co, kernels.stream_handle(src[0]))
     return out
 
 

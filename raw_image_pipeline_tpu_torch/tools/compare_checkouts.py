@@ -25,7 +25,8 @@ checkout, through functions every version of the port has:
     parameters; "G64" at B=64; a checkout before kernel G runs the stage
     functions it replaced), the working resize of A's planes (H:
     ops.resize.resize_planes, or resize_linear_u8_plane a plane before
-    kernel H), ops.ccc.response_argmax of C's response (I), "sequence"
+    kernel H; "H64" at B=64, seeded planes), ops.ccc.response_argmax of
+    C's response (I; "I64" on 64 seeded f32 responses), "sequence"
     mode's track and gains of its peaks from a fresh state (J: ops.ccc.
     track_gains, or kalman_scan and gains_from_uv_table before kernel J;
     "J64" 64 seeded peaks, config 3's batch) and the chain's whole CCC
@@ -175,6 +176,7 @@ def _worker(root: str, out: str) -> dict:
     resp = ccc.ccc_response(hist, wr, wi, bias)
     uv = {4: ccc.response_argmax(resp),
           64: torch.randint(0, 256, (64, 2), generator=g, device="cuda", dtype=torch.int32)}
+    resp64 = torch.randn((64, ccc.HIST_N, ccc.HIST_N), generator=g, device="cuda")
 
     def resize(pl):
         """The working resize of three planes (H)."""
@@ -212,7 +214,9 @@ def _worker(root: str, out: str) -> dict:
              "G": lambda: stretch(planes),
              "G64": lambda: stretch(big),
              "H": lambda: resize(planes),
+             "H64": lambda: resize(big),
              "I": lambda: ccc.response_argmax(resp),
+             "I64": lambda: ccc.response_argmax(resp64),
              "J": lambda: track(uv[4]),
              "J64": lambda: track(uv[64]),
              "CCC": lambda: ccc_range(planes),

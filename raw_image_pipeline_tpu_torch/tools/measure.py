@@ -152,16 +152,21 @@ CCC_RESIZE_OPS_PER_VALUE = 16
 
 
 def ccc_resize_work(batch: int, planes: int, rows_read: int, cols_read: int, dst_h: int,
-                    dst_w: int) -> dict:
-    """The work of kernel H on `batch` frames of `planes` u8 planes resized
-    to dst_h x dst_w: "bytes", the source pixels the function reads (the
-    rows_read x cols_read taps of each plane: a 1920x1080 -> 360x270
-    resize reads 720 of the columns and 540 of the rows, not the whole
-    plane), the output written and the int32 table (4 entries an output
-    row and column) read once; "ops", CCC_RESIZE_OPS_PER_VALUE an output
-    value."""
+                    dst_w: int, src_w: int) -> dict:
+    """The work of kernel H on `batch` frames of `planes` u8 planes of
+    src_w columns resized to dst_h x dst_w: "bytes", the source pixels the
+    function reads (the rows_read x cols_read taps of each plane: a
+    1920x1080 -> 360x270 resize reads 720 of the columns and 540 of the
+    rows, not the whole plane), the output written and the int32 table (4
+    entries an output row and column) read once; "sector_bytes", the same
+    with the tapped rows read whole (rows_read x src_w a plane), the floor
+    of any kernel on a card that fetches 32-byte sectors when the taps are
+    closer than 32 bytes (two every 5.33 bytes at 1920 -> 360); "ops",
+    CCC_RESIZE_OPS_PER_VALUE an output value."""
     out = batch * planes * dst_h * dst_w
-    return {"bytes": batch * planes * rows_read * cols_read + out + 16 * (dst_h + dst_w),
+    rest = out + 16 * (dst_h + dst_w)
+    return {"bytes": batch * planes * rows_read * cols_read + rest,
+            "sector_bytes": batch * planes * rows_read * src_w + rest,
             "ops": out * CCC_RESIZE_OPS_PER_VALUE}
 
 

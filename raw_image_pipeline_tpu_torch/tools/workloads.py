@@ -364,3 +364,37 @@ def two_peak_histogram(filt_re, filt_im, bias, gap: float = TWO_PEAK_GAP):
         if r[y, x] < r[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2].max():
             raise AssertionError(f"two-peak fixture: ({y}, {x}) is not a local maximum")
     return hist(lo), float(rel), (tuple(map(int, a1)), tuple(map(int, a2)))
+
+
+ARGMAX_N = 256 * 256  # values of a CCC response
+# kernel I's slice boundaries: every multiple of 4096 is one at cluster 16,
+# every multiple of 32768 at every size from 2 up
+ARGMAX_SLICES = (4096, 8192, 16384, 32768)
+
+
+def argmax_across_slices(seed: int, batch: int) -> np.ndarray:
+    """[batch, 256, 256] f32 responses (seeded noise) with first-occurrence
+    traps planted across kernel I's slice boundaries: at each boundary s of
+    ARGMAX_SLICES, equal maxima in the two slices, a -0.0/+0.0 pair and a
+    +0.0/-0.0 pair across s (the first wins), NaNs in the two slices, a NaN
+    after a huge number, and a maximum in the last slice only; then a frame
+    of equal values (index 0). Frame i takes trap i modulo their count, so a
+    batch of 25 or more holds every one."""
+    rng = np.random.default_rng(seed)
+    r = rng.normal(0, 1, (batch, ARGMAX_N)).astype(np.float32)
+    traps = []
+    for s in ARGMAX_SLICES:
+        traps += [{s - 5: 50.0, s + 5: 50.0},
+                  {"fill": -1.0, s - 1: -0.0, s: 0.0},
+                  {"fill": -1.0, s - 1: 0.0, s: -0.0},
+                  {s - 9: np.nan, s + 7: np.nan},
+                  {0: 1e38, s: np.nan},
+                  {ARGMAX_N - 1 - s // 2: 100.0}]
+    traps.append({"fill": 5.0})
+    for i in range(batch):
+        trap = dict(traps[i % len(traps)])
+        if "fill" in trap:
+            r[i] = trap.pop("fill")
+        for at, v in trap.items():
+            r[i, at] = v
+    return r.reshape(batch, 256, 256)

@@ -70,9 +70,10 @@ per source, into build/kernels/), then:
      kernels against their plain versions, at the shapes the chain gives
      them:
        H working resize — 0 mismatching bytes on both paths (rows, the
-                       chain's; gather) where the rows path applies, else
-                       on the gather path: the chain's three planes at
-                       1920x1080 and 1440x1080, B=4 and B=64, every slab of
+                       chain's from 8 frames; gather, below) where the
+                       rows path applies, else on the gather path: the
+                       chain's three planes at 1920x1080 and 1440x1080,
+                       B=4 and B=64, every slab of
                        a 2- and 4-way row split against the whole frame's
                        rows, an odd crop (1079x1439), upsamples (91x117,
                        269x361, 3x5), planes off a 16-byte boundary, past a
@@ -94,8 +95,12 @@ per source, into build/kernels/), then:
        J track       — equal gains and Kalman state bit for bit in
                        the "cameras", "sequence", camera-blocked and
                        gathered layouts and without the filter, fresh,
-                       seeded and carried states, a 512-frame track, the
-                       given state untouched; timed at B=4 and B=64;
+                       seeded and carried states, tracks of 511 to 70 000
+                       frames (across J's stages, past 65 535), NaN, +inf,
+                       -0.0 and -3.7 covariances, J straight behind kernel
+                       I and behind a torch.cat, the given state untouched;
+                       timed at B=4 ("sequence" and "cameras"), B=64 and
+                       512 frames beside its latency floor;
      then one flagship call at 1920x1080, B=4, must launch H, B, C, I and J
      once each (8 grids), and its profiled isp_white_balance range must
      hold those 8 kernels and no copy, set or synchronising API call (the
@@ -823,7 +828,11 @@ def check_pointwise(tp, torch, rng):
     return row
 
 
-CCC_RESIZE_SHAPES = ((4, 1080, 1920), (4, 1080, 1440), (64, 1080, 1920), (64, 1080, 1440))
+# kernel H's batches, at 1920x1080 and 1440x1080: the chains' B=4 and B=64,
+# and 8-16 around where the rows path overtakes the gather path
+# (ops/resize.ROWS_MIN_BATCH)
+CCC_RESIZE_BATCHES = (4, 8, 9, 10, 12, 14, 16, 64)
+CCC_RESIZE_SHAPES = tuple((b, 1080, w) for w in (1920, 1440) for b in CCC_RESIZE_BATCHES)
 # an odd crop, upsamples (height and width below 270x360) and a 3x5 frame
 CCC_RESIZE_ODD = ((4, 1079, 1439), (4, 91, 117), (4, 269, 361), (3, 3, 5))
 CCC_RESIZE_LIMIT = (20, 7)  # frames, lowered batch limit: 3 launches
@@ -834,8 +843,10 @@ ARGMAX_BATCHES = (1, 4, 16, 64, 140)  # kernel I's batches with the traps across
 # printed beside this run's: H three planes to 270x360 by (batch, width),
 # I by batch
 CCC_EARLIER_MS = {("H", 4, 1920): 0.0055, ("H", 64, 1920): 0.0852, ("I", 4): 0.0079,
-               ("I", 64): 0.0082}
+                  ("I", 64): 0.0082, ("J", 4): 0.0033, ("J", 64): 0.0181}
 CCC_TRACK_LONG = 512  # a "sequence" track this long: every rounding of the filter, many times
+CCC_TRACK_STAGES = 5000  # a track across several of kernel J's stages (ops/ccc.TRACK_CHUNK)
+CCC_TRACK_PAST = 70000  # a track past 65 535 frames (kernels.MAX_BATCH)
 
 
 def _bits(torch, t):
@@ -849,11 +860,13 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     versions on the card, then the flagship's isp_white_balance range.
 
       H working resize — 0 mismatching bytes against resize_planes(...,
-                  plain=True) on both of its paths wherever the rows path
-                  applies (the default there, then "gather" forced), else on
-                  the gather path: the chain's three planes (views of a [B,
-                  3, H, W] tensor, which must take the rows path) at
-                  CCC_RESIZE_SHAPES (1920x1080 and 1440x1080, B=4 and B=64),
+                  plain=True) on its default path, then on each other path
+                  that applies (rows where the strides and the shared
+                  memory allow, gather): the chain's three planes (views of
+                  a [B, 3, H, W] tensor, which must take the gather path
+                  below ROWS_MIN_BATCH frames and the rows path from there)
+                  at CCC_RESIZE_SHAPES (1920x1080 and 1440x1080 at
+                  CCC_RESIZE_BATCHES),
                   every slab (y0, y1, row0) of a 2- and a 4-way row split of
                   the 1080-row frame equal to those rows of the whole frame,
                   CCC_RESIZE_ODD (an odd crop and upsamples), planes 1 and 8
@@ -861,8 +874,9 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
                   (CCC_RESIZE_LIMIT), the op layer's strided planes of a [B,
                   H, W, 3] frame and its resize_linear_u8 (interleaved out,
                   one launch), and three planes of two strides refused
-                  (ValueError, no launch); timed at B=4 and B=64 on both
-                  paths beside the sector floor (the tapped rows read whole,
+                  (ValueError, no launch); timed at CCC_RESIZE_SHAPES on
+                  both paths (where the rows path starts to win) beside
+                  the sector floor (the tapped rows read whole,
                   what the rows path is judged against) and the tap bound;
       I argmax   — equal int32 peaks against torch.argmax
                   (response_argmax_plain) and numpy's argmax on the host, at
@@ -876,16 +890,27 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
                   (workloads.argmax_across_slices) at ARGMAX_BATCHES in all
                   nine dtypes; response_argmax (one launch each) on the
                   fixture's responses in f64 and the planted frames in f16,
-                  bf16, u8, i8, i16, i32 and i64; timed at B = 1, 4, 16, 64
-                  at its own cluster and at each forced one, beside
+                  bf16, u8, i8, i16, i32 and i64; timed at B = 1, 4, 8,
+                  16, 32, 64 at its own cluster and at each forced one
+                  (ops/ccc.argmax_cluster's rule), beside
                   torch.argmax;
       J track    — equal gains and Kalman state bit for bit
                   against track_plain in the four layouts ("cameras",
                   "sequence", camera-blocked, the mesh's gathered peaks)
                   and without the filter, from fresh and from seeded
-                  states, two calls with the state carried, and a 512-frame
-                  track; the given state left as it was; timed at the
-                  flagship's B=4 and config 3's B=64 "sequence" calls.
+                  states, two calls with the state carried, 512-frame,
+                  CCC_TRACK_STAGES-frame (several of J's stages) and
+                  CCC_TRACK_PAST-frame tracks, carried states with a p of
+                  NaN, +inf or -0.0, a p of -3.701562 (55 dividing steps,
+                  past the gains J makes before it walks), and J launched
+                  straight behind the torch op that makes
+                  its peaks (the mesh's gathered peaks, a torch.cat) and
+                  behind kernel I; the given state left as it was; timed
+                  at the flagship's B=4 "cameras" and "sequence" calls,
+                  config 3's B=64 and a 512-frame track (device ms and ms
+                  a call) beside its latency floor
+                  (measure.ccc_track_floor: an empty block launched and
+                  timed as J is, here, and the chain's dependent steps).
 
     Then the flagship at 1920x1080, B=4, "sequence" mode: one call with the
     counts set to 0 must launch H, B, C, I and J once each (8 grids), and
@@ -902,6 +927,7 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
     from raw_image_pipeline_tpu_torch.ops import ccc
     from raw_image_pipeline_tpu_torch.ops.resize import (
+        ROWS_MIN_BATCH,
         _resize_bands_on,
         _tables_x,
         _tables_y,
@@ -916,9 +942,12 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     from raw_image_pipeline_tpu_torch.tools.measure import (
         bound,
         ccc_argmax_work,
+        call_ms,
         ccc_resize_work,
+        ccc_track_floor,
         ccc_track_work,
         device_ms,
+        kalman_chain,
     )
     from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time
 
@@ -930,16 +959,18 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
 
     # --- H ---
     def held_h(label, planes, src_h, y0=0, y1=sh, row0=0, launches=1, **kw):
-        """Kernel H on both paths where the rows path applies (default, then
-        "gather" forced), else the gather path alone: 0 mismatching bytes
-        against the plain version and `launches` launches each."""
+        """Kernel H on its default path (resize_path's choice for the
+        batch), then on each other path that applies ("rows" where the
+        strides and the shared memory allow it, "gather"): 0 mismatching
+        bytes against the plain version and `launches` launches each."""
         h, w = planes[0].shape[-2:]
-        cs = planes[0].reshape(-1, h, w).stride(-1)
+        flat = planes[0].reshape(-1, h, w)
         slots = _resize_bands_on(src_h, w, sh, sw, str(planes[0].device), y0, y1, row0)[1]
-        default = resize_path(cs, 1, w, min(3, len(planes)), slots)
+        default = resize_path(flat.stride(-1), 1, w, min(3, len(planes)), slots, flat.shape[0])
+        rows_ok = resize_path(flat.stride(-1), 1, w, min(3, len(planes)), slots) == "rows"
         want = resize_planes(planes, src_h, sh, sw, y0, y1, row0, plain=True)
         got = None
-        for path in dict.fromkeys((default, "gather")):
+        for path in dict.fromkeys((default, "rows" if rows_ok else default, "gather")):
             before = kernels.CCC_RESIZE.launches
             out = resize_rows_cuda(planes, src_h, sh, sw, y0, y1, row0,
                                    path=None if path == default else path, **kw)
@@ -959,13 +990,16 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
         return len(set(sy) | set(sy2)), len(set(sx) | set(sx2))
 
     timed = {}
+    plain_timed = ((4, 1920), (64, 1920))
     for b, h, w in CCC_RESIZE_SHAPES:
         x = u8((b, 3, h, w))
         planes = [x[:, c] for c in (2, 1, 0)]  # the chain's R<->B swapped views
         whole, path = held_h(f"B={b} {h}x{w} -> {sh}x{sw}, views of a [B, 3, H, W] tensor",
                              planes, h)
-        if path != "rows":
-            raise AssertionError(f"kernel H: the chain's planes at {h}x{w} took the {path} path")
+        expected = "rows" if b >= ROWS_MIN_BATCH else "gather"
+        if path != expected:
+            raise AssertionError(f"kernel H: the chain's planes at B={b} {h}x{w} took the "
+                                 f"{path} path, not the {expected} path")
         if b == 4 and w == 1920:
             for space in (2, 4):
                 for r0, r1 in split_rows(h, space):
@@ -979,11 +1013,12 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
                                              f"whole frame's rows by {bad} bytes")
         rows_read, cols_read = read(h, w)
         work = ccc_resize_work(b, 3, rows_read, cols_read, sh, sw, w)
-        timed[b, w] = (device_ms(lambda: resize_rows_cuda(planes, h, sh, sw, 0, sh, 0)),
+        timed[b, w] = (device_ms(lambda: resize_rows_cuda(planes, h, sh, sw, 0, sh, 0,
+                                                          path="rows")),
                        device_ms(lambda: resize_rows_cuda(planes, h, sh, sw, 0, sh, 0,
                                                           path="gather")),
                        device_ms(lambda: resize_planes(planes, h, sh, sw, plain=True),
-                                 n=20 if b == 4 else 3) if w == 1920 else None,
+                                 n=20 if b == 4 else 3) if (b, w) in plain_timed else None,
                        bound(bytes_=work["bytes"], ops=work["ops"]),
                        bound(bytes_=work["sector_bytes"], ops=work["ops"]))
         del x, planes, whole
@@ -1024,8 +1059,10 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     torch.cuda.empty_cache()
     rows = {}
     for (b, w), (ms, gather_ms, plain_ms, bd, sec) in sorted(timed.items()):
+        chosen = "rows" if b >= ROWS_MIN_BATCH else "gather"
         print(f"kernel H time B={b} 1080x{w} -> {sh}x{sw}, three planes: rows path {ms:.4f} "
-              f"ms, gather path {gather_ms:.4f} ms (the earlier design: "
+              f"ms, gather path {gather_ms:.4f} ms, the {chosen} path taken (the earlier "
+              f"design: "
               f"{CCC_EARLIER_MS.get(('H', b, w), 'not timed')}); sector floor "
               f"{sec['bound_ms']:.5f} ms ({100 * sec['bound_ms'] / ms:.1f}%, what the rows path "
               f"is judged against), tap bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}; "
@@ -1034,14 +1071,19 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
               + f"; no PyTorch call computes it [{smi_line}]")
     (ms, gms, plain_ms, bd, sec), (ms64, gms64, plain64, bd64, sec64) = (timed[4, 1920],
                                                                           timed[64, 1920])
-    rows["H"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
-                     share=bd["bound_ms"] / ms, path="rows",
-                     sector_bound_ms=sec["bound_ms"], sector_share=sec["bound_ms"] / ms,
+
+    def taken(b, w):  # the device ms of the path the chain takes (resize_path)
+        return timed[b, w][0 if b >= ROWS_MIN_BATCH else 1]
+
+    # at B=4 the chain takes the gather path, at B=64 the rows path
+    rows["H"] = dict(max_abs_err=0.0, ms=gms, plain_ms=plain_ms, library_ms=None, **bd,
+                     share=bd["bound_ms"] / gms, path="gather", rows_ms=ms,
+                     sector_bound_ms=sec["bound_ms"], sector_share=sec["bound_ms"] / gms,
                      gather_ms=gms, ms_b64=ms64, plain_ms_b64=plain64,
                      bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64,
                      sector_bound_ms_b64=sec64["bound_ms"],
                      sector_share_b64=sec64["bound_ms"] / ms64, gather_ms_b64=gms64,
-                     ms_1440=timed[4, 1440][0], ms_b64_1440=timed[64, 1440][0])
+                     ms_1440=taken(4, 1440), ms_b64_1440=taken(64, 1440))
 
     # --- I ---
     cfg = tp.flagship_config(1080, 1920).white_balance
@@ -1143,7 +1185,8 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
                                  f"{label}")
     big = torch.cat([noise, noise, noise[:12]])  # B=140: past the SMs, cluster 1
     held_i(f"B={big.shape[0]} the noise frames' responses", big, every)
-    by_batch = {1: fixture[:1], 4: fixture, 16: noise[:16], 64: noise}
+    by_batch = {1: fixture[:1], 4: fixture, 8: noise[:8], 16: noise[:16], 32: noise[:32],
+                64: noise}
     i_ms = {}
     for b, resp in by_batch.items():
         i_ms[b] = (device_ms(lambda: ccc.response_argmax_cuda(resp)), chosen(resp))
@@ -1176,16 +1219,24 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     def peaks(n):
         return torch.as_tensor(rng.integers(0, 256, (n, 2), dtype="int32"), device=dev)
 
-    def seeded_state(shape):
+    def seeded_state(shape, p=None):
+        """A seeded state of `shape`; `p` given: every p that value and
+        every track initialized (a NaN p carried from an earlier call)."""
+        ps = rng.uniform(0, 9, shape) if p is None else np.full(shape, p)
+        init = rng.integers(0, 2, shape) if p is None else np.ones(shape)
         return ccc.KalmanState(
             x=torch.as_tensor(rng.uniform(0, 255, shape + (2,)).astype("float32"), device=dev),
-            p=torch.as_tensor(rng.uniform(0, 9, shape).astype("float32"), device=dev),
-            initialized=torch.as_tensor(rng.integers(0, 2, shape).astype(bool), device=dev))
+            p=torch.as_tensor(ps.astype("float32"), device=dev),
+            initialized=torch.as_tensor(init.astype(bool), device=dev))
 
     fields = ("x", "p", "initialized")
 
-    def held_j(label, uv, state, **kw):
+    def held_j(label, uv, state, make=None, **kw):
+        """Kernel J against track_plain; `make`, if given, makes the peaks
+        right before J's launch (J then follows the op that wrote them)."""
         kept = None if state is None else [getattr(state, f).clone() for f in fields]
+        if make is not None:
+            uv = make()
         before = kernels.CCC_TRACK.launches
         got = ccc.track_cuda(uv, exp_tab, state, **kw)
         made = kernels.CCC_TRACK.launches - before
@@ -1213,31 +1264,95 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     held_j("sequence B=4, the state carried", peaks(4), st, track_shape=(), steps=4)
     held_j("sequence B=64 (config 3's call), seeded", peaks(64), seeded_state(()),
            track_shape=(), steps=64)
-    held_j(f"sequence {CCC_TRACK_LONG} frames, fresh", peaks(CCC_TRACK_LONG), fresh(),
-           track_shape=(), steps=CCC_TRACK_LONG)
+    for n in (CCC_TRACK_LONG, ccc.TRACK_CHUNK - 1, ccc.TRACK_CHUNK + 1, CCC_TRACK_STAGES,
+              CCC_TRACK_PAST):
+        held_j(f"sequence {n} frames, fresh", peaks(n), fresh(), track_shape=(), steps=n)
     held_j("camera-blocked 4 cameras x 16, fresh (4,)", peaks(64), fresh((4,)),
            track_shape=(4,), steps=16)
     held_j("camera-blocked 4 cameras x 4, seeded (4,)", peaks(16), seeded_state((4,)),
            track_shape=(4,), steps=4)
+    held_j(f"camera-blocked 3 cameras x {ccc.TRACK_CHUNK + 9}, seeded (3,)",
+           peaks(3 * (ccc.TRACK_CHUNK + 9)), seeded_state((3,)), track_shape=(3,),
+           steps=ccc.TRACK_CHUNK + 9)
+    for label, p in (("NaN", float("nan")), ("+inf", float("inf")), ("-0.0", -0.0)):
+        st = held_j(f"sequence B=64, a carried p of {label}", peaks(64), seeded_state((), p),
+                    track_shape=(), steps=64)[0]
+        held_j(f"sequence B=64, the state after a p of {label} carried", peaks(64), st,
+               track_shape=(), steps=64)
+        held_j(f"cameras B=4, a carried p of {label}", uv4, seeded_state((4,), p),
+               track_shape=(4,))
+    # p near the map's other fixed point: 55 dividing steps, past the gains
+    # J makes before it walks (its k is negative, so the peaks are x's own)
+    far = ccc.KalmanState(x=torch.tensor([100.0, 50.0], device=dev),
+                          p=torch.tensor(-3.701562, device=dev),
+                          initialized=torch.tensor(True, device=dev))
+    held_j("sequence B=64 from p = -3.701562 (55 dividing steps)",
+           torch.tensor([[100, 50]] * 64, dtype=torch.int32, device=dev), far, track_shape=(),
+           steps=64)
     every = torch.cat([uv4, peaks(4)])  # the mesh's gathered peaks of 2 data shards
     held_j("gathered peaks of 2 data shards x 4 frames", every, fresh(), track_shape=(),
            steps=8)
+    other = peaks(4)
+    held_j("gathered peaks made by torch.cat right before J's launch", None, fresh(),
+           make=lambda: torch.cat([uv4, other]), track_shape=(), steps=8)
+    for label, kw in (("sequence", dict(track_shape=(), steps=4)),
+                      ("cameras", dict(track_shape=(4,)))):
+        held_j(f"{label} B=4 straight behind kernel I (its peaks)", None, fresh(),
+               make=lambda: ccc.response_argmax_cuda(fixture), **kw)
     held_j("no Kalman B=4", uv4, None, track_shape=(4,))
     held_j("no Kalman B=64", peaks(64), None, track_shape=(64,))
-    uv64, st0 = peaks(64), fresh()
-    seq = dict(track_shape=())
-    ms = device_ms(lambda: ccc.track_cuda(uv4, exp_tab, st0, steps=4, **seq))
-    plain_ms = device_ms(lambda: ccc.track_plain(uv4, exp_tab, st0, steps=4, **seq))
-    ms64 = device_ms(lambda: ccc.track_cuda(uv64, exp_tab, st0, steps=64, **seq))
-    plain64 = device_ms(lambda: ccc.track_plain(uv64, exp_tab, st0, steps=64, **seq), n=5)
+    # timed: "sequence" B=4 (the flagship's chains), "cameras" B=4 (the
+    # flagship's default mode), config 3's B=64, a 512-frame track
+    uv64, uv512, st0 = peaks(64), peaks(CCC_TRACK_LONG), fresh()
+    calls = {"sequence4": (uv4, dict(track_shape=(), steps=4)),
+             "cameras4": (uv4, dict(track_shape=(4,))),
+             "sequence64": (uv64, dict(track_shape=(), steps=64)),
+             f"sequence{CCC_TRACK_LONG}": (uv512, dict(track_shape=(), steps=CCC_TRACK_LONG))}
+    lib, stream = kernels.LIBRARY.get(), torch.cuda.current_stream(dev).cuda_stream
+
+    def empty_launch():  # a block that only waits, launched as J is: the floor's launch term
+        err = lib.isp_ccc_track_empty(stream)
+        if err:
+            raise RuntimeError(f"kernel J's empty launch: CUDA error {err} "
+                               f"({lib.isp_error_string(err).decode()})")
+
+    empty_ms = device_ms(empty_launch)
+    j_ms = {}
+    for key, (u, kw) in calls.items():
+        ms = device_ms(lambda: ccc.track_cuda(u, exp_tab, st0, **kw))
+        per_call = call_ms(lambda: ccc.track_cuda(u, exp_tab, st0, **kw))
+        steps = kw.get("steps", 1)
+        floor = ccc_track_floor(empty_ms, *kalman_chain(0.0, False, steps))
+        j_ms[key] = (ms, per_call, floor["floor_ms"])
+        earlier = CCC_EARLIER_MS.get(("J", steps)) if key.startswith("sequence") else None
+        print(f"kernel J time, {key}: {ms:.5f} ms (the earlier design: "
+              f"{earlier if earlier is not None else 'not timed'}), {per_call:.5f} ms a call; "
+              f"latency floor {floor['floor_ms']:.5f} ms (an empty launch {empty_ms:.5f} + "
+              f"the chain {floor['chain_ms']:.5f}; {100 * floor['floor_ms'] / ms:.1f}%) "
+              f"[{smi_line}]")
+    ms, per_call, floor4 = j_ms["sequence4"]
+    ms64, _, floor64 = j_ms["sequence64"]
+    plain_ms = device_ms(lambda: ccc.track_plain(uv4, exp_tab, st0, track_shape=(), steps=4))
+    plain64 = device_ms(lambda: ccc.track_plain(uv64, exp_tab, st0, track_shape=(), steps=64),
+                        n=5)
     bd, bd64 = (bound(bytes_=w["bytes"], ops=w["ops"]) for w in (
         ccc_track_work(4, 1, True), ccc_track_work(64, 1, True)))
     rows["J"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
-                     share=bd["bound_ms"] / ms, ms_b64=ms64, plain_ms_b64=plain64,
-                     bound_ms_b64=bd64["bound_ms"], share_b64=bd64["bound_ms"] / ms64)
-    print(f"kernel J time, a sequence track of B=4: {ms:.4f} ms (bound {bd['bound_ms']:.2e}, "
-          f"{bd['bound_by']}), plain {plain_ms:.4f} ms; B=64 {ms64:.4f} ms, plain "
-          f"{plain64:.4f} ms; no PyTorch call computes it [{smi_line}]")
+                     share=bd["bound_ms"] / ms, floor_ms=floor4, floor_share=floor4 / ms,
+                     call_ms=per_call, empty_launch_ms=empty_ms,
+                     ms_cameras=j_ms["cameras4"][0], call_ms_cameras=j_ms["cameras4"][1],
+                     floor_share_cameras=j_ms["cameras4"][2] / j_ms["cameras4"][0],
+                     ms_b64=ms64, plain_ms_b64=plain64, bound_ms_b64=bd64["bound_ms"],
+                     share_b64=bd64["bound_ms"] / ms64, floor_ms_b64=floor64,
+                     floor_share_b64=floor64 / ms64,
+                     ms_512=j_ms[f"sequence{CCC_TRACK_LONG}"][0],
+                     floor_share_512=(j_ms[f"sequence{CCC_TRACK_LONG}"][2]
+                                      / j_ms[f"sequence{CCC_TRACK_LONG}"][0]))
+    print(f"kernel J time, a sequence track of B=4: {ms:.4f} ms (byte bound "
+          f"{bd['bound_ms']:.2e}, {bd['bound_by']}; latency floor {floor4:.5f}, "
+          f"{100 * floor4 / ms:.1f}%), plain {plain_ms:.4f} ms; B=64 {ms64:.4f} ms (floor "
+          f"{100 * floor64 / ms64:.1f}%), plain {plain64:.4f} ms; no PyTorch call computes it "
+          f"[{smi_line}]")
 
     # --- the flagship's isp_white_balance range ---
     from torch.profiler import ProfilerActivity, profile

@@ -23,8 +23,9 @@
 // block a frame reads at one SM's rate, so at the chain's B=4 only 4 of 132
 // SMs would stream. Design: a cluster of CLUSTER blocks a frame (ops/ccc.
 // argmax_cluster picks it from the batch and the SM count: B x CLUSTER
-// about the SMs, 16 at B <= 8 as a non-portable cluster, 1 once B fills
-// the card); block r walks the r-th 1/CLUSTER slice of the frame with
+// within half the SMs, or 2 where that gives 1 and B x 2 fits them; 16 at
+// B <= 4 as a non-portable cluster, 1 once B fills the card); block r
+// walks the r-th 1/CLUSTER slice of the frame with
 // 16-byte loads (or scalar loads for a frame off a 16-byte boundary),
 // reduces by warp shuffles and one warp over the warps' results, and
 // stores its pair into rank 0's shared memory (distributed shared memory).

@@ -28,9 +28,11 @@
 //
 // Two paths (ops/resize.resize_path picks one):
 //   rows   — planes and output of column stride 1 (the chain's planar
-//            planes and the mesh's slabs). An item is a band of BAND_ROWS
-//            output rows of every plane of one frame; a persistent grid of
-//            warp-specialised blocks walks the items. A producer warp
+//            planes and the mesh's slabs) at batches of 8 frames or
+//            more (below, the gather path is the faster). An item is a
+//            band of BAND_ROWS output rows of every plane of one frame; a
+//            persistent grid of warp-specialised blocks walks the items.
+//            A producer warp
 //            stages each distinct source row an item taps once and whole,
 //            by one 1-D bulk copy (TMA) a row, into a ring of STAGES
 //            buffers in shared memory, ahead of the consumers; consumer

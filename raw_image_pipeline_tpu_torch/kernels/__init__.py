@@ -61,6 +61,7 @@ _SIGNATURES = {
     "isp_ccc_argmax": (_P, _P, _I, _I, _I, _P),
     "isp_ccc_argmax_cluster_limit": (_I, _I, _IP),
     "isp_ccc_track": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L, _I, _I, _P),
+    "isp_ccc_track_empty": (_P,),
 }
 
 

@@ -353,13 +353,18 @@ MAX_ARGMAX_CLUSTER = 16  # kernel I's largest cluster (above 8 a non-portable si
 def argmax_cluster(batch: int, sms: int, largest: int = MAX_ARGMAX_CLUSTER) -> int:
     """Kernel I's blocks a frame (a thread-block cluster): the largest power
     of two of at most `largest` (the largest size that can be resident) for
-    which batch x cluster stays within the card's `sms` SMs, at least 1. A
-    power of two divides the frame's 65536 values; at the chain's B=4 it is
-    16 on an H100 (132 SMs), 2 at B=64, 1 once the batch alone fills the
-    SMs."""
+    which batch x cluster stays within half the card's `sms` SMs; 2 where
+    that gives 1 and two blocks a frame still fit the SMs; at least 1. A
+    power of two divides the frame's 65536 values. On an NVIDIA H100 80GB
+    HBM3 (132 SMs) it is 16 at B <= 4, 8 at B=8, 4 at B=16, 2 from B=17 to
+    66 and 1 past that: the fastest size of a sweep over B = 1, 4, 8, 16,
+    32, 64 (chip_smoke.py's phase ccc_range, PERF.md), where more blocks
+    than half the SMs ran slower at every batch but B=64."""
     cluster = 1
-    while 2 * cluster <= largest and batch * 2 * cluster <= sms:
+    while 2 * cluster <= largest and batch * 2 * cluster <= sms // 2:
         cluster *= 2
+    if cluster == 1 and largest >= 2 and 2 * batch <= sms:
+        cluster = 2
     return cluster
 
 
@@ -570,6 +575,9 @@ def track_plain(uv: torch.Tensor, exp_tab: torch.Tensor, state: Optional[KalmanS
         state, filtered = kalman_scan(state, meas)
     filtered = filtered.reshape(steps, tracks, 2).transpose(0, 1).reshape(-1, 2)
     return state, gains_from_uv_table(filtered, exp_tab)
+
+
+TRACK_CHUNK = 512  # kernel J's steps a stage of shared memory (csrc/ccc_track.cu)
 
 
 def track_cuda(uv: torch.Tensor, exp_tab: torch.Tensor, state: Optional[KalmanState], *,

@@ -21,7 +21,8 @@ and the integer multiply-adds, horizontal pass first (the truncating
 vertical shifts do not commute). On a CUDA tensor the entry points launch
 kernel H (csrc/ccc_resize.cu) instead, which reads the same tables narrowed
 to int32 (`resize_table`), up to three planes a launch: on its rows path
-(planes and output of column stride 1, `resize_path`) with the bands of
+(planes and output of column stride 1, a batch of at least ROWS_MIN_BATCH
+frames, `resize_path`) with the bands of
 staged source rows `resize_bands` makes from those tables, else on its
 gather path.
 """
@@ -232,15 +233,26 @@ def _resize_bands_on(src_h: int, src_w: int, dst_h: int, dst_w: int, device: str
     return torch.as_tensor(bands, device=device), slots
 
 
-def resize_path(in_col: int, out_col: int, src_w: int, planes: int, slots: int) -> str:
-    """Kernel H's path for planes of column stride in_col (elements) and
-    src_w columns, written with column stride out_col, `planes` a launch
-    and `slots` staged rows a band: "rows" (stage each tapped source row
-    whole in shared memory) where both column strides are 1 and the block's
-    rows_smem fits ROWS_SMEM_LIMIT, else "gather" (a thread an output
-    pixel)."""
+# frames a launch from which kernel H's rows path is the faster one: on an
+# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's phase ccc_range, PERF.md)
+# the gather path wins up to 8 frames at 1920x1080 and 1440x1080 (at 8 the
+# two are within 4%, the gather path ahead in four readings of six) and
+# the rows path from 9 on, by 4-25%
+ROWS_MIN_BATCH = 9
+
+
+def resize_path(in_col: int, out_col: int, src_w: int, planes: int, slots: int,
+                batch: Optional[int] = None) -> str:
+    """Kernel H's path for `batch` frames (None: any number) of planes of
+    column stride in_col (elements) and src_w columns, written with column
+    stride out_col, `planes` a launch and `slots` staged rows a band:
+    "rows" (stage each tapped source row whole in shared memory) where both
+    column strides are 1, the block's rows_smem fits ROWS_SMEM_LIMIT and the
+    batch has at least ROWS_MIN_BATCH frames, else "gather" (a thread an
+    output pixel)."""
     fits = rows_smem(planes, slots, src_w) <= ROWS_SMEM_LIMIT
-    return "rows" if in_col == 1 and out_col == 1 and fits else "gather"
+    many = batch is None or batch >= ROWS_MIN_BATCH
+    return "rows" if in_col == 1 and out_col == 1 and fits and many else "gather"
 
 
 def resize_rows_cuda(planes: Sequence[torch.Tensor], src_h: int, dst_h: int, dst_w: int,
@@ -297,8 +309,8 @@ def resize_rows_cuda(planes: Sequence[torch.Tensor], src_h: int, dst_h: int, dst
                              f"{[t.stride() for t in ts]}")
     (fs, rs, cs), (fo, ro, co) = src[0].stride(), dst[0].stride()
     bands, slots = _resize_bands_on(src_h, w, dst_h, dst_w, device, y0, y1, row0)
-    chosen = resize_path(cs, co, w, min(3, len(src)), slots)
-    if path == "rows" and chosen != "rows":
+    chosen = resize_path(cs, co, w, min(3, len(src)), slots, src[0].shape[0])
+    if path == "rows" and resize_path(cs, co, w, min(3, len(src)), slots) != "rows":
         raise ValueError(f"path: the rows path needs column strides of 1 (got {cs} in, {co} "
                          f"out) and {rows_smem(min(3, len(src)), slots, w)} bytes of "
                          f"shared memory within {ROWS_SMEM_LIMIT}")

@@ -29,7 +29,9 @@ checkout, through functions every version of the port has:
     C's response (I; "I64" on 64 seeded f32 responses), "sequence"
     mode's track and gains of its peaks from a fresh state (J: ops.ccc.
     track_gains, or kalman_scan and gains_from_uv_table before kernel J;
-    "J64" 64 seeded peaks, config 3's batch) and the chain's whole CCC
+    "J64" 64 seeded peaks, config 3's batch; "J512" a 512-frame track;
+    "J_cameras" the flagship's default "cameras" mode, four tracks of one
+    frame, kalman_update before kernel J) and the chain's whole CCC
     range, H to J, on A's planes ("CCC"; "CCC64" at B=64, seeded planes),
     each with every stream operation its call makes:
     device ms (measure.device_ms) and ms per call, the host's launches
@@ -175,7 +177,8 @@ def _worker(root: str, out: str) -> dict:
     fresh = ccc.kalman_init((), device="cuda")
     resp = ccc.ccc_response(hist, wr, wi, bias)
     uv = {4: ccc.response_argmax(resp),
-          64: torch.randint(0, 256, (64, 2), generator=g, device="cuda", dtype=torch.int32)}
+          **{n: torch.randint(0, 256, (n, 2), generator=g, device="cuda", dtype=torch.int32)
+             for n in (64, 512)}}
     resp64 = torch.randn((64, ccc.HIST_N, ccc.HIST_N), generator=g, device="cuda")
 
     def resize(pl):
@@ -184,12 +187,14 @@ def _worker(root: str, out: str) -> dict:
             return resize_planes(pl, pl[0].shape[-2], ccc.SMALL_H, ccc.SMALL_W)
         return [resize_linear_u8_plane(p, ccc.SMALL_H, ccc.SMALL_W) for p in pl]
 
-    def track(peaks):
+    def track(peaks, cameras=False):
         """"Sequence" mode's track of the peaks from a fresh state and the
-        gains (J)."""
+        gains (J); "cameras" mode's tracks, a frame each, with `cameras`."""
         if track_gains is not None:
-            return track_gains(peaks, exp_tab, fresh, track_shape=(), steps=peaks.shape[0])
-        _, filtered = ccc.kalman_scan(fresh, peaks)
+            kw = (dict(track_shape=(peaks.shape[0],)) if cameras
+                  else dict(track_shape=(), steps=peaks.shape[0]))
+            return track_gains(peaks, exp_tab, fresh, **kw)
+        _, filtered = (ccc.kalman_update if cameras else ccc.kalman_scan)(fresh, peaks)
         return ccc.gains_from_uv_table(filtered, exp_tab)
 
     def ccc_range(pl):
@@ -219,6 +224,8 @@ def _worker(root: str, out: str) -> dict:
              "I64": lambda: ccc.response_argmax(resp64),
              "J": lambda: track(uv[4]),
              "J64": lambda: track(uv[64]),
+             "J_cameras": lambda: track(uv[4], cameras=True),
+             "J512": lambda: track(uv[512]),
              "CCC": lambda: ccc_range(planes),
              "CCC64": lambda: ccc_range(big)}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}

@@ -193,6 +193,54 @@ def ccc_track_work(rows: int, tracks: int, kalman: bool) -> dict:
     return {"bytes": rows * 20 + 1024 + (26 * tracks if kalman else 0), "ops": rows * per}
 
 
+# Kernel J's floor. A track is a serial chain, so J's least time is not its
+# bytes (nanoseconds) but a launch and the chain's dependent latencies: a
+# step before p repeats (p + 1, p' + 10, the division, 1 - k, the product:
+# the chain through p) and a step with the kept gain (z - x, the product,
+# the sum: the chain through x). Each is the latency of one step of that
+# chain on an NVIDIA H100 80GB HBM3 at 700 W, read by a one-thread probe
+# built apart from the package: each chain written with the intrinsics
+# csrc/ccc_track.cu uses, its z in registers, 65 536 steps between
+# %globaltimer and %clock64 stamps, the median of 5 runs after a warm-up:
+# 30.9 ns (61.2 SM cycles) a dividing step, 6.22 ns (12.3) a kept-gain
+# step (PERF.md, kernel J).
+CCC_TRACK_DIVIDE_NS = 30.9
+CCC_TRACK_KEEP_NS = 6.22
+
+
+def kalman_chain(p: float, initialized: bool, steps: int) -> tuple:
+    """(dividing, keeping): of a track's `steps` steps from the state (p,
+    initialized), how many divide (p' = p + 1, k = p' / (p' + 10), p = (1 -
+    k) p', until a step gives p the bits it came in with) and how many
+    keep the gain after that. A fresh track's first step (x = z) is
+    neither."""
+    import numpy as np
+
+    f = np.float32
+    first = 0 if initialized or steps == 0 else 1
+    p, dividing = np.array([p], f), 0
+    with np.errstate(invalid="ignore", over="ignore"):
+        while dividing < steps - first:
+            pp = (p + f(1)).astype(f)
+            k = (pp / (pp + f(10)).astype(f)).astype(f)
+            new = ((f(1) - k).astype(f) * pp).astype(f)
+            dividing += 1
+            if new.view(np.int32)[0] == p.view(np.int32)[0]:
+                break
+            p = new
+    return dividing, steps - first - dividing
+
+
+def ccc_track_floor(empty_ms: float, dividing: int, keeping: int) -> dict:
+    """Kernel J's latency floor in ms: an empty launch's device ms
+    (`empty_ms`: a block that only waits, launched as J is and timed as J
+    is, in the same run), `dividing` steps of the chain through p and
+    `keeping` steps of the chain through x (kalman_chain; the longest
+    track's: tracks walk in parallel)."""
+    chain_ms = (dividing * CCC_TRACK_DIVIDE_NS + keeping * CCC_TRACK_KEEP_NS) * 1e-6
+    return {"floor_ms": empty_ms + chain_ms, "empty_ms": empty_ms, "chain_ms": chain_ms}
+
+
 def device_ms(fn, n: int = 20) -> float:
     """Device time of one fn() in ms, by CUDA events around n back-to-back
     calls, the median of 5 such runs (after one warm-up call). Each run

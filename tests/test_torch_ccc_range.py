@@ -223,26 +223,32 @@ def _strides(t):
 def test_resize_path_choice():
     """Kernel H's path (resize_path) for the planes resize_rows_cuda is
     given: the chain's planes, a mesh slab and odd widths take the rows
-    path; the op layer's [..., H, W, 3] frames (read as planes of column
+    path from ROWS_MIN_BATCH frames on and the gather path below (faster
+    there); the op layer's [..., H, W, 3] frames (read as planes of column
     stride 3, or written interleaved) and rows too wide for the shared
-    memory take the gather path."""
+    memory take the gather path at any batch."""
     def path(planes, out_col=1):
         h, w = planes[0].shape[-2:]
         slots = pres.resize_bands(pres.resize_table(h, w, 270, 360, 0, 270, 0), 360)[0]
-        return pres.resize_path(_strides(planes[0])[-1], out_col, w, min(3, len(planes)), slots)
+        return pres.resize_path(_strides(planes[0])[-1], out_col, w, min(3, len(planes)), slots,
+                                planes[0].shape[0])
 
-    chain = torch.zeros((4, 3, 1080, 1920), dtype=torch.uint8)
+    chain = torch.zeros((pres.ROWS_MIN_BATCH, 3, 1080, 1920), dtype=torch.uint8)
     assert path([chain[:, c] for c in (2, 1, 0)]) == "rows"
+    assert path([chain[:4, c] for c in (2, 1, 0)]) == "gather"  # the flagship's B=4
     slab = chain[:, :, 268:542]
     assert path([slab[:, c] for c in range(3)]) == "rows"
-    odd = torch.zeros((2, 3, 1079, 1439), dtype=torch.uint8)
+    odd = torch.zeros((pres.ROWS_MIN_BATCH, 3, 1079, 1439), dtype=torch.uint8)
     assert path([odd[:, c] for c in range(3)]) == "rows"
-    nhwc = torch.zeros((4, 1080, 1920, 3), dtype=torch.uint8)
+    assert path([odd[:pres.ROWS_MIN_BATCH - 1, c] for c in range(3)]) == "gather"
+    nhwc = torch.zeros((64, 1080, 1920, 3), dtype=torch.uint8)
     assert path(nhwc.unbind(-1)) == "gather"  # column stride 3 in
     assert path([chain[:, c] for c in range(3)], out_col=3) == "gather"  # interleaved out
-    assert path([torch.zeros((1, 1080, 1 << 12), dtype=torch.uint8)] * 3) == "gather"  # too wide
-    assert path([torch.zeros((1, 1080, 1 << 12), dtype=torch.uint8)]) == "rows"  # one plane fits
+    wide = torch.zeros((64, 1080, 1 << 12), dtype=torch.uint8)
+    assert path([wide] * 3) == "gather"  # too wide
+    assert path([wide]) == "rows"  # one plane fits
     assert pres.row_pitch(1920) == 1952 and pres.row_pitch(1) == 32
+    assert pres.ROWS_MIN_BATCH == 9  # the crossover chip_smoke.py times on an H100
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -422,12 +428,14 @@ def test_argmax_cluster_choice(sms, largest):
     for b, c in zip(range(1, 257), sizes):
         assert c in (1, 2, 4, 8, 16) and c <= largest and N2 % c == 0  # divides the frame
         assert c == 1 or b * c <= sms  # within the SMs
-        assert 2 * c > largest or b * 2 * c > sms  # the largest such size
+        half = b * c <= sms // 2 and (2 * c > largest or b * 2 * c > sms // 2)
+        assert half or (c == 2 and b * 2 > sms // 2) or (c == 1 and b * 2 > sms)
         if b >= sms:
             assert c == 1  # the batch alone fills the card
     assert sizes == sorted(sizes, reverse=True)  # halves as the batch grows
-    if (sms, largest) == (132, 16):  # an H100
-        assert [sizes[b - 1] for b in (1, 4, 8, 9, 16, 64, 140)] == [16, 16, 16, 8, 8, 2, 1]
+    if (sms, largest) == (132, 16):  # an H100: the fastest sizes chip_smoke.py times
+        assert [sizes[b - 1] for b in (1, 4, 8, 9, 16, 32, 64, 66, 67, 140)] == \
+            [16, 16, 8, 4, 4, 2, 2, 2, 1, 1]
 
 
 def test_argmax_dtype_codes_are_the_c_entrys():
@@ -700,6 +708,28 @@ def test_kernel_i_takes_every_argmax_dtype_on_card(dtype):
         pccc.response_argmax_cuda(frames, cluster=3)
 
 
+def _held_on_card(uv, exp_tab, state, **kw):
+    """Kernel J against track_plain on the card: the gains and the state
+    bit for bit, one launch, the given state untouched."""
+    from raw_image_pipeline_tpu_torch import kernels
+
+    kept = None if state is None else [getattr(state, f).clone() for f in ("x", "p",
+                                                                           "initialized")]
+    before = kernels.CCC_TRACK.launches
+    got = pccc.track_cuda(uv, exp_tab, state, **kw)
+    assert kernels.CCC_TRACK.launches - before == 1
+    want = pccc.track_plain(uv, exp_tab, state, **kw)
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    if state is None:
+        assert got[0] is None
+        return
+    bits = (lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t)  # noqa: E731
+    for f, k in zip(("x", "p", "initialized"), kept):
+        a, b = getattr(got[0], f), getattr(want[0], f)
+        assert a.shape == b.shape and torch.equal(bits(a), bits(b)), f
+        assert torch.equal(bits(k), bits(getattr(state, f))), f  # untouched
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,rows,track_shape,steps,shape", LAYOUTS)
 def test_kernel_j_equals_plain_on_card(name, rows, track_shape, steps, shape):
@@ -707,17 +737,35 @@ def test_kernel_j_equals_plain_on_card(name, rows, track_shape, steps, shape):
     uv = torch.as_tensor(_peaks(rows, rows), device=dev)
     exp_tab = torch.as_tensor(EXP_TAB, device=dev)
     kw = dict(track_shape=track_shape, steps=steps)
-    for start in ("fresh", "seeded"):
+    for start in ("fresh", "seeded", "NaN p"):
         state = None
         if shape is not None:
             s = _fresh(shape) if start == "fresh" else _seeded_state(rows, shape)
+            if start == "NaN p":  # carried from a call that went NaN
+                s = pccc.KalmanState(s.x, torch.full_like(s.p, float("nan")),
+                                     torch.ones_like(s.initialized))
             state = pccc.KalmanState(s.x.to(dev), s.p.to(dev), s.initialized.to(dev))
-        got = pccc.track_cuda(uv, exp_tab, state, **kw)
-        want = pccc.track_plain(uv, exp_tab, state, **kw)
-        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
-        if shape is not None:
-            for f in ("x", "p", "initialized"):
-                a, b = getattr(got[0], f), getattr(want[0], f)
-                assert a.shape == b.shape and torch.equal(
-                    a.view(torch.int32) if a.dtype == torch.float32 else a,
-                    b.view(torch.int32) if b.dtype == torch.float32 else b)
+        _held_on_card(uv, exp_tab, state, **kw)
+    if name == "sequence":  # tracks ending before, on and after a stage's end, past two
+        c = pccc.TRACK_CHUNK
+        for n in (c - 1, c, c + 1, 2 * c + 3):
+            fresh = pccc.kalman_init((), device=dev)
+            _held_on_card(torch.as_tensor(_peaks(n, n), device=dev), exp_tab, fresh,
+                          track_shape=(), steps=n)
+        # p = -3.701562: 55 dividing steps, past the gains J makes before it
+        # walks (its k is negative: the peaks are x's own, in the table)
+        far = _state([100.0, 50.0], -3.701562, True)
+        _held_on_card(torch.tensor([[100, 50]] * 80, dtype=torch.int32, device=dev), exp_tab,
+                      pccc.KalmanState(far.x.to(dev), far.p.to(dev), far.initialized.to(dev)),
+                      track_shape=(), steps=80)
+    if shape is not None and name in ("sequence", "cameras"):
+        # J straight behind kernel I on the same stream: its programmatic
+        # launch must read the peaks only after I has written them
+        resp = torch.as_tensor(_planted(5)[:4], device=dev)
+        n = resp.shape[0]
+        for _ in range(3):
+            uv = pccc.response_argmax_cuda(resp)
+            _held_on_card(uv, exp_tab, pccc.kalman_init(() if name == "sequence" else (n,),
+                                                         device=dev),
+                          track_shape=() if name == "sequence" else (n,),
+                          steps=n if name == "sequence" else 1)

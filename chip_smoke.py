@@ -29,6 +29,9 @@ per source, into build/kernels/), then:
                        seeded frames' histograms (B=4) and on a two-peak
                        histogram whose response's two peaks differ by 1e-5
                        of max |resp| (tools/workloads.two_peak_histogram);
+                       timed beside torch.fft.irfft2(rfft2(hist) * W) + bias
+                       (library_ms; whether its argmax equals C's on both
+                       is printed, not required);
        D MHT debayer — as A, with 1x1 in place of 3x3;
        E float remap — 0 mismatching bytes on the float chain's fisheye
                        maps at 1920x1080 and 1440x1080 (B=4 and B=1) and
@@ -106,6 +109,27 @@ per source, into build/kernels/), then:
      hold those 8 kernels and no copy, set or synchronising API call (the
      call profiled up to 3 times until a trace shows the range; none
      fails the phase);
+     then the wb_range phase (check_wb_range): the statistical white
+     balances' kernels against their plain versions:
+       K statistics, L learned's 64^3 histogram, M per-frame tables, and G's
+                     table step — equal records, histograms, tables, PCA's
+                     NaN flags and learned's features (bit for bit), 0
+                     mismatching bytes out of G, for simple (p 20; 2 and 35
+                     at the small shapes), grey_world (0.8; 1.2, the u16
+                     wrap rule), pca and learned (0.8) at B=64 1920x1080
+                     (the wb_* chains' call), B=4 1080x1920, 1079x1439,
+                     17x31 and 3x5, on planes 1 byte off a 16-byte boundary,
+                     interleaved planes, and edge frames (saturated, black,
+                     a constant channel, planted equal brightest sums in
+                     the body and the tail, noise) at 45x61 and 1079x1439;
+                     the mono chain's LUT (G's table step on one plane)
+                     against the plain gather; each timed at B=4 and B=64
+                     beside its plain version and its bound, torch.bincount
+                     of the same bins as K's (simple) and L's library time;
+                     each wb_* chain at B=64 launches K and M (and L) once a
+                     call, and its profiled isp_white_balance range holds at
+                     most 3 kernels (4 for learned) and no bincount, topk or
+                     sort, copy, set or synchronising API call;
      then the ops phase (check_ops): the reference package's entry points
      that reach a kernel, on [..., H, W(, 3)] CUDA frames at 1080x1920
      (leading dims (4,)) and at a random odd crop (leading dims (2, 3)):
@@ -115,7 +139,9 @@ per source, into build/kernels/), then:
      B, C, I), ccc_balance_white (and J, two calls with the state carried),
      remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with
      one map and with per-camera maps, color_correct, vignetting.correct
-     and enhance (G); each against plain=True on the card and the planar
+     and enhance (G), balance_white_simple, _grey_world, _pca and
+     balance_white_learned_model (K, M, L, G) and apply_lut (G); each
+     against plain=True on the card and the planar
      path of the chain, 0 mismatching bytes, with its device time; then
      (check_ops_contract) the calls the JAX package takes that the kernels
      once refused: the histograms over kernel B's 524160 pixels (1080x1920,
@@ -138,7 +164,8 @@ per source, into build/kernels/), then:
          (each 8 seeded frames in 2 calls)
        wb_simple, wb_grey_world, wb_pca, wb_learned — BASELINE config 2:
                     debayer, flip 90 and the statistical white balance,
-                    128 frames made on the card in 2 calls of B=64 (A);
+                    128 frames made on the card in 2 calls of B=64 (A, K,
+                    M, L for learned, G's table step);
        pointwise_bgr8 — BASELINE config 4: colour calibration, vignetting
                     and the HSV enhancer on 512 bgr8 frames in one call
                     with microbatch=128 (G), its peak device memory
@@ -1407,6 +1434,284 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     return rows
 
 
+WB_METHODS = (("simple", 20.0), ("grey_world", 0.8), ("pca", None), ("learned", 0.8))
+# the methods' other parameters, at the small shapes: simple's p, grey-world's
+# wrap rule (t255 > 257)
+WB_EXTRA = (("simple", 2.0), ("simple", 35.0), ("grey_world", 1.2))
+# (B, H, W): the wb_* chains' call (1920x1080 after flip 90), the flagship's
+# frames, an odd crop, small frames
+WB_SHAPES = ((64, 1920, 1080), (4, 1080, 1920), (3, 1079, 1439), (3, 17, 31), (3, 3, 5))
+WB_KERNELS = {"simple": ("wb_stats", "wb_tables"), "grey_world": ("wb_stats", "wb_tables"),
+              "pca": ("wb_stats", "wb_tables"), "learned": ("wb_stats", "wb_hist64", "wb_tables")}
+
+
+def _wb_edge_frames(torch, h: int, w: int, dev):
+    """[6, h, w, 3] u8 frames at the methods' edges: fully saturated, all
+    black, a constant channel (PCA's NaN pattern), two planted equal
+    brightest kept sums at body positions of two lanes, and at the last
+    pixel and a body pixel (the 8-lane rank's tail), and a noise frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(h * 1000 + w)
+    x = rng.integers(0, 61, (6, h, w, 3)).astype(np.uint8)
+    x[0], x[1] = 255, 0
+    x[2, ..., 0] = 77
+    n = h * w
+    body = n // 8 * 8
+    for f, sites in ((3, (9, 2) if n >= 16 else (1, 2)), (4, (n - 1, min(16, body - 1)))):
+        for i in sites:
+            x[f].reshape(n, 3)[i] = (120, 60, 10)
+    x[5] = rng.integers(0, 256, (h, w, 3))
+    return torch.as_tensor(x, device=dev)
+
+
+def check_wb_range(tp, torch, rng, smi_line):
+    """Phase wb_range: the statistical white balances' kernels K (the
+    statistics), L (learned's 64^3 histogram) and M (the per-frame tables)
+    and G's table step against their plain versions on the card: equal
+    records, histograms, tables, NaN flags and learned's features (bit for
+    bit), and 0 mismatching bytes out of G, for each method (and simple at
+    p 2 and 35, grey-world at 1.2 where the u16 wrap rule applies) at
+    WB_SHAPES, on planes 1 byte off a 16-byte boundary, on interleaved
+    planes (column stride 3) and on the edge frames (_wb_edge_frames) at
+    45x61 and 1079x1439; then the mono chain's LUT (G's table step on one
+    plane) against the plain gather; then each kernel timed at B=4
+    1080x1920 and B=64 1920x1080 beside its plain version and its bound,
+    with torch.bincount of the same bins as K's (simple) and L's library
+    time; then each wb_* chain at B=64 1920x1080: K, M (and L) launched in
+    its call, and its profiled isp_white_balance range holding at most 3
+    kernels (4 for learned: K, L, M, G) and no bincount, topk or sort, no
+    copy, set or synchronising API call (up to 3 profiles until a trace
+    shows the range). Returns the kernels' rows (K, L, M) and G's table
+    step's keys."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.ops import gamma, learned_wb, pointwise
+    from raw_image_pipeline_tpu_torch.ops import white_balance as wb
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.tools.measure import (bound, device_ms, pointwise_work,
+                                                            wb_hist64_work, wb_stats_work,
+                                                            wb_tables_work)
+    from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time, range_kernel_names
+
+    dev = torch.device("cuda")
+    seed = int(rng.integers(1 << 30))
+
+    def colour(b, h, w, s):
+        return workloads.card_frames(torch, "color", b, h, w, seed + s)
+
+    def planes(x, off=0):  # contiguous planes, or views `off` bytes past a 16-byte boundary
+        if not off:
+            return tuple(x[..., c].contiguous() for c in range(3))
+        buf = torch.empty((3, x.numel() // 3 + 32), dtype=torch.uint8, device=dev)
+        out = []
+        for c in range(3):
+            v = buf[c, off:off + x.numel() // 3].view(x.shape[:-1])
+            v.copy_(x[..., c])
+            out.append(v)
+        return tuple(out)
+
+    def held(label, pl, method, param):
+        """K, L, M and G's table step on planes `pl` against their plain
+        versions; raises on a difference."""
+        h, w = pl[0].shape[-2:]
+        want = wb.wb_stats_plain(pl, method, param)
+        got = wb.wb_stats_cuda(pl, method, param)
+        hist = want_hist = feats = None
+        bad = {}
+        if method == "learned":
+            got, hist = got
+            t255 = learned_wb.learned_t255(param)
+            want_hist = learned_wb.hist64_plain(pl, want, t255)
+            learned_wb.hist64_cuda(wb._check_planes(pl, "kernel L"), got, t255, hist)
+            bad["histogram"] = int((hist != want_hist).sum())
+            feats = torch.empty((got.shape[0], 4, 2), dtype=torch.float32, device=dev)
+        bad["record"] = int((got != want).sum())
+        t = wb.wb_tables_cuda(got, method, param, h * w, hist, features=feats)
+        p = wb.wb_tables_plain(want, method, param, h * w, want_hist)
+        bad["tables"] = int((t.tables != p.tables).sum())
+        if p.nan is not None:
+            bad["nan flags"] = int((t.nan != p.nan).sum())
+        if feats is not None:
+            pf = learned_wb.features_plain(want, want_hist)
+            bad["features"] = int((feats.view(torch.int32) != pf.view(torch.int32)).sum())
+        out = pointwise.pointwise_cuda(pl, wb_tables=p.tables, wb_nan=p.nan)
+        ref = pointwise.pointwise_plain(*pl, wb_tables=p.tables, wb_nan=p.nan)
+        bad["G bytes"] = sum(int((a != b).sum()) for a, b in zip(out, ref))
+        print(f"wb_range {method}{'' if param is None else f' {param}'} {label}: "
+              + ", ".join(f"{v} mismatching {k}" for k, v in bad.items()))
+        if any(bad.values()):
+            raise AssertionError(f"wb_range {method} {label}: {bad}")
+
+    for method, param in WB_METHODS + WB_EXTRA:
+        shapes = WB_SHAPES if (method, param) in WB_METHODS else WB_SHAPES[3:]
+        for i, (b, h, w) in enumerate(shapes):
+            held(f"B={b} {h}x{w}", planes(colour(b, h, w, i)), method, param)
+        if (method, param) not in WB_METHODS:
+            continue
+        x = colour(4, 1080, 1920, 7)
+        held("B=4 1080x1920, planes 1 byte off", planes(x, 1), method, param)
+        held("B=4 1080x1920, interleaved planes", (x[..., 0], x[..., 1], x[..., 2]), method,
+             param)
+        for h, w in ((45, 61), (1079, 1439)):
+            held(f"edge frames {h}x{w}", planes(_wb_edge_frames(torch, h, w, dev)), method,
+                 param)
+        del x
+    # the mono chain's LUT: G's table step on one plane
+    lut = torch.as_tensor(gamma.build_gamma_lut(0.7), device=dev)
+    for shape in ((4, 1080, 1920), (3, 1079, 1439), (3, 17, 31)):
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev)
+        off = x.reshape(-1)[1:1 + x.numel() - shape[-1]].view(-1, shape[-1])  # 1 byte off
+        for label, v in (("", x), (", 1 byte off", off)):
+            before = kernels.POINTWISE.launches
+            got = gamma.apply_lut(v, lut)
+            bad = int((got != gamma.apply_lut(v, lut, plain=True)).sum())
+            print(f"wb_range mono LUT {tuple(v.shape)}{label}: {bad} mismatching bytes, "
+                  f"{kernels.POINTWISE.launches - before} launch of G")
+            if bad or kernels.POINTWISE.launches != before + 1:
+                raise AssertionError(f"wb_range mono LUT {tuple(v.shape)}{label}")
+    torch.cuda.empty_cache()
+
+    # --- times beside the bounds: B=4 1080x1920, B=64 1920x1080 ---
+    rows = {"K": {}, "L": {}, "M": {}, "G": {}}
+
+    def timed(name, label, ms, plain, work, library=None):
+        bd = bound(bytes_=work["bytes"], ops=work["ops"])
+        rows[name].update({f"ms_{label}": ms, f"plain_ms_{label}": plain,
+                           f"bound_ms_{label}": bd["bound_ms"], f"bound_by_{label}": bd["bound_by"]})
+        if library is not None:
+            rows[name][f"library_ms_{label}"] = library
+        print(f"wb_range time {name} {label}: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})"
+              + ("" if library is None else f", torch.bincount of the same bins {library:.4f} ms")
+              + f" [{smi_line}]")
+
+    for size, (b, h, w) in (("b4", (4, 1080, 1920)), ("b64", (64, 1920, 1080))):
+        pl = planes(colour(b, h, w, 9))
+        n = 2 if b == 64 else 5  # the plain versions' calls a run
+        for method, param in WB_METHODS:
+            label = f"{method}_{size}"
+            rec = wb.wb_stats_cuda(pl, method, param)
+            want = wb.wb_stats_plain(pl, method, param)
+            library = None
+            if method == "simple":
+                bins = (torch.stack(pl, 1).reshape(b, 3, -1).long()
+                        + (torch.arange(3 * b, device=dev) * 256).reshape(b, 3, 1)).reshape(-1)
+                library = device_ms(lambda: torch.bincount(bins, minlength=3 * b * 256), n=n)
+                del bins
+            timed("K", label, device_ms(lambda: wb.wb_stats_cuda(pl, method, param)),
+                  device_ms(lambda: wb.wb_stats_plain(pl, method, param), n=n),
+                  wb_stats_work(b, h, w, method), library)
+            hist = want_hist = None
+            if method == "learned":
+                rec, hist = rec
+                t255 = learned_wb.learned_t255(param)
+                learned_wb.hist64_cuda(pl, rec, t255, hist)
+                want_hist = learned_wb.hist64_plain(pl, want, t255)
+                Bp, Gp, Rp = (p.to(torch.int32) for p in pl)
+                keep = torch.maximum(torch.maximum(Bp, Gp), Rp) < t255
+                hi = torch.clamp(want[:, learned_wb.HI], min=64).float()[:, None, None]
+                idx = [torch.clamp(torch.floor(c.float() * 64.0 / hi).long(), 0, 63)
+                       for c in (Bp, Gp, Rp)]
+                bins = torch.where(keep, (idx[0] * 64 + idx[1]) * 64 + idx[2]
+                                   + (torch.arange(b, device=dev) * 64 ** 3)[:, None, None],
+                                   b * 64 ** 3).reshape(-1)
+                del Bp, Gp, Rp, idx
+                kept = int(keep.sum())
+                del keep
+                library = device_ms(lambda: torch.bincount(bins, minlength=b * 64 ** 3 + 1), n=n)
+                del bins
+                # L adds into K's zeroed histogram; timed alone, the adds pile up
+                timed("L", size, device_ms(lambda: learned_wb.hist64_cuda(pl, rec, t255, hist)),
+                      device_ms(lambda: learned_wb.hist64_plain(pl, want, t255), n=n),
+                      wb_hist64_work(b, h, w, kept), library)
+                hist.copy_(want_hist)
+            palettes = ([min(300, int(c)) for c in (want_hist > 0).sum(-1).tolist()]
+                        if want_hist is not None else ())
+            timed("M", label,
+                  device_ms(lambda: wb.wb_tables_cuda(rec, method, param, h * w, hist)),
+                  device_ms(lambda: wb.wb_tables_plain(want, method, param, h * w, want_hist),
+                            n=n),
+                  wb_tables_work(b, method, palettes))
+            if method == "pca":  # G's table step, with PCA's NaN flags read
+                t = wb.wb_tables(pl, method, param)
+                timed("G", f"table_step_{size}",
+                      device_ms(lambda: pointwise.pointwise_cuda(pl, wb_tables=t.tables,
+                                                                 wb_nan=t.nan)),
+                      device_ms(lambda: pointwise.pointwise_plain(*pl, wb_tables=t.tables,
+                                                                  wb_nan=t.nan), n=n),
+                      pointwise_work(b, h, w, ("table",)))
+            del rec, hist, want, want_hist
+            torch.cuda.empty_cache()
+        mono = pl[0]
+        timed("G", f"mono_lut_{size}", device_ms(lambda: gamma.apply_lut(mono, lut)),
+              device_ms(lambda: gamma.apply_lut(mono, lut, plain=True), n=n),
+              {"bytes": 2 * mono.numel() + 256, "ops": 0})
+        del pl, mono
+        torch.cuda.empty_cache()
+
+    # --- each wb_* chain's isp_white_balance range, profiled ---
+    busy = {}
+    for method, _ in WB_METHODS:
+        ch = workloads.chains(tp)[f"wb_{method}"]
+        pipe = tp.build_pipeline(ch.config(1080, 1920), ch.encoding, frame_hw=(1080, 1920),
+                                 device="cuda")
+        frames = workloads.card_frames(torch, "bayer", 64, 1080, 1920, seed + 20)
+        pipe(frames)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        pipe(frames)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in kernels.ALL if k.launches}
+        if any(counts.get(k, 0) != 1 for k in WB_KERNELS[method]):
+            raise AssertionError(f"wb_{method}: K, M (L) not launched once a call: {counts}")
+        for attempt in range(1, 4):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                pipe(frames)
+                torch.cuda.synchronize()
+            path = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"wb_{method}_trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+            os.remove(path)
+            rng_ = device_time(trace)["stages"].get("isp_white_balance")
+            if rng_ is not None and rng_["kernels"]:
+                break
+            print(f"wb_{method} isp_white_balance range, profile {attempt}: no device work seen")
+        else:
+            raise AssertionError(f"wb_{method}: no trace of 3 showed its isp_white_balance range")
+        names = range_kernel_names(trace, "isp_white_balance")
+        syncs = {a: n for a, (n, _) in rng_["host_api"].items()
+                 if "Synchronize" in a or "Memcpy" in a or "Memset" in a}
+        most = len(WB_KERNELS[method]) + 1
+        forbidden = [n for n in names if any(s in n.lower() for s in ("bincount", "topk", "sort"))]
+        busy[method] = rng_["busy_us"] / 1e3
+        print(f"wb_{method} 1920x1080 B=64, isp_white_balance range: {rng_['kernels']} kernels "
+              f"(at most {most}), {rng_['copies']} copies, {rng_['sets']} sets, busy "
+              f"{rng_['busy_us'] / 1e3:.4f} ms a call of 64 frames, span "
+              f"{rng_['span_us'] / 1e3:.4f} ms, host {rng_['host_us'] / 1e3:.4f} ms; "
+              f"synchronising or copying API calls {syncs}; launches {counts}; kernels {names} "
+              f"[{smi_line}]")
+        if rng_["kernels"] > most or rng_["copies"] or rng_["sets"] or syncs or forbidden:
+            raise AssertionError(f"wb_{method}: the isp_white_balance range runs more than "
+                                 f"K, L, M and G: {names}, {rng_}")
+        del pipe, frames
+        torch.cuda.empty_cache()
+    kernels.reset_launch_counts()  # the comparisons above are not the main path's
+    # each row's main numbers at the wb_* chains' call (B=64 1920x1080): K in
+    # simple's mode (torch.bincount of its bins beside it), M in learned's
+    out = {"G_table": rows["G"], "wb_busy_ms_b64": busy}
+    for name, label in (("K", "simple_b64"), ("L", "b64"), ("M", "learned_b64")):
+        r = rows[name]
+        out[name] = dict(max_abs_err=0.0, ms=r[f"ms_{label}"], plain_ms=r[f"plain_ms_{label}"],
+                         bound_ms=r[f"bound_ms_{label}"], bound_by=r[f"bound_by_{label}"],
+                         library_ms=r.get(f"library_ms_{label}"), **r)
+    return out
+
+
 def check_kernels(tp, torch, rng):
     """Phase 1: each kernel against its plain version on the card."""
     import numpy as np
@@ -1459,29 +1764,45 @@ def check_kernels(tp, torch, rng):
     two_peak, gap, peaks = workloads.two_peak_histogram(model.filt_dft_re, model.filt_dft_im,
                                                         model.bias)
     err = 0.0
-    for label, x in (("B=4 seeded frames", hist),
-                     (f"two-peak fixture (peaks {peaks}, relative gap {gap:.3e})",
-                      torch.as_tensor(two_peak[None], device=dev))):
+    # C's function as one library expression (timed beside C, used nowhere
+    # in the port): real-input FFTs, the filter's half spectrum
+    half = torch.complex(wr, wi)[:, :ccc.HIST_N // 2 + 1]
+
+    def library(x):
+        return torch.fft.irfft2(torch.fft.rfft2(x) * half, s=(ccc.HIST_N, ccc.HIST_N)) + bias
+
+    library_argmax = {}
+    for key, label, x in (("seeded", "B=4 seeded frames", hist),
+                          ("two_peak", f"two-peak fixture (peaks {peaks}, relative gap "
+                                       f"{gap:.3e})", torch.as_tensor(two_peak[None], device=dev))):
         got = ccc.ccc_response_cuda(x, wr, wi, bias)
         want = ccc.ccc_response_plain(x, wr, wi, bias)
         e = float((got - want).abs().max())
         scale = float(want.abs().max())
         same_argmax = bool(torch.equal(ccc.response_argmax(got), ccc.response_argmax(want)))
+        lib = library(x)
+        library_argmax[key] = bool(torch.equal(ccc.response_argmax(lib),
+                                               ccc.response_argmax(got)))
         print(f"kernel C response {label}: max |diff| {e:.3e} (limit {1e-4 * scale:.3e}), "
-              f"argmax equal: {same_argmax}")
+              f"argmax equal: {same_argmax}; the rfft2/irfft2 expression: max |diff| "
+              f"{float((lib - want).abs().max()):.3e}, argmax equal to C's: "
+              f"{library_argmax[key]}")
         if not (e <= 1e-4 * scale and same_argmax):
             raise AssertionError(f"kernel C disagrees with its plain version on {label}")
         err = max(err, e)
     ms = device_ms(lambda: ccc.ccc_response_cuda(hist, wr, wi, bias))
     plain_ms = device_ms(lambda: ccc.ccc_response_plain(hist, wr, wi, bias))
+    library_ms = device_ms(lambda: library(hist))
     # the bound of C's function (real-input FFTs: bytes bound it), and
     # beside it that of the twelve DFT products that C computes
     work = ccc_response_work(hist.shape[0], ccc.HIST_N)
     as_products = bound(bytes_=work["dft_bytes"], ops=work["dft_products_ops"])
-    rows["C"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+    rows["C"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     library_argmax_equal=library_argmax,
                      **bound(bytes_=work["bytes"], ops=work["least_ops"]),
                      dft_products_bound_ms=as_products["bound_ms"])
-    print(f"kernel C time B=4: {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+    print(f"kernel C time B=4: {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.fft rfft2/irfft2 "
+          f"{library_ms:.4f} ms; bound "
           f"{rows['C']['bound_ms']:.5f} ms ({rows['C']['bound_by']}), as twelve DFT products "
           f"{as_products['bound_ms']:.5f} ms")
 
@@ -1663,12 +1984,17 @@ def check_ops(tp, torch, rng, smi_line):
     two at the crop), and kernel G's steps one at a time:
     color_calibration.color_correct (a seeded matrix and bias),
     vignetting.correct (the frame's vignetting mask) and
-    color_enhancer.enhance (gains 1.1, 1.2, 0.9).
+    color_enhancer.enhance (gains 1.1, 1.2, 0.9); the statistical white
+    balances (K, M, L for learned, then G's table step):
+    white_balance.balance_white_simple (p 20), _grey_world (0.8), _pca and
+    learned_wb.balance_white_learned_model (0.8); and gamma.apply_lut (G's
+    table step on one plane) with the 0.7 gamma table.
     Each is held against the same call with plain=True on the card and
     against the planar path the chain runs (debayer_planes, resize_planes,
     log_chroma_histogram_planes, ccc_response on [B, 256, 256],
     response_argmax_cuda on [B, 256, 256],
-    remap_planes, pointwise_planes): 0 mismatching bytes (f32 values for the histograms; for
+    remap_planes, pointwise_planes, white_balance.balance_white_planes):
+    0 mismatching bytes (f32 values for the histograms; for
     ccc_response the argmax, and the values against the plain version
     within 1e-4 of max |response| as phase 1 holds kernel C). One line per
     function with its device time. Returns each kernel's launches in the
@@ -1685,9 +2011,12 @@ def check_ops(tp, torch, rng, smi_line):
         color_calibration,
         color_enhancer,
         debayer,
+        gamma,
+        learned_wb,
         pointwise,
         undistortion,
         vignetting,
+        white_balance,
     )
     from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8, resize_planes
     from raw_image_pipeline_tpu_torch.ops.vignetting import build_vignetting_mask
@@ -1839,6 +2168,29 @@ def check_ops(tp, torch, rng, smi_line):
             planar = torch.stack(pointwise.pointwise_planes(*planes_of(bgr), **steps), dim=-1)
             bad += int((got != planar.reshape(got.shape)).sum())
             report(f"{name} {size}", bad, device_ms(lambda: fn(bgr, *args)))
+        # the statistical white balances (kernels K, M, L for learned, and G's
+        # table step) and the LUT (G's table step on one plane)
+        for name, fn, method, param in (
+                ("white_balance.balance_white_simple", white_balance.balance_white_simple,
+                 "simple", 20.0),
+                ("white_balance.balance_white_grey_world",
+                 white_balance.balance_white_grey_world, "grey_world", 0.8),
+                ("white_balance.balance_white_pca", white_balance.balance_white_pca, "pca", None),
+                ("learned_wb.balance_white_learned_model", learned_wb.balance_white_learned_model,
+                 "learned", 0.8)):
+            args = () if param is None else (param,)
+            got = counted(lambda: fn(bgr, *args))
+            bad = int((got != fn(bgr, *args, plain=True)).sum())
+            planar = torch.stack(white_balance.balance_white_planes(planes_of(bgr), method, param),
+                                 dim=-1)
+            bad += int((got != planar.reshape(got.shape)).sum())
+            report(f"{name} {size}", bad, device_ms(lambda: fn(bgr, *args)))
+        lut = torch.as_tensor(gamma.build_gamma_lut(0.7), device=dev)
+        got = counted(lambda: gamma.apply_lut(bgr, lut))
+        bad = int((got != gamma.apply_lut(bgr, lut, plain=True)).sum())
+        planar = torch.stack(pointwise.pointwise_planes(*planes_of(bgr), lut=lut), dim=-1)
+        bad += int((got != planar.reshape(got.shape)).sum())
+        report(f"gamma.apply_lut {size}", bad, device_ms(lambda: gamma.apply_lut(bgr, lut)))
         del bayer, flat, bgr, small
     torch.cuda.empty_cache()
     check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line)
@@ -2854,9 +3206,11 @@ def check_bench(torch, root):
     flagship = ("debayer_bilinear",) + workloads.CCC_KERNELS + ("pointwise", "remap_lerp")
     runs = {"headline": (details["headline"]["launches"], flagship)}
     for key, row in details["configs"].items():
-        # config 1 runs its gamma table through G, config 4 is G alone
+        # config 1 runs its gamma table through G, config 2 its grey-world
+        # white balance through K, M and G's table step, config 4 is G alone
         want = flagship if key.startswith(("config3", "config5", "config6")) else {
-            "config1": ("debayer_bilinear", "pointwise"), "config4": ("pointwise",)}.get(
+            "config1": ("debayer_bilinear", "pointwise"), "config4": ("pointwise",),
+            "config2": ("debayer_bilinear", "wb_stats", "wb_tables", "pointwise")}.get(
             key.split("_")[0], flagship[:1])
         runs[key] = (row["launches"], want)
     for run, (launches, want) in runs.items():
@@ -2913,6 +3267,10 @@ def main() -> int:
         # its own generator: the later phases' inputs stay what they were
         rows.update(phase("ccc_range", check_ccc_range, tp, torch,
                           np.random.default_rng(workloads.SEED + 2), root, smi_line))
+        wb = phase("wb_range", check_wb_range, tp, torch,
+                   np.random.default_rng(workloads.SEED + 3), smi_line)
+        rows.update({k: wb[k] for k in ("K", "L", "M")})
+        rows["G"].update(wb["G_table"])
         # its own generator: the later phases' inputs stay what they were
         ops_launches = phase("ops", check_ops, tp, torch,
                              np.random.default_rng(workloads.SEED + 1), smi_line)
@@ -2934,7 +3292,8 @@ def main() -> int:
     names = {"A": kernels.DEBAYER_BILINEAR, "B": kernels.CCC_HISTOGRAM,
              "C": kernels.CCC_RESPONSE, "D": kernels.DEBAYER_MHT, "E": kernels.REMAP_FLOAT,
              "F": kernels.REMAP_LERP, "G": kernels.POINTWISE, "H": kernels.CCC_RESIZE,
-             "I": kernels.CCC_ARGMAX, "J": kernels.CCC_TRACK}
+             "I": kernels.CCC_ARGMAX, "J": kernels.CCC_TRACK, "K": kernels.WB_STATS,
+             "L": kernels.WB_HIST64, "M": kernels.WB_TABLES}
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],
@@ -2944,11 +3303,13 @@ def main() -> int:
              "kernels": a, "four_single_cameras": b} for name, (a, b) in multicam_fps.items()],
         "stream_frames_per_s": {"chain": "flagship", "size": "1920x1080",
                                 "runner": stream_fps[0], "bare_calls": stream_fps[1]},
-        "tools": tools}))
+        "tools": tools,
+        "wb_isp_white_balance_busy_ms_per_64_frames": wb["wb_busy_ms_b64"]}))
     print(json.dumps({"mesh": mesh, "card": smi_line,
                       "note": "logical shards on one card, not a scaling figure"}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
-    # that runs the kernel (A, B, C, F-J: flagship; D: gpu_parity; E: float);
+    # that runs the kernel (A, B, C, F-J: flagship; D: gpu_parity; E: float;
+    # K, M: wb_simple; L: wb_learned);
     # launches_per_flagship_call: the grids it put on the device per call
     print(f"bound_ms against the H100 SXM's published peaks "
           f"({measure.PEAK_BYTES_PER_S / 1e12} TB/s, {measure.PEAK_F32_FLOP_PER_S / 1e12} "

@@ -2,6 +2,12 @@
 // byte for byte to ops/pointwise.pointwise_plain, the composition of the
 // stage functions it replaces, each step optional and in the chain's order:
 //
+//   -. a per-frame table a channel: [B, 3, 256] u8, v -> table[f, c, v],
+//      the statistical white balances' last step (ops/white_balance
+//      .apply_tables_plain), with PCA's NaN channels, which become 255
+//      before a flat position of the frame and 0 from it; with a table
+//      shared by every frame and one plane, the mono chain's gamma LUT
+//      (ops/gamma.apply_lut);
 //   0. the CCC gains: cv::multiply by per-frame [B, 3] gains, one f32
 //      product, round half to even, saturate (ops/ccc.apply_gains_planes);
 //   1. colour calibration: rn(rn(rn(b*m0) + rn(g*m1)) + rn(r*m2)), then
@@ -18,7 +24,12 @@
 // raw_image_pipeline_tpu/ops/ccc.py `apply_gains_planes` (line 447),
 // ops/color_calibration.py `color_correct_planes` (line 22),
 // ops/vignetting.py `correct_planes` (line 44) with `composed_gamma_lab_fn`
-// (line 122), ops/color_enhancer.py `enhance_planes` (line 119). The port's
+// (line 122), ops/color_enhancer.py `enhance_planes` (line 119), and the
+// statistical white balances' per-pixel maps, ops/white_balance.py
+// `balance_white_simple` (line 75), `balance_white_grey_world` (109),
+// `balance_white_pca` (425) and ops/learned_wb.py
+// `balance_white_learned_model` (364), whose per-frame tables kernel M
+// makes (csrc/wb_tables.cu), and ops/gamma.py `apply_lut` (221). The port's
 // plain versions run it as a few hundred eager passes over [B, H, W] tensors,
 // with int32 and f32 temporaries of every intermediate.
 //
@@ -56,10 +67,16 @@
 //   9-entry table (floor(h * 6/180) in [0, 8], the % 6 folded in).
 // - The Lab coefficients are immediates (kLabCoef, kLab2Coef; ops/colorspace
 //   _LAB_COEF and _LAB2_COEF, held equal by tests/test_torch_pointwise.py).
-// - The chains' step sets (the flagship's, config 4's) have instantiations
+// - The chains' step sets (the flagship's, config 4's, the table step
+//   alone: config 2's white balance and the mono LUT) have instantiations
 //   of their own in the word layouts, whose steps are known at compile
 //   time: no step's branch splits a pixel's code. A thread loads the next
-//   frame's words before it computes a frame.
+//   frame's words before it computes a frame. The plane count (1 or 3) is
+//   read only where the table step is on: the other sets keep three planes
+//   as compile-time constants, so the flagship's code is what it was.
+// - The table step reads its frame's tables through the read-only cache
+//   (768 bytes a frame; a warp's 32 lookups fall in two 128-byte lines a
+//   plane), and a frame's NaN flags once a frame.
 //
 // Exactness: every f32 chain is written in __fmul_rn / __fadd_rn /
 // __fsub_rn, so nvcc contracts nothing into an fma. HSV2BGR's two
@@ -125,8 +142,9 @@ enum Layout { kBytes = 0, kPlanar = 1, kInterleaved = 2 };
 // step sets: a kernel instantiated for one knows its steps at compile time,
 // so no step's branch splits the pixels' code and nvcc schedules across
 // steps; kAnySteps reads them from the pointers
-enum Step { kGains = 1, kMatrix = 2, kLut = 4, kMask = 8, kEnh = 16 };
+enum Step { kGains = 1, kMatrix = 2, kLut = 4, kMask = 8, kEnh = 16, kTable = 32 };
 constexpr int kAnySteps = 0;
+constexpr int kTableSteps = kTable;  // config 2's white balance, the mono LUT
 constexpr int kFlagshipSteps = kGains | kMatrix | kMask | kEnh;  // the chains' call
 constexpr int kConfig4Steps = kMatrix | kMask | kEnh;            // config 4's
 
@@ -144,6 +162,12 @@ struct Params {
   const float* mask;    // [h, w] or null (no vignetting)
   const int* lab;       // [256] linearize table, with mask
   const uint8_t* enh;   // [3, 256] (H, S, V) gain tables, or null
+  const uint8_t* wb;    // the table step's tables, frame f's channel c at f * wb_sf + c * wb_sc
+  long long wb_sf;      // 768, or 0 for a table shared by every frame
+  int wb_sc;            // 256, or 0 for one table for every plane
+  const uint8_t* wb_nan;  // [batch, 3] NaN flags, or null
+  long long nan_limit;  // a NaN channel's pixels before this flat position are 255, else 0
+  int nplanes;          // 3, or 1 with the table step alone
   const uint8_t* tables;  // const_tables
 };
 
@@ -205,12 +229,15 @@ struct Px {
 
 // a group's bytes as three words: one a plane (kPlanar, and kBytes
 // assembled so, pixel j in byte j) or the interleaved layout's three
+// (planes past np are not read: their words are 0)
 template <int L>
 __device__ __forceinline__ void load_words(uint32_t (&wd)[3], const uint8_t* const (&src)[3],
-                                           int off, int sx, int left) {
+                                           int off, int sx, int left, int np) {
   if constexpr (L == kPlanar) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) wd[k] = *reinterpret_cast<const uint32_t*>(src[k] + off);
+    for (int k = 0; k < 3; ++k) {
+      wd[k] = k < np ? *reinterpret_cast<const uint32_t*>(src[k] + off) : 0u;
+    }
   } else if constexpr (L == kInterleaved) {
     const uint32_t* q = reinterpret_cast<const uint32_t*>(src[0] + off);
     wd[0] = q[0], wd[1] = q[1], wd[2] = q[2];
@@ -220,7 +247,7 @@ __device__ __forceinline__ void load_words(uint32_t (&wd)[3], const uint8_t* con
       wd[k] = 0;
 #pragma unroll
       for (int j = 0; j < kPx; ++j) {
-        if (j < left) wd[k] |= (uint32_t)src[k][off + j * sx] << (8 * j);
+        if (k < np && j < left) wd[k] |= (uint32_t)src[k][off + j * sx] << (8 * j);
       }
     }
   }
@@ -244,11 +271,13 @@ __device__ __forceinline__ void unpack_words(Px& px, const uint32_t (&wd)[3]) {
 
 template <int L>
 __device__ __forceinline__ void store_group(const Px& px, uint8_t* const (&dst)[3], int off,
-                                            int sx, int left) {
+                                            int sx, int left, int np) {
   if constexpr (L == kPlanar) {
     *reinterpret_cast<uint32_t*>(dst[0] + off) = pack4(px.b[0], px.b[1], px.b[2], px.b[3]);
-    *reinterpret_cast<uint32_t*>(dst[1] + off) = pack4(px.g[0], px.g[1], px.g[2], px.g[3]);
-    *reinterpret_cast<uint32_t*>(dst[2] + off) = pack4(px.r[0], px.r[1], px.r[2], px.r[3]);
+    if (np == 3) {
+      *reinterpret_cast<uint32_t*>(dst[1] + off) = pack4(px.g[0], px.g[1], px.g[2], px.g[3]);
+      *reinterpret_cast<uint32_t*>(dst[2] + off) = pack4(px.r[0], px.r[1], px.r[2], px.r[3]);
+    }
   } else if constexpr (L == kInterleaved) {
     uint32_t* q = reinterpret_cast<uint32_t*>(dst[0] + off);
     q[0] = pack4(px.b[0], px.g[0], px.r[0], px.b[1]);
@@ -259,8 +288,10 @@ __device__ __forceinline__ void store_group(const Px& px, uint8_t* const (&dst)[
     for (int j = 0; j < kPx; ++j) {
       if (j < left) {
         dst[0][off + j * sx] = (uint8_t)px.b[j];
-        dst[1][off + j * sx] = (uint8_t)px.g[j];
-        dst[2][off + j * sx] = (uint8_t)px.r[j];
+        if (np == 3) {
+          dst[1][off + j * sx] = (uint8_t)px.g[j];
+          dst[2][off + j * sx] = (uint8_t)px.r[j];
+        }
       }
     }
   }
@@ -275,6 +306,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const P
   const bool lut = STEPS ? (STEPS & kLut) != 0 : p.lut != nullptr;
   const bool mask = STEPS ? (STEPS & kMask) != 0 : p.mask != nullptr;
   const bool enh = STEPS ? (STEPS & kEnh) != 0 : p.enh != nullptr;
+  const bool table = STEPS ? (STEPS & kTable) != 0 : p.wb != nullptr;
+  // the plane count: a compile-time 3 unless the table step may run alone
+  const int np = (STEPS == kAnySteps || (STEPS & kTable)) ? p.nplanes : 3;
   // the constant tables the steps read, as 16-byte words
   const int4* ct = reinterpret_cast<const int4*>(p.tables);
   int4* st = reinterpret_cast<int4*>(&s);
@@ -332,14 +366,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const P
 #pragma unroll
     for (int k = 0; k < 3; ++k) src[k] = p.in[k] + f0 * p.in_sb, dst[k] = p.out[k] + f0 * p.out_sb;
     uint32_t next[3];  // the next frame's words, loaded a frame ahead
-    load_words<IN>(next, src, io, p.in_sx, left);
+    load_words<IN>(next, src, io, p.in_sx, left, np);
 #pragma unroll 1
     for (int f = f0; f < f1; ++f) {
       Px px;
       unpack_words<IN>(px, next);
 #pragma unroll
       for (int k = 0; k < 3; ++k) src[k] += p.in_sb;
-      if (f + 1 < f1) load_words<IN>(next, src, io, p.in_sx, left);
+      if (f + 1 < f1) load_words<IN>(next, src, io, p.in_sx, left, np);
+      const uint8_t* tab = nullptr;  // frame f's tables
+      uint32_t nanc = 0;             // its NaN channels' bits (b 1, g 2, r 4)
+      if (table) {
+        tab = p.wb + f * p.wb_sf;
+        if (p.wb_nan) {
+          nanc = (__ldg(p.wb_nan + 3 * f) ? 1u : 0u) | (__ldg(p.wb_nan + 3 * f + 1) ? 2u : 0u) |
+                (__ldg(p.wb_nan + 3 * f + 2) ? 4u : 0u);
+        }
+      }
       float gb = 0.0f, gg = 0.0f, gr = 0.0f;
       if (gains) {
         gb = __ldg(p.gains + 3 * f), gg = __ldg(p.gains + 3 * f + 1);
@@ -348,6 +391,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const P
 #pragma unroll
       for (int j = 0; j < kPx; ++j) {
         uint32_t b = px.b[j], g = px.g[j], r = px.r[j];
+        if (table) {
+          b = __ldg(tab + (b & 255u));
+          if (np == 3) {
+            g = __ldg(tab + p.wb_sc + (g & 255u));
+            r = __ldg(tab + 2 * p.wb_sc + (r & 255u));
+          }
+          if (nanc) {  // PCA's constant channels: by the pixel's flat position
+            const uint32_t pat = (long long)y * p.w + x + j < p.nan_limit ? 255u : 0u;
+            if (nanc & 1u) b = pat;
+            if (nanc & 2u) g = pat;
+            if (nanc & 4u) r = pat;
+          }
+        }
         if (gains) {
           b = to_u8(__fmul_rn(u8f(b), gb));
           g = to_u8(__fmul_rn(u8f(g), gg));
@@ -428,7 +484,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const P
         }
         px.b[j] = b, px.g[j] = g, px.r[j] = r;
       }
-      store_group<OUT>(px, dst, oo, p.out_sx, left);
+      store_group<OUT>(px, dst, oo, p.out_sx, left, np);
 #pragma unroll
       for (int k = 0; k < 3; ++k) dst[k] += p.out_sb;
     }
@@ -466,10 +522,11 @@ int launch_steps(const Params& p, int positions, cudaStream_t stream) {
 template <int IN, int OUT>
 int launch(const Params& p, int positions, cudaStream_t stream) {
   const int steps = (p.gains ? kGains : 0) | (p.matrix ? kMatrix : 0) | (p.lut ? kLut : 0) |
-                    (p.mask ? kMask : 0) | (p.enh ? kEnh : 0);
+                    (p.mask ? kMask : 0) | (p.enh ? kEnh : 0) | (p.wb ? kTable : 0);
   if constexpr (IN != kBytes) {
     if (steps == kFlagshipSteps) return launch_steps<IN, OUT, kFlagshipSteps>(p, positions, stream);
     if (steps == kConfig4Steps) return launch_steps<IN, OUT, kConfig4Steps>(p, positions, stream);
+    if (steps == kTableSteps) return launch_steps<IN, OUT, kTableSteps>(p, positions, stream);
   }
   return launch_steps<IN, OUT, kAnySteps>(p, positions, stream);
 }
@@ -491,8 +548,11 @@ int layout_of(const void* const (&ptr)[3], long long sb, long long sy, long long
 
 // Three [batch, h, w] u8 planes (in0..2, shared strides in bytes: frame,
 // row, column) to three (out0..2, likewise); gains, matrix (with bias),
-// lut, mask and enh switch their steps on (null: off); lab is the linearize
-// table of the vignetting step; tables is ops/pointwise.const_tables. A
+// lut, mask, enh and wb switch their steps on (null: off); lab is the
+// linearize table of the vignetting step; wb the table step's tables (frame
+// stride wb_sf, channel stride wb_sc), wb_nan its [batch, 3] NaN flags (or
+// null) and nan_limit their flat position; nplanes 1 (the table step alone:
+// plane 0 of in and out) or 3; tables is ops/pointwise.const_tables. A
 // frame's offsets, (h - 1) * sy + (w - 1) * sx + 3 for in and out, must fit
 // an int and so must h * ceil(w / 4) (the wrapper checks). Launches on
 // `stream` and returns cudaGetLastError().
@@ -502,9 +562,16 @@ extern "C" int isp_pointwise(const void* in0, const void* in1, const void* in2, 
                              long long out_sx, int batch, int h, int w, const void* gains,
                              const void* matrix, const void* bias, const void* lut,
                              const void* mask, const void* lab, const void* enh,
-                             const void* tables, void* stream) {
+                             const void* wb, long long wb_sf, int wb_sc, const void* wb_nan,
+                             long long nan_limit, int nplanes, const void* tables,
+                             void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0) return (int)cudaSuccess;
-  if (!tables || (mask && !lab) || (matrix && !bias)) return (int)cudaErrorInvalidValue;
+  if (!tables || (mask && !lab) || (matrix && !bias) || (wb_nan && !wb)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (nplanes != 3 && (nplanes != 1 || !wb || gains || matrix || lut || mask || enh)) {
+    return (int)cudaErrorInvalidValue;  // one plane: the table step alone
+  }
   const long long groups = (w + kPx - 1) / kPx;
   if ((long long)h * groups >= (1LL << 31) || (h - 1) * in_sy + (w - 1) * in_sx + 3 >= (1LL << 31) ||
       (h - 1) * out_sy + (w - 1) * out_sx + 3 >= (1LL << 31)) {
@@ -519,6 +586,8 @@ extern "C" int isp_pointwise(const void* in0, const void* in1, const void* in2, 
   p.gains = (const float*)gains, p.matrix = (const float*)matrix, p.bias = (const float*)bias;
   p.lut = (const uint8_t*)lut;
   p.mask = (const float*)mask, p.lab = (const int*)lab, p.enh = (const uint8_t*)enh;
+  p.wb = (const uint8_t*)wb, p.wb_sf = wb_sf, p.wb_sc = wb_sc;
+  p.wb_nan = (const uint8_t*)wb_nan, p.nan_limit = nan_limit, p.nplanes = nplanes;
   p.tables = (const uint8_t*)tables;
   p.mask16 = w % kPx == 0 && (uintptr_t)mask % 16 == 0;
   const void* ins[3] = {in0, in1, in2};

@@ -1,0 +1,584 @@
+// Kernel M: the statistical white balances' per-frame finish, record ->
+// tables: kernel K's record (and, for learned, kernel L's 64^3 histogram)
+// in, [B, 3, 256] u8 tables out (channel c's value v becomes table[c][v]),
+// with PCA's [B, 3] NaN flags and learned's [B, 4, 2] f32 features; equal
+// to ops/white_balance.wb_tables_plain and ops/learned_wb.features_plain:
+//
+//   simple      each channel's two walks of the cumulative counts, as f32,
+//               against the f32 target (p * n) / 100, the host's alpha and
+//               beta tables (ops/white_balance._SIMPLE_ALPHA32, _BETA32)
+//               and cvRound(fma(v, alpha, beta)) with one rounding;
+//   grey_world  rint(f32(smin) / f32(s) * 256), 0 for a zero sum, as
+//               (v * gain) >> 8 saturated;
+//   pca         Eigen's 2x2 inverse op for op in f32, then the exact table
+//               cvRound(min(rn_f32(x0 * c^2 + x1 * c), 255)) by TwoSum in
+//               f64, round to odd and narrowing (ops/white_balance
+//               .pca_exact_lut); a NaN coefficient sets the channel's flag;
+//   learned     the features f0-f3 (learned_wb.features_plain: f0 in f64,
+//               f1 from K's brightest pixel, f2 the first maximal bin, f3
+//               the mode of the top-300 palette's Epanechnikov density
+//               summed in the recorded order), the 160 trees, the
+//               consensus, the upper median and the 8.8 gains.
+//
+// Replaces: the JAX package leaves these to XLA, with no Pallas kernel:
+// raw_image_pipeline_tpu/ops/white_balance.py `balance_white_simple`
+// (line 75), `balance_white_grey_world` (109) and `_pca_exact_lut` (355)
+// after their sums, ops/learned_wb.py `_predict_illuminant` (114) and
+// `balance_white_learned_model` (364) after the histogram. The port's plain
+// versions run them as dozens of small eager launches a method (about 300
+// for learned, with a torch.topk over the 64^3 keys).
+//
+// What bounds it on the H100: latency. A frame's work is a few thousand
+// operations, but for learned, 1 MB of counts a frame read in a few
+// dependent passes (the first maximal bin and the occupied count, the
+// radix select of the 300th count, the ordered collection).
+//
+// Design: one block a frame. Every f32 and f64 chain is written in
+// __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn (and their f64 forms), so
+// nvcc contracts nothing into an fma; counts narrow with __ll2float_rn and
+// __ll2double_rn, as the plain version's casts do. For learned: the palette
+// is the counts above T, the 300th largest count (found by a radix select
+// of 11-bit digits over the occupied bins, skipping the digits above the
+// largest count), and then the first bins of count T in bin order (ranks by
+// warp prefix sums over each warp's contiguous quarter-million-bin share)
+// up to 300; below 300 occupied bins, all of them. The <= 300 entries are
+// sorted by (count desc, bin asc) by rank counting; the density of row i
+// is the sum, in order, of ten windows of 32 of its padded row (10 zeros
+// at each end), each window summed in order (a thread a window), as the
+// plain version sums; the first maximal density wins. The semantics of
+// the ties (f1's rank, f2's first maximum, f3's order) are the library's.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <climits>
+
+namespace {
+
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+enum Mode { kSimple = 0, kGreyWorld = 1, kPca = 2, kLearned = 3 };
+
+// ops/learned_wb's constants
+constexpr int HIST64 = 64 * 64 * 64;
+constexpr int PALETTE = 300;
+constexpr int SUM_WIN = 32, SUM_PAD = 10, WINDOWS = (PALETTE + 2 * SUM_PAD) / SUM_WIN;
+constexpr float EPS = 0x1.4f8b58p-17f;  // f32(1e-5)
+constexpr float BW2 = 0x1.47ae14p-7f;   // f32(0.1 ** 2)
+constexpr float PRED_THRESH = 0.025f;
+constexpr float ILLUM_MIN = 0x1.0c6f7ap-20f;  // f32(1e-6)
+constexpr int TREES = 160, NODES = 15, LEAVES = 16, DEPTH = 4, SETS = 20;
+constexpr int KEPT = 0, SUM_B = 1, HI = 4, KEY = 5, PIXEL = 6, RECORD = 7;
+constexpr int DIGIT_BITS = 11, DIGITS = 1 << DIGIT_BITS;
+static_assert(WINDOWS * SUM_WIN == PALETTE + 2 * SUM_PAD, "whole windows");
+static_assert(HIST64 % (4 * THREADS) == 0, "whole int4 groups a thread");
+
+struct Params {
+  const void* record;
+  const int* hist;
+  long long npix;
+  float target;
+  const float* alpha;  // simple: [257]
+  const float* beta;   // simple: [256, 257]
+  const int* fi;       // learned: the trees' feature index [160, 15]
+  const float* tv;     // thresholds [160, 15]
+  const float* lv;     // leaves [160, 16]
+  uint8_t* tables;     // [B, 3, 256]
+  uint8_t* nan;        // pca: [B, 3]
+  float* features;     // learned: [B, 4, 2], or null
+};
+
+__device__ __forceinline__ uint8_t round_u8(float x) {  // cvRound, saturated
+  return (uint8_t)fminf(fmaxf(rintf(x), 0.0f), 255.0f);
+}
+
+// (v * gain) >> 8 saturated; thread t writes entries t, t + THREADS, ...
+// (entry i: channel i / 256's v = i % 256)
+__device__ __forceinline__ void gains_table(uint8_t* tab, const int (&gain)[3], int t) {
+  for (int i = t; i < 768; i += THREADS) {
+    const int v = i & 255;
+    tab[i] = (uint8_t)min(max((v * gain[i >> 8]) >> 8, 0), 255);
+  }
+}
+
+// --- simple -------------------------------------------------------------------
+
+__device__ void simple_tables(const Params& p, int f, int t) {
+  const int lane = t & 31, c = t >> 5;
+  if (c >= 3) return;
+  const int* counts = reinterpret_cast<const int*>(p.record) + (long long)f * 768 + c * 256;
+  long long v[8], s = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = counts[8 * lane + j], s += v[j];
+  long long incl = s;  // the lanes' inclusive prefix of their 8 bins' sums
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long u = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const long long total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+  long long cum = incl - s;  // the bins before this lane's
+  int below = 0, below_top = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // the walk from the bottom: cum through bin k; from the top: the bins k..255
+    const long long top = total - cum;
+    cum += v[j];
+    below += __ll2float_rn(cum) < p.target;
+    below_top += __ll2float_rn(top) < p.target;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    below += __shfl_xor_sync(0xFFFFFFFFu, below, o);
+    below_top += __shfl_xor_sync(0xFFFFFFFFu, below_top, o);
+  }
+  const int p1 = min(max(below, 0), 255), p2 = min(max(255 - below_top, 0), 255);
+  const int span = max(p2 + 1 - p1, 1);
+  const float alpha = __ldg(p.alpha + span), beta = __ldg(p.beta + p1 * 257 + span);
+  uint8_t* tab = p.tables + (long long)f * 768 + c * 256;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int x = 8 * lane + j;
+    tab[x] = round_u8(__fmaf_rn((float)x, alpha, beta));
+  }
+}
+
+// --- grey_world ---------------------------------------------------------------
+
+__device__ void grey_world_tables(const Params& p, int f, int t) {
+  const long long* sums = reinterpret_cast<const long long*>(p.record) + (long long)f * 3;
+  long long smin = LLONG_MAX;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (sums[c] > 0) smin = min(smin, sums[c]);
+  }
+  int gain[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    gain[c] = sums[c] > 0 ? (int)rintf(__fmul_rn(__fdiv_rn(__ll2float_rn(smin),
+                                                           __ll2float_rn(sums[c])), 256.0f))
+                          : 0;
+  }
+  gains_table(p.tables + (long long)f * 768, gain, t);
+}
+
+// --- pca ----------------------------------------------------------------------
+
+__device__ void pca_tables(const Params& p, int f, int t) {
+  __shared__ float coef[2][2];  // (x0, x1) of b and of r
+  __shared__ bool bad[2];       // their NaN flags
+  const long long* st = reinterpret_cast<const long long*>(p.record) + (long long)f * 9;
+  uint8_t* tab = p.tables + (long long)f * 768;
+  if (t < 2) {  // Eigen compute_inverse_size2, op for op
+    const int c = 2 * t;  // b, r
+    const float sg = __ll2float_rn(st[3]), mg = __ll2float_rn(st[5]);
+    const float s = __ll2float_rn(st[3 * c]), s2 = __ll2float_rn(st[3 * c + 1]);
+    const float m = __ll2float_rn(st[3 * c + 2]);
+    const float m2 = __fmul_rn(m, m);
+    const float det = __fsub_rn(__fmul_rn(s2, m), __fmul_rn(s, m2));
+    const float invdet = __fdiv_rn(1.0f, det);
+    const float i00 = __fmul_rn(m, invdet), i01 = -__fmul_rn(s, invdet);
+    const float i10 = -__fmul_rn(m2, invdet), i11 = __fmul_rn(s2, invdet);
+    const float x0 = __fadd_rn(__fmul_rn(i00, sg), __fmul_rn(i01, mg));
+    const float x1 = __fadd_rn(__fmul_rn(i10, sg), __fmul_rn(i11, mg));
+    coef[t][0] = x0, coef[t][1] = x1;
+    bad[t] = isnan(x0) || isnan(x1);
+    p.nan[f * 3 + c] = bad[t] ? 1 : 0;
+  }
+  if (t == 2) p.nan[f * 3 + 1] = 0;
+  __syncthreads();
+  if (t < 512) {
+    const int k = t >> 8, v = t & 255;  // k: b (0) or r (1)
+    const double x0 = coef[k][0], x1 = coef[k][1];
+    const double a = __dmul_rn(x0, (double)(v * v)), b = __dmul_rn(x1, (double)v);
+    const double s = __dadd_rn(a, b);
+    const double bb = __dsub_rn(s, a);
+    const double e = __dadd_rn(__dsub_rn(a, __dsub_rn(s, bb)), __dsub_rn(b, bb));
+    long long bits = __double_as_longlong(s);
+    const long long toward = ((e > 0) == (s > 0)) ? 1 : -1;  // +1 grows |s|
+    if (e != 0 && (bits & 1) == 0) bits += toward;           // round to odd
+    const float val = __double2float_rn(__longlong_as_double(bits));
+    // a NaN channel has no table (G writes its pattern): zeros
+    tab[(2 * k) * 256 + v] = bad[k] ? 0 : round_u8(val < 255.0f ? val : 255.0f);
+  }
+  if (t < 256) tab[256 + t] = (uint8_t)t;  // g passes through
+}
+
+// --- learned ------------------------------------------------------------------
+
+__device__ __forceinline__ void chroma(float r, float g, float b, float* out) {
+  const float s = __fadd_rn(__fadd_rn(__fadd_rn(r, g), b), EPS);
+  out[0] = __fdiv_rn(r, s), out[1] = __fdiv_rn(g, s);
+}
+
+// a bin's (b, g, r) indices
+__device__ __forceinline__ void bin_channels(int bin, float& b, float& g, float& r) {
+  b = (float)(bin >> 12), g = (float)((bin >> 6) & 63), r = (float)(bin & 63);
+}
+
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long u = __shfl_xor_sync(0xFFFFFFFFu, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ unsigned warp_sum(unsigned v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+
+struct LearnedShared {
+  unsigned long long red[WARPS];
+  unsigned cnt[WARPS];
+  unsigned digit[DIGITS];
+  int pal_bin[PALETTE];
+  unsigned pal_cnt[PALETTE];
+  int sorted_bin[PALETTE];
+  float pu[PALETTE], pv[PALETTE];
+  float part[PALETTE][WINDOWS];
+  float feat[8];
+  float pred[TREES];
+  int cons[SETS];
+  float med[2];
+  // the radix select's state
+  unsigned prefix, need, n_gt, hi_shift, shift, n_pal;
+  unsigned long long top;  // the first maximal bin's key
+  unsigned nnz;
+};
+
+__device__ void learned_tables(const Params& p, int f, int t, LearnedShared& s) {
+  const int lane = t & 31, warp = t >> 5;
+  const long long* rec = reinterpret_cast<const long long*>(p.record) + (long long)f * RECORD;
+  const int4* h4 = reinterpret_cast<const int4*>(p.hist + (long long)f * HIST64);
+
+  // pass 1: the first maximal bin (key count << 18 | (2^18 - 1 - bin)) and
+  // the occupied bins
+  unsigned long long top = 0;
+  unsigned nnz = 0;
+  for (int i = t; i < HIST64 / 4; i += THREADS) {
+    const int4 q = __ldg(h4 + i);
+    const int c4[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned long long key =
+          ((unsigned long long)(unsigned)c4[j] << 18) | (unsigned)(HIST64 - 1 - (4 * i + j));
+      top = key > top ? key : top;
+      nnz += c4[j] > 0;
+    }
+  }
+  top = warp_max(top);
+  nnz = warp_sum(nnz);
+  if (lane == 0) s.red[warp] = top, s.cnt[warp] = nnz;
+  __syncthreads();
+  if (t == 0) {
+    unsigned long long m = 0;
+    unsigned n = 0;
+    for (int w = 0; w < WARPS; ++w) m = s.red[w] > m ? s.red[w] : m, n += s.cnt[w];
+    s.top = m, s.nnz = n;
+    const unsigned maxc = (unsigned)(m >> 18);
+    // the palette: counts above T, then the first `need` bins of count T
+    s.prefix = 0, s.need = 0, s.n_gt = n, s.n_pal = n < PALETTE ? n : PALETTE;
+    const int bits = maxc ? 32 - __clz(maxc) : 0;
+    s.hi_shift = bits, s.shift = bits > DIGIT_BITS ? bits - DIGIT_BITS : 0;
+  }
+  __syncthreads();
+
+  // the radix select of T, the PALETTE-th largest count, over the occupied
+  // bins: each pass fixes the digit [shift, hi_shift) of T
+  if (s.nnz > PALETTE) {
+    unsigned need = PALETTE;  // the counts still to take at or below the prefix
+    while (true) {
+      const unsigned hs = s.hi_shift, sh = s.shift, prefix = s.prefix;
+      const unsigned width = hs - sh, mask = (1u << width) - 1u;
+      for (int i = t; i < DIGITS; i += THREADS) s.digit[i] = 0u;
+      __syncthreads();
+      for (int i = t; i < HIST64 / 4; i += THREADS) {
+        const int4 q = __ldg(h4 + i);
+        const int c4[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned cnt = (unsigned)c4[j];
+          if (cnt && (unsigned)((unsigned long long)cnt >> hs) == prefix) {
+            atomicAdd(s.digit + ((cnt >> sh) & mask), 1u);
+          }
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {  // the largest digit d with (counts of digit >= d) >= need
+        unsigned own = 0;
+        for (int j = 0; j < DIGITS / 32; ++j) own += s.digit[lane * (DIGITS / 32) + j];
+        unsigned suffix = own;  // this lane's and the higher lanes' counts
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned u = __shfl_down_sync(0xFFFFFFFFu, suffix, o);
+          if (lane + o < 32) suffix += u;
+        }
+        const unsigned ballot = __ballot_sync(0xFFFFFFFFu, suffix >= need);
+        const int at = 31 - __clz(ballot);  // lanes 0..at reach need
+        if (lane == at) {
+          unsigned above = suffix - own;
+          int d = lane * (DIGITS / 32);
+          for (int j = DIGITS / 32 - 1; j >= 0; --j) {
+            const unsigned e = s.digit[lane * (DIGITS / 32) + j];
+            if (above + e >= need) {
+              d = lane * (DIGITS / 32) + j;
+              break;
+            }
+            above += e;
+          }
+          s.prefix = (prefix << width) | (unsigned)d;
+          s.need = need - above;
+        }
+      }
+      __syncthreads();
+      need = s.need;
+      if (sh == 0) break;
+      __syncthreads();
+      if (t == 0) s.hi_shift = sh, s.shift = sh > DIGIT_BITS ? sh - DIGIT_BITS : 0;
+      __syncthreads();
+    }
+    if (t == 0) s.n_gt = PALETTE - s.need;
+    __syncthreads();
+  }
+  const unsigned T = s.prefix, need = s.need, n_gt = s.n_gt;
+
+  // the ordered collection: counts above T in any order (sorted below),
+  // the first `need` bins of count T in bin order; warp w walks the bins
+  // [w, w + 1) * HIST64 / WARPS
+  constexpr int SHARE = HIST64 / WARPS;
+  if (t == 0) s.cnt[0] = 0;  // the entries above T so far
+  unsigned eq_before = 0;    // this warp's first rank among the bins of count T
+  if (need) {
+    unsigned mine = 0;
+    for (int i = warp * SHARE / 4 + lane; i < (warp + 1) * SHARE / 4; i += 32) {
+      const int4 q = __ldg(h4 + i);
+      mine += (q.x == (int)T) + (q.y == (int)T) + (q.z == (int)T) + (q.w == (int)T);
+    }
+    mine = warp_sum(mine);
+    __syncthreads();
+    if (lane == 0) s.red[warp] = mine;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) eq_before += (unsigned)s.red[w];
+  }
+  __syncthreads();
+  for (int i = warp * SHARE / 4 + lane; i < (warp + 1) * SHARE / 4; i += 32) {
+    const int4 q = __ldg(h4 + i);
+    const int c4[4] = {q.x, q.y, q.z, q.w};
+    unsigned eq = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned cnt = (unsigned)c4[j];
+      if (cnt > T) {
+        const unsigned at = atomicAdd(&s.cnt[0], 1u);
+        s.pal_bin[at] = 4 * i + j, s.pal_cnt[at] = cnt;
+      }
+      eq += need && cnt == T;
+    }
+    if (need) {
+      unsigned incl = eq;  // the lanes' inclusive prefix, in bin order
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned u = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      unsigned rank = eq_before + incl - eq;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c4[j] == (int)T) {
+          if (rank < need) s.pal_bin[n_gt + rank] = 4 * i + j, s.pal_cnt[n_gt + rank] = T;
+          ++rank;
+        }
+      }
+      eq_before += __shfl_sync(0xFFFFFFFFu, incl, 31);
+    }
+  }
+  __syncthreads();
+
+  // the palette by (count desc, bin asc): rank counting over unique keys
+  const int n = (int)s.n_pal;
+  if (t < n) {
+    const unsigned long long key =
+        ((unsigned long long)s.pal_cnt[t] << 18) | (unsigned)(HIST64 - 1 - s.pal_bin[t]);
+    int rank = 0;
+    for (int j = 0; j < n; ++j) {
+      rank += ((unsigned long long)s.pal_cnt[j] << 18 |
+               (unsigned)(HIST64 - 1 - s.pal_bin[j])) > key;
+    }
+    s.sorted_bin[rank] = s.pal_bin[t];
+  }
+  __syncthreads();
+  if (t < n) {
+    float pb, pg, pr;
+    bin_channels(s.sorted_bin[t], pb, pg, pr);
+    const float ps = __fadd_rn(__fadd_rn(__fadd_rn(pb, pg), pr), EPS);
+    s.pu[t] = __fdiv_rn(pr, ps), s.pv[t] = __fdiv_rn(pg, ps);
+  }
+  __syncthreads();
+  // the density's window sums: row i, window k sums padded columns
+  // [32k, 32k + 32) in order (column j of the palette at padded j + 10;
+  // padding and entries past n are zeros)
+  for (int task = t; task < n * WINDOWS; task += THREADS) {
+    const int i = task / WINDOWS, k = task - i * WINDOWS;
+    const float ui = s.pu[i], vi = s.pv[i];
+    float acc = 0.0f;
+    for (int q = 0; q < SUM_WIN; ++q) {
+      const int j = k * SUM_WIN + q - SUM_PAD;
+      if (j < 0 || j >= n) continue;  // + 0.0f: the sum is unchanged
+      const float du = __fsub_rn(ui, s.pu[j]), dv = __fsub_rn(vi, s.pv[j]);
+      const float d2 = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
+      acc = __fadd_rn(acc, fmaxf(__fsub_rn(1.0f, __fdiv_rn(d2, BW2)), 0.0f));
+    }
+    s.part[i][k] = acc;
+  }
+  __syncthreads();
+  // the first maximal density (densities are >= +0, so their bits order them)
+  unsigned long long best = 0;
+  for (int i = t; i < n; i += THREADS) {
+    float d = 0.0f;
+#pragma unroll
+    for (int k = 0; k < WINDOWS; ++k) d = __fadd_rn(d, s.part[i][k]);
+    const unsigned long long key = ((unsigned long long)__float_as_uint(d) << 32) |
+                                   (0xFFFFFFFFu - (unsigned)i);
+    best = key > best ? key : best;
+  }
+  best = warp_max(best);
+  if (lane == 0) s.red[warp] = best;
+  __syncthreads();
+
+  if (t == 0) {
+    unsigned long long m = 0;
+    for (int w = 0; w < WARPS; ++w) m = s.red[w] > m ? s.red[w] : m;
+    float* ft = s.feat;
+    // f0: the kept pixels' means in f64, over the largest mean
+    const long long kept = rec[KEPT] > 1 ? rec[KEPT] : 1;
+    double means[3], mm;
+    for (int c = 0; c < 3; ++c) {
+      means[c] = __ddiv_rn(__ll2double_rn(rec[SUM_B + c]), __ll2double_rn(kept));
+    }
+    mm = fmax(fmax(means[0], means[1]), means[2]);
+    if (mm <= 0) mm = 1.0;
+    chroma(__double2float_rn(__ddiv_rn(means[2], mm)), __double2float_rn(__ddiv_rn(means[1], mm)),
+           __double2float_rn(__ddiv_rn(means[0], mm)), ft);
+    // f1: the brightest kept pixel (K's record; 0 where none)
+    const long long px = rec[PIXEL];
+    chroma((float)((px >> 16) & 255), (float)((px >> 8) & 255), (float)(px & 255), ft + 2);
+    // f2: the first maximal bin
+    float db, dg, dr;
+    bin_channels(HIST64 - 1 - (int)(s.top & (HIST64 - 1)), db, dg, dr);
+    chroma(dr, dg, db, ft + 4);
+    // f3: the palette's mode ((0, 0) where no pixel is kept)
+    const int mi = 0xFFFFFFFFu - (unsigned)(m & 0xFFFFFFFFull);
+    ft[6] = n ? s.pu[mi] : 0.0f, ft[7] = n ? s.pv[mi] : 0.0f;
+    if (p.features) {
+      for (int j = 0; j < 8; ++j) p.features[f * 8 + j] = ft[j];
+    }
+  }
+  __syncthreads();
+
+  // the trees: tree t = set * 8 + feature * 2 + component
+  if (t < TREES) {
+    const int fe = (t % 8) / 2;
+    const float x0 = s.feat[2 * fe], x1 = s.feat[2 * fe + 1];
+    int node = 0;
+    for (int d = 0; d < DEPTH; ++d) {
+      const float val = __ldg(p.fi + t * NODES + node) == 0 ? x0 : x1;
+      node = val <= __ldg(p.tv + t * NODES + node) ? 2 * node + 1 : 2 * node + 2;
+    }
+    s.pred[t] = __ldg(p.lv + t * LEAVES + node - NODES);
+  }
+  __syncthreads();
+  // a set agrees when more than 2 of its 6 distances are below the threshold
+  if (t < SETS) {
+    const float* q = s.pred + 8 * t;  // q[2i + k]: prediction i, component k
+    int agree = 0;
+    for (int i = 0; i < 4; ++i) {
+      for (int j = i + 1; j < 4; ++j) {
+        const float dx = __fsub_rn(q[2 * i], q[2 * j]), dy = __fsub_rn(q[2 * i + 1], q[2 * j + 1]);
+        agree += __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy))) < PRED_THRESH;
+      }
+    }
+    s.cons[t] = agree > 2;
+  }
+  __syncthreads();
+  // the upper median a component over the agreeing sets' predictions (all
+  // 80 where none agrees): the value of rank count / 2
+  if (t < TREES) {
+    int sets = 0;
+    for (int q = 0; q < SETS; ++q) sets += s.cons[q];
+    const bool all = sets == 0;
+    const int count = all ? 80 : 4 * sets, k = t & 1;
+    if (all || s.cons[t >> 3]) {
+      const float v = s.pred[t];
+      int rank = 0;
+      for (int u = k; u < TREES; u += 2) {
+        if (!(all || s.cons[u >> 3])) continue;
+        const float w = s.pred[u];
+        rank += w < v || (w == v && u < t);
+      }
+      if (rank == count / 2) s.med[k] = v;
+    }
+  }
+  __syncthreads();
+  // the gains: min(illum) / illum, illum = ((1 - u) - v, v, u) from 1e-6
+  const float u = s.med[0], v = s.med[1];
+  float illum[3] = {__fsub_rn(__fsub_rn(1.0f, u), v), v, u};
+  for (int c = 0; c < 3; ++c) illum[c] = fmaxf(illum[c], ILLUM_MIN);
+  const float lo = fminf(fminf(illum[0], illum[1]), illum[2]);
+  int gain[3];
+  for (int c = 0; c < 3; ++c) gain[c] = (int)rintf(__fmul_rn(__fdiv_rn(lo, illum[c]), 256.0f));
+  gains_table(p.tables + (long long)f * 768, gain, t);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) wb_tables_kernel(const Params p) {
+  const int f = blockIdx.x, t = threadIdx.x;
+  if constexpr (MODE == kSimple) {
+    simple_tables(p, f, t);
+  } else if constexpr (MODE == kGreyWorld) {
+    grey_world_tables(p, f, t);
+  } else if constexpr (MODE == kPca) {
+    pca_tables(p, f, t);
+  } else {
+    __shared__ LearnedShared s;
+    learned_tables(p, f, t, s);
+  }
+}
+
+}  // namespace
+
+// mode: 0 simple, 1 grey_world, 2 pca, 3 learned (ops/white_balance.METHODS);
+// record: kernel K's [batch, ...] record; hist: learned's [batch, 64^3]
+// int32 histogram (kernel L's); npix: a frame's pixels; target: simple's f32
+// walk target; alpha, beta: simple's host tables on the card; fi, tv, lv:
+// learned's model on the card (int32 [2400], f32 [2400], f32 [2560]);
+// tables: [batch, 3, 256] u8 out; nan: pca's [batch, 3] u8 out; features:
+// learned's [batch, 4, 2] f32 out, or null. Launches on `stream` and
+// returns the launch's error.
+extern "C" int isp_wb_tables(int mode, const void* record, const void* hist, int batch,
+                             long long npix, float target, const void* alpha, const void* beta,
+                             const void* fi, const void* tv, const void* lv, void* tables,
+                             void* nan, void* features, void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  if (!record || !tables || (mode == kSimple && (!alpha || !beta)) || (mode == kPca && !nan) ||
+      (mode == kLearned && (!hist || !fi || !tv || !lv))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p;
+  p.record = record, p.hist = (const int*)hist, p.npix = npix, p.target = target;
+  p.alpha = (const float*)alpha, p.beta = (const float*)beta;
+  p.fi = (const int*)fi, p.tv = (const float*)tv, p.lv = (const float*)lv;
+  p.tables = (uint8_t*)tables, p.nan = (uint8_t*)nan, p.features = (float*)features;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case kSimple: wb_tables_kernel<kSimple><<<batch, THREADS, 0, s>>>(p); break;
+    case kGreyWorld: wb_tables_kernel<kGreyWorld><<<batch, THREADS, 0, s>>>(p); break;
+    case kPca: wb_tables_kernel<kPca><<<batch, THREADS, 0, s>>>(p); break;
+    case kLearned: wb_tables_kernel<kLearned><<<batch, THREADS, 0, s>>>(p); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

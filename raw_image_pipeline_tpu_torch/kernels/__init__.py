@@ -33,8 +33,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
            "remap_float.cu", "remap_lerp.cu", "pointwise.cu", "ccc_resize.cu", "ccc_argmax.cu",
-           "ccc_track.cu")
-HEADERS = ("debayer_strip.cuh", "remap_tile.cuh")  # included by the sources; in the hash too
+           "ccc_track.cu", "wb_stats.cu", "wb_hist64.cu", "wb_tables.cu")
+HEADERS = ("debayer_strip.cuh", "remap_tile.cuh", "wb_planes.cuh")  # included by the sources; in the hash too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -55,13 +55,16 @@ _SIGNATURES = {
     "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "isp_remap_lerp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "isp_pointwise": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                      _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _L, _I, _P, _P),
     "isp_ccc_resize": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _P),
     "isp_ccc_argmax": (_P, _P, _I, _I, _I, _P),
     "isp_ccc_argmax_cluster_limit": (_I, _I, _IP),
     "isp_ccc_track": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L, _I, _I, _P),
     "isp_ccc_track_empty": (_P,),
+    "isp_wb_stats": (_I, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _P),
+    "isp_wb_hist64": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _P),
+    "isp_wb_tables": (_I, _P, _P, _I, _L, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -192,7 +195,7 @@ POINTWISE = Kernel(
     "; ".join(f"raw_image_pipeline_tpu/ops/{site}" for site in (
         "ccc.py:447 apply_gains_planes", "color_calibration.py:22 color_correct_planes",
         "vignetting.py:44 correct_planes", "vignetting.py:122 composed_gamma_lab_fn",
-        "color_enhancer.py:119 enhance_planes")),
+        "color_enhancer.py:119 enhance_planes", "gamma.py:221 apply_lut")),
 )
 # the CCC range around B and C, which the reference package leaves to XLA:
 # the working resize (H), the response's argmax (I), the Kalman track and
@@ -213,8 +216,30 @@ CCC_TRACK = Kernel(
     "; ".join(f"raw_image_pipeline_tpu/ops/ccc.py:{site}" for site in (
         "511 kalman_update", "492 kalman_scan", "425 gains_from_uv")),
 )
+# the statistical white balances, which the reference package leaves to
+# XLA: one statistics pass (K), learned's 64^3 histogram (L) and the
+# per-frame tables (M); kernel G applies the tables
+_WB = "raw_image_pipeline_tpu/ops/white_balance.py:"
+_LEARNED = "raw_image_pipeline_tpu/ops/learned_wb.py:"
+WB_STATS = Kernel(
+    "wb_stats", "isp_wb_stats",
+    "raw_image_pipeline_tpu_torch/csrc/wb_stats.cu",
+    f"{_WB}43 _channel_hists; {_WB}109 balance_white_grey_world; {_WB}425 balance_white_pca; "
+    f"{_LEARNED}152 _extract_features",
+)
+WB_HIST64 = Kernel(
+    "wb_hist64", "isp_wb_hist64",
+    "raw_image_pipeline_tpu_torch/csrc/wb_hist64.cu",
+    f"{_LEARNED}152 _extract_features",
+)
+WB_TABLES = Kernel(
+    "wb_tables", "isp_wb_tables",
+    "raw_image_pipeline_tpu_torch/csrc/wb_tables.cu",
+    f"{_WB}75 balance_white_simple; {_WB}109 balance_white_grey_world; {_WB}355 _pca_exact_lut; "
+    f"{_LEARNED}114 _predict_illuminant; {_LEARNED}364 balance_white_learned_model",
+)
 ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT, REMAP_LERP,
-       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK)
+       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK, WB_STATS, WB_HIST64, WB_TABLES)
 
 
 def reset_launch_counts() -> None:

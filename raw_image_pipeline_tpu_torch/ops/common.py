@@ -68,6 +68,14 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s + (e2 + err)
 
 
+def gains_tables_8p8(gains: torch.Tensor) -> torch.Tensor:
+    """[B, 3] int32 gains in 8.8 fixed point -> [B, 3, 256] u8 tables
+    v -> clamp((v * gain) >> 8, 0, 255) (the grey-world and learned
+    methods' truncating descale, as a per-frame table)."""
+    v = torch.arange(256, dtype=torch.int32, device=gains.device)
+    return torch.clamp((v * gains[..., None].to(torch.int32)) >> 8, 0, 255).to(torch.uint8)
+
+
 def image_planes(image: torch.Tensor):
     """[..., H, W, 3] frames -> (the leading shape, three planes [N, H, W]),
     N the product of the leading dims: how the NHWC entry points hand

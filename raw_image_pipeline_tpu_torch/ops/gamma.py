@@ -4,8 +4,10 @@ PyTorch port of raw_image_pipeline_tpu/ops/gamma.py).
 The reference builds lut[i] = saturate_cast<uchar>(pow(i/255, k) * 255) and
 applies it with cv::LUT. Its GPU backend's "default" method is NPP's fixed
 ITU-R BT.709 curve instead (`build_bt709_lut`). The port applies either
-exact host table as a gather (`apply_lut`; `gamma_correct` and
-`gamma_apply_bt709` on frames).
+exact host table (`apply_lut`; `gamma_correct` and `gamma_apply_bt709` on
+frames): a u8 table on a u8 CUDA tensor by kernel G's table step on one
+plane (ops/pointwise.lut_cuda), otherwise (a CPU tensor, plain=True, other
+dtypes) as a gather.
 """
 
 from __future__ import annotations
@@ -47,19 +49,26 @@ def build_bt709_lut(forward: bool) -> np.ndarray:
     return np.clip(np.rint(y * 255.0), 0, 255).astype(np.uint8)
 
 
-def apply_lut(image: torch.Tensor, lut) -> torch.Tensor:
+def apply_lut(image: torch.Tensor, lut, *, plain: bool = False) -> torch.Tensor:
     """lut[image] for u8 frames or planes of any shape and a 256-entry table
     (a tensor, moved to the image's device if elsewhere, or an array), in
-    the table's dtype."""
-    return as_tensor_on(lut, image.device)[image.long()]
+    the table's dtype: kernel G for a u8 table on a u8 CUDA image, else
+    (a CPU image, plain=True) the gather."""
+    table = as_tensor_on(lut, image.device)
+    if (not plain and image.device.type == "cuda" and image.dtype == torch.uint8
+            and table.dtype == torch.uint8):
+        from raw_image_pipeline_tpu_torch.ops.pointwise import lut_cuda
+
+        return lut_cuda(image, table)
+    return table[image.long()]
 
 
-def gamma_correct(image: torch.Tensor, k: float) -> torch.Tensor:
+def gamma_correct(image: torch.Tensor, k: float, *, plain: bool = False) -> torch.Tensor:
     """The reference's gamma LUT for exponent k on u8 frames of any shape."""
-    return apply_lut(image, build_gamma_lut(k))
+    return apply_lut(image, build_gamma_lut(k), plain=plain)
 
 
-def gamma_apply_bt709(image: torch.Tensor, forward: bool) -> torch.Tensor:
+def gamma_apply_bt709(image: torch.Tensor, forward: bool, *, plain: bool = False) -> torch.Tensor:
     """The GPU backend's "default" gamma (the fixed BT.709 curve, k ignored)
     on u8 frames of any shape, as its exact host table."""
-    return apply_lut(image, build_bt709_lut(forward))
+    return apply_lut(image, build_bt709_lut(forward), plain=plain)

@@ -1,10 +1,14 @@
 """The chain's pointwise stretch as one kernel (kernel G,
-csrc/pointwise.cu): the CCC gains, colour calibration, a u8 LUT,
-vignetting through the exact Lab roundtrip and the HSV enhancer, each
-optional, in the chain's order, planes in and planes out.
+csrc/pointwise.cu): a statistical white balance's per-frame tables, the
+CCC gains, colour calibration, a u8 LUT, vignetting through the exact Lab
+roundtrip and the HSV enhancer, each optional, in the chain's order,
+planes in and planes out; with the tables step alone, also one plane (the
+mono chain's gamma LUT, `lut_cuda`).
 
 It composes the JAX package's stage functions, which it leaves to XLA:
-ops/ccc.py `apply_gains_planes`, ops/color_calibration.py
+the statistical white balances' per-pixel maps (ops/white_balance.py,
+ops/learned_wb.py; the port's `apply_tables_plain`), ops/ccc.py
+`apply_gains_planes`, ops/color_calibration.py
 `color_correct_planes`, ops/gamma.py `apply_lut`, ops/vignetting.py
 `correct_planes` (with `composed_gamma_lab_fn`'s table) and
 ops/color_enhancer.py `enhance_planes`. The plain version
@@ -28,6 +32,7 @@ from raw_image_pipeline_tpu_torch.ops.color_enhancer import enhance_planes
 from raw_image_pipeline_tpu_torch.ops.common import as_tensor_on, image_planes
 from raw_image_pipeline_tpu_torch.ops.gamma import apply_lut
 from raw_image_pipeline_tpu_torch.ops.vignetting import correct_planes
+from raw_image_pipeline_tpu_torch.ops.white_balance import apply_tables_plain, pca_nan_limit
 
 PIXELS_PER_THREAD = 4  # csrc/pointwise.cu's kPx: a thread's group of a row's pixels
 
@@ -84,30 +89,36 @@ def _const_tables_on(device: str) -> torch.Tensor:
     return torch.as_tensor(const_tables(), device=device)
 
 
-def _check_steps(matrix, bias, mask, lab_tab) -> None:
+def _check_steps(matrix, bias, mask, lab_tab, wb_tables=None, wb_nan=None) -> None:
+    if wb_nan is not None and wb_tables is None:
+        raise ValueError("wb_nan is the table step's NaN flags: it needs wb_tables")
     if (matrix is None) != (bias is None):
         raise ValueError("colour calibration takes both matrix and bias")
     if lab_tab is not None and mask is None:
         raise ValueError("lab_tab is the vignetting step's table: it needs a mask")
 
 
-def pointwise_plain(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor, *, gains=None,
-                    matrix=None, bias=None, lut=None, mask=None, lab_tab=None,
-                    enhancer_tables=None):
+def pointwise_plain(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor, *, wb_tables=None,
+                    wb_nan=None, nan_limit=None, gains=None, matrix=None, bias=None, lut=None,
+                    mask=None, lab_tab=None, enhancer_tables=None):
     """Kernel G's plain version: the stage functions in the chain's order,
-    each where its argument is given. gains [B, 3] f32 (apply_gains_planes);
+    each where its argument is given. wb_tables [B, 3, 256] u8 with wb_nan
+    [B, 3] u8 or None and nan_limit (apply_tables_plain); gains [B, 3] f32
+    (apply_gains_planes);
     matrix [3, 3] and bias [3] f32 (color_correct_planes); lut [256]
     (apply_lut); mask [h, W] f32 with lab_tab, the int32 [256] linearize
     table or None for OpenCV's (vignetting.correct_planes);
     enhancer_tables [3, 256] u8 (enhance_planes)."""
-    _check_steps(matrix, bias, mask, lab_tab)
+    _check_steps(matrix, bias, mask, lab_tab, wb_tables, wb_nan)
     planes = (b, g, r)
+    if wb_tables is not None:
+        planes = apply_tables_plain(planes, wb_tables, wb_nan, nan_limit)
     if gains is not None:
         planes = apply_gains_planes(planes, gains)
     if matrix is not None:
         planes = color_correct_planes(*planes, matrix, bias)
     if lut is not None:
-        planes = tuple(apply_lut(p, lut) for p in planes)
+        planes = tuple(apply_lut(p, lut, plain=True) for p in planes)
     if mask is not None:
         planes = correct_planes(*planes, mask, gamma_tab=lab_tab)
     if enhancer_tables is not None:
@@ -121,16 +132,17 @@ def _same_strides(planes):
     return tuple(p.contiguous() for p in planes)
 
 
-def pointwise_cuda(planes, *, gains=None, matrix=None, bias=None, lut=None, mask=None,
-                   lab_tab=None, enhancer_tables=None, out=None,
-                   batch_limit: int = kernels.MAX_BATCH):
+def pointwise_cuda(planes, *, wb_tables=None, wb_nan=None, nan_limit=None, gains=None,
+                   matrix=None, bias=None, lut=None, mask=None, lab_tab=None,
+                   enhancer_tables=None, out=None, batch_limit: int = kernels.MAX_BATCH):
     """Kernel G: pointwise_plain for three [B, h, W] u8 CUDA planes of any
     strides (planes of unequal strides are copied to contiguous ones), the
     steps' arguments as pointwise_plain's (on the planes' card; mask
-    broadcast to [h, W]). Writes into `out`, three [B, h, W] u8 planes of
-    equal strides, or into three new contiguous planes, and returns them;
-    one launch per run of kernels.batch_runs(B, batch_limit)."""
-    _check_steps(matrix, bias, mask, lab_tab)
+    broadcast to [h, W]; nan_limit default pca_nan_limit(h, W)). Writes
+    into `out`, three [B, h, W] u8 planes of equal strides, or into three
+    new contiguous planes, and returns them; one launch per run of
+    kernels.batch_runs(B, batch_limit)."""
+    _check_steps(matrix, bias, mask, lab_tab, wb_tables, wb_nan)
     if len(planes) != 3:
         raise ValueError(f"planes: expected 3, got {len(planes)}")
     shape = tuple(planes[0].shape)
@@ -155,6 +167,12 @@ def pointwise_cuda(planes, *, gains=None, matrix=None, bias=None, lut=None, mask
         if o.device != dev or o.dtype != torch.uint8 or tuple(o.shape) != shape:
             raise ValueError(f"out[{i}]: expected {shape} uint8 on {dev}")
     args = {}
+    if wb_tables is not None:
+        args["wb"] = as_tensor_on(wb_tables, dev).contiguous()
+        kernels.check_cuda(args["wb"], "wb_tables", torch.uint8, (bsz, 3, 256))
+        if wb_nan is not None:
+            args["wb_nan"] = as_tensor_on(wb_nan, dev).contiguous()
+            kernels.check_cuda(args["wb_nan"], "wb_nan", torch.uint8, (bsz, 3))
     if gains is not None:
         args["gains"] = as_tensor_on(gains, dev, torch.float32).reshape(bsz, 3).contiguous()
     if matrix is not None:
@@ -176,40 +194,78 @@ def pointwise_cuda(planes, *, gains=None, matrix=None, bias=None, lut=None, mask
     if enhancer_tables is not None:
         args["enh"] = as_tensor_on(enhancer_tables, dev).contiguous()
         kernels.check_cuda(args["enh"], "enhancer_tables", torch.uint8, (3, 256))
+    limit = pca_nan_limit(h, w) if nan_limit is None else int(nan_limit)
+    _launch(planes, out, args, limit, batch_limit)
+    return out
+
+
+def _launch(planes, out, args: dict, nan_limit: int, batch_limit: int, shared_table=False):
+    """Kernel G's launches over planes and out (one or three [B, h, W] u8
+    CUDA planes each, of equal strides) with the steps' device tensors
+    `args`; with shared_table, args["wb"] is one [256] table for every
+    frame and plane."""
+    bsz, h, w = planes[0].shape
     if h * -(-w // PIXELS_PER_THREAD) >= 2**31:
         raise ValueError(f"kernel G: {h} rows of {w} pixels exceed its task count")
     for name, t in (("planes", planes[0]), ("out", out[0])):
         if (h - 1) * t.stride(1) + (w - 1) * t.stride(2) + 3 >= 2**31:
             raise ValueError(f"kernel G: a frame of {name} spans 2^31 bytes or more")
-    tables = _const_tables_on(str(dev))
+    tables = _const_tables_on(str(planes[0].device))
     ptr = {k: v.data_ptr() for k, v in args.items()}
-    with torch.cuda.device(dev):
+    wb_sf, wb_sc = (0, 0) if shared_table else (768, 256)
+    n_planes = len(planes)
+    ins, outs = list(planes) * (3 // n_planes), list(out) * (3 // n_planes)
+    with torch.cuda.device(planes[0].device):
         for f0, n in kernels.batch_runs(bsz, batch_limit):
             kernels.POINTWISE.launch(
-                *(p[f0].data_ptr() for p in planes), *(o[f0].data_ptr() for o in out),
+                *(p[f0].data_ptr() for p in ins), *(o[f0].data_ptr() for o in outs),
                 *planes[0].stride(), *out[0].stride(), n, h, w,
                 ptr["gains"] + 12 * f0 if "gains" in ptr else None, ptr.get("matrix"),
                 ptr.get("bias"), ptr.get("lut"), ptr.get("mask"), ptr.get("lab"), ptr.get("enh"),
+                ptr["wb"] + wb_sf * f0 if "wb" in ptr else None, wb_sf, wb_sc,
+                ptr["wb_nan"] + 3 * f0 if "wb_nan" in ptr else None, nan_limit, n_planes,
                 tables.data_ptr(), kernels.stream_handle(out[0]),
             )
+
+
+def lut_cuda(x: torch.Tensor, lut, *, batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
+    """Kernel G's table step alone on one plane: lut[x] for a u8 CUDA
+    tensor of any shape and a [256] u8 table (ops/gamma.apply_lut's path on
+    the card), into a new tensor of x's shape."""
+    table = as_tensor_on(lut, x.device).contiguous()
+    if x.device.type != "cuda" or x.dtype != torch.uint8:
+        raise ValueError(f"kernel G's LUT: expected a uint8 CUDA tensor, got {x.dtype} on "
+                         f"{x.device}")
+    kernels.check_cuda(table, "lut", torch.uint8, (256,))
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if x.numel() == 0:
+        return out
+    # frames [N, H, W] of the last two dims (a row of a 0- or 1-d tensor)
+    lead = (-1,) + tuple(x.shape[-2:]) if x.dim() >= 2 else (1, 1, -1)
+    plane = x.reshape(lead)
+    _launch((plane,), (out.view(plane.shape),), {"wb": table}, 0, batch_limit,
+            shared_table=True)
     return out
 
 
-def pointwise_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor, *, gains=None,
-                     matrix=None, bias=None, lut=None, mask=None, lab_tab=None,
-                     enhancer_tables=None, out=None, plain: bool = False):
+def pointwise_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor, *, wb_tables=None,
+                     wb_nan=None, nan_limit=None, gains=None, matrix=None, bias=None, lut=None,
+                     mask=None, lab_tab=None, enhancer_tables=None, out=None,
+                     plain: bool = False):
     """The pointwise stretch on three [B, h, W] u8 planes: kernel G on CUDA
     planes (pointwise_cuda), pointwise_plain on CPU planes or with
     plain=True. With no step given the planes come back as they are. With
     `out`, three planes of the input's shape (views of one [B, h, W, 3]
     tensor, say), the result is written there (G writes it directly) and
     `out` comes back."""
-    steps = dict(gains=gains, matrix=matrix, bias=bias, lut=lut, mask=mask, lab_tab=lab_tab,
-                 enhancer_tables=enhancer_tables)
-    if not plain and b.device.type != "cpu" and any(v is not None for v in steps.values()):
+    _check_steps(matrix, bias, mask, lab_tab, wb_tables, wb_nan)
+    steps = dict(wb_tables=wb_tables, gains=gains, matrix=matrix, bias=bias, lut=lut,
+                 mask=mask, lab_tab=lab_tab, enhancer_tables=enhancer_tables)
+    on = any(v is not None for v in steps.values())
+    steps.update(wb_nan=wb_nan, nan_limit=nan_limit)
+    if not plain and b.device.type != "cpu" and on:
         return pointwise_cuda((b, g, r), out=out, **steps)
-    planes = (pointwise_plain(b, g, r, **steps)
-              if any(v is not None for v in steps.values()) else (b, g, r))
+    planes = pointwise_plain(b, g, r, **steps) if on else (b, g, r)
     if out is None:
         return planes
     for o, p in zip(out, planes):

@@ -1,19 +1,32 @@
-"""Statistical white-balance methods: simple, grey_world, pca (PyTorch port
-of raw_image_pipeline_tpu/ops/white_balance.py; "learned" is in
-ops/learned_wb.py, "ccc" in ops/ccc.py).
+"""Statistical white-balance methods: simple, grey_world, pca and learned
+(PyTorch port of raw_image_pipeline_tpu/ops/white_balance.py; learned's
+statistics and model are in ops/learned_wb.py, "ccc" in ops/ccc.py).
 
-Every method is a per-frame reduction followed by a per-pixel map, on the
-three [B, H, W] u8 planes (b, g, r) the pipeline carries (the `*_planes`
-cores); `balance_white_simple`, `_grey_world`, `_pca` and `_learned` take
+Every method ends in a per-frame, per-channel map of a u8 value to a u8
+value, so each runs as three steps over the three [B, H, W] u8 planes
+(b, g, r) the pipeline carries:
+
+  statistics  one pass over the planes makes a per-frame record (kernel K,
+              csrc/wb_stats.cu; for learned, its 64^3 histogram after it,
+              kernel L, csrc/wb_hist64.cu): wb_stats_plain;
+  tables      the record becomes [B, 3, 256] u8 tables, with PCA's NaN
+              flags (kernel M, csrc/wb_tables.cu): wb_tables_plain;
+  apply       a gather a pixel (kernel G's table step, ops/pointwise.py):
+              apply_tables_plain.
+
+`wb_tables` runs the first two, `balance_white_*_planes` all three: on
+CUDA planes the kernels, on CPU planes or with plain=True the plain
+versions here, which are the kernels' arithmetic as eager ops.
+`balance_white_simple`, `_grey_world`, `_pca` and `_learned` take
 [..., H, W, 3] frames, as the reference package's, and flatten the leading
-dims into the planes' batch. The statistics
-are per channel and the positional rules index the flattened H*W frame, so
-the planar form computes what the reference package's packed form does.
+dims into the planes' batch. The statistics are per channel and the
+positional rules index the flattened H*W frame, so the planar form
+computes what the reference package's packed form does.
 
 The rule that governs them is exactness, on every device:
-  * counts and sums are int64 (exact at every frame size); a single cast
-    to f32 rounds to nearest-even on the CPU and on CUDA, as the reference
-    package's u32 -> f32 cast does;
+  * counts and sums are integers (int64 where a frame's sum could pass
+    2^31); a single cast to f32 rounds to nearest-even on the CPU and on
+    CUDA, as the reference package's u32 -> f32 cast does;
   * f32 formulas are separate eager ops, each rounding once (no fused op);
   * a per-pixel map that depends only on the u8 value and per-frame
     scalars is evaluated over the 256 values, then gathered — the same
@@ -23,13 +36,41 @@ The rule that governs them is exactness, on every device:
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from raw_image_pipeline_tpu_torch.ops.common import fma_f32, image_planes, planes_image, round_u8
+from raw_image_pipeline_tpu_torch import kernels
+from raw_image_pipeline_tpu_torch.ops import learned_wb
+from raw_image_pipeline_tpu_torch.ops.common import (fma_f32, gains_tables_8p8, image_planes,
+                                                     planes_image, round_u8)
 
 Planes = tuple  # (b, g, r), each [B, H, W] uint8
+
+# the methods, as kernels K's and M's mode codes
+METHODS = ("simple", "grey_world", "pca", "learned")
+# a frame's record: its shape after the batch, its dtype
+RECORD = {"simple": ((3, 256), torch.int32), "grey_world": ((3,), torch.int64),
+          "pca": ((3, 3), torch.int64), "learned": ((learned_wb.SLOTS,), torch.int64)}
+
+
+class WbTables(NamedTuple):
+    """A statistical white balance's per-frame result: tables [B, 3, 256]
+    u8 (channel c's value v becomes tables[i, c, v]) and, for PCA, nan
+    [B, 3] u8: 1 where a channel's coefficients are NaN (a constant
+    channel), whose pixels become 255 before flat position nan_limit of the
+    frame and 0 from it (None for the other methods)."""
+
+    tables: torch.Tensor
+    nan: Optional[torch.Tensor] = None
+
+
+def _method(method: str) -> str:
+    name = "grey_world" if method == "gray_world" else method
+    if name not in METHODS:
+        raise ValueError(f"White Balance method [{method}] not supported")
+    return name
 
 
 def _lut_apply(plane: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -45,6 +86,30 @@ def _flat_body_mask(h: int, w: int, width: int, device) -> torch.Tensor:
     full `width`-pixel blocks (a SIMD body), False for the scalar tail."""
     n = h * w
     return (torch.arange(n, device=device) < (n // width) * width).reshape(h, w)
+
+
+def pca_nan_limit(h: int, w: int) -> int:
+    """The flat position of an [h, w] frame from which a NaN channel of
+    PCA reads 0 (before it 255): the start of the 4-wide minps's scalar
+    tail."""
+    return (h * w) // 4 * 4
+
+
+def apply_tables_plain(planes: Planes, tables: torch.Tensor, nan=None,
+                       nan_limit: Optional[int] = None) -> Planes:
+    """Kernel G's table step, plain: planes[c] of frame i through
+    tables[i, c] ([B, 3, 256] u8); where nan[i, c] ([B, 3], nonzero) the
+    plane becomes 255 before flat position nan_limit of the frame and 0
+    from it (default pca_nan_limit of the planes' own size; a slab of rows
+    passes the whole frame's limit less its first row's flat position)."""
+    out = [_lut_apply(pl, tables[:, c]) for c, pl in enumerate(planes)]
+    if nan is not None:
+        h, w = planes[0].shape[-2:]
+        limit = pca_nan_limit(h, w) if nan_limit is None else nan_limit
+        flat = torch.arange(h * w, device=planes[0].device).reshape(h, w)
+        pattern = torch.where(flat < limit, 255, 0).to(torch.uint8)
+        out = [torch.where(nan[:, c, None, None] != 0, pattern, o) for c, o in enumerate(out)]
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -80,15 +145,19 @@ def _simple_tables(device: torch.device):
             torch.as_tensor(_SIMPLE_BETA32, device=device))
 
 
-def balance_white_simple_planes(planes: Planes, p: float) -> Planes:
-    """cv::xphoto::SimpleWB (setP(p)), 8u, default ranges. Per channel: walk
-    the 256-bin histogram from each end while the cumulative count is
-    strictly below the f32 target (p*n)/100 (stop bins p1, p2), then stretch
-    out = cvRound(fma(v, alpha32, beta32)) with a single rounding."""
-    h, w = planes[0].shape[-2:]
-    dev = planes[0].device
-    hist = channel_histograms(planes)  # [B, 3, 256]
-    target = float(np.float32(np.float32(p) * np.float32(h * w)) / np.float32(100.0))
+def simple_target(p: float, npix: int) -> float:
+    """SimpleWB's f32 walk target (p * n) / 100 for frames of npix pixels."""
+    return float(np.float32(np.float32(p) * np.float32(npix)) / np.float32(100.0))
+
+
+def _simple_tables_plain(counts: torch.Tensor, p: float, npix: int) -> torch.Tensor:
+    """cv::xphoto::SimpleWB's tables from the [B, 3, 256] counts: per
+    channel, walk the histogram from each end while the cumulative count
+    (as f32) is strictly below the f32 target (stop bins p1, p2), then
+    v -> cvRound(fma(v, alpha32, beta32)) with a single rounding."""
+    dev = counts.device
+    hist = counts.long()
+    target = simple_target(p, npix)
     cum = torch.cumsum(hist, dim=-1).to(torch.float32)
     p1 = (cum < target).sum(-1)
     cum_top = torch.cumsum(torch.flip(hist, dims=(-1,)), dim=-1).to(torch.float32)
@@ -102,32 +171,24 @@ def balance_white_simple_planes(planes: Planes, p: float) -> Planes:
     alpha = alpha32[span]  # [B, 3]
     beta = beta32[p1, span]
     x = torch.arange(256, dtype=torch.float32, device=dev)
-    lut = round_u8(fma_f32(x[None, None, :], alpha[..., None], beta[..., None]))  # [B, 3, 256]
-    return tuple(_lut_apply(pl, lut[:, c]) for c, pl in enumerate(planes))
+    return round_u8(fma_f32(x[None, None, :], alpha[..., None], beta[..., None]))
 
 
 # ---------------------------------------------------------------------------
 # grey_world (cv::xphoto::GrayworldWB)
 # ---------------------------------------------------------------------------
 
-def apply_gains_8p8(planes: Planes, gains: torch.Tensor) -> Planes:
-    """(v * gain) >> 8, saturated, with int32 gains [B, 3] in 8.8 fixed
-    point (the grey-world and learned methods' truncating descale)."""
-    return tuple(
-        torch.clamp((pl.to(torch.int32) * gains[:, c, None, None]) >> 8, 0, 255).to(torch.uint8)
-        for c, pl in enumerate(planes)
-    )
+def grey_world_t255(thresh: float) -> int:
+    """GrayworldWB's integer threshold, cvRound(f32(thresh) * 255) at init."""
+    return int(np.rint(np.float32(thresh) * 255))
 
 
-def balance_white_grey_world_planes(planes: Planes, thresh: float) -> Planes:
-    """cv::xphoto::GrayworldWB: integer saturation mask
-    (mx-mn)*255 <= cvRound(thr*255)*mx, integer channel sums, gains toward
-    the minimum positive sum, rint(f32(smin)/f32(s)*256), applied as
-    (v*gain) >> 8."""
+def _grey_world_stats(planes: Planes, t255: int) -> torch.Tensor:
+    """[B, 3] int64: the channel sums over GrayworldWB's unsaturated
+    pixels, (mx-mn)*255 <= t255*mx in integers."""
     b, g, r = (pl.to(torch.int32) for pl in planes)
     mx = torch.maximum(torch.maximum(b, g), r)
     mn = torch.minimum(torch.minimum(b, g), r)
-    t255 = int(np.rint(np.float32(thresh) * 255))  # cvRound at init
     if t255 <= 257:
         # t255*mx < 2^16: the library's u16 SIMD lanes cannot wrap
         m = (mx - mn) * 255 <= t255 * mx
@@ -139,15 +200,17 @@ def balance_white_grey_world_planes(planes: Planes, thresh: float) -> Planes:
         body = _flat_body_mask(h, w, 16, mx.device)
         rhs = torch.where(body, (t255 * mx) & 0xFFFF, t255 * mx)
         m = (mx - mn) * 255 <= rhs
-    sums = torch.stack(
-        [torch.where(m, c, 0).to(torch.int64).sum(dim=(-2, -1)) for c in (b, g, r)], dim=-1
-    )  # [B, 3] exact
-    # smin over POSITIVE sums only; a zero-sum channel gets gain 0
+    return torch.stack(
+        [torch.where(m, c, 0).to(torch.int64).sum(dim=(-2, -1)) for c in (b, g, r)], dim=-1)
+
+
+def _grey_world_tables_plain(sums: torch.Tensor) -> torch.Tensor:
+    """Gains toward the minimum positive sum, rint(f32(smin)/f32(s)*256)
+    (0 for a zero sum), as (v*gain) >> 8 tables."""
     big = torch.iinfo(torch.int64).max
     smin = torch.where(sums > 0, sums, big).min(dim=-1, keepdim=True).values
     gi = torch.round(smin.to(torch.float32) / sums.to(torch.float32) * 256.0).to(torch.int32)
-    gains = torch.where(sums > 0, gi, 0)
-    return apply_gains_8p8(planes, gains)
+    return gains_tables_8p8(torch.where(sums > 0, gi, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -178,13 +241,23 @@ def pca_exact_lut(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
     return round_u8(torch.clamp(val, max=255.0))
 
 
-def _pca_solve(c: torch.Tensor, sg: torch.Tensor, mg: torch.Tensor):
-    """Eigen compute_inverse_size2 in f32 on the channel's exact sums, op
-    for op as the reference (every product and sum rounds on its own)."""
-    ci = c.to(torch.int64)
-    s2 = (ci * ci).sum(dim=(-2, -1)).to(torch.float32)  # rn_f32(sum c^2)
-    s = ci.sum(dim=(-2, -1)).to(torch.float32)
-    m = c.amax(dim=(-2, -1)).to(torch.float32)
+def _pca_stats(planes: Planes) -> torch.Tensor:
+    """[B, 3, 3] int64: per channel (b, g, r) its sum, its sum of squares
+    and its maximum."""
+    def stats(c):
+        ci = c.to(torch.int64)
+        return torch.stack([ci.sum(dim=(-2, -1)), (ci * ci).sum(dim=(-2, -1)),
+                            ci.amax(dim=(-2, -1))], dim=-1)
+    return torch.stack([stats(c) for c in planes], dim=1)
+
+
+def _pca_solve(stats: torch.Tensor, sg: torch.Tensor, mg: torch.Tensor):
+    """Eigen compute_inverse_size2 in f32 on a channel's exact (sum, sum of
+    squares, max), op for op as the reference (every product and sum
+    rounds on its own)."""
+    s = stats[:, 0].to(torch.float32)
+    s2 = stats[:, 1].to(torch.float32)  # rn_f32(sum c^2)
+    m = stats[:, 2].to(torch.float32)
     m2 = m * m  # exact
     det = s2 * m - s * m2
     invdet = 1.0 / det
@@ -197,30 +270,210 @@ def _pca_solve(c: torch.Tensor, sg: torch.Tensor, mg: torch.Tensor):
     return x0, x1
 
 
-def balance_white_pca_planes(planes: Planes) -> Planes:
-    """The reference PCA method: per channel c in (b, r), the 2x2 solve
-    against the green channel's sum and max, then the per-pixel map
-    cvRound(min(x0*c^2 + x1*c, 255)) as a 256-entry table; g passes through.
+def _pca_tables_plain(stats: torch.Tensor):
+    """The reference PCA method's tables: per channel c in (b, r), the 2x2
+    solve against the green channel's sum and max, then the map
+    cvRound(min(x0*c^2 + x1*c, 255)); g passes through.
 
     A constant channel (det == 0) gives NaN coefficients; the reference's
     THRESH_TRUNC then runs 4-wide minps (NaN -> the second operand, 255)
     with a scalar tail that keeps NaN, and convertTo saturates NaN to 0:
     255 everywhere but the last (H*W) % 4 pixels of the flattened frame,
-    which are 0."""
-    b, g, r = planes
-    h, w = g.shape[-2:]
-    gi = g.to(torch.int64)
-    sg = gi.sum(dim=(-2, -1)).to(torch.float32)
-    mg = g.amax(dim=(-2, -1)).to(torch.float32)
-    nan_pattern = torch.where(_flat_body_mask(h, w, 4, g.device), 255, 0).to(torch.uint8)
+    which are 0 — no table, so the channel's nan flag is set (and its table
+    is zeros)."""
+    sg = stats[:, 1, 0].to(torch.float32)
+    mg = stats[:, 1, 2].to(torch.float32)
+    ident = torch.arange(256, device=stats.device).to(torch.uint8).expand(stats.shape[0], 256)
+    tables, nan = [], []
+    for c in range(3):
+        if c == 1:
+            tables.append(ident)
+            nan.append(torch.zeros(stats.shape[0], dtype=torch.bool, device=stats.device))
+            continue
+        x0, x1 = _pca_solve(stats[:, c], sg, mg)
+        bad = torch.isnan(x0) | torch.isnan(x1)
+        tables.append(torch.where(bad[:, None], 0, pca_exact_lut(x0, x1)).to(torch.uint8))
+        nan.append(bad)
+    return torch.stack(tables, dim=1), torch.stack(nan, dim=1).to(torch.uint8)
 
-    def corrected(c: torch.Tensor) -> torch.Tensor:
-        x0, x1 = _pca_solve(c, sg, mg)
-        out = _lut_apply(c, pca_exact_lut(x0, x1))
-        bad = torch.isnan(x0) | torch.isnan(x1)  # [B]
-        return torch.where(bad[:, None, None], nan_pattern, out)
 
-    return corrected(b), g, corrected(r)
+# ---------------------------------------------------------------------------
+# the three steps
+# ---------------------------------------------------------------------------
+
+def wb_stats_plain(planes: Planes, method: str, param: Optional[float] = None) -> torch.Tensor:
+    """Kernel K's plain version: the per-frame record (RECORD) of `method`
+    over planes (b, g, r) [B, H, W] u8; param is the method's own (simple's
+    p is not read here, grey-world's and learned's threshold is).
+      simple      [B, 3, 256] int32 counts;
+      grey_world  [B, 3] int64 masked sums;
+      pca         [B, 3, 3] int64 (sum, sum of squares, max) a channel;
+      learned     [B, learned_wb.SLOTS] int64 (learned_wb.learned_stats_plain)."""
+    method = _method(method)
+    if method == "simple":
+        return channel_histograms(planes).to(torch.int32)
+    if method == "grey_world":
+        return _grey_world_stats(planes, grey_world_t255(param))
+    if method == "pca":
+        return _pca_stats(planes)
+    return learned_wb.learned_stats_plain(planes, learned_wb.learned_t255(param))
+
+
+def wb_tables_plain(record: torch.Tensor, method: str, param: Optional[float], npix: int,
+                    hist: Optional[torch.Tensor] = None) -> WbTables:
+    """Kernel M's plain version: the record of frames of npix pixels (and
+    learned's 64^3 histogram, hist) -> WbTables."""
+    method = _method(method)
+    if method == "simple":
+        return WbTables(_simple_tables_plain(record, param, npix))
+    if method == "grey_world":
+        return WbTables(_grey_world_tables_plain(record))
+    if method == "pca":
+        return WbTables(*_pca_tables_plain(record))
+    if hist is None:
+        raise ValueError("learned: the tables need the 64^3 histogram (hist)")
+    return WbTables(learned_wb.learned_tables_plain(record, hist))
+
+
+def _check_planes(planes, name: str):
+    """Three [B, H, W] u8 CUDA planes of one shape and device, as three of
+    equal strides (copies of unequal ones)."""
+    if len(planes) != 3:
+        raise ValueError(f"{name}: expected 3 planes, got {len(planes)}")
+    shape = tuple(planes[0].shape)
+    for i, p in enumerate(planes):
+        if (p.device != planes[0].device or p.device.type != "cuda" or p.dtype != torch.uint8
+                or p.dim() != 3 or tuple(p.shape) != shape):
+            raise ValueError(f"{name}: planes[{i}] is {tuple(p.shape)} {p.dtype} on {p.device}; "
+                             f"expected [B, H, W] uint8 CUDA planes of shape {shape}")
+    if len({p.stride() for p in planes}) != 1:
+        planes = tuple(p.contiguous() for p in planes)
+    b, h, w = shape
+    sb, sy, sx = planes[0].stride()
+    if h * w >= 2**31 or (h - 1) * sy + (w - 1) * sx >= 2**31 or sx < 0 or sy < 0:
+        raise ValueError(f"{name}: a frame of {h}x{w} pixels at strides {(sy, sx)} is out "
+                         f"of the kernels' 32-bit range")
+    return tuple(planes)
+
+
+def wb_stats_cuda(planes: Planes, method: str, param: Optional[float] = None, *,
+                  batch_limit: int = kernels.MAX_BATCH):
+    """Kernel K: wb_stats_plain's record for three [B, H, W] u8 CUDA planes,
+    one launch per run of kernels.batch_runs(B, batch_limit). For learned,
+    (record, hist): hist is the [B, 262144] int32 workspace of kernel L,
+    which K zeroes."""
+    method = _method(method)
+    planes = _check_planes(planes, "kernel K")
+    bsz, h, w = planes[0].shape
+    dev = planes[0].device
+    shape, dtype = RECORD[method]
+    record = torch.empty((bsz,) + shape, dtype=dtype, device=dev)
+    hist = None
+    if method == "learned":
+        hist = torch.empty((bsz, learned_wb.N_BINS), dtype=torch.int32, device=dev)
+        param = learned_wb.learned_t255(param)
+    elif method == "grey_world":
+        param = grey_world_t255(param)
+    else:
+        param = 0
+    if not -2**31 <= param < 2**31:
+        raise ValueError(f"kernel K: threshold {param} out of range")
+    with torch.cuda.device(dev):
+        for f0, n in kernels.batch_runs(bsz, batch_limit):
+            kernels.WB_STATS.launch(
+                METHODS.index(method), *(p[f0].data_ptr() for p in planes), *planes[0].stride(),
+                n, h, w, param, record[f0].data_ptr(),
+                None if hist is None else hist[f0].data_ptr(), kernels.stream_handle(record))
+    return record if hist is None else (record, hist)
+
+
+def wb_tables_cuda(record: torch.Tensor, method: str, param: Optional[float], npix: int,
+                   hist: Optional[torch.Tensor] = None, *,
+                   features: Optional[torch.Tensor] = None) -> WbTables:
+    """Kernel M: wb_tables_plain for a CUDA record (and learned's
+    histogram), one launch, a block a frame. For learned, `features`, a
+    [B, 4, 2] f32 CUDA tensor, also receives the four features."""
+    method = _method(method)
+    dev = record.device
+    shape, dtype = RECORD[method]
+    bsz = record.shape[0]
+    kernels.check_cuda(record, "record", dtype, (bsz,) + shape)
+    tables = torch.empty((bsz, 3, 256), dtype=torch.uint8, device=dev)
+    nan = torch.empty((bsz, 3), dtype=torch.uint8, device=dev) if method == "pca" else None
+    ptr = {}
+    if method == "simple":
+        alpha, beta = _simple_tables(dev)
+        ptr.update(alpha=alpha.data_ptr(), beta=beta.data_ptr())
+    if method == "learned":
+        if hist is None:
+            raise ValueError("kernel M: learned needs the 64^3 histogram (hist)")
+        kernels.check_cuda(hist, "hist", torch.int32, (bsz, learned_wb.N_BINS))
+        fi, tv, lv = learned_wb.model_tensors_card(dev)
+        ptr.update(hist=hist.data_ptr(), fi=fi.data_ptr(), tv=tv.data_ptr(), lv=lv.data_ptr())
+        if features is not None:
+            kernels.check_cuda(features, "features", torch.float32, (bsz, 4, 2))
+            ptr["features"] = features.data_ptr()
+    target = simple_target(param, npix) if method == "simple" else 0.0
+    with torch.cuda.device(dev):
+        kernels.WB_TABLES.launch(
+            METHODS.index(method), record.data_ptr(), ptr.get("hist"), bsz, npix, target,
+            ptr.get("alpha"), ptr.get("beta"), ptr.get("fi"), ptr.get("tv"), ptr.get("lv"),
+            tables.data_ptr(), None if nan is None else nan.data_ptr(), ptr.get("features"),
+            kernels.stream_handle(record))
+    return WbTables(tables, nan)
+
+
+def wb_tables(planes: Planes, method: str, param: Optional[float] = None, *,
+              plain: bool = False) -> WbTables:
+    """The statistics and the tables of `method` for planes (b, g, r)
+    [B, H, W] u8: on CUDA planes kernels K, L (learned) and M, on CPU
+    planes or with plain=True their plain versions."""
+    method = _method(method)
+    h, w = planes[0].shape[-2:]
+    if plain or planes[0].device.type == "cpu":
+        record = wb_stats_plain(planes, method, param)
+        hist = None
+        if method == "learned":
+            hist = learned_wb.hist64_plain(planes, record, learned_wb.learned_t255(param))
+        return wb_tables_plain(record, method, param, h * w, hist)
+    if method == "learned":
+        record, hist = wb_stats_cuda(planes, method, param)
+        learned_wb.hist64_cuda(planes, record, learned_wb.learned_t255(param), hist)
+        return wb_tables_cuda(record, method, param, h * w, hist)
+    return wb_tables_cuda(wb_stats_cuda(planes, method, param), method, param, h * w)
+
+
+def balance_white_planes(planes: Planes, method: str, param: Optional[float] = None, *,
+                         out=None, plain: bool = False) -> Planes:
+    """`method` on planes (b, g, r) [B, H, W] u8: wb_tables, then the
+    tables applied by kernel G's table step (pointwise_planes; into `out`,
+    three planes, where given)."""
+    from raw_image_pipeline_tpu_torch.ops.pointwise import pointwise_planes
+
+    t = wb_tables(planes, method, param, plain=plain)
+    return pointwise_planes(*planes, wb_tables=t.tables, wb_nan=t.nan, out=out, plain=plain)
+
+
+def balance_white_simple_planes(planes: Planes, p: float, *, plain: bool = False) -> Planes:
+    """cv::xphoto::SimpleWB (setP(p)), 8u, default ranges, on planes."""
+    return balance_white_planes(planes, "simple", p, plain=plain)
+
+
+def balance_white_grey_world_planes(planes: Planes, thresh: float, *,
+                                    plain: bool = False) -> Planes:
+    """cv::xphoto::GrayworldWB on planes: integer saturation mask
+    (mx-mn)*255 <= cvRound(thr*255)*mx, integer channel sums, gains toward
+    the minimum positive sum, rint(f32(smin)/f32(s)*256), applied as
+    (v*gain) >> 8."""
+    return balance_white_planes(planes, "grey_world", thresh, plain=plain)
+
+
+def balance_white_pca_planes(planes: Planes, *, plain: bool = False) -> Planes:
+    """The reference PCA method on planes: per channel c in (b, r), the 2x2
+    solve against the green channel's sum and max, then the per-pixel map
+    cvRound(min(x0*c^2 + x1*c, 255)); g passes through; a constant channel
+    gives the NaN pattern (_pca_tables_plain)."""
+    return balance_white_planes(planes, "pca", plain=plain)
 
 
 # ---------------------------------------------------------------------------
@@ -228,27 +481,34 @@ def balance_white_pca_planes(planes: Planes) -> Planes:
 # ---------------------------------------------------------------------------
 
 
-def balance_white_simple(image: torch.Tensor, p: float) -> torch.Tensor:
+def _balanced_image(image: torch.Tensor, method: str, param, plain: bool) -> torch.Tensor:
+    lead, planes = image_planes(image)
+    if plain or image.device.type == "cpu":
+        return planes_image(balance_white_planes(planes, method, param, plain=True), lead)
+    out = torch.empty(image.shape, dtype=torch.uint8, device=image.device)
+    flat = out.reshape((-1,) + tuple(out.shape[-3:]))
+    balance_white_planes(planes, method, param, out=flat.unbind(-1))
+    return out
+
+
+def balance_white_simple(image: torch.Tensor, p: float, *, plain: bool = False) -> torch.Tensor:
     """cv::xphoto::SimpleWB on [..., H, W, 3] u8 BGR frames."""
-    lead, planes = image_planes(image)
-    return planes_image(balance_white_simple_planes(planes, p), lead)
+    return _balanced_image(image, "simple", p, plain)
 
 
-def balance_white_grey_world(image: torch.Tensor, thresh: float) -> torch.Tensor:
+def balance_white_grey_world(image: torch.Tensor, thresh: float, *,
+                             plain: bool = False) -> torch.Tensor:
     """cv::xphoto::GrayworldWB on [..., H, W, 3] u8 BGR frames."""
-    lead, planes = image_planes(image)
-    return planes_image(balance_white_grey_world_planes(planes, thresh), lead)
+    return _balanced_image(image, "grey_world", thresh, plain)
 
 
-def balance_white_pca(image: torch.Tensor) -> torch.Tensor:
+def balance_white_pca(image: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     """The reference PCA method on [..., H, W, 3] u8 BGR frames."""
-    lead, planes = image_planes(image)
-    return planes_image(balance_white_pca_planes(planes), lead)
+    return _balanced_image(image, "pca", None, plain)
 
 
-def balance_white_learned(image: torch.Tensor, thresh: float) -> torch.Tensor:
+def balance_white_learned(image: torch.Tensor, thresh: float, *,
+                          plain: bool = False) -> torch.Tensor:
     """cv::xphoto::LearningBasedWB with the default model on [..., H, W, 3]
     u8 BGR frames (ops/learned_wb.balance_white_learned_model)."""
-    from raw_image_pipeline_tpu_torch.ops.learned_wb import balance_white_learned_model
-
-    return balance_white_learned_model(image, thresh)
+    return _balanced_image(image, "learned", thresh, plain)

@@ -10,7 +10,9 @@ onto the mosaic for even 8-bit Bayer frames) -> debayer (bilinear = kernel
 A, or the GPU-parity MHT = kernel D, on CUDA; 16-bit Bayer demosaiced in
 int32 and scaled to 8 bits; colour and mono frames pass through) -> white
 balance (CCC: resize, histogram = kernel B, response = kernel C, argmax,
-Kalman, gains; or simple, grey_world, learned, pca) -> colour calibration
+Kalman, gains; or simple, grey_world, learned, pca: statistics = kernel K,
+learned's histogram = kernel L, per-frame tables = kernel M, applied by
+kernel G's table step) -> colour calibration
 -> gamma (the k table, or the GPU backend's BT.709 table) -> vignetting ->
 HSV enhancer (the pointwise stretch, with the CCC gains: one launch of
 kernel G on CUDA, STRETCH and pointwise_steps) -> fisheye undistortion
@@ -66,12 +68,7 @@ from raw_image_pipeline_tpu_torch.ops.vignetting import (
     build_vignetting_mask,
     composed_gamma_lab_table,
 )
-from raw_image_pipeline_tpu_torch.ops.learned_wb import balance_white_learned_planes
-from raw_image_pipeline_tpu_torch.ops.white_balance import (
-    balance_white_grey_world_planes,
-    balance_white_pca_planes,
-    balance_white_simple_planes,
-)
+from raw_image_pipeline_tpu_torch.ops.white_balance import METHODS, pca_nan_limit, wb_tables
 
 # Cross-frame state: the CCC Kalman illuminant track.
 IspState = ccc_ops.KalmanState
@@ -199,17 +196,12 @@ def _step_args(steps, params: IspParams, gains) -> dict:
 
 
 def _statistical_wb(wb):
-    """The per-frame statistical white-balance op for wb.method (planes ->
-    planes), or None for an unknown method."""
-    if wb.method == "simple":
-        return lambda planes: balance_white_simple_planes(planes, wb.clipping_percentile)
-    if wb.method in ("grey_world", "gray_world"):
-        return lambda planes: balance_white_grey_world_planes(planes, wb.saturation_bright_thr)
-    if wb.method == "learned":
-        return lambda planes: balance_white_learned_planes(planes, wb.saturation_bright_thr)
-    if wb.method == "pca":
-        return balance_white_pca_planes
-    return None
+    """(method, its parameter) of a statistical white balance
+    (ops/white_balance.METHODS), or None for an unknown method."""
+    method = "grey_world" if wb.method == "gray_world" else wb.method
+    if method not in METHODS:
+        return None
+    return method, (wb.clipping_percentile if method == "simple" else wb.saturation_bright_thr)
 
 
 def _check_pixels(pixels: torch.Tensor, encoding: str) -> None:
@@ -590,6 +582,11 @@ def make_isp_chain(
         launches = pointwise_launches(config, is_color, debug,
                                       not plain and planes[0].device.type != "cpu")
         gains = None
+        wb_args = {}  # a statistical white balance's table step (pointwise_planes's)
+        # the [B, H, W, 3] output where the chain's last pointwise call writes
+        # it (no remap, no debug dumps after it), so that no stack of the
+        # planes follows
+        packed = None
         # the statistical methods, colour calibration, vignetting and the
         # enhancer are skipped for mono frames (white_balance.hpp:50-52)
         if wb.enabled and is_color:
@@ -645,22 +642,34 @@ def make_isp_chain(
                     if ("gains",) in launches:  # a call of its own: else G's first step
                         planes = pointwise_planes(*planes, gains=gains, plain=plain)
                 elif stat_wb is not None:
-                    # the gather rule: the frame's statistics need all rows
+                    # the gather rule: the frame's statistics need all rows;
+                    # on the card kernels K (L) and M, then the tables applied
+                    # to the slab's own rows by G's table step: a call of its
+                    # own where no stretch follows (or with the plain
+                    # versions), else the first step of G's call
                     full = yield Fetch(planes, rows, (0, h))
-                    planes = tuple(p[:, rows[0]:rows[1]] for p in stat_wb(full))
+                    t = wb_tables(full, *stat_wb, plain=plain)
+                    wb_args = dict(wb_tables=t.tables, wb_nan=t.nan,
+                                   nan_limit=pca_nan_limit(h, w) - rows[0] * w)
+                    if not (launches and not debug and not plain
+                            and planes[0].device.type != "cpu"):
+                        if not launches and not run_undist and not debug:
+                            packed = torch.empty(tuple(planes[0].shape) + (3,),
+                                                 dtype=torch.uint8, device=planes[0].device)
+                        planes = pointwise_planes(
+                            *planes, plain=plain,
+                            out=None if packed is None else packed.unbind(-1), **wb_args)
+                        wb_args = {}
                 else:
                     raise ValueError(f"White Balance method [{wb.method}] not supported")
         dump("02_white_balancing", planes)
 
         # the other calls, each after the stage of its last step; every dump
         # point after its stage (a dump point is reached whether or not its
-        # stage runs). Where the stretch's last call ends the chain (no remap,
-        # no debug dumps), it writes straight into the [B, H, W, 3] output,
-        # `packed` (on the card G writes it), so that no stack of the planes
-        # follows it.
+        # stage runs). Where the stretch's last call ends the chain, it writes
+        # `packed` (on the card G writes it).
         last = {launch[-1]: launch for launch in launches if launch != ("gains",)}
         final = launches[-1] if launches and not run_undist and not debug else None
-        packed = None
         for i, (name, stage_range, point) in enumerate(STRETCH[1:], start=1):
             launch = last.get(name)
             if launch is not None:
@@ -670,10 +679,11 @@ def make_isp_chain(
                                              device=planes[0].device)
                     planes = pointwise_planes(*planes, plain=plain,
                                               out=None if packed is None else packed.unbind(-1),
-                                              **_step_args(launch, params, gains))
+                                              **_step_args(launch, params, gains), **wb_args)
+                    wb_args = {}
             elif name == "lut" and gc.enabled and not is_color:
-                with stage("isp_gamma"):
-                    planes = tuple(apply_lut(p, params.gamma_lut) for p in planes)
+                with stage("isp_gamma"):  # on the card G's table step on one plane
+                    planes = tuple(apply_lut(p, params.gamma_lut, plain=plain) for p in planes)
             if i + 1 == len(STRETCH) or STRETCH[i + 1][2] != point:
                 dump(point, planes)
 

@@ -42,9 +42,11 @@ checkout, through functions every version of the port has:
     profiled call at 1920x1080 (profile_chains.profile_chain): wall, device
     busy time, and per isp_* range its GPU span, busy time, host time and
     CUDA API calls;
-  * frames/s of wb_pca and wb_grey_world (BASELINE config 2, kernel A at
-    B=64 on the flipped 1920x1080 mosaic), where A's share of the chain is
-    largest.
+  * each wb_* chain (BASELINE config 2: kernel A at B=64 on the flipped
+    1920x1080 mosaic, then the statistical white balance, kernels K, L, M
+    and G's table step since they exist): frames/s and one profiled call,
+    whose "CCC range" fields hold its isp_white_balance range, the
+    statistical white balance.
 
 Prints one line per turn, then per version the median and range over its
 turns of each kernel's times, each chain's frames/s and its profile's
@@ -66,7 +68,7 @@ import sys
 _TOOLS_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_DIR = os.path.dirname(os.path.dirname(_TOOLS_DIR))
 FLAGSHIP_FAMILY = ("flagship", "gpu_parity", "float", "fixed32")
-FPS_ONLY = ("wb_pca", "wb_grey_world")  # frames/s, no profile
+WB_CHAINS = ("wb_simple", "wb_grey_world", "wb_pca", "wb_learned")
 CCC_RANGE = "isp_white_balance"
 FPS_REPS = 7
 TURNS = ("old", "new", "new", "old") * 2  # each build meets the card's drift alike
@@ -233,15 +235,11 @@ def _worker(root: str, out: str) -> dict:
            "frames_per_s": {}, "profiles": {}}
     del big, unaligned, calls
     torch.cuda.empty_cache()
-    for name in FLAGSHIP_FAMILY:
+    for name in FLAGSHIP_FAMILY + WB_CHAINS:
         ch = workloads.chains(tp)[name]
         for h, w in ch.sizes:
             res["frames_per_s"][f"{name} {w}x{h}"] = _fps(tp, torch, workloads, name, h, w)
         res["profiles"][name] = profile_chains.profile_chain(tp, torch, workloads, name, out)
-        torch.cuda.empty_cache()
-    for name in FPS_ONLY:
-        for h, w in workloads.chains(tp)[name].sizes:
-            res["frames_per_s"][f"{name} {w}x{h}"] = _fps(tp, torch, workloads, name, h, w)
         torch.cuda.empty_cache()
     return res
 

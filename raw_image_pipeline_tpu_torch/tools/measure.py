@@ -101,7 +101,8 @@ def remap_lerp_work(batch: int, h: int, w: int, n: int, channels: int, mode: str
 # product (4), Lab2BGR's a and b divisions (9), two ab_to_xz (14) and three
 # output rows (27) (101 together); the enhancer, BGR2HSV (19) and HSV2BGR
 # (25) (44). bound() counts them at the f32 rate, as it does A's and D's.
-POINTWISE_OPS = {"gains": 12, "calibration": 27, "lut": 0, "vignetting": 101, "enhancer": 44}
+POINTWISE_OPS = {"gains": 12, "calibration": 27, "lut": 0, "vignetting": 101, "enhancer": 44,
+                 "table": 0}
 
 
 def pointwise_work(batch: int, h: int, w: int, steps) -> dict:
@@ -109,13 +110,61 @@ def pointwise_work(batch: int, h: int, w: int, steps) -> dict:
     with `steps` (POINTWISE_OPS's keys) on: "bytes", the planes read and
     written once, the [h, w] f32 mask read once with vignetting, the gains
     ([batch, 3] f32) and the call's small tables (linearize 1 KB, LUT 256
-    bytes, enhancer 768 bytes) read once; "ops", POINTWISE_OPS a pixel."""
+    bytes, enhancer 768 bytes, the table step's 768 bytes a frame) read
+    once; "ops", POINTWISE_OPS a pixel (the table step, a gather, none)."""
     steps = tuple(steps)
     pixels = batch * h * w
     small = {"gains": 12 * batch, "lut": 256, "vignetting": 4 * h * w + 1024,
-             "enhancer": 768, "calibration": 48}
+             "enhancer": 768, "calibration": 48, "table": 768 * batch}
     return {"bytes": 6 * pixels + sum(small.get(s, 0) for s in steps),
             "ops": pixels * sum(POINTWISE_OPS[s] for s in steps)}
+
+
+# integer operations a pixel of kernel K's modes, counted from the plain
+# formulas (ops/white_balance, ops/learned_wb; a max, min, add, product,
+# compare or select is one operation): simple, a count a channel (3);
+# grey_world, max and min of three (4), the difference, two products, the
+# compare and three masked adds (9 more); pca, a sum, a square, a sum of
+# squares and a max a channel (12); learned, the max of three (2), the
+# keep compare, the kept count and three sums (5), the pixel's sum (2) and
+# its compare with the best (1)
+WB_STATS_OPS = {"simple": 3, "grey_world": 13, "pca": 12, "learned": 10}
+# a frame's record in bytes (ops/white_balance.RECORD)
+WB_RECORD_BYTES = {"simple": 3 * 256 * 4, "grey_world": 3 * 8, "pca": 9 * 8, "learned": 7 * 8}
+WB_HIST_BYTES = 4 * 64 ** 3  # learned's 64^3 int32 histogram, a frame
+
+
+def wb_stats_work(batch: int, h: int, w: int, method: str) -> dict:
+    """The work of kernel K in `method`'s mode on `batch` frames of three
+    [h, w] u8 planes: "bytes", the planes read and the record written once
+    (learned: and kernel L's histogram, which K zeroes, written once);
+    "ops", WB_STATS_OPS a pixel."""
+    hist = WB_HIST_BYTES if method == "learned" else 0
+    return {"bytes": batch * (3 * h * w + WB_RECORD_BYTES[method] + hist),
+            "ops": batch * h * w * WB_STATS_OPS[method]}
+
+
+def wb_hist64_work(batch: int, h: int, w: int, kept: int) -> dict:
+    """The work of kernel L on `batch` frames of three [h, w] u8 planes,
+    `kept` of their pixels kept: "bytes", the planes read, the record's
+    slot read and the histogram written once; "ops", the max of three and
+    the keep compare a pixel (3) and the bin, three table reads, two
+    shifts and two ors, and the count, a kept pixel (5)."""
+    return {"bytes": batch * (3 * h * w + 8 + WB_HIST_BYTES),
+            "ops": 3 * batch * h * w + 5 * kept}
+
+
+def wb_tables_work(batch: int, method: str, palettes=()) -> dict:
+    """The work of kernel M in `method`'s mode on `batch` frames: "bytes",
+    the record read and the [3, 256] tables written once a frame (learned:
+    and the histogram read once); "ops", for learned the density of each
+    frame's palette (`palettes`, its entries, at most 300): two
+    differences, two products, a sum, a division, a difference and a max a
+    pair (8), the walks and tables of the other methods being a few
+    thousand operations a frame (counted as none)."""
+    hist = WB_HIST_BYTES if method == "learned" else 0
+    return {"bytes": batch * (WB_RECORD_BYTES[method] + 768 + hist),
+            "ops": sum(8 * n * n for n in palettes)}
 
 
 def ccc_response_work(batch: int, n: int = 256) -> dict:

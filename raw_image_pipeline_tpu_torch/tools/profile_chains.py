@@ -116,6 +116,18 @@ def device_time(trace: dict) -> dict:
     }
 
 
+def range_kernel_names(trace: dict, stage: str) -> list:
+    """The names of the kernels that start in the isp_* range `stage` of a
+    torch.profiler chrome trace (on the device's clock), one a launch."""
+    spans = [(float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0)))
+             for ev in trace.get("traceEvents", [])
+             if ev.get("ph") == "X" and ev.get("cat") == "gpu_user_annotation"
+             and ev.get("name") == stage]
+    return [ev.get("name", "") for ev in trace.get("traceEvents", [])
+            if ev.get("ph") == "X" and ev.get("cat") == "kernel"
+            and any(s <= float(ev["ts"]) < e for s, e in spans)]
+
+
 def profile_chain(tp, torch, workloads, name: str, out_dir: str) -> dict:
     """One chain of the package `tp`, from the table of the module
     `workloads` (tools/workloads.py): its unprofiled and profiled wall and

@@ -108,16 +108,20 @@ def chains(tp) -> dict:
         "fixed32": Chain(remap("fixed32"), full[:1],
                          ("debayer_bilinear",) + ccc + ("remap_lerp",)),
     }
+    # the statistical white balances: the statistics (K), learned's
+    # histogram (L), the tables (M), G's table step
     for method in ("simple", "grey_world", "pca", "learned"):
-        table[f"wb_{method}"] = Chain(config2(method), full[:1], ("debayer_bilinear",),
+        wb = ("wb_stats",) + (("wb_hist64",) if method == "learned" else ()) + ("wb_tables",)
+        table[f"wb_{method}"] = Chain(config2(method), full[:1],
+                                      ("debayer_bilinear",) + wb + ("pointwise",),
                                       frames=128, calls=2, reps=3, cpu_frames=3)
     table["pointwise_bgr8"] = Chain(config4, full[:1], ("pointwise",), encoding="bgr8",
                                     kind="color",
                                     frames=512, calls=1, microbatch=128, reps=3,
                                     cpu_frames=128)
     # small size only: the other inputs on the flagship configuration (mono
-    # frames run its flip, gamma and remap, here the float remap = E on one
-    # plane), 16-bit Bayer
+    # frames run its flip, gamma (G's table step on one plane) and remap,
+    # here the float remap = E on one plane), 16-bit Bayer
     table["mono8_float"] = Chain(remap("float"), (), (), encoding="mono8", kind="mono",
                                  small_only=True)
     table["rgb8_float"] = Chain(remap("float"), (), (), encoding="rgb8", kind="color",

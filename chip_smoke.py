@@ -1441,6 +1441,10 @@ WB_EXTRA = (("simple", 2.0), ("simple", 35.0), ("grey_world", 1.2))
 # (B, H, W): the wb_* chains' call (1920x1080 after flip 90), the flagship's
 # frames, an odd crop, small frames
 WB_SHAPES = ((64, 1920, 1080), (4, 1080, 1920), (3, 1079, 1439), (3, 17, 31), (3, 3, 5))
+# (label, (B, H, W)) at which K and L are timed: the batch sizes of a frame
+# spread over the card (1, 4, 16), the wb_* chains' call (64)
+WB_TIMED = (("b1", (1, 1080, 1920)), ("b4", (4, 1080, 1920)), ("b16", (16, 1080, 1920)),
+            ("b64", (64, 1920, 1080)))
 WB_KERNELS = {"simple": ("wb_stats", "wb_tables"), "grey_world": ("wb_stats", "wb_tables"),
               "pca": ("wb_stats", "wb_tables"), "learned": ("wb_stats", "wb_hist64", "wb_tables")}
 
@@ -1474,12 +1478,18 @@ def check_wb_range(tp, torch, rng, smi_line):
     p 2 and 35, grey-world at 1.2 where the u16 wrap rule applies) at
     WB_SHAPES, on planes 1 byte off a 16-byte boundary, on interleaved
     planes (column stride 3) and on the edge frames (_wb_edge_frames) at
-    45x61 and 1079x1439; then the mono chain's LUT (G's table step on one
-    plane) against the plain gather; then each kernel timed at B=4
-    1080x1920 and B=64 1920x1080 beside its plain version and its bound,
-    with torch.bincount of the same bins as K's (simple) and L's library
-    time; then each wb_* chain at B=64 1920x1080: K, M (and L) launched in
-    its call, and its profiled isp_white_balance range holding at most 3
+    45x61 and 1079x1439, and on the frame families of
+    workloads.wb_frames at 1080x1920 (learned also at a threshold of 1.0,
+    where all_bins keeps every bin; big_bin and constant put more than
+    65 535 pixels in one bin); then the mono chain's LUT (G's table step on
+    one plane) against the plain gather; then K's four modes and L timed at
+    B = 1, 4, 16 (1080x1920) and 64 (1920x1080) on card_frames and on the
+    fixture's frames, M and G's table step at B=4 and 64 on card_frames,
+    each beside its plain version and its bound, with torch.bincount of the
+    same bins as K's (simple) and L's library time and one indexing call of
+    the same lookup as G's; then each wb_* chain at B=64 1920x1080: K, M
+    (and L) launched in its call, and its profiled isp_white_balance range
+    holding at most 3
     kernels (4 for learned: K, L, M, G) and no bincount, topk or sort, no
     copy, set or synchronising API call (up to 3 profiles until a trace
     shows the range). Returns the kernels' rows (K, L, M) and G's table
@@ -1496,9 +1506,12 @@ def check_wb_range(tp, torch, rng, smi_line):
                                                             wb_hist64_work, wb_stats_work,
                                                             wb_tables_work)
     from raw_image_pipeline_tpu_torch.tools.profile_chains import device_time, range_kernel_names
+    from raw_image_pipeline_tpu_torch.utils import image_io
 
     dev = torch.device("cuda")
     seed = int(rng.integers(1 << 30))
+    fixture = image_io.imread(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                           "fixtures", "alphasense.png"))
 
     def colour(b, h, w, s):
         return workloads.card_frames(torch, "color", b, h, w, seed + s)
@@ -1560,6 +1573,12 @@ def check_wb_range(tp, torch, rng, smi_line):
             held(f"edge frames {h}x{w}", planes(_wb_edge_frames(torch, h, w, dev)), method,
                  param)
         del x
+        for kind in workloads.WB_FAMILIES:
+            x = workloads.wb_frames(torch, kind, 2, 1080, 1920, seed + 11, bgr=fixture, device=dev)
+            held(f"{kind} B=2 1080x1920", planes(x), method, param)
+            if method == "learned":  # at t255 = 255 all_bins keeps every bin
+                held(f"{kind} B=2 1080x1920", planes(x), method, 1.0)
+            del x
     # the mono chain's LUT: G's table step on one plane
     lut = torch.as_tensor(gamma.build_gamma_lut(0.7), device=dev)
     for shape in ((4, 1080, 1920), (3, 1079, 1439), (3, 17, 31)):
@@ -1575,83 +1594,113 @@ def check_wb_range(tp, torch, rng, smi_line):
                 raise AssertionError(f"wb_range mono LUT {tuple(v.shape)}{label}")
     torch.cuda.empty_cache()
 
-    # --- times beside the bounds: B=4 1080x1920, B=64 1920x1080 ---
+    # --- times beside the bounds: K and L at B = 1, 4, 16 (1080x1920) and 64
+    # (1920x1080) on card_frames and the fixture's frames; M and G on card_frames
+    # at B=4 and 64 ---
     rows = {"K": {}, "L": {}, "M": {}, "G": {}}
 
-    def timed(name, label, ms, plain, work, library=None):
+    def timed(name, label, ms, plain, work, library=None, library_call="torch.bincount of the "
+              "same bins"):
         bd = bound(bytes_=work["bytes"], ops=work["ops"])
         rows[name].update({f"ms_{label}": ms, f"plain_ms_{label}": plain,
                            f"bound_ms_{label}": bd["bound_ms"], f"bound_by_{label}": bd["bound_by"]})
         if library is not None:
             rows[name][f"library_ms_{label}"] = library
         print(f"wb_range time {name} {label}: {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})"
-              + ("" if library is None else f", torch.bincount of the same bins {library:.4f} ms")
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {100 * bd['bound_ms'] / ms:.1f}%)"
+              + ("" if library is None else f", {library_call} {library:.4f} ms")
               + f" [{smi_line}]")
 
-    for size, (b, h, w) in (("b4", (4, 1080, 1920)), ("b64", (64, 1920, 1080))):
-        pl = planes(colour(b, h, w, 9))
-        n = 2 if b == 64 else 5  # the plain versions' calls a run
-        for method, param in WB_METHODS:
-            label = f"{method}_{size}"
-            rec = wb.wb_stats_cuda(pl, method, param)
-            want = wb.wb_stats_plain(pl, method, param)
-            library = None
-            if method == "simple":
-                bins = (torch.stack(pl, 1).reshape(b, 3, -1).long()
-                        + (torch.arange(3 * b, device=dev) * 256).reshape(b, 3, 1)).reshape(-1)
-                library = device_ms(lambda: torch.bincount(bins, minlength=3 * b * 256), n=n)
-                del bins
-            timed("K", label, device_ms(lambda: wb.wb_stats_cuda(pl, method, param)),
-                  device_ms(lambda: wb.wb_stats_plain(pl, method, param), n=n),
-                  wb_stats_work(b, h, w, method), library)
-            hist = want_hist = None
-            if method == "learned":
-                rec, hist = rec
-                t255 = learned_wb.learned_t255(param)
-                learned_wb.hist64_cuda(pl, rec, t255, hist)
-                want_hist = learned_wb.hist64_plain(pl, want, t255)
-                Bp, Gp, Rp = (p.to(torch.int32) for p in pl)
-                keep = torch.maximum(torch.maximum(Bp, Gp), Rp) < t255
-                hi = torch.clamp(want[:, learned_wb.HI], min=64).float()[:, None, None]
-                idx = [torch.clamp(torch.floor(c.float() * 64.0 / hi).long(), 0, 63)
-                       for c in (Bp, Gp, Rp)]
-                bins = torch.where(keep, (idx[0] * 64 + idx[1]) * 64 + idx[2]
-                                   + (torch.arange(b, device=dev) * 64 ** 3)[:, None, None],
-                                   b * 64 ** 3).reshape(-1)
-                del Bp, Gp, Rp, idx
-                kept = int(keep.sum())
-                del keep
-                library = device_ms(lambda: torch.bincount(bins, minlength=b * 64 ** 3 + 1), n=n)
-                del bins
-                # L adds into K's zeroed histogram; timed alone, the adds pile up
-                timed("L", size, device_ms(lambda: learned_wb.hist64_cuda(pl, rec, t255, hist)),
-                      device_ms(lambda: learned_wb.hist64_plain(pl, want, t255), n=n),
-                      wb_hist64_work(b, h, w, kept), library)
-                hist.copy_(want_hist)
-            palettes = ([min(300, int(c)) for c in (want_hist > 0).sum(-1).tolist()]
-                        if want_hist is not None else ())
-            timed("M", label,
-                  device_ms(lambda: wb.wb_tables_cuda(rec, method, param, h * w, hist)),
-                  device_ms(lambda: wb.wb_tables_plain(want, method, param, h * w, want_hist),
-                            n=n),
-                  wb_tables_work(b, method, palettes))
-            if method == "pca":  # G's table step, with PCA's NaN flags read
-                t = wb.wb_tables(pl, method, param)
-                timed("G", f"table_step_{size}",
-                      device_ms(lambda: pointwise.pointwise_cuda(pl, wb_tables=t.tables,
-                                                                 wb_nan=t.nan)),
-                      device_ms(lambda: pointwise.pointwise_plain(*pl, wb_tables=t.tables,
-                                                                  wb_nan=t.nan), n=n),
-                      pointwise_work(b, h, w, ("table",)))
-            del rec, hist, want, want_hist
+    def lookup_ms(tables, idx_of, label):
+        """one PyTorch indexing call of G's lookup (torch.gather of int64
+        indices), the indices' cast timed apart"""
+        idx = idx_of()
+        cast = device_ms(idx_of)
+        ms = device_ms(lambda: torch.gather(tables, 1, idx))
+        rows["G"][f"index_cast_ms_{label}"] = cast
+        print(f"wb_range time G {label}: one torch.gather of the lookup {ms:.4f} ms, the int64 "
+              f"index cast {cast:.4f} ms apart [{smi_line}]")
+        return ms
+
+    for family in ("card", "fixture"):
+        for size, (b, h, w) in WB_TIMED:
+            x = (colour(b, h, w, 9) if family == "card"
+                 else workloads.fixture_colour(torch, fixture, b, h, w))
+            pl = planes(x)
+            del x
+            sfx = size if family == "card" else f"{size}_fixture"
+            main = family == "card" and size in ("b4", "b64")  # M and G too
+            n = 2 if b == 64 else 5  # the plain versions' calls a run
+            for method, param in WB_METHODS:
+                label = f"{method}_{sfx}"
+                rec = wb.wb_stats_cuda(pl, method, param)
+                want = wb.wb_stats_plain(pl, method, param)
+                library = None
+                if method == "simple":
+                    bins = (torch.stack(pl, 1).reshape(b, 3, -1).long()
+                            + (torch.arange(3 * b, device=dev) * 256).reshape(b, 3, 1)).reshape(-1)
+                    library = device_ms(lambda: torch.bincount(bins, minlength=3 * b * 256), n=n)
+                    del bins
+                timed("K", label, device_ms(lambda: wb.wb_stats_cuda(pl, method, param)),
+                      device_ms(lambda: wb.wb_stats_plain(pl, method, param), n=n),
+                      wb_stats_work(b, h, w, method), library)
+                hist = want_hist = None
+                if method == "learned":
+                    rec, hist = rec
+                    t255 = learned_wb.learned_t255(param)
+                    learned_wb.hist64_cuda(pl, rec, t255, hist)
+                    want_hist = learned_wb.hist64_plain(pl, want, t255)
+                    Bp, Gp, Rp = (p.to(torch.int32) for p in pl)
+                    keep = torch.maximum(torch.maximum(Bp, Gp), Rp) < t255
+                    hi = torch.clamp(want[:, learned_wb.HI], min=64).float()[:, None, None]
+                    idx = [torch.clamp(torch.floor(c.float() * 64.0 / hi).long(), 0, 63)
+                           for c in (Bp, Gp, Rp)]
+                    bins = torch.where(keep, (idx[0] * 64 + idx[1]) * 64 + idx[2]
+                                       + (torch.arange(b, device=dev) * 64 ** 3)[:, None, None],
+                                       b * 64 ** 3).reshape(-1)
+                    del Bp, Gp, Rp, idx
+                    kept = int(keep.sum())
+                    del keep
+                    library = device_ms(lambda: torch.bincount(bins, minlength=b * 64 ** 3 + 1),
+                                        n=n)
+                    del bins
+                    # L adds into K's zeroed histogram; timed alone, the adds pile up
+                    timed("L", sfx,
+                          device_ms(lambda: learned_wb.hist64_cuda(pl, rec, t255, hist)),
+                          device_ms(lambda: learned_wb.hist64_plain(pl, want, t255), n=n),
+                          wb_hist64_work(b, h, w, kept), library)
+                    hist.copy_(want_hist)
+                if main:
+                    palettes = ([min(300, int(c)) for c in (want_hist > 0).sum(-1).tolist()]
+                                if want_hist is not None else ())
+                    timed("M", label,
+                          device_ms(lambda: wb.wb_tables_cuda(rec, method, param, h * w, hist)),
+                          device_ms(lambda: wb.wb_tables_plain(want, method, param, h * w,
+                                                               want_hist), n=n),
+                          wb_tables_work(b, method, palettes))
+                if main and method == "pca":  # G's table step, with PCA's NaN flags read
+                    t = wb.wb_tables(pl, method, param)
+                    library = lookup_ms(
+                        t.tables.reshape(3 * b, 256),
+                        lambda: torch.stack(pl, 1).reshape(3 * b, -1).long(), f"table_step_{size}")
+                    timed("G", f"table_step_{size}",
+                          device_ms(lambda: pointwise.pointwise_cuda(pl, wb_tables=t.tables,
+                                                                     wb_nan=t.nan)),
+                          device_ms(lambda: pointwise.pointwise_plain(*pl, wb_tables=t.tables,
+                                                                      wb_nan=t.nan), n=n),
+                          pointwise_work(b, h, w, ("table",)), library, "one torch.gather")
+                del rec, hist, want, want_hist
+                torch.cuda.empty_cache()
+            if main:
+                mono = pl[0]
+                library = lookup_ms(lut[None], lambda: mono.reshape(1, -1).long(),
+                                    f"mono_lut_{size}")
+                timed("G", f"mono_lut_{size}", device_ms(lambda: gamma.apply_lut(mono, lut)),
+                      device_ms(lambda: gamma.apply_lut(mono, lut, plain=True), n=n),
+                      {"bytes": 2 * mono.numel() + 256, "ops": 0}, library, "one torch.gather")
+                del mono
+            del pl
             torch.cuda.empty_cache()
-        mono = pl[0]
-        timed("G", f"mono_lut_{size}", device_ms(lambda: gamma.apply_lut(mono, lut)),
-              device_ms(lambda: gamma.apply_lut(mono, lut, plain=True), n=n),
-              {"bytes": 2 * mono.numel() + 256, "ops": 0})
-        del pl, mono
-        torch.cuda.empty_cache()
 
     # --- each wb_* chain's isp_white_balance range, profiled ---
     busy = {}

@@ -11,13 +11,14 @@
 // its histogram of kept pixels. The port's plain version is a
 // torch.bincount over an int64 copy of the frames' bin indices.
 //
-// What bounds it on the H100: bytes would allow 0.119 ms at B=64
+// What bounds it on the H100: bytes would allow 0.139 ms at B=64
 // 1920x1080 (three bytes a pixel read, 1 MB a frame of counts written);
-// what it waits on is the adds. Natural frames crowd a few bins (a sky, a
-// wall): adds to one address of device memory serialise in its L2 slice,
-// so most adds stay in the block.
+// what it waits on is the adds, one a run of equal bins: noise-like frames
+// change bin at almost every pixel, and a thread's add reads its slot's key
+// before it adds, two dependent shared-memory operations a run.
 //
-// Design: grid (blocks a frame, B), the frame's 16-pixel chunks
+// Design: grid (blocks a frame, B: four an SM in all, and at least one
+// every 2^17 pixels), the frame's 16-pixel chunks
 // (wb_planes.cuh) split evenly over its blocks, a thread a chunk at a time
 // with the next chunk's loads in flight. A block first tabulates i(v) for
 // the 256 values (its frame's hi), so a pixel's bin is three shared-memory
@@ -25,9 +26,11 @@
 // adds the run's length once it ends, into the block's table of SLOTS
 // (bin, count) pairs in shared memory, direct-mapped by a hash of the bin:
 // the first bin to claim a slot (atomicCAS) keeps it, and a run whose slot
-// holds another bin is added to device memory directly. At the end the
-// block adds its slots to device memory. The counts are integers, so the
-// order of the adds leaves the histogram exact and the same every run.
+// holds another bin is added to device memory directly. 8192 slots (64 KB,
+// two blocks an SM) send 18% of a noise-like frame's runs to device memory
+// where 4096 sent 29%. At the end the block adds its slots to device
+// memory. The counts are integers, so the order of the adds leaves the
+// histogram exact and the same every run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,10 +42,13 @@
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int SLOTS = 4096;  // a block's (bin, count) table
+constexpr int SLOTS = 8192;     // a block's (bin, count) table
+constexpr int LOG_SLOTS = 13;
+constexpr int SMEM = SLOTS * 8;
 constexpr unsigned EMPTY = 0xFFFFFFFFu;
 constexpr int HIST64 = 64 * 64 * 64;
 constexpr int RECORD = 7, HI = 4;  // ops/learned_wb.SLOTS, HI
+static_assert(1 << LOG_SLOTS == SLOTS, "LOG_SLOTS");
 
 struct Params {
   const uint8_t* b;
@@ -55,7 +61,7 @@ struct Params {
 };
 
 __device__ __forceinline__ unsigned slot_of(unsigned bin) {
-  return (bin * 2654435761u) >> 20;  // Fibonacci hashing to 12 bits
+  return (bin * 2654435761u) >> (32 - LOG_SLOTS);  // Fibonacci hashing
 }
 
 // a run of `cnt` pixels in `bin`: into the block's table, or device memory
@@ -75,8 +81,9 @@ __device__ __forceinline__ void add_run(unsigned bin, unsigned cnt, unsigned* ke
 }
 
 __global__ void __launch_bounds__(THREADS, 2) wb_hist64_kernel(const Params p) {
-  __shared__ unsigned keys[SLOTS];
-  __shared__ unsigned cnts[SLOTS];
+  extern __shared__ unsigned table[];
+  unsigned* keys = table;
+  unsigned* cnts = table + SLOTS;
   __shared__ unsigned idx[256];  // i(v)
   const int f = blockIdx.y, t = threadIdx.x;
   const wbp::Frame fr = wbp::frame_of(p.b, p.g, p.r, p.sb, p.sy, p.sx, p.h, p.w, f);
@@ -135,24 +142,29 @@ extern "C" int isp_wb_hist64(const void* b, const void* g, const void* r, long l
   if (h <= 0 || w <= 0 || (long long)h * w >= (1LL << 31) || batch > 65535 || !record || !hist) {
     return (int)cudaErrorInvalidValue;
   }
-  static int sms[64] = {0};  // SMs of each device, read once
+  static int sms[64] = {0};  // SMs of each device, read once, and the attribute set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!sms[dev]) {
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    err = cudaFuncSetAttribute(wb_hist64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
   Params p;
   p.b = (const uint8_t*)b, p.g = (const uint8_t*)g, p.r = (const uint8_t*)r;
   p.sb = sb, p.sy = sy, p.sx = sx, p.h = h, p.w = w, p.t255 = t255;
   p.record = (const long long*)record, p.hist = (int*)hist;
-  // about four blocks an SM in all, but no block without a chunk a thread
+  // about four blocks an SM in all, and a block at least every 2^17 pixels
+  // (a block that meets more colours than its table holds spills more:
+  // at B=64 1920x1080 16 blocks a frame, not 9), but no block without a
+  // chunk a thread
   const long long chunks = (long long)h * w / wbp::kChunk + 2;
-  const long long want = (4LL * sms[dev] + batch - 1) / batch;
+  const long long want = std::max((4LL * sms[dev] + batch - 1) / batch,
+                                  ((long long)h * w + (1 << 17) - 1) >> 17);
   const long long fill = (chunks + THREADS - 1) / THREADS;
   const int blocks = (int)std::max(1LL, std::min(want, fill));
-  wb_hist64_kernel<<<dim3(blocks, batch, 1), THREADS, 0, (cudaStream_t)stream>>>(p);
+  wb_hist64_kernel<<<dim3(blocks, batch, 1), THREADS, SMEM, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -62,7 +62,8 @@ _SIGNATURES = {
     "isp_ccc_argmax_cluster_limit": (_I, _I, _IP),
     "isp_ccc_track": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L, _I, _I, _P),
     "isp_ccc_track_empty": (_P,),
-    "isp_wb_stats": (_I, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _P),
+    "isp_wb_stats": (_I, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P),
+    "isp_wb_stats_limits": (_I, _IP, _IP),
     "isp_wb_hist64": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _P),
     "isp_wb_tables": (_I, _P, _P, _I, _L, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }

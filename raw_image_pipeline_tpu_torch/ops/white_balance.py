@@ -35,6 +35,7 @@ The rule that governs them is exactness, on every device:
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -356,12 +357,72 @@ def _check_planes(planes, name: str):
     return tuple(planes)
 
 
+WB_STATS_THREADS = 512  # kernel K's threads a block (csrc/wb_stats.cu)
+WB_CHUNK = 16  # pixels a thread of kernels K and L takes at once (csrc/wb_planes.cuh)
+MAX_WB_CLUSTER = 16  # kernel K's largest cluster (above 8 a non-portable size)
+# the values a cluster of kernel K leaves in its workspace for the last one
+# to sum (with more than one cluster a frame): a count a bin (simple), the
+# sums and maxima a thread carries (the others)
+WB_PARTIAL = {"simple": (768, torch.int32), "grey_world": (3, torch.int64),
+              "pca": (9, torch.int64), "learned": (6, torch.int64)}
+
+
+def wb_stats_grid(batch: int, pixels: int, sms: int, resident: int,
+                  largest: int = MAX_WB_CLUSTER):
+    """Kernel K's blocks a frame as (cluster, groups): `groups` thread-block
+    clusters of `cluster` blocks, for `batch` frames of `pixels` pixels on a
+    card of `sms` SMs that holds `resident` of K's blocks each. About two
+    waves of resident blocks cover the batch, 2 * sms * resident // batch
+    blocks a frame, but none with fewer than 4 chunks a thread and at least
+    one; the cluster is the largest power of two of at most `largest` (the
+    largest size that can be resident) within that, the groups as many
+    clusters as then fit. On an NVIDIA H100 80GB HBM3 (132 SMs, 2 blocks
+    each) a 1920x1080 frame takes 16 x 4 blocks at B=1 and B=4, 16 x 2 at
+    B=16, 8 x 1 at B=64 and 1 x 1 from B=265: the fastest of the grids
+    timed at B = 1, 4 and 16; at B=64 eight blocks a frame ran faster than
+    one wave of four (PERF.md)."""
+    chunks = -(-pixels // WB_CHUNK)
+    want = max(1, min(2 * sms * resident // max(batch, 1), -(-chunks // (4 * WB_STATS_THREADS))))
+    cluster = 1
+    while 2 * cluster <= min(want, largest):
+        cluster *= 2
+    return cluster, want // cluster
+
+
+@functools.lru_cache(maxsize=64)
+def _wb_card(index: int, mode: int):
+    """The SM count of CUDA device `index`, and kernel K's resident blocks
+    an SM and largest resident cluster there in `mode`."""
+    resident, largest = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = kernels.LIBRARY.get().isp_wb_stats_limits(mode, ctypes.byref(resident),
+                                                        ctypes.byref(largest))
+    if err != 0:
+        raise RuntimeError(f"{kernels.WB_STATS.name}: CUDA error {err} querying its limits")
+    return (torch.cuda.get_device_properties(index).multi_processor_count, resident.value,
+            largest.value)
+
+
+_TICKETS = {}  # (device index, stream) -> kernel K's per-frame counters
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least n of kernel K's per-frame counters for `stream`: zeroed once
+    when allocated, and left at 0 by every launch that uses them."""
+    t = _TICKETS.get((dev.index, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _TICKETS[(dev.index, stream)] = t
+    return t
+
+
 def wb_stats_cuda(planes: Planes, method: str, param: Optional[float] = None, *,
                   batch_limit: int = kernels.MAX_BATCH):
     """Kernel K: wb_stats_plain's record for three [B, H, W] u8 CUDA planes,
-    one launch per run of kernels.batch_runs(B, batch_limit). For learned,
-    (record, hist): hist is the [B, 262144] int32 workspace of kernel L,
-    which K zeroes."""
+    one launch per run of kernels.batch_runs(B, batch_limit), each on
+    wb_stats_grid's blocks for the run on this card. For learned, (record,
+    hist): hist is the [B, 262144] int32 workspace of kernel L, which K
+    zeroes."""
     method = _method(method)
     planes = _check_planes(planes, "kernel K")
     bsz, h, w = planes[0].shape
@@ -378,12 +439,22 @@ def wb_stats_cuda(planes: Planes, method: str, param: Optional[float] = None, *,
         param = 0
     if not -2**31 <= param < 2**31:
         raise ValueError(f"kernel K: threshold {param} out of range")
+    mode = METHODS.index(method)
+    stream = kernels.stream_handle(record)
+    sms, resident, largest = _wb_card(torch.device(dev).index, mode)
     with torch.cuda.device(dev):
         for f0, n in kernels.batch_runs(bsz, batch_limit):
+            cluster, groups = wb_stats_grid(n, h * w, sms, resident, largest)
+            ws = tickets = None  # held until the launch is queued
+            if groups > 1:
+                size, ws_dtype = WB_PARTIAL[method]
+                ws = torch.empty((n, groups, size), dtype=ws_dtype, device=dev)
+                tickets = _tickets(dev, stream, n)
             kernels.WB_STATS.launch(
-                METHODS.index(method), *(p[f0].data_ptr() for p in planes), *planes[0].stride(),
-                n, h, w, param, record[f0].data_ptr(),
-                None if hist is None else hist[f0].data_ptr(), kernels.stream_handle(record))
+                mode, *(p[f0].data_ptr() for p in planes), *planes[0].stride(), n, h, w, param,
+                record[f0].data_ptr(), None if hist is None else hist[f0].data_ptr(), cluster,
+                groups, None if ws is None else ws.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), stream)
     return record if hist is None else (record, hist)
 
 

@@ -36,6 +36,13 @@ checkout, through functions every version of the port has:
     each with every stream operation its call makes:
     device ms (measure.device_ms) and ms per call, the host's launches
     included (measure.call_ms);
+  * the statistical white balances' kernels on card_frames' colour frames,
+    B=4 at 1080x1920 and ("...64") B=64 at 1920x1080, where the checkout
+    has them: ops.white_balance.wb_stats_cuda in each method's mode
+    ("K_simple", "K_grey_world", "K_pca", "K_learned"), learned's
+    ops.learned_wb.hist64_cuda into K's histogram ("L"), wb_tables_cuda in
+    learned's mode ("M") and G's table step of PCA's tables
+    (ops.pointwise.pointwise_cuda, "G_table");
   * each chain of the flagship family in tools/workloads.py (flagship,
     gpu_parity, float, fixed32): frames/s at each of its sizes (its frames
     in its calls, the Kalman state carried; the median of 7), and one
@@ -208,6 +215,33 @@ def _worker(root: str, out: str) -> dict:
         m = maps if mode == "float" else lerp_maps[mode]
         return undistortion.remap_planes(pl, m.remap_base, m.remap_weights, (1080, 1920), mode)
 
+    wb_calls = {}
+    try:
+        from raw_image_pipeline_tpu_torch.ops import learned_wb, pointwise
+        from raw_image_pipeline_tpu_torch.ops import white_balance as wbal
+        wbal.wb_stats_cuda
+    except (ImportError, AttributeError):  # a checkout before kernels K, L and M
+        wbal = None
+    if wbal is not None:
+        for sfx, (b, h, w) in (("", (4, 1080, 1920)), ("64", (64, 1920, 1080))):
+            x = workloads.card_frames(torch, "color", b, h, w, workloads.SEED + b)
+            pl = tuple(x[..., c].contiguous() for c in range(3))
+            del x
+            for method, param in (("simple", 20.0), ("grey_world", 0.8), ("pca", None),
+                                  ("learned", 0.8)):
+                wb_calls[f"K_{method}{sfx}"] = (
+                    lambda pl=pl, m=method, p=param: wbal.wb_stats_cuda(pl, m, p))
+            t255 = learned_wb.learned_t255(0.8)
+            rec, lhist = wbal.wb_stats_cuda(pl, "learned", 0.8)
+            learned_wb.hist64_cuda(pl, rec, t255, lhist)
+            tabs = wbal.wb_tables(pl, "pca")
+            wb_calls[f"L{sfx}"] = (lambda pl=pl, rec=rec, t255=t255, acc=lhist.clone():
+                                   learned_wb.hist64_cuda(pl, rec, t255, acc))
+            wb_calls[f"M{sfx}"] = (lambda rec=rec, lhist=lhist, n=h * w:
+                                   wbal.wb_tables_cuda(rec, "learned", 0.8, n, lhist))
+            wb_calls[f"G_table{sfx}"] = (lambda pl=pl, t=tabs: pointwise.pointwise_cuda(
+                pl, wb_tables=t.tables, wb_nan=t.nan))
+
     calls = {"A": lambda: debayer.debayer_planes(bayer, encoding),
              "B": lambda: ccc.log_chroma_histogram_planes(*small, *cuts),
              "C": lambda: ccc.ccc_response(hist, wr, wi, bias),
@@ -229,11 +263,12 @@ def _worker(root: str, out: str) -> dict:
              "J_cameras": lambda: track(uv[4], cameras=True),
              "J512": lambda: track(uv[512]),
              "CCC": lambda: ccc_range(planes),
-             "CCC64": lambda: ccc_range(big)}
+             "CCC64": lambda: ccc_range(big),
+             **wb_calls}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},
            "frames_per_s": {}, "profiles": {}}
-    del big, unaligned, calls
+    del big, unaligned, calls, wb_calls
     torch.cuda.empty_cache()
     for name in FLAGSHIP_FAMILY + WB_CHAINS:
         ch = workloads.chains(tp)[name]

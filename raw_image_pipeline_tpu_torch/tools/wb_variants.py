@@ -1,0 +1,532 @@
+"""What limits kernels K and L on a CUDA card: variants of their sources,
+built apart and timed beside the kernels as they are.
+
+    python -m raw_image_pipeline_tpu_torch.tools.wb_variants [--out FILE]
+
+Run from the root of a checkout on the machine with the card. Each variant
+(VARIANTS) is a copy of csrc/wb_stats.cu (K) or csrc/wb_hist64.cu (L) with
+named text replacements, or a source of its own, built by nvcc into
+build/wb_variants/<name>/ and called through ctypes by the kernel's own C
+entry. Inputs: card_frames' colour frames ("card", seeded) and the
+Alphasense fixture's ("fixture", workloads.fixture_colour), B = 1, 4, 16 at
+1080x1920 and 64 at 1920x1080.
+
+  * K ("K", as built) in each method's mode; simple's limiters:
+    "K_loads" (its count replaced by an xor of the loaded words: the loads
+    alone), "K_runs" (an add a run of equal values in a chunk, the earlier
+    form), "K_copies8" (a private histogram a pair of warps); and K's
+    grid forced to other (cluster, groups) at B = 1, 4 and 16 on card;
+  * L ("L", as built, 8192 slots) and "L_4096" (the earlier table),
+    "L_16384", "L_2way" (a pair of slots a bin), "L_split" (the add and
+    the key's read at once, an add to another bin taken back), "L_u64" (a
+    64-bit (key, count) slot added before its key is checked), "L_strips"
+    (a strip of consecutive chunks a thread), "L_more" (eight blocks an
+    SM in all, not four), "L_sms4" (four blocks an SM, with no floor of a
+    block every 2^17 pixels: the earlier rule), "L_walk" (no add: the
+    pixel walk alone) and "L_dsmem" (the frame's whole histogram in the
+    distributed shared memory of a cluster of 8 blocks of 1024 threads,
+    adds through map_shared_rank);
+    "L_count" and "L_4096_count" count the runs added in the block, those
+    spilled to device memory, the slots flushed and the kept pixels
+    (__device__ counters read back by an added C function).
+
+Each time is measure.device_ms (L's adds pile up over the timed calls, as
+they do in chip_smoke.py). A variant that computes the kernel's function
+is first held to the plain version (record, or histogram from zero);
+"K_loads" and "L_walk" do not. Prints one line per number and, last, a
+JSON line of them all with the card's name and power limit; --out writes
+that JSON to a file as well. Exits 1 if a variant that should be exact
+differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+SIZES = ((1, 1080, 1920), (4, 1080, 1920), (16, 1080, 1920), (64, 1920, 1080))
+PARAMS = {"simple": 20.0, "grey_world": 0.8, "pca": None, "learned": 0.8}
+GRIDS = ((8, 1), (16, 1), (16, 2), (16, 4), (8, 8), (16, 8), (16, 15))
+
+_SIMPLE = """  if constexpr (MODE == kSimple) {  // an add a value: no branch on the data
+#pragma unroll
+    for (int k = 0; k < wbp::kChunk; ++k) {
+      if (!((ch.valid >> k) & 1u)) continue;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) atomicAdd(hist + c * 256 + wbp::byte_at(ch, c, k), 1u);
+    }
+  } else"""
+_SIMPLE_LOADS = """  if constexpr (MODE == kSimple) {  // the loads alone
+    uint32_t x = 0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x ^= ch.v[c][0] ^ ch.v[c][1] ^ ch.v[c][2] ^ ch.v[c][3];
+    if (x == 0x9E3779B9u) atomicAdd(hist, 1u);  // keeps the loads
+  } else"""
+_SIMPLE_RUNS = """  if constexpr (MODE == kSimple) {  // an add a run of equal values
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      int cur = -1;
+      unsigned cnt = 0;
+#pragma unroll
+      for (int k = 0; k < wbp::kChunk; ++k) {
+        if (!((ch.valid >> k) & 1u)) continue;
+        const int v = wbp::byte_at(ch, c, k);
+        if (v != cur) {
+          if (cnt) atomicAdd(hist + c * 256 + cur, cnt);
+          cur = v, cnt = 0;
+        }
+        ++cnt;
+      }
+      if (cnt) atomicAdd(hist + c * 256 + cur, cnt);
+    }
+  } else"""
+
+_ADD_RUN = """  const unsigned s = slot_of(bin);
+  unsigned k = reinterpret_cast<volatile unsigned*>(keys)[s];
+  if (k == EMPTY) {
+    k = atomicCAS(keys + s, EMPTY, bin);
+    if (k == EMPTY) k = bin;  // claimed
+  }
+  if (k == bin) {
+    atomicAdd(cnts + s, cnt);
+  } else {
+    atomicAdd(frame_hist + bin, (int)cnt);
+  }"""
+_ADD_RUN_2WAY = """  unsigned s = slot_of(bin);
+#pragma unroll
+  for (int way = 0; way < 2; ++way, s ^= 1u) {
+    unsigned k = reinterpret_cast<volatile unsigned*>(keys)[s];
+    if (k == EMPTY) {
+      k = atomicCAS(keys + s, EMPTY, bin);
+      if (k == EMPTY) k = bin;
+    }
+    if (k == bin) {
+      atomicAdd(cnts + s, cnt);
+      return;
+    }
+  }
+  atomicAdd(frame_hist + bin, (int)cnt);"""
+_ADD_RUN_SPLIT = """  const unsigned s = slot_of(bin);
+  atomicAdd(cnts + s, cnt);
+  unsigned k = reinterpret_cast<volatile unsigned*>(keys)[s];
+  if (k == EMPTY) {
+    k = atomicCAS(keys + s, EMPTY, bin);
+    if (k == EMPTY) k = bin;
+  }
+  if (k == bin) return;
+  atomicSub(cnts + s, cnt);
+  atomicAdd(frame_hist + bin, (int)cnt);"""
+_ADD_RUN_U64 = """  // slot s is words (2s, 2s + 1) of the table: count, key
+  unsigned long long* slots = reinterpret_cast<unsigned long long*>(keys);
+  const unsigned s = slot_of(bin);
+  const unsigned long long old = atomicAdd(slots + s, (unsigned long long)cnt);
+  if ((unsigned)(old >> 32) == bin) return;
+  if ((unsigned)(old >> 32) == EMPTY) {
+    unsigned long long v = old + cnt;
+    while ((unsigned)(v >> 32) == EMPTY) {
+      const unsigned long long w =
+          atomicCAS(slots + s, v, ((unsigned long long)bin << 32) | (v & 0xFFFFFFFFull));
+      if (w == v) return;
+      v = w;
+    }
+    if ((unsigned)(v >> 32) == bin) return;
+  }
+  atomicAdd(slots + s, 0ull - cnt);
+  atomicAdd(frame_hist + bin, (int)cnt);"""
+_INIT = "  for (int i = t; i < SLOTS; i += THREADS) keys[i] = EMPTY, cnts[i] = 0u;"
+_INIT_U64 = ("  for (int i = t; i < SLOTS; i += THREADS) {\n"
+             "    reinterpret_cast<unsigned long long*>(keys)[i] = (unsigned long long)EMPTY << 32;\n"
+             "  }")
+_FLUSH = "    if (cnts[i]) atomicAdd(frame_hist + keys[i], (int)cnts[i]);"
+_FLUSH_U64 = ("    const unsigned long long v = reinterpret_cast<unsigned long long*>(keys)[i];\n"
+              "    if ((unsigned)v) atomicAdd(frame_hist + (unsigned)(v >> 32), (int)(unsigned)v);")
+_RUN = """      if (bin != cur) {
+        if (cnt) add_run(cur, cnt, keys, cnts, frame_hist);
+        cur = bin, cnt = 0;
+      }
+      ++cnt;"""
+_LAST = "  if (cnt) add_run(cur, cnt, keys, cnts, frame_hist);\n  __syncthreads();"
+_WALK = """  const long long per = (fr.chunks + gridDim.x - 1) / gridDim.x;
+  const long long c1 = min(fr.chunks, (blockIdx.x + 1) * per);
+  long long c = blockIdx.x * per + t;"""
+_WALK_STRIPS = """  const long long per = (fr.chunks + gridDim.x - 1) / gridDim.x;
+  const long long b0 = blockIdx.x * per, b1 = min(fr.chunks, b0 + per);
+  const long long strip = (b1 - b0 + THREADS - 1) / THREADS;
+  long long c = b0 + t * strip;
+  const long long c1 = min(b1, c + strip);"""
+_COUNTERS = ("__device__ unsigned long long g_counts[4];  // runs in the block, spilled, "
+             "flushed, kept pixels\n\nnamespace {")
+_COUNTS_READ = """
+extern "C" int wb_variant_counts(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_counts, sizeof(g_counts));
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));
+  return (int)e;
+}
+"""
+
+
+def _counting(slots_repl=()):
+    return list(slots_repl) + [
+        ("namespace {", _COUNTERS),
+        ("  if (k == bin) {\n    atomicAdd(cnts + s, cnt);\n  } else {",
+         "  if (k == bin) {\n    atomicAdd(cnts + s, cnt);\n    atomicAdd(&g_counts[0], 1ull);\n"
+         "  } else {\n    atomicAdd(&g_counts[1], 1ull);"),
+        (_FLUSH, "    if (cnts[i]) {\n      atomicAdd(frame_hist + keys[i], (int)cnts[i]);\n"
+                 "      atomicAdd(&g_counts[2], 1ull);\n    }"),
+        ("      ++cnt;\n    }\n    c = cn;",
+         "      ++cnt;\n      atomicAdd(&g_counts[3], 1ull);\n    }\n    c = cn;"),
+    ]
+
+
+_SLOTS_4096 = [("constexpr int SLOTS = 8192; ", "constexpr int SLOTS = 4096; "),
+               ("constexpr int LOG_SLOTS = 13;", "constexpr int LOG_SLOTS = 12;")]
+_SLOTS_16384 = [("constexpr int SLOTS = 8192; ", "constexpr int SLOTS = 16384;"),
+                ("constexpr int LOG_SLOTS = 13;", "constexpr int LOG_SLOTS = 14;")]
+
+# the frame's whole 64^3 histogram in the distributed shared memory of a
+# cluster of 8 blocks: block o owns the bins whose bits 3-5 read o (runs of
+# 8 bins), adds go through map_shared_rank, each block writes its bins once
+DSMEM_SOURCE = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wb_planes.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int CLUSTER = 8, LOG_CLUSTER = 3, THREADS = 1024;
+constexpr int HIST64 = 64 * 64 * 64, OWN = HIST64 / CLUSTER, SMEM = OWN * 4;
+constexpr int RECORD = 7, HI = 4;
+
+struct Params {
+  const uint8_t* b;
+  const uint8_t* g;
+  const uint8_t* r;
+  long long sb, sy, sx;
+  int h, w, t255;
+  const long long* record;
+  int* hist;
+};
+
+__device__ __forceinline__ void add_run(cg::cluster_group& cluster, unsigned* own, unsigned bin,
+                                        unsigned cnt) {
+  const unsigned owner = (bin >> 3) & (CLUSTER - 1);
+  const unsigned local = ((bin >> (3 + LOG_CLUSTER)) << 3) | (bin & 7u);
+  atomicAdd(cluster.map_shared_rank(own + local, owner), cnt);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) dsmem_kernel(const Params p) {
+  extern __shared__ uint4 smem[];
+  unsigned* own = reinterpret_cast<unsigned*>(smem);
+  __shared__ unsigned idx[256];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int f = blockIdx.y, t = threadIdx.x;
+  const wbp::Frame fr = wbp::frame_of(p.b, p.g, p.r, p.sb, p.sy, p.sx, p.h, p.w, f);
+  const long long per = (fr.chunks + CLUSTER - 1) / CLUSTER;
+  const long long c1 = min(fr.chunks, (rank + 1) * per);
+  long long c = rank * per + t;
+  wbp::Chunk next;
+  if (c < c1) wbp::load_chunk(fr, c, next);
+  for (int i = t; i < OWN / 4; i += THREADS) smem[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (t < 256) {
+    const float hi = (float)max(p.record[(long long)f * RECORD + HI], 64LL);
+    const float q = floorf(__fdiv_rn(__fmul_rn((float)t, 64.0f), hi));
+    idx[t] = (unsigned)fminf(fmaxf(q, 0.0f), 63.0f);
+  }
+  cluster.sync();
+  unsigned cur = 0xFFFFFFFFu, cnt = 0;
+  while (c < c1) {
+    const wbp::Chunk ch = next;
+    const long long cn = c + THREADS;
+    if (cn < c1) wbp::load_chunk(fr, cn, next);
+#pragma unroll
+    for (int k = 0; k < wbp::kChunk; ++k) {
+      int b, g, r;
+      wbp::pixel_at(ch, k, b, g, r);
+      if (!((ch.valid >> k) & 1u) || max(max(b, g), r) >= p.t255) continue;
+      const unsigned bin = (idx[b] << 12) | (idx[g] << 6) | idx[r];
+      if (bin != cur) {
+        if (cnt) add_run(cluster, own, cur, cnt);
+        cur = bin, cnt = 0;
+      }
+      ++cnt;
+    }
+    c = cn;
+  }
+  if (cnt) add_run(cluster, own, cur, cnt);
+  cluster.sync();
+  int* frame_hist = p.hist + (long long)f * HIST64;
+  for (int i = t; i < OWN / 8; i += THREADS) {
+    int4* d = reinterpret_cast<int4*>(frame_hist + ((long long)i << (3 + LOG_CLUSTER)) +
+                                      (rank << 3));
+    const int4* s = reinterpret_cast<const int4*>(smem + 2 * i);
+    d[0] = s[0], d[1] = s[1];
+  }
+}
+
+}  // namespace
+
+extern "C" int isp_wb_hist64(const void* b, const void* g, const void* r, long long sb,
+                             long long sy, long long sx, int batch, int h, int w, int t255,
+                             const void* record, void* hist, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(dsmem_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  Params p;
+  p.b = (const uint8_t*)b, p.g = (const uint8_t*)g, p.r = (const uint8_t*)r;
+  p.sb = sb, p.sy = sy, p.sx = sx, p.h = h, p.w = w, p.t255 = t255;
+  p.record = (const long long*)record, p.hist = (int*)hist;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER, batch, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dsmem_kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+"""
+
+# name -> (kernel "K" or "L", source file or a source of its own, replacements, exact)
+VARIANTS = {
+    "K": ("K", "wb_stats.cu", [], True),
+    "K_loads": ("K", "wb_stats.cu", [(_SIMPLE, _SIMPLE_LOADS)], False),
+    "K_runs": ("K", "wb_stats.cu", [(_SIMPLE, _SIMPLE_RUNS)], True),
+    "K_copies8": ("K", "wb_stats.cu", [("constexpr int COPIES = 16;",
+                                        "constexpr int COPIES = 8;")], True),
+    "L": ("L", "wb_hist64.cu", [], True),
+    "L_4096": ("L", "wb_hist64.cu", _SLOTS_4096, True),
+    "L_16384": ("L", "wb_hist64.cu", _SLOTS_16384, True),
+    "L_2way": ("L", "wb_hist64.cu", [(_ADD_RUN, _ADD_RUN_2WAY)], True),
+    "L_split": ("L", "wb_hist64.cu", [(_ADD_RUN, _ADD_RUN_SPLIT)], True),
+    "L_u64": ("L", "wb_hist64.cu", [(_ADD_RUN, _ADD_RUN_U64), (_INIT, _INIT_U64),
+                                    (_FLUSH, _FLUSH_U64)], True),
+    "L_strips": ("L", "wb_hist64.cu", [(_WALK, _WALK_STRIPS),
+                                       ("const long long cn = c + THREADS;",
+                                        "const long long cn = c + 1;")], True),
+    "L_more": ("L", "wb_hist64.cu", [("(4LL * sms[dev] + batch - 1) / batch",
+                                      "(8LL * sms[dev] + batch - 1) / batch")], True),
+    "L_sms4": ("L", "wb_hist64.cu", [("((long long)h * w + (1 << 17) - 1) >> 17", "1LL")], True),
+    "L_walk": ("L", "wb_hist64.cu", [(_RUN, "      cnt += bin;"),
+                                     (_LAST, "  if (cnt == 0x9E3779B9u) atomicAdd(frame_hist, 1);"
+                                             "\n  __syncthreads();")], False),
+    "L_dsmem": ("L", DSMEM_SOURCE, [], True),
+    "L_count": ("L", "wb_hist64.cu", _counting(), True),
+    "L_4096_count": ("L", "wb_hist64.cu", _counting(_SLOTS_4096), True),
+}
+
+
+def variant_source(name: str, csrc: str) -> str:
+    """The source text of variant `name` from the sources in `csrc`."""
+    _, src, repl, _ = VARIANTS[name]
+    if src.endswith(".cu"):
+        with open(os.path.join(csrc, src)) as f:
+            text = f.read()
+    else:
+        text = src
+    for old, new in repl:
+        if old not in text:
+            raise ValueError(f"variant {name}: no {old[:60]!r} in its source")
+        text = text.replace(old, new)
+    return text + (_COUNTS_READ if name.endswith("_count") else "")
+
+
+def _build(names, csrc: str, out_dir: str, kernels) -> dict:
+    """Each variant built by nvcc into out_dir/<name>/lib.so, in parallel;
+    name -> ctypes library with the kernel's C entry bound."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    procs = {}
+    for name in names:
+        d = os.path.join(out_dir, name)
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(os.path.join(csrc, "wb_planes.cuh"), d)
+        with open(os.path.join(d, "variant.cu"), "w") as f:
+            f.write(variant_source(name, csrc))
+        procs[name] = subprocess.Popen(
+            [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", os.path.join(d, "lib.so"),
+             os.path.join(d, "variant.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    libs = {}
+    for name, p in procs.items():
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log[-3000:]}")
+        lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
+        if VARIANTS[name][0] == "K":
+            lib.isp_wb_stats.argtypes = kernels._SIGNATURES["isp_wb_stats"]
+            lib.isp_wb_stats_limits.argtypes = kernels._SIGNATURES["isp_wb_stats_limits"]
+        else:
+            lib.isp_wb_hist64.argtypes = kernels._SIGNATURES["isp_wb_hist64"]
+        libs[name] = lib
+    return libs
+
+
+def _k_call(torch, wb, learned_wb, lib, pl, method, param, sms, grid=None):
+    """(fn, record) of a K variant on planes pl on its default grid, or `grid`."""
+    b, h, w = pl[0].shape
+    mode = wb.METHODS.index(method)
+    shape, dtype = wb.RECORD[method]
+    rec = torch.empty((b,) + shape, dtype=dtype, device="cuda")
+    hist = (torch.empty((b, learned_wb.N_BINS), dtype=torch.int32, device="cuda")
+            if method == "learned" else None)
+    t255 = (learned_wb.learned_t255(param) if method == "learned"
+            else wb.grey_world_t255(param) if method == "grey_world" else 0)
+    resident, largest = ctypes.c_int(0), ctypes.c_int(0)
+    if lib.isp_wb_stats_limits(mode, ctypes.byref(resident), ctypes.byref(largest)):
+        raise RuntimeError("isp_wb_stats_limits failed")
+    cluster, groups = grid or wb.wb_stats_grid(b, h * w, sms, resident.value, largest.value)
+    ws = tickets = None
+    if groups > 1:
+        size, ws_dtype = wb.WB_PARTIAL[method]
+        ws = torch.empty((b, groups, size), dtype=ws_dtype, device="cuda")
+        tickets = torch.zeros(b, dtype=torch.int32, device="cuda")
+    args = (mode, *(p.data_ptr() for p in pl), *pl[0].stride(), b, h, w, t255, rec.data_ptr(),
+            None if hist is None else hist.data_ptr(), cluster, groups,
+            None if ws is None else ws.data_ptr(), None if tickets is None else tickets.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    def fn():
+        err = lib.isp_wb_stats(*args)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return (rec, hist, ws, tickets)  # the buffers live as long as fn
+
+    return fn, rec
+
+
+def _l_call(torch, lib, pl, record, t255):
+    b, h, w = pl[0].shape
+    hist = torch.zeros((b, 64 ** 3), dtype=torch.int32, device="cuda")
+    args = (*(p.data_ptr() for p in pl), *pl[0].stride(), b, h, w, t255, record.data_ptr(),
+            hist.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    def fn():
+        err = lib.isp_wb_hist64(*args)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return hist
+
+    return fn, hist
+
+
+def measure_all(torch, libs, smi: str) -> dict:
+    from raw_image_pipeline_tpu_torch.ops import learned_wb
+    from raw_image_pipeline_tpu_torch.ops import white_balance as wb
+    from raw_image_pipeline_tpu_torch.tools import measure, workloads
+    from raw_image_pipeline_tpu_torch.utils import image_io
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    bgr = image_io.imread(os.path.join(root, "tests", "fixtures", "alphasense.png"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {"card": smi, "K": {}, "L": {}, "grid": {}, "spill": {}, "differs": []}
+
+    def record(table, key, ms):
+        res[table][key] = ms
+        print(f"{table} {key}: {ms:.4f} ms [{smi}]", flush=True)
+
+    for family in ("card", "fixture"):
+        for b, h, w in SIZES:
+            x = (workloads.card_frames(torch, "color", b, h, w, workloads.SEED + b)
+                 if family == "card" else workloads.fixture_colour(torch, bgr, b, h, w))
+            pl = tuple(x[..., c].contiguous() for c in range(3))
+            del x
+            for method, param in PARAMS.items():
+                want = wb.wb_stats_plain(pl, method, param)
+                for name, (kern, _, _, exact) in VARIANTS.items():
+                    if kern != "K" or (name != "K" and method != "simple"):
+                        continue
+                    fn, rec = _k_call(torch, wb, learned_wb, libs[name], pl, method, param, sms)
+                    fn()
+                    if exact and not torch.equal(rec, want):
+                        res["differs"].append(f"{name} {method} {family} B={b}")
+                    record("K", f"{name} {method} {family} B={b}", measure.device_ms(fn))
+                if family == "card" and b < 64:
+                    for grid in GRIDS:
+                        if grid[0] * grid[1] * b <= 4 * sms and method in ("simple", "grey_world"):
+                            fn, _ = _k_call(torch, wb, learned_wb, libs["K"], pl, method, param,
+                                            sms, grid)
+                            record("grid", f"K {grid[0]}x{grid[1]} {method} B={b}",
+                                   measure.device_ms(fn))
+                if method != "learned":
+                    continue
+                t255 = learned_wb.learned_t255(param)
+                want_hist = learned_wb.hist64_plain(pl, want, t255)
+                for name, (kern, _, _, exact) in VARIANTS.items():
+                    if kern != "L":
+                        continue
+                    fn, hist = _l_call(torch, libs[name], pl, want, t255)
+                    fn()
+                    torch.cuda.synchronize()
+                    if exact and not torch.equal(hist, want_hist):
+                        res["differs"].append(f"{name} {family} B={b}")
+                    if name.endswith("_count"):
+                        counts = (ctypes.c_ulonglong * 4)()
+                        libs[name].wb_variant_counts(counts)  # the counts of the call above
+                        in_block, spilled, flushed, kept = list(counts)
+                        runs = in_block + spilled
+                        res["spill"][f"{name} {family} B={b}"] = dict(
+                            runs=runs, spilled=spilled, flushed=flushed, kept_pixels=kept,
+                            spilled_share=spilled / max(runs, 1))
+                        print(f"spill {name} {family} B={b}: {runs} runs of {kept} kept pixels, "
+                              f"{spilled} spilled ({100 * spilled / max(runs, 1):.2f}%), "
+                              f"{flushed} slots flushed", flush=True)
+                        continue
+                    record("L", f"{name} {family} B={b}", measure.device_ms(fn))
+                del want_hist
+            del pl
+            torch.cuda.empty_cache()
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="also write the JSON line to this file")
+    args = ap.parse_args(argv)
+    import torch
+
+    from raw_image_pipeline_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print("wb_variants: no CUDA card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    kernels.LIBRARY.get()
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    libs = _build(VARIANTS, kernels.CSRC_DIR, os.path.join(root, "build", "wb_variants"), kernels)
+    res = measure_all(torch, libs, smi)
+    line = json.dumps(res)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    if res["differs"]:
+        print(f"wb_variants: differ from the plain versions: {res['differs']}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -309,16 +309,72 @@ def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int, device="cud
     return out
 
 
-def fixture_frames(torch, bgr, n: int, h: int, w: int, device="cuda"):
-    """n [h, w] bayer_gbrg8 frames of real content: the BGR image `bgr` (the
+def fixture_colour(torch, bgr, n: int, h: int, w: int, device="cuda"):
+    """n [h, w, 3] BGR frames of real content: the BGR image `bgr` (the
     repository's Alphasense fixture, 720x540) resized bilinearly to
     (h, w), frame k turned 8k pixels to the right (wrapping round) so that
-    no two frames are equal, then mosaicked."""
+    no two frames are equal."""
     img = torch.as_tensor(bgr, device=device).permute(2, 0, 1)[None].float()
     img = torch.nn.functional.interpolate(img, size=(h, w), mode="bilinear",
                                           align_corners=False)
     img = img.round().clamp(0, 255).to(torch.uint8)[0].permute(1, 2, 0)
-    return mosaic_gbrg(torch.stack([torch.roll(img, 8 * k, dims=1) for k in range(n)]))
+    return torch.stack([torch.roll(img, 8 * k, dims=1) for k in range(n)])
+
+
+def fixture_frames(torch, bgr, n: int, h: int, w: int, device="cuda"):
+    """n [h, w] bayer_gbrg8 frames of real content: fixture_colour's frames,
+    mosaicked."""
+    return mosaic_gbrg(fixture_colour(torch, bgr, n, h, w, device))
+
+
+# frames at the statistical white balances' hard cases (wb_frames): one
+# colour; every one of learned's 64^3 bins kept (at a threshold of 1.0,
+# t255 = 255); a smooth ramp; uniform noise; the fixture's content; one bin
+# (and one value a channel) holding more than 65 535 pixels
+WB_FAMILIES = ("constant", "all_bins", "ramp", "noise", "fixture", "big_bin")
+WB_BIG_BIN = 65_600  # pixels of big_bin's one colour
+WB_ALL_BINS = 64 ** 3 + 1  # all_bins' least pixels: every bin, and one pixel at 255
+
+
+def _wb_frame(kind: str, h: int, w: int, rng) -> np.ndarray:
+    n = h * w
+    if kind == "constant":  # kept at learned's threshold of 0.8 (t255 = 204)
+        return np.broadcast_to(rng.integers(0, 200, 3).astype(np.uint8), (h, w, 3)).copy()
+    if kind == "noise":
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if kind == "ramp":
+        yy, xx = np.mgrid[0:h, 0:w]
+        return np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                         (xx + yy) * 255 // max(h + w - 2, 1)], -1).astype(np.uint8)
+    if kind == "big_bin":
+        if n < WB_BIG_BIN:
+            raise ValueError(f"big_bin needs {WB_BIG_BIN} pixels, got {h}x{w}")
+        x = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+        x[rng.choice(n, WB_BIG_BIN, replace=False)] = (90, 140, 60)
+        return x.reshape(h, w, 3)
+    if kind == "all_bins":
+        if n < WB_ALL_BINS:
+            raise ValueError(f"all_bins needs {WB_ALL_BINS} pixels, got {h}x{w}")
+        # value ceil(255 i / 64) has index i at hi = 255 (floor(v * 64 / 255))
+        v = -(-np.arange(64) * 255 // 64)
+        i = np.arange(64 ** 3)
+        x = rng.integers(0, 253, (n, 3)).astype(np.uint8)
+        at = rng.permutation(n)
+        x[at[:64 ** 3]] = np.stack([v[i >> 12], v[(i >> 6) & 63], v[i & 63]], -1)
+        x[at[64 ** 3]] = 255  # hi = 255, a pixel not kept at t255 = 255
+        return x.reshape(h, w, 3)
+    raise ValueError(f"unknown frame family {kind!r}")
+
+
+def wb_frames(torch, kind: str, n: int, h: int, w: int, seed: int, bgr=None, device="cuda"):
+    """n [h, w, 3] u8 BGR frames of the family `kind` (WB_FAMILIES), made
+    from numpy's generator seeded with `seed` (frame k from seed + k), so
+    the CPU and the card see the same frames; "fixture" is fixture_colour
+    of `bgr`."""
+    if kind == "fixture":
+        return fixture_colour(torch, bgr, n, h, w, device)
+    x = np.stack([_wb_frame(kind, h, w, np.random.default_rng(seed + k)) for k in range(n)])
+    return torch.as_tensor(x, device=device)
 
 
 def mosaic_gbrg(bgr):

@@ -197,6 +197,164 @@ def test_record_equals_numpy(hw):
         assert rec[i, plearned.PIXEL] == b | (g << 8) | (r << 16)
 
 
+# --- the frame families of kernels K's and L's hard cases ----------------------
+# (tools/workloads.wb_frames, made from a numpy seed): each against the JAX
+# functions at a tolerance of 0 (bit for bit), its record and histogram
+# against numpy. 260x256 holds big_bin's 65 600 pixels of one colour;
+# all_bins needs 64^3 + 1 pixels.
+FAMILY_HW = {"all_bins": (513, 512)}
+_FIXTURE = None
+
+
+def family(kind, n=2):
+    global _FIXTURE
+    from raw_image_pipeline_tpu_torch.tools import workloads
+    from raw_image_pipeline_tpu_torch.utils import image_io
+
+    if kind == "fixture" and _FIXTURE is None:
+        _FIXTURE = image_io.imread(os.path.join(REPO, "tests", "fixtures", "alphasense.png"))
+    h, w = FAMILY_HW.get(kind, (260, 256))
+    return workloads.wb_frames(torch, kind, n, h, w, 30, bgr=_FIXTURE, device="cpu").numpy()
+
+
+FAMILIES = ("constant", "all_bins", "ramp", "noise", "fixture", "big_bin")
+
+
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_family_simple_and_grey_world_equal_reference(kind):
+    x = family(kind)
+    counts = pwb.wb_stats_plain(planes_of(x), "simple", 20.0)
+    assert mismatches(counts.numpy(), np.asarray(jwb._channel_hists(x))) == 0
+    v = x.reshape(len(x), -1, 3)
+    for i in range(len(x)):
+        for c in range(3):
+            np.testing.assert_array_equal(counts[i, c].numpy(),
+                                          np.bincount(v[i, :, c], minlength=256))
+    if kind in ("constant", "big_bin"):  # one value of a channel past 65 535 pixels
+        assert int(counts.max()) > 65_535
+    for p in (2.0, 35.0):
+        assert mismatches(three_steps(x, "simple", p), jwb.balance_white_simple(x, p)) == 0, p
+    for thr in (0.8, 1.2):
+        assert mismatches(three_steps(x, "grey_world", thr),
+                          jwb.balance_white_grey_world(x, thr)) == 0, thr
+
+
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_family_pca_equals_reference(kind):
+    x = family(kind)
+    stats = pwb.wb_stats_plain(planes_of(x), "pca").numpy()
+    v = x.reshape(len(x), -1, 3).astype(np.int64)
+    np.testing.assert_array_equal(stats[..., 0], v.sum(1))
+    np.testing.assert_array_equal(stats[..., 1], (v * v).sum(1))
+    np.testing.assert_array_equal(stats[..., 2], v.max(1))
+    assert mismatches(three_steps(x, "pca", None), jwb.balance_white_pca(x)) == 0
+
+
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_family_learned_histogram_and_features_equal_reference(kind):
+    # all_bins keeps every bin at a threshold of 1.0 (t255 = 255)
+    thr = 1.0 if kind == "all_bins" else 0.8
+    t255 = plearned.learned_t255(thr)
+    x = family(kind)
+    planes = planes_of(x)
+    record = pwb.wb_stats_plain(planes, "learned", thr)
+    hist = plearned.hist64_plain(planes, record, t255)
+    v = x.reshape(len(x), -1, 3).astype(np.int64)
+    for i in range(len(x)):
+        keep = v[i].max(-1) < t255
+        hi = np.float32(max(int(v[i].max()), 64))
+        idx = np.floor(v[i].astype(np.float32) * np.float32(64) / hi)
+        idx = np.clip(idx, 0, 63).astype(np.int64)
+        bins = (idx[:, 0] * 64 + idx[:, 1]) * 64 + idx[:, 2]
+        np.testing.assert_array_equal(hist[i].numpy(),
+                                      np.bincount(bins[keep], minlength=plearned.N_BINS))
+        assert record[i, plearned.KEPT] == keep.sum()
+    if kind == "all_bins":
+        assert bool((hist > 0).all())
+    if kind in ("constant", "big_bin"):
+        assert int(hist.max()) > 65_535
+    got = plearned.features_plain(record, hist).numpy()
+    want = np.stack([np.asarray(jlearned._extract_features(f, t255)) for f in x])
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert mismatches(three_steps(x, "learned", thr),
+                      jlearned.balance_white_learned_model(x, thr)) == 0
+
+
+# --- kernel K's grid and kernel L's bin ownership, as the kernels compute them --
+
+
+def _source_constant(name, source):
+    import re
+
+    with open(os.path.join(REPO, "raw_image_pipeline_tpu_torch", "csrc", source)) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+def test_host_constants_equal_the_kernels():
+    assert pwb.WB_STATS_THREADS == _source_constant("THREADS", "wb_stats.cu")
+    assert pwb.MAX_WB_CLUSTER == _source_constant("MAX_CLUSTER", "wb_stats.cu")
+    assert pwb.WB_CHUNK == _source_constant("kChunk", "wb_planes.cuh")
+    for method, (size, dtype) in pwb.WB_PARTIAL.items():
+        # a cluster's partial: the counts of the record (simple), else the
+        # values a thread carries (learned's pixel is found at the end)
+        shape, rec_dtype = pwb.RECORD[method]
+        assert dtype == rec_dtype
+        assert size == int(np.prod(shape)) - (method == "learned")
+
+
+@pytest.mark.parametrize("sms,resident", [(132, 2), (114, 2), (132, 1)])
+def test_wb_stats_grid_fills_the_card_twice(sms, resident):
+    for pixels in (1920 * 1080, 1439 * 1079, 17 * 31, 15):
+        # no block with fewer than 4 chunks a thread (but one a frame)
+        cap = -(-(-(-pixels // pwb.WB_CHUNK)) // (4 * pwb.WB_STATS_THREADS))
+        for largest in (16, 8):
+            for b in range(1, 65536):
+                cluster, groups = pwb.wb_stats_grid(b, pixels, sms, resident, largest)
+                want = max(1, min(2 * sms * resident // b, cap))
+                blocks = cluster * groups
+                assert cluster & (cluster - 1) == 0 and 1 <= cluster <= largest, (b, cluster)
+                assert groups >= 1 and blocks <= want, (b, blocks, want)
+                assert 2 * blocks > want, (b, blocks, want)  # at least half the wave
+                assert groups == 1 or cluster == largest, (b, cluster, groups)
+    # an H100's 132 SMs, two blocks each: a 1920x1080 frame over 64 blocks
+    # at B = 1 and 4, over 32 at B=16, 8 blocks a frame at B=64
+    grid = {b: pwb.wb_stats_grid(b, 1920 * 1080, 132, 2) for b in (1, 4, 16, 64, 265)}
+    assert grid == {1: (16, 4), 4: (16, 4), 16: (16, 2), 64: (8, 1), 265: (1, 1)}
+
+
+def chunk_runs(chunks, blocks):
+    """The [c0, c1) run of a frame's chunks that each of kernel K's blocks
+    takes, as the kernel splits them: ceil(chunks / blocks) each in order,
+    the last ones shorter or empty."""
+    per = -(-chunks // blocks)
+    return [(min(chunks, q * per), min(chunks, (q + 1) * per)) for q in range(blocks)]
+
+
+def test_chunk_runs_read_every_chunk_once():
+    for h, w in ((1080, 1920), (1079, 1439), (17, 31), (3, 5), (1, 1)):
+        for head in (0, 1, 7, 15):  # a frame's first byte's address modulo 16
+            chunks = (head + h * w + pwb.WB_CHUNK - 1) // pwb.WB_CHUNK
+            for b in (1, 3, 4, 16, 64, 200):
+                cluster, groups = pwb.wb_stats_grid(b, h * w, 132, 2)
+                read = np.zeros(chunks, np.int64)
+                for c0, c1 in chunk_runs(chunks, cluster * groups):
+                    read[c0:c1] += 1
+                assert (read == 1).all(), (h, w, head, b)
+
+
+def test_wb_variants_apply_to_the_sources():
+    # tools/wb_variants.py builds its limiter variants from the kernels'
+    # sources by text replacements: each must still find its text
+    from raw_image_pipeline_tpu_torch.tools import wb_variants
+
+    for name, (kern, src, repl, _) in wb_variants.VARIANTS.items():
+        text = wb_variants.variant_source(name, kernels.CSRC_DIR)
+        assert ("isp_wb_stats(" if kern == "K" else "isp_wb_hist64(") in text, name
+        if repl:
+            with open(os.path.join(REPO, "raw_image_pipeline_tpu_torch", "csrc", src)) as f:
+                assert text != f.read(), name
+
+
 # --- the table step: a slab of rows, the plain pointwise path -----------------
 
 
@@ -268,7 +426,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_kernels_are_bound():
-    for k, n_args in ((kernels.WB_STATS, 14), (kernels.WB_HIST64, 13), (kernels.WB_TABLES, 15)):
+    for k, n_args in ((kernels.WB_STATS, 18), (kernels.WB_HIST64, 13), (kernels.WB_TABLES, 15)):
         assert k in kernels.ALL and len(kernels._SIGNATURES[k.entry]) == n_args
         assert os.path.basename(k.source) in kernels.SOURCES
         assert os.path.exists(os.path.join(REPO, k.source))
@@ -293,8 +451,8 @@ def card():
 
 def _card_cases(dev):
     """(label, planes) on the card: the shapes above, noise, a view 1 byte
-    off a 16-byte boundary, interleaved planes (column stride 3) and the
-    edge frames."""
+    off a 16-byte boundary, interleaved planes (column stride 3), the
+    edge frames and the frame families."""
     cases = []
     for hw in SHAPES + [(270, 361)]:
         x = torch.as_tensor(frames(20, hw), device=dev)
@@ -309,13 +467,16 @@ def _card_cases(dev):
     cases.append(("off1", (off[..., 0], off[..., 1], off[..., 2])))
     noise = torch.randint(0, 256, (3, 3, 64, 96), dtype=torch.uint8, device=dev)
     cases.append(("noise", tuple(noise[:, c] for c in range(3))))
+    for kind in FAMILIES:  # at 260x256 (all_bins 513x512), as on the CPU
+        x = torch.as_tensor(family(kind), device=dev)
+        cases.append((kind, tuple(x[..., c].contiguous() for c in range(3))))
     return cases
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("method,param", [("simple", 20.0), ("grey_world", 0.8),
                                           ("grey_world", 1.2), ("pca", None),
-                                          ("learned", 0.8)])
+                                          ("learned", 0.8), ("learned", 1.0)])
 def test_kernels_k_l_m_equal_plain_on_card(card, method, param):
     for label, planes in _card_cases(card):
         h, w = planes[0].shape[-2:]

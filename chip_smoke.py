@@ -69,6 +69,16 @@ per source, into build/kernels/), then:
                        3, and on all 2^24 BGR triples as one 4096x4096
                        frame; timed at B=4 and B=64 beside the plain
                        version and the bound (operations);
+       N flip        — 0 mismatching bytes against torch.flip (its plain
+                       version) at 90, 180 and 270: B=4 1080x1920 mosaics
+                       whole and in slabs of rows, three planes of one set
+                       of strides in one launch, a view 1 byte off, B=64
+                       at 90 (the wb_* chains' call), odd sizes (1079x1439,
+                       1081x1920, 17x31, 1x5, 5x1), u16, [..., 3] u8 and
+                       f32 frames and f64 pairs, each call's launches
+                       counted (check_flip); timed at B=4 (each angle) and
+                       B=64 (90, 180) beside the plain version, the bound
+                       and torch.flip alone (library_ms);
      then the ccc_range phase (check_ccc_range): the CCC range's own
      kernels against their plain versions, at the shapes the chain gives
      them:
@@ -105,7 +115,7 @@ per source, into build/kernels/), then:
                        timed at B=4 ("sequence" and "cameras"), B=64 and
                        512 frames beside its latency floor;
      then one flagship call at 1920x1080, B=4, must launch H, B, C, I and J
-     once each (8 grids), and its profiled isp_white_balance range must
+     once each (8 grids) and its flip (N) once, and its profiled isp_white_balance range must
      hold those 8 kernels and no copy, set or synchronising API call (the
      call profiled up to 3 times until a trace shows the range; none
      fails the phase);
@@ -122,12 +132,19 @@ per source, into build/kernels/), then:
                      interleaved planes, and edge frames (saturated, black,
                      a constant channel, planted equal brightest sums in
                      the body and the tail, noise) at 45x61 and 1079x1439;
+                     M's learned mode (a thread-block cluster a frame) on
+                     synthetic 64^3 histograms (workloads.learned_histograms:
+                     ties at T across every block boundary, 299-301
+                     occupied bins, one bin, all counts equal, a max count
+                     of 2^21 - 1, an empty one) at the rule's cluster and
+                     each size forced (M_CLUSTERS);
                      the mono chain's LUT (G's table step on one plane)
                      against the plain gather; each timed at B=4 and B=64
                      beside its plain version and its bound, torch.bincount
-                     of the same bins as K's (simple) and L's library time;
-                     each wb_* chain at B=64 launches K and M (and L) once a
-                     call, and its profiled isp_white_balance range holds at
+                     of the same bins as K's (simple) and L's library time,
+                     M's learned mode also at each cluster size forced;
+                     each wb_* chain at B=64 launches K and M (and L) and
+                     its flip (N) once a call, and its profiled isp_white_balance range holds at
                      most 3 kernels (4 for learned) and no bincount, topk or
                      sort, copy, set or synchronising API call;
      then the ops phase (check_ops): the reference package's entry points
@@ -140,7 +157,8 @@ per source, into build/kernels/), then:
      remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with
      one map and with per-camera maps, color_correct, vignetting.correct
      and enhance (G), balance_white_simple, _grey_world, _pca and
-     balance_white_learned_model (K, M, L, G) and apply_lut (G); each
+     balance_white_learned_model (K, M, L, G), apply_lut (G) and flip at
+     90, 180 and 270 (N); each
      against plain=True on the card and the planar
      path of the chain, 0 mismatching bytes, with its device time; then
      (check_ops_contract) the calls the JAX package takes that the kernels
@@ -154,18 +172,18 @@ per source, into build/kernels/), then:
   2. drives each chain through build_pipeline(config, encoding,
      with_state=True, temporal_mode="sequence", device="cuda"), the Kalman
      state carried across the calls, at 1920x1080:
-       flagship   — flagship_config(h, w), also at 1440x1080 (A, H, B, C, I,
-                    J, G, F);
+       flagship   — flagship_config(h, w), also at 1440x1080 (N, A, H, B,
+                    C, I, J, G, F);
        gpu_parity — MHT demosaic and the BT.709 gamma, the reference's
-                    use_gpu=True semantics, also at 1440x1080 (D, H, B, C,
-                    I, J, G, F);
-       float      — the float remap (A, H, B, C, I, J, G, E);
-       fixed32    — the fixed32 remap (A, H, B, C, I, J, G, F);
+                    use_gpu=True semantics, also at 1440x1080 (N, D, H, B,
+                    C, I, J, G, F);
+       float      — the float remap (N, A, H, B, C, I, J, G, E);
+       fixed32    — the fixed32 remap (N, A, H, B, C, I, J, G, F);
          (each 8 seeded frames in 2 calls)
        wb_simple, wb_grey_world, wb_pca, wb_learned — BASELINE config 2:
                     debayer, flip 90 and the statistical white balance,
-                    128 frames made on the card in 2 calls of B=64 (A, K,
-                    M, L for learned, G's table step);
+                    128 frames made on the card in 2 calls of B=64 (N, A,
+                    K, M, L for learned, G's table step);
        pointwise_bgr8 — BASELINE config 4: colour calibration, vignetting
                     and the HSV enhancer on 512 bgr8 frames in one call
                     with microbatch=128 (G), its peak device memory
@@ -1399,8 +1417,9 @@ def check_ccc_range(tp, torch, rng, root, smi_line):
     grids = sum(k.launches * k.grids for k in mine)
     print(f"flagship 1920x1080 B=4, one call: CCC range launches "
           f"{ {k.name: k.launches for k in mine} } ({grids} grids); all {counts}")
-    if any(k.launches != 1 for k in mine):
-        raise AssertionError(f"the flagship's CCC range: a kernel not launched once: {counts}")
+    if any(k.launches != 1 for k in mine) or counts["flip"] != 1:
+        raise AssertionError(f"the flagship's CCC range or its flip (N): a kernel not launched "
+                             f"once: {counts}")
     path = os.path.join(root, "build", "ccc_range_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     for attempt in range(1, 4):  # a trace may come back without the device's work
@@ -1445,6 +1464,7 @@ WB_SHAPES = ((64, 1920, 1080), (4, 1080, 1920), (3, 1079, 1439), (3, 17, 31), (3
 # spread over the card (1, 4, 16), the wb_* chains' call (64)
 WB_TIMED = (("b1", (1, 1080, 1920)), ("b4", (4, 1080, 1920)), ("b16", (16, 1080, 1920)),
             ("b64", (64, 1920, 1080)))
+M_CLUSTERS = (1, 2, 4, 8, 16)  # kernel M's learned cluster sizes, each forced in wb_range
 WB_KERNELS = {"simple": ("wb_stats", "wb_tables"), "grey_world": ("wb_stats", "wb_tables"),
               "pca": ("wb_stats", "wb_tables"), "learned": ("wb_stats", "wb_hist64", "wb_tables")}
 
@@ -1579,6 +1599,23 @@ def check_wb_range(tp, torch, rng, smi_line):
             if method == "learned":  # at t255 = 255 all_bins keeps every bin
                 held(f"{kind} B=2 1080x1920", planes(x), method, 1.0)
             del x
+    # kernel M's learned mode on synthetic histograms, at the rule's cluster
+    # and each size forced
+    labels, record, hist = workloads.learned_histograms(torch, workloads.SEED + 5, device=dev)
+    want_t = learned_wb.learned_tables_plain(record, hist)
+    want_f = learned_wb.features_plain(record, hist)
+    for cluster in (None,) + M_CLUSTERS:
+        feats = torch.empty((len(labels), 4, 2), dtype=torch.float32, device=dev)
+        t = wb.wb_tables_cuda(record, "learned", 0.8, 1, hist, features=feats, cluster=cluster)
+        bad = {label: (int((t.tables[i] != want_t[i]).sum()),
+                       int((feats[i].view(torch.int32) != want_f[i].view(torch.int32)).sum()))
+               for i, label in enumerate(labels)}
+        print(f"wb_range M learned, synthetic histograms, cluster "
+              f"{cluster or 'of the rule'}: (mismatching tables, features) {bad}")
+        if any(a or b for a, b in bad.values()):
+            raise AssertionError(f"wb_range M learned on synthetic histograms, cluster "
+                                 f"{cluster}: {bad}")
+    del record, hist, want_t, want_f
     # the mono chain's LUT: G's table step on one plane
     lut = torch.as_tensor(gamma.build_gamma_lut(0.7), device=dev)
     for shape in ((4, 1080, 1920), (3, 1079, 1439), (3, 17, 31)):
@@ -1678,6 +1715,14 @@ def check_wb_range(tp, torch, rng, smi_line):
                           device_ms(lambda: wb.wb_tables_plain(want, method, param, h * w,
                                                                want_hist), n=n),
                           wb_tables_work(b, method, palettes))
+                    if method == "learned":  # the readings behind wb_tables_cluster
+                        sweep = {c: device_ms(lambda: wb.wb_tables_cuda(rec, method, param,
+                                                                        h * w, hist, cluster=c))
+                                 for c in M_CLUSTERS}
+                        rows["M"].update({f"ms_{label}_cluster{c}": v for c, v in sweep.items()})
+                        print(f"wb_range time M {label} by cluster size: "
+                              + ", ".join(f"{c}: {v:.4f} ms" for c, v in sweep.items())
+                              + f" [{smi_line}]")
                 if main and method == "pca":  # G's table step, with PCA's NaN flags read
                     t = wb.wb_tables(pl, method, param)
                     library = lookup_ms(
@@ -1715,8 +1760,9 @@ def check_wb_range(tp, torch, rng, smi_line):
         pipe(frames)
         torch.cuda.synchronize()
         counts = {k.name: k.launches for k in kernels.ALL if k.launches}
-        if any(counts.get(k, 0) != 1 for k in WB_KERNELS[method]):
-            raise AssertionError(f"wb_{method}: K, M (L) not launched once a call: {counts}")
+        if any(counts.get(k, 0) != 1 for k in WB_KERNELS[method] + ("flip",)):
+            raise AssertionError(f"wb_{method}: K, M (L) or the flip (N) not launched once a "
+                                 f"call: {counts}")
         for attempt in range(1, 4):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 pipe(frames)
@@ -1863,9 +1909,121 @@ def check_kernels(tp, torch, rng):
     check_remap_cameras(tp, torch, rng, rows["E"])
     rows["F"] = check_remap_lerp(tp, torch, rng, planes)
     rows["G"] = check_pointwise(tp, torch, rng)
+    rows["N"] = check_flip(torch, rng)
     for k in kernels.ALL:
         k.launches = 0  # the comparisons above are not the main path's
     return rows
+
+
+# (label, B, H, W, angle) at which kernel N is timed: the flagship's mosaic
+# (flip 180, hoisted) and the other angles at B=4, the wb_* chains' mosaic
+# (flip 90, hoisted; 1920x1080 after it) and 180 at B=64
+FLIP_TIMED = (("b4_90", 4, 1080, 1920, 90), ("b4_180", 4, 1080, 1920, 180),
+              ("b4_270", 4, 1080, 1920, 270), ("b64_90", 64, 1080, 1920, 90),
+              ("b64_180", 64, 1080, 1920, 180))
+FLIP_ODD = ((3, 1079, 1439), (3, 1081, 1920), (3, 17, 31), (2, 1, 5), (2, 5, 1))
+
+
+def check_flip(torch, rng):
+    """Kernel N against its plain version (torch.flip of torch.transpose,
+    ops/flip.flip_rows_plain) on the card, bit for bit: B=4 1080x1920 u8
+    mosaics at 90, 180 and 270, whole and in slabs of rows (the mesh's),
+    B=64 1080x1920 at 90 (the wb_* chains' call), three planes of one set
+    of strides in one launch, FLIP_ODD's sizes, a view 1 byte off a 16-byte
+    boundary, u16 frames, [..., H, W, 3] u8 and f32 frames and f64 pairs
+    (16 bytes a pixel), each call's launches counted; then N at FLIP_TIMED
+    beside its bound (measure.flip_work), its plain version and torch.flip
+    alone (one call on the transposed view for 90 and 270). Returns N's
+    row, its main numbers at the wb_* chains' call (b64_90)."""
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.ops import flip
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, device_ms, flip_work
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(rng.integers(1 << 31)))
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8, device=dev)
+
+    def held(label, tensors, angle, rows=None, axes=(1, 2)):
+        before = kernels.FLIP.launches
+        got = flip.flip_cuda(tensors, angle, rows, spatial_axes=axes)
+        made = kernels.FLIP.launches - before
+        bad = 0
+        for a, t in zip(got, tensors):
+            want = flip.flip_rows_plain(t, angle, rows, axes)
+            if a.shape != want.shape or a.dtype != want.dtype:
+                raise AssertionError(f"kernel N {label} {angle}: {tuple(a.shape)} {a.dtype}, "
+                                     f"expected {tuple(want.shape)} {want.dtype}")
+            bad += int((a.contiguous().view(torch.uint8)
+                        != want.contiguous().view(torch.uint8)).sum())
+        launches = 0 if rows is not None and rows[0] == rows[1] else 1  # no rows: no launch
+        print(f"kernel N {label} {angle}{'' if rows is None else f' rows {rows}'}: {bad} "
+              f"mismatching bytes against torch.flip, {made} launch")
+        if bad or made != launches:
+            raise AssertionError(f"kernel N {label} {angle} rows {rows}: {bad} mismatching "
+                                 f"bytes, {made} launches")
+
+    def slabs(n):
+        return [None, (0, n // 4), (n // 4, n // 2 + 3), (n - 5, n)]
+
+    for angle in (90, 180, 270):
+        x = u8(4, 1080, 1920)
+        n = flip.flipped_shape(1080, 1920, angle)[0]
+        for rows in slabs(n):
+            held("B=4 1080x1920", (x,), angle, rows)
+        p = u8(4, 3, 1080, 1920)
+        held("three planes B=4 1080x1920", tuple(p[:, c] for c in range(3)), angle)
+        held("three planes B=4 1080x1920", tuple(p[:, c] for c in range(3)), angle, (8, 520))
+        off = p.reshape(-1)[1:1 + 4 * 1080 * 1920].view(4, 1080, 1920)
+        held("B=4 1080x1920, 1 byte off", (off,), angle)
+        del x, p, off
+        for b, h, w in FLIP_ODD:
+            x = u8(b, h, w)
+            for rows in slabs(flip.flipped_shape(h, w, angle)[0])[:2 if min(h, w) < 8 else 4]:
+                held(f"B={b} {h}x{w}", (x,), angle, rows)
+        x16 = torch.randint(-32768, 32768, (4, 1079, 1439), generator=g, dtype=torch.int32,
+                            device=dev).to(torch.int16).view(torch.uint16)
+        held("u16 B=4 1079x1439", (x16,), angle)
+        held("u16 B=4 1079x1439", (x16,), angle, (3, 300))
+        c3 = u8(4, 1080, 1920, 3)
+        held("u8 [4, 1080, 1920, 3]", (c3,), angle, axes=(-3, -2))
+        f32 = torch.randn((2, 1079, 1439, 3), generator=g, device=dev)
+        held("f32 [2, 1079, 1439, 3]", (f32,), angle, axes=(-3, -2))
+        held("f32 [2, 1079, 1439, 3]", (f32,), angle, (17, 301), axes=(-3, -2))
+        f64 = torch.randn((2, 31, 45, 2), generator=g, dtype=torch.float64, device=dev)
+        held("f64 [2, 31, 45, 2]", (f64,), angle, axes=(-3, -2))
+        del x16, c3, f32, f64
+    x = u8(64, 1080, 1920)
+    held("B=64 1080x1920", (x,), 90)
+    del x
+    torch.cuda.empty_cache()
+
+    row = {}
+    for label, b, h, w, angle in FLIP_TIMED:
+        x = u8(b, h, w)
+        oh, ow = flip.flipped_shape(h, w, angle)
+        ms = device_ms(lambda: flip.flip_cuda((x,), angle))
+        plain_ms = device_ms(lambda: flip.flip_rows_plain(x, angle, None, (1, 2)))
+        dims = (1, 2) if angle == 180 else (2,) if angle == 90 else (1,)
+        view = x if angle == 180 else x.transpose(1, 2)
+        library_ms = device_ms(lambda: torch.flip(view, dims=dims))
+        work = flip_work(b, oh, ow)
+        bd = bound(bytes_=work["bytes"], ops=work["ops"])
+        row.update({f"ms_{label}": ms, f"plain_ms_{label}": plain_ms,
+                    f"library_ms_{label}": library_ms, f"bound_ms_{label}": bd["bound_ms"],
+                    f"bound_by_{label}": bd["bound_by"]})
+        print(f"kernel N time {label} ({b}x{h}x{w} u8, flip {angle}): {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.flip alone {library_ms:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {100 * bd['bound_ms'] / ms:.1f}%)")
+        del x
+        torch.cuda.empty_cache()
+    main = "b64_90"
+    return dict(max_abs_err=0.0, ms=row[f"ms_{main}"], plain_ms=row[f"plain_ms_{main}"],
+                bound_ms=row[f"bound_ms_{main}"], bound_by=row[f"bound_by_{main}"],
+                share=row[f"bound_ms_{main}"] / row[f"ms_{main}"],
+                library_ms=row[f"library_ms_{main}"], **row)
 
 
 OPS_CROP_LEAD = (2, 3)  # the ops phase's leading dims at its random odd crop
@@ -2036,8 +2194,9 @@ def check_ops(tp, torch, rng, smi_line):
     color_enhancer.enhance (gains 1.1, 1.2, 0.9); the statistical white
     balances (K, M, L for learned, then G's table step):
     white_balance.balance_white_simple (p 20), _grey_world (0.8), _pca and
-    learned_wb.balance_white_learned_model (0.8); and gamma.apply_lut (G's
-    table step on one plane) with the 0.7 gamma table.
+    learned_wb.balance_white_learned_model (0.8); gamma.apply_lut (G's
+    table step on one plane) with the 0.7 gamma table; and flip.flip (N)
+    at 90, 180 and 270 (against flip_rows on the planes).
     Each is held against the same call with plain=True on the card and
     against the planar path the chain runs (debayer_planes, resize_planes,
     log_chroma_histogram_planes, ccc_response on [B, 256, 256],
@@ -2060,6 +2219,7 @@ def check_ops(tp, torch, rng, smi_line):
         color_calibration,
         color_enhancer,
         debayer,
+        flip,
         gamma,
         learned_wb,
         pointwise,
@@ -2240,6 +2400,12 @@ def check_ops(tp, torch, rng, smi_line):
         planar = torch.stack(pointwise.pointwise_planes(*planes_of(bgr), lut=lut), dim=-1)
         bad += int((got != planar.reshape(got.shape)).sum())
         report(f"gamma.apply_lut {size}", bad, device_ms(lambda: gamma.apply_lut(bgr, lut)))
+        for angle in (90, 180, 270):
+            got = counted(lambda: flip.flip(bgr, angle))
+            bad = int((got != flip.flip(bgr, angle, plain=True)).sum())
+            planar = torch.stack(flip.flip_rows(planes_of(bgr), angle), dim=-1)
+            bad += int((got != planar.reshape(got.shape)).sum())
+            report(f"flip.flip {angle} {size}", bad, device_ms(lambda: flip.flip(bgr, angle)))
         del bayer, flat, bgr, small
     torch.cuda.empty_cache()
     check_ops_contract(torch, g, launches, remap_maps, filt, cuts, thr, smi_line)
@@ -2600,7 +2766,7 @@ def check_stream(tp, torch, np, root):
     batches = -(-n // b)
     print(f"stream flagship {w}x{h} StreamRunner(batch_size={b}): {count} frames, "
           f"{len(got)} images; kernel launches {counts} ({batches} batches)")
-    if count != n or any(counts[k] != batches for k in ("debayer_bilinear",)
+    if count != n or any(counts[k] != batches for k in ("flip", "debayer_bilinear")
                          + workloads.CCC_KERNELS + ("pointwise", "remap_lerp")):
         raise AssertionError("stream: frames or launches wrong")
     pipe = tp.build_pipeline(config, "bayer_gbrg8", (h, w), with_state=True,
@@ -2814,7 +2980,7 @@ def check_run_pipeline(tp, torch, np, root, d):
             torch.cuda.synchronize()
             counts = {k.name: k.launches for k in kernels.ALL}
             # G applies the CCC gains: the profile runs no other pointwise step
-            path_kernels = ("debayer_bilinear",) + workloads.CCC_KERNELS + ("pointwise",) + (
+            path_kernels = ("flip", "debayer_bilinear") + workloads.CCC_KERNELS + ("pointwise",) + (
                 ("remap_float",) if mode == "float" else ("remap_lerp",))
             print(f"{label}: {count} frames written, kernel launches {counts}")
             if count != n or any(counts[k] != n // b for k in path_kernels):
@@ -3342,7 +3508,7 @@ def main() -> int:
              "C": kernels.CCC_RESPONSE, "D": kernels.DEBAYER_MHT, "E": kernels.REMAP_FLOAT,
              "F": kernels.REMAP_LERP, "G": kernels.POINTWISE, "H": kernels.CCC_RESIZE,
              "I": kernels.CCC_ARGMAX, "J": kernels.CCC_TRACK, "K": kernels.WB_STATS,
-             "L": kernels.WB_HIST64, "M": kernels.WB_TABLES}
+             "L": kernels.WB_HIST64, "M": kernels.WB_TABLES, "N": kernels.FLIP}
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],
@@ -3358,7 +3524,7 @@ def main() -> int:
                       "note": "logical shards on one card, not a scaling figure"}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
     # that runs the kernel (A, B, C, F-J: flagship; D: gpu_parity; E: float;
-    # K, M: wb_simple; L: wb_learned);
+    # K, M: wb_simple; L: wb_learned; N: flagship);
     # launches_per_flagship_call: the grids it put on the device per call
     print(f"bound_ms against the H100 SXM's published peaks "
           f"({measure.PEAK_BYTES_PER_S / 1e12} TB/s, {measure.PEAK_F32_FLOP_PER_S / 1e12} "

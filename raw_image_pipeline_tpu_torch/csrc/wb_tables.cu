@@ -31,32 +31,53 @@
 // What bounds it on the H100: latency. A frame's work is a few thousand
 // operations, but for learned, 1 MB of counts a frame read in a few
 // dependent passes (the first maximal bin and the occupied count, the
-// radix select of the 300th count, the ordered collection).
+// radix select of the 300th count, the ordered collection), then the
+// palette's density, 300 x 300 f32 divisions.
 //
-// Design: one block a frame. Every f32 and f64 chain is written in
-// __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn (and their f64 forms), so
-// nvcc contracts nothing into an fma; counts narrow with __ll2float_rn and
-// __ll2double_rn, as the plain version's casts do. For learned: the palette
-// is the counts above T, the 300th largest count (found by a radix select
-// of 11-bit digits over the occupied bins, skipping the digits above the
-// largest count), and then the first bins of count T in bin order (ranks by
-// warp prefix sums over each warp's contiguous quarter-million-bin share)
-// up to 300; below 300 occupied bins, all of them. The <= 300 entries are
-// sorted by (count desc, bin asc) by rank counting; the density of row i
-// is the sum, in order, of ten windows of 32 of its padded row (10 zeros
-// at each end), each window summed in order (a thread a window), as the
-// plain version sums; the first maximal density wins. The semantics of
-// the ties (f1's rank, f2's first maximum, f3's order) are the library's.
+// Design: simple, grey-world and PCA a block a frame. Every f32 and f64
+// chain is written in __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn (and
+// their f64 forms), so nvcc contracts nothing into an fma; counts narrow
+// with __ll2float_rn and __ll2double_rn, as the plain version's casts do.
+// Learned: a thread-block cluster a frame (grid (cluster, B); the size from
+// the batch and the card, ops/white_balance.wb_tables_cluster), block r
+// walking the r-th contiguous 1/cluster of the counts in every pass, four
+// int4 loads in flight a thread. The blocks meet through distributed
+// shared memory: a value every block needs from the others (the first
+// maximal key and the occupied count, a share's sum, the bins above and at
+// T before a block) is read by warp 0's lanes at once, a lane a block.
+// The palette is the counts above T, the 300th largest count (found by a
+// radix select of 11-bit digits over the occupied bins, skipping the
+// digits above the largest count: each block counts its bins' digits,
+// block r sums the cluster's counts of the r-th share of the 2048 digits,
+// every block finds the share and the digit; pass 1 counts the first digit
+// where the largest count has 12-21 bits), and then the first bins of
+// count T in bin order up to 300 (ranked by the counts at T of the blocks
+// before, then by block-wide prefix sums over each round of the walk, one
+// barrier for four rounds), so the palette does not depend on the
+// cluster's size; below 300 occupied bins, all of them. Every block writes
+// its entries into rank 0's shared memory, reads the palette back, sorts
+// it by (count desc, bin asc) by rank counting, and sums the density of
+// the rows rank, rank + cluster, ...: the sum, in order, of ten windows of
+// 32 of its padded row (10 zeros at each end), each window summed in order
+// (a thread a window), as the plain version sums; meanwhile a spare thread
+// of rank 0 computes f0-f2. Rank 0 takes the first maximal density and
+// finishes f3, the trees and the tables. The semantics of the ties (f1's
+// rank, f2's first maximum, f3's order) are the library's.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
+constexpr int MAX_CLUSTER = 16;  // learned's blocks a frame (above 8 a non-portable size)
+constexpr int LOADS = 4;         // int4 loads a thread issues at once in learned's passes
 enum Mode { kSimple = 0, kGreyWorld = 1, kPca = 2, kLearned = 3 };
 
 // ops/learned_wb's constants
@@ -70,8 +91,13 @@ constexpr float ILLUM_MIN = 0x1.0c6f7ap-20f;  // f32(1e-6)
 constexpr int TREES = 160, NODES = 15, LEAVES = 16, DEPTH = 4, SETS = 20;
 constexpr int KEPT = 0, SUM_B = 1, HI = 4, KEY = 5, PIXEL = 6, RECORD = 7;
 constexpr int DIGIT_BITS = 11, DIGITS = 1 << DIGIT_BITS;
+// pass 1 also counts the digit [10, 21) of every count below 2^21: the radix
+// select's first digit wherever the largest count has 12 to 21 bits (a
+// 1080p frame's counts stay below 2^21), which saves it a walk
+constexpr int FIRST_HI = 21, FIRST_SHIFT = FIRST_HI - DIGIT_BITS;
 static_assert(WINDOWS * SUM_WIN == PALETTE + 2 * SUM_PAD, "whole windows");
-static_assert(HIST64 % (4 * THREADS) == 0, "whole int4 groups a thread");
+static_assert(HIST64 / MAX_CLUSTER % (4 * LOADS * THREADS) == 0, "whole walks a block");
+static_assert(DIGITS / MAX_CLUSTER % 32 == 0, "whole lanes a share of the digits");
 
 struct Params {
   const void* record;
@@ -234,42 +260,81 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
 struct LearnedShared {
   unsigned long long red[WARPS];
   unsigned cnt[WARPS];
-  unsigned digit[DIGITS];
-  int pal_bin[PALETTE];
+  unsigned digit[DIGITS];   // this block's digit counts
+  unsigned merged[DIGITS];  // its share of the cluster's: DIGITS / cluster digits
+  unsigned wsum[2][LOADS][WARPS];  // the collection's warp sums of a round, by batch parity
+  int pal_bin[PALETTE];     // rank 0: the palette, written by every block
   unsigned pal_cnt[PALETTE];
+  unsigned long long pal_key[PALETTE];  // every block: the palette's keys
   int sorted_bin[PALETTE];
   float pu[PALETTE], pv[PALETTE];
-  float part[PALETTE][WINDOWS];
+  float part[PALETTE][WINDOWS];  // this block's density rows
+  unsigned long long best[MAX_CLUSTER];  // rank 0: each block's first maximal density
   float feat[8];
   float pred[TREES];
   int cons[SETS];
   float med[2];
-  // the radix select's state
+  // read by the cluster's other blocks: this block's first maximal key and
+  // occupied bins, its share's sum, its bins above T and at T
+  unsigned long long top_part;
+  unsigned nnz_part, share_total, gt_part, eq_part;
+  // the radix select's state, the same in every block of the cluster
   unsigned prefix, need, n_gt, hi_shift, shift, n_pal;
+  bool counted;  // pass 1 counted the select's first digit
   unsigned long long top;  // the first maximal bin's key
   unsigned nnz;
+  // this block's: bins above the prefix so far, the entries above T it has
+  // written, and the bins above T and at T in the blocks before it
+  unsigned above, gt_local, gt_before, eq_before;
 };
 
+// f(i, q) for each int4 q = h4[i], i in [0, n4) (a multiple of LOADS *
+// THREADS), in rounds of THREADS consecutive int4 in order, LOADS rounds'
+// loads issued before their calls; every thread calls f equally often
+template <typename F>
+__device__ __forceinline__ void walk(const int4* h4, int n4, int t, F&& f) {
+  for (int i0 = t; i0 < n4; i0 += LOADS * THREADS) {
+    int4 q[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) q[u] = __ldg(h4 + i0 + u * THREADS);
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) f(i0 + u * THREADS, q[u]);
+  }
+}
+
+// learned's features, trees and tables for frame f, by a cluster of
+// `csize` blocks: block `rank` walks the bins [rank, rank + 1) * HIST64 /
+// csize and takes the palette's density rows rank, rank + csize, ...;
+// rank 0 finishes. A value every block needs from the others is read by
+// warp 0's lanes at once, a lane a block.
 __device__ void learned_tables(const Params& p, int f, int t, LearnedShared& s) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int lane = t & 31, warp = t >> 5;
   const long long* rec = reinterpret_cast<const long long*>(p.record) + (long long)f * RECORD;
-  const int4* h4 = reinterpret_cast<const int4*>(p.hist + (long long)f * HIST64);
+  const int span = HIST64 / csize, base = rank * span, n4 = span / 4;
+  const int4* h4 = reinterpret_cast<const int4*>(p.hist + (long long)f * HIST64 + base);
 
   // pass 1: the first maximal bin (key count << 18 | (2^18 - 1 - bin)) and
-  // the occupied bins
+  // the occupied bins, the block's then the cluster's, and the digit
+  // [FIRST_SHIFT, FIRST_HI) of the counts below 2^FIRST_HI
+  for (int i = t; i < DIGITS; i += THREADS) s.digit[i] = 0u;
+  __syncthreads();
   unsigned long long top = 0;
   unsigned nnz = 0;
-  for (int i = t; i < HIST64 / 4; i += THREADS) {
-    const int4 q = __ldg(h4 + i);
+  walk(h4, n4, t, [&](int i, const int4& q) {
     const int c4[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const unsigned long long key =
-          ((unsigned long long)(unsigned)c4[j] << 18) | (unsigned)(HIST64 - 1 - (4 * i + j));
+          ((unsigned long long)(unsigned)c4[j] << 18) | (unsigned)(HIST64 - 1 - (base + 4 * i + j));
       top = key > top ? key : top;
       nnz += c4[j] > 0;
+      if (c4[j] > 0 && c4[j] < (1 << FIRST_HI)) {
+        atomicAdd(s.digit + (c4[j] >> FIRST_SHIFT), 1u);
+      }
     }
-  }
+  });
   top = warp_max(top);
   nnz = warp_sum(nnz);
   if (lane == 0) s.red[warp] = top, s.cnt[warp] = nnz;
@@ -278,137 +343,233 @@ __device__ void learned_tables(const Params& p, int f, int t, LearnedShared& s) 
     unsigned long long m = 0;
     unsigned n = 0;
     for (int w = 0; w < WARPS; ++w) m = s.red[w] > m ? s.red[w] : m, n += s.cnt[w];
-    s.top = m, s.nnz = n;
-    const unsigned maxc = (unsigned)(m >> 18);
-    // the palette: counts above T, then the first `need` bins of count T
-    s.prefix = 0, s.need = 0, s.n_gt = n, s.n_pal = n < PALETTE ? n : PALETTE;
-    const int bits = maxc ? 32 - __clz(maxc) : 0;
-    s.hi_shift = bits, s.shift = bits > DIGIT_BITS ? bits - DIGIT_BITS : 0;
+    s.top_part = m, s.nnz_part = n, s.above = 0, s.gt_local = 0;
+  }
+  cluster.sync();
+  if (warp == 0) {
+    unsigned long long m = 0;
+    unsigned n = 0;
+    if (lane < csize) {
+      m = *cluster.map_shared_rank(&s.top_part, lane);
+      n = *cluster.map_shared_rank(&s.nnz_part, lane);
+    }
+    m = warp_max(m);
+    n = warp_sum(n);
+    if (lane == 0) {
+      s.top = m, s.nnz = n;
+      const unsigned maxc = (unsigned)(m >> 18);
+      // the palette: counts above T, then the first `need` bins of count T
+      s.prefix = 0, s.need = n > PALETTE ? PALETTE : 0, s.n_gt = n;
+      s.n_pal = n < PALETTE ? n : PALETTE;
+      const int bits = maxc ? 32 - __clz(maxc) : 0;
+      s.counted = bits > DIGIT_BITS && bits <= FIRST_HI;
+      s.hi_shift = s.counted ? FIRST_HI : bits;
+      s.shift = s.counted ? FIRST_SHIFT : bits > DIGIT_BITS ? bits - DIGIT_BITS : 0;
+    }
   }
   __syncthreads();
 
   // the radix select of T, the PALETTE-th largest count, over the occupied
-  // bins: each pass fixes the digit [shift, hi_shift) of T
+  // bins: each pass fixes the digit [shift, hi_shift) of T. A block counts
+  // its bins' digits; block r sums the cluster's counts of the r-th share
+  // of the digits; every block then finds the share and the digit itself.
   if (s.nnz > PALETTE) {
-    unsigned need = PALETTE;  // the counts still to take at or below the prefix
+    const int share = DIGITS / csize, per = share / 32;
+    bool counted = s.counted;  // the first digit's counts, from pass 1
     while (true) {
       const unsigned hs = s.hi_shift, sh = s.shift, prefix = s.prefix;
       const unsigned width = hs - sh, mask = (1u << width) - 1u;
-      for (int i = t; i < DIGITS; i += THREADS) s.digit[i] = 0u;
-      __syncthreads();
-      for (int i = t; i < HIST64 / 4; i += THREADS) {
-        const int4 q = __ldg(h4 + i);
-        const int c4[4] = {q.x, q.y, q.z, q.w};
+      if (!counted) {
+        for (int i = t; i < DIGITS; i += THREADS) s.digit[i] = 0u;
+        __syncthreads();
+        walk(h4, n4, t, [&](int, const int4& q) {
+          const int c4[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const unsigned cnt = (unsigned)c4[j];
-          if (cnt && (unsigned)((unsigned long long)cnt >> hs) == prefix) {
-            atomicAdd(s.digit + ((cnt >> sh) & mask), 1u);
+          for (int j = 0; j < 4; ++j) {
+            const unsigned cnt = (unsigned)c4[j];
+            if (cnt && (unsigned)((unsigned long long)cnt >> hs) == prefix) {
+              atomicAdd(s.digit + ((cnt >> sh) & mask), 1u);
+            }
           }
-        }
+        });
       }
+      counted = false;
+      cluster.sync();  // every block's digit counts are in; every share read
+      for (int i = t; i < share; i += THREADS) s.merged[i] = 0u;
       __syncthreads();
-      if (warp == 0) {  // the largest digit d with (counts of digit >= d) >= need
-        unsigned own = 0;
-        for (int j = 0; j < DIGITS / 32; ++j) own += s.digit[lane * (DIGITS / 32) + j];
-        unsigned suffix = own;  // this lane's and the higher lanes' counts
+      // the share's counts: the cluster's DIGITS (digit, block) pairs of it,
+      // DIGITS / THREADS a thread, their loads issued together
+      unsigned v[DIGITS / THREADS], own = 0;
+#pragma unroll
+      for (int j = 0; j < DIGITS / THREADS; ++j) {
+        const int pair = t + j * THREADS;
+        v[j] = *cluster.map_shared_rank(&s.digit[rank * share + pair % share], pair / share);
+      }
+#pragma unroll
+      for (int j = 0; j < DIGITS / THREADS; ++j) {
+        if (v[j]) atomicAdd(&s.merged[(t + j * THREADS) % share], v[j]);
+        own += v[j];
+      }
+      own = warp_sum(own);
+      if (lane == 0) s.cnt[warp] = own;
+      __syncthreads();
+      if (t == 0) {
+        unsigned total = 0;
+        for (int w = 0; w < WARPS; ++w) total += s.cnt[w];
+        s.share_total = total;
+      }
+      cluster.sync();  // every share is summed
+      if (warp == 0) {
+        const unsigned need = s.need;
+        // the highest share z whose suffix of sums reaches need
+        const unsigned e = lane < csize ? *cluster.map_shared_rank(&s.share_total, lane) : 0u;
+        unsigned suffix = e;
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
           const unsigned u = __shfl_down_sync(0xFFFFFFFFu, suffix, o);
           if (lane + o < 32) suffix += u;
         }
-        const unsigned ballot = __ballot_sync(0xFFFFFFFFu, suffix >= need);
-        const int at = 31 - __clz(ballot);  // lanes 0..at reach need
+        const int z = 31 - __clz(__ballot_sync(0xFFFFFFFFu, suffix >= need));
+        const unsigned share_need = need - __shfl_sync(0xFFFFFFFFu, suffix - e, z);
+        // in it, the largest digit d with (counts of digit >= d) >= share_need
+        const unsigned* m = cluster.map_shared_rank(&s.merged[0], z);
+        unsigned mine = 0;
+        for (int j = 0; j < per; ++j) mine += m[lane * per + j];
+        unsigned above = mine;  // this lane's and the higher lanes' counts
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned u = __shfl_down_sync(0xFFFFFFFFu, above, o);
+          if (lane + o < 32) above += u;
+        }
+        const int at = 31 - __clz(__ballot_sync(0xFFFFFFFFu, above >= share_need));
         if (lane == at) {
-          unsigned above = suffix - own;
-          int d = lane * (DIGITS / 32);
-          for (int j = DIGITS / 32 - 1; j >= 0; --j) {
-            const unsigned e = s.digit[lane * (DIGITS / 32) + j];
-            if (above + e >= need) {
-              d = lane * (DIGITS / 32) + j;
+          above -= mine;
+          int d = lane * per;
+          for (int j = per - 1; j >= 0; --j) {
+            const unsigned c = m[lane * per + j];
+            if (above + c >= share_need) {
+              d = lane * per + j;
               break;
             }
-            above += e;
+            above += c;
           }
-          s.prefix = (prefix << width) | (unsigned)d;
-          s.need = need - above;
+          s.prefix = (prefix << width) | ((unsigned)(z * share) + (unsigned)d);
+          s.need = share_need - above;
         }
       }
       __syncthreads();
-      need = s.need;
+      // this block's bins above the prefix: its digits above d
+      const unsigned d = s.prefix & mask;
+      unsigned mine = 0;
+      for (int i = t; i < DIGITS; i += THREADS) mine += (unsigned)i > d ? s.digit[i] : 0u;
+      mine = warp_sum(mine);
+      if (lane == 0) s.cnt[warp] = mine;
+      __syncthreads();
+      if (t == 0) {
+        for (int w = 0; w < WARPS; ++w) s.above += s.cnt[w];
+        if (sh == 0) {
+          s.eq_part = s.digit[d];
+        } else {
+          s.hi_shift = sh, s.shift = sh > DIGIT_BITS ? sh - DIGIT_BITS : 0;
+        }
+      }
+      __syncthreads();
       if (sh == 0) break;
-      __syncthreads();
-      if (t == 0) s.hi_shift = sh, s.shift = sh > DIGIT_BITS ? sh - DIGIT_BITS : 0;
-      __syncthreads();
     }
-    if (t == 0) s.n_gt = PALETTE - s.need;
-    __syncthreads();
+    if (t == 0) s.n_gt = PALETTE - s.need, s.gt_part = s.above;
+  } else if (t == 0) {  // T = 0: every occupied bin
+    s.gt_part = s.nnz_part, s.eq_part = 0;
   }
-  const unsigned T = s.prefix, need = s.need, n_gt = s.n_gt;
-
-  // the ordered collection: counts above T in any order (sorted below),
-  // the first `need` bins of count T in bin order; warp w walks the bins
-  // [w, w + 1) * HIST64 / WARPS
-  constexpr int SHARE = HIST64 / WARPS;
-  if (t == 0) s.cnt[0] = 0;  // the entries above T so far
-  unsigned eq_before = 0;    // this warp's first rank among the bins of count T
-  if (need) {
-    unsigned mine = 0;
-    for (int i = warp * SHARE / 4 + lane; i < (warp + 1) * SHARE / 4; i += 32) {
-      const int4 q = __ldg(h4 + i);
-      mine += (q.x == (int)T) + (q.y == (int)T) + (q.z == (int)T) + (q.w == (int)T);
+  cluster.sync();  // every block's bins above T and at T are in
+  if (warp == 0) {
+    unsigned gt = 0, eq = 0;
+    if (lane < rank) {
+      gt = *cluster.map_shared_rank(&s.gt_part, lane);
+      eq = *cluster.map_shared_rank(&s.eq_part, lane);
     }
-    mine = warp_sum(mine);
-    __syncthreads();
-    if (lane == 0) s.red[warp] = mine;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) eq_before += (unsigned)s.red[w];
+    gt = warp_sum(gt);
+    eq = warp_sum(eq);
+    if (lane == 0) s.gt_before = gt, s.eq_before = eq;
   }
   __syncthreads();
-  for (int i = warp * SHARE / 4 + lane; i < (warp + 1) * SHARE / 4; i += 32) {
-    const int4 q = __ldg(h4 + i);
-    const int c4[4] = {q.x, q.y, q.z, q.w};
-    unsigned eq = 0;
+  const unsigned T = s.prefix, need = s.need, n_gt = s.n_gt, gt_before = s.gt_before;
+
+  // the ordered collection into rank 0's palette: counts above T at
+  // gt_before on, in any order (sorted below); the first `need` bins of
+  // count T in bin order at n_gt on, ranked by the blocks before this one,
+  // then by block-wide prefix sums over each round of THREADS int4 (one
+  // barrier for LOADS rounds)
+  int* pal_bin = cluster.map_shared_rank(&s.pal_bin[0], 0);
+  unsigned* pal_cnt = cluster.map_shared_rank(&s.pal_cnt[0], 0);
+  unsigned eq_base = s.eq_before;  // the bins of count T before this batch of rounds
+  for (int i0 = t, parity = 0; i0 < n4; i0 += LOADS * THREADS, parity ^= 1) {
+    int4 q[LOADS];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned cnt = (unsigned)c4[j];
-      if (cnt > T) {
-        const unsigned at = atomicAdd(&s.cnt[0], 1u);
-        s.pal_bin[at] = 4 * i + j, s.pal_cnt[at] = cnt;
-      }
-      eq += need && cnt == T;
-    }
-    if (need) {
-      unsigned incl = eq;  // the lanes' inclusive prefix, in bin order
+    for (int u = 0; u < LOADS; ++u) q[u] = __ldg(h4 + i0 + u * THREADS);
+    unsigned eq[LOADS], incl[LOADS];
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned u = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-        if (lane >= o) incl += u;
-      }
-      unsigned rank = eq_before + incl - eq;
+    for (int u = 0; u < LOADS; ++u) {
+      const int c4[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+      eq[u] = 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (c4[j] == (int)T) {
-          if (rank < need) s.pal_bin[n_gt + rank] = 4 * i + j, s.pal_cnt[n_gt + rank] = T;
-          ++rank;
+        const unsigned cnt = (unsigned)c4[j];
+        if (cnt > T) {
+          const unsigned at = gt_before + atomicAdd(&s.gt_local, 1u);
+          pal_bin[at] = base + 4 * (i0 + u * THREADS) + j, pal_cnt[at] = cnt;
+        }
+        eq[u] += need && cnt == T;
+      }
+    }
+    if (!need) continue;
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {  // the lanes' inclusive prefix, in bin order
+      incl[u] = eq[u];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_up_sync(0xFFFFFFFFu, incl[u], o);
+        if (lane >= o) incl[u] += v;
+      }
+      if (lane == 31) s.wsum[parity][u][warp] = incl[u];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      unsigned before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const unsigned v = s.wsum[parity][u][w];
+        before += w < warp ? v : 0u;
+        total += v;
+      }
+      unsigned r = eq_base + before + incl[u] - eq[u];
+      const int c4[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((unsigned)c4[j] == T) {
+          if (r < need) {
+            pal_bin[n_gt + r] = base + 4 * (i0 + u * THREADS) + j, pal_cnt[n_gt + r] = T;
+          }
+          ++r;
         }
       }
-      eq_before += __shfl_sync(0xFFFFFFFFu, incl, 31);
+      eq_base += total;
     }
   }
-  __syncthreads();
+  cluster.sync();  // the palette is whole in rank 0's shared memory
 
-  // the palette by (count desc, bin asc): rank counting over unique keys
+  // every block: the palette by (count desc, bin asc), rank counting over
+  // unique keys read from rank 0
   const int n = (int)s.n_pal;
   if (t < n) {
-    const unsigned long long key =
-        ((unsigned long long)s.pal_cnt[t] << 18) | (unsigned)(HIST64 - 1 - s.pal_bin[t]);
-    int rank = 0;
-    for (int j = 0; j < n; ++j) {
-      rank += ((unsigned long long)s.pal_cnt[j] << 18 |
-               (unsigned)(HIST64 - 1 - s.pal_bin[j])) > key;
-    }
-    s.sorted_bin[rank] = s.pal_bin[t];
+    s.pal_key[t] = ((unsigned long long)pal_cnt[t] << 18) | (unsigned)(HIST64 - 1 - pal_bin[t]);
+  }
+  __syncthreads();
+  if (t < n) {
+    const unsigned long long key = s.pal_key[t];
+    int r = 0;
+    for (int j = 0; j < n; ++j) r += s.pal_key[j] > key;
+    s.sorted_bin[r] = HIST64 - 1 - (int)(key & (HIST64 - 1));
   }
   __syncthreads();
   if (t < n) {
@@ -418,40 +579,7 @@ __device__ void learned_tables(const Params& p, int f, int t, LearnedShared& s) 
     s.pu[t] = __fdiv_rn(pr, ps), s.pv[t] = __fdiv_rn(pg, ps);
   }
   __syncthreads();
-  // the density's window sums: row i, window k sums padded columns
-  // [32k, 32k + 32) in order (column j of the palette at padded j + 10;
-  // padding and entries past n are zeros)
-  for (int task = t; task < n * WINDOWS; task += THREADS) {
-    const int i = task / WINDOWS, k = task - i * WINDOWS;
-    const float ui = s.pu[i], vi = s.pv[i];
-    float acc = 0.0f;
-    for (int q = 0; q < SUM_WIN; ++q) {
-      const int j = k * SUM_WIN + q - SUM_PAD;
-      if (j < 0 || j >= n) continue;  // + 0.0f: the sum is unchanged
-      const float du = __fsub_rn(ui, s.pu[j]), dv = __fsub_rn(vi, s.pv[j]);
-      const float d2 = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
-      acc = __fadd_rn(acc, fmaxf(__fsub_rn(1.0f, __fdiv_rn(d2, BW2)), 0.0f));
-    }
-    s.part[i][k] = acc;
-  }
-  __syncthreads();
-  // the first maximal density (densities are >= +0, so their bits order them)
-  unsigned long long best = 0;
-  for (int i = t; i < n; i += THREADS) {
-    float d = 0.0f;
-#pragma unroll
-    for (int k = 0; k < WINDOWS; ++k) d = __fadd_rn(d, s.part[i][k]);
-    const unsigned long long key = ((unsigned long long)__float_as_uint(d) << 32) |
-                                   (0xFFFFFFFFu - (unsigned)i);
-    best = key > best ? key : best;
-  }
-  best = warp_max(best);
-  if (lane == 0) s.red[warp] = best;
-  __syncthreads();
-
-  if (t == 0) {
-    unsigned long long m = 0;
-    for (int w = 0; w < WARPS; ++w) m = s.red[w] > m ? s.red[w] : m;
+  if (rank == 0 && t == THREADS - 1) {  // f0-f2, beside the density rows (a thread past them)
     float* ft = s.feat;
     // f0: the kept pixels' means in f64, over the largest mean
     const long long kept = rec[KEPT] > 1 ? rec[KEPT] : 1;
@@ -470,6 +598,51 @@ __device__ void learned_tables(const Params& p, int f, int t, LearnedShared& s) 
     float db, dg, dr;
     bin_channels(HIST64 - 1 - (int)(s.top & (HIST64 - 1)), db, dg, dr);
     chroma(dr, dg, db, ft + 4);
+  }
+  // this block's density rows i = rank + csize * r: window k of row i sums
+  // padded columns [32k, 32k + 32) in order (column j of the palette at
+  // padded j + 10; padding and entries past n are zeros)
+  const int rows = n > rank ? (n - rank + csize - 1) / csize : 0;
+  for (int task = t; task < rows * WINDOWS; task += THREADS) {
+    const int r = task / WINDOWS, k = task - r * WINDOWS, i = rank + csize * r;
+    const float ui = s.pu[i], vi = s.pv[i];
+    float acc = 0.0f;
+    for (int q = 0; q < SUM_WIN; ++q) {
+      const int j = k * SUM_WIN + q - SUM_PAD;
+      if (j < 0 || j >= n) continue;  // + 0.0f: the sum is unchanged
+      const float du = __fsub_rn(ui, s.pu[j]), dv = __fsub_rn(vi, s.pv[j]);
+      const float d2 = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
+      acc = __fadd_rn(acc, fmaxf(__fsub_rn(1.0f, __fdiv_rn(d2, BW2)), 0.0f));
+    }
+    s.part[r][k] = acc;
+  }
+  __syncthreads();
+  // the first maximal density (densities are >= +0, so their bits order
+  // them), this block's into rank 0's shared memory
+  unsigned long long best = 0;
+  for (int r = t; r < rows; r += THREADS) {
+    float d = 0.0f;
+#pragma unroll
+    for (int k = 0; k < WINDOWS; ++k) d = __fadd_rn(d, s.part[r][k]);
+    const unsigned long long key = ((unsigned long long)__float_as_uint(d) << 32) |
+                                   (0xFFFFFFFFu - (unsigned)(rank + csize * r));
+    best = key > best ? key : best;
+  }
+  best = warp_max(best);
+  if (lane == 0) s.red[warp] = best;
+  __syncthreads();
+  if (t == 0) {
+    unsigned long long m = 0;
+    for (int w = 0; w < WARPS; ++w) m = s.red[w] > m ? s.red[w] : m;
+    *cluster.map_shared_rank(&s.best[rank], 0) = m;
+  }
+  cluster.sync();  // every block's density is in rank 0's shared memory
+  if (rank != 0) return;
+
+  if (t == 0) {
+    unsigned long long m = 0;
+    for (int k = 0; k < csize; ++k) m = s.best[k] > m ? s.best[k] : m;
+    float* ft = s.feat;
     // f3: the palette's mode ((0, 0) where no pixel is kept)
     const int mi = 0xFFFFFFFFu - (unsigned)(m & 0xFFFFFFFFull);
     ft[6] = n ? s.pu[mi] : 0.0f, ft[7] = n ? s.pv[mi] : 0.0f;
@@ -540,31 +713,64 @@ __global__ void __launch_bounds__(THREADS) wb_tables_kernel(const Params p) {
     simple_tables(p, f, t);
   } else if constexpr (MODE == kGreyWorld) {
     grey_world_tables(p, f, t);
-  } else if constexpr (MODE == kPca) {
-    pca_tables(p, f, t);
   } else {
-    __shared__ LearnedShared s;
-    learned_tables(p, f, t, s);
+    pca_tables(p, f, t);
   }
+}
+
+// learned: grid (cluster, B), a thread-block cluster a frame
+__global__ void __launch_bounds__(THREADS) wb_learned_kernel(const Params p) {
+  __shared__ LearnedShared s;
+  learned_tables(p, blockIdx.y, threadIdx.x, s);
+}
+
+// the learned kernel's clusters above 8 blocks, allowed once per device
+cudaError_t configure_learned() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(wb_learned_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+cudaLaunchConfig_t learned_config(int cluster, int batch, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, batch, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
 // mode: 0 simple, 1 grey_world, 2 pca, 3 learned (ops/white_balance.METHODS);
 // record: kernel K's [batch, ...] record; hist: learned's [batch, 64^3]
-// int32 histogram (kernel L's); npix: a frame's pixels; target: simple's f32
-// walk target; alpha, beta: simple's host tables on the card; fi, tv, lv:
-// learned's model on the card (int32 [2400], f32 [2400], f32 [2560]);
-// tables: [batch, 3, 256] u8 out; nan: pca's [batch, 3] u8 out; features:
-// learned's [batch, 4, 2] f32 out, or null. Launches on `stream` and
+// int32 histogram (kernel L's), 16-byte aligned; npix: a frame's pixels;
+// target: simple's f32 walk target; alpha, beta: simple's host tables on the
+// card; fi, tv, lv: learned's model on the card (int32 [2400], f32 [2400],
+// f32 [2560]); tables: [batch, 3, 256] u8 out; nan: pca's [batch, 3] u8
+// out; features: learned's [batch, 4, 2] f32 out, or null; cluster:
+// learned's blocks a frame (1, 2, 4, 8 or 16; ops/white_balance
+// .wb_tables_cluster), ignored by the other modes. Launches on `stream` and
 // returns the launch's error.
 extern "C" int isp_wb_tables(int mode, const void* record, const void* hist, int batch,
                              long long npix, float target, const void* alpha, const void* beta,
                              const void* fi, const void* tv, const void* lv, void* tables,
-                             void* nan, void* features, void* stream) {
+                             void* nan, void* features, int cluster, void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
   if (!record || !tables || (mode == kSimple && (!alpha || !beta)) || (mode == kPca && !nan) ||
-      (mode == kLearned && (!hist || !fi || !tv || !lv))) {
+      (mode == kLearned && (!hist || (uintptr_t)hist % 16 || !fi || !tv || !lv || cluster < 1 ||
+                            cluster > MAX_CLUSTER || (cluster & (cluster - 1)) ||
+                            batch > 65535))) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -577,8 +783,35 @@ extern "C" int isp_wb_tables(int mode, const void* record, const void* hist, int
     case kSimple: wb_tables_kernel<kSimple><<<batch, THREADS, 0, s>>>(p); break;
     case kGreyWorld: wb_tables_kernel<kGreyWorld><<<batch, THREADS, 0, s>>>(p); break;
     case kPca: wb_tables_kernel<kPca><<<batch, THREADS, 0, s>>>(p); break;
-    case kLearned: wb_tables_kernel<kLearned><<<batch, THREADS, 0, s>>>(p); break;
+    case kLearned: {
+      cudaError_t err = configure_learned();
+      if (err != cudaSuccess) return (int)err;
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg = learned_config(cluster, batch, s, attr);
+      err = cudaLaunchKernelEx(&cfg, wb_learned_kernel, p);
+      if (err != cudaSuccess) return (int)err;
+      break;
+    }
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The current device's largest cluster size (16, 8, ... 1) of the learned
+// kernel of which one cluster can be resident, in *largest. Returns the
+// error.
+extern "C" int isp_wb_tables_limits(int* largest) {
+  cudaError_t err = configure_learned();
+  for (int c = MAX_CLUSTER; err == cudaSuccess && c > 1; c /= 2) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = learned_config(c, 1, 0, attr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, wb_learned_kernel, &cfg);
+    if (err == cudaSuccess && clusters > 0) {
+      *largest = c;
+      return (int)cudaSuccess;
+    }
+  }
+  *largest = 1;
+  return (int)err;
 }

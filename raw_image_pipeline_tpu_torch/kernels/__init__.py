@@ -33,7 +33,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
            "remap_float.cu", "remap_lerp.cu", "pointwise.cu", "ccc_resize.cu", "ccc_argmax.cu",
-           "ccc_track.cu", "wb_stats.cu", "wb_hist64.cu", "wb_tables.cu")
+           "ccc_track.cu", "wb_stats.cu", "wb_hist64.cu", "wb_tables.cu", "flip.cu")
 HEADERS = ("debayer_strip.cuh", "remap_tile.cuh", "wb_planes.cuh")  # included by the sources; in the hash too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -65,7 +65,9 @@ _SIGNATURES = {
     "isp_wb_stats": (_I, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P),
     "isp_wb_stats_limits": (_I, _IP, _IP),
     "isp_wb_hist64": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _P),
-    "isp_wb_tables": (_I, _P, _P, _I, _L, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "isp_wb_tables": (_I, _P, _P, _I, _L, _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "isp_wb_tables_limits": (_IP,),
+    "isp_flip": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -239,8 +241,14 @@ WB_TABLES = Kernel(
     f"{_WB}75 balance_white_simple; {_WB}109 balance_white_grey_world; {_WB}355 _pca_exact_lut; "
     f"{_LEARNED}114 _predict_illuminant; {_LEARNED}364 balance_white_learned_model",
 )
+# the flips, which the reference package leaves to XLA
+FLIP = Kernel(
+    "flip", "isp_flip",
+    "raw_image_pipeline_tpu_torch/csrc/flip.cu",
+    "raw_image_pipeline_tpu/ops/flip.py:48 flip",
+)
 ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT, REMAP_LERP,
-       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK, WB_STATS, WB_HIST64, WB_TABLES)
+       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK, WB_STATS, WB_HIST64, WB_TABLES, FLIP)
 
 
 def reset_launch_counts() -> None:

@@ -458,12 +458,44 @@ def wb_stats_cuda(planes: Planes, method: str, param: Optional[float] = None, *,
     return record if hist is None else (record, hist)
 
 
+def wb_tables_cluster(batch: int, sms: int, largest: int = MAX_WB_CLUSTER) -> int:
+    """Kernel M's blocks a learned frame (one thread-block cluster): the
+    largest power of two of at most `largest` (the largest size that can be
+    resident) with batch x cluster within one block an SM of the card's
+    `sms`, and at least 1. Each block of the cluster walks 1/cluster of the
+    frame's 64^3 counts in every pass and takes 1/cluster of the palette's
+    density rows. On an NVIDIA H100 80GB HBM3 (132 SMs): 16 up to B=8, 8 at
+    B=16, 2 at B=64, 1 from B=67; the fastest of the sizes timed at B = 1,
+    4, 16 and 64 (PERF.md)."""
+    want = max(1, sms // max(batch, 1))
+    cluster = 1
+    while 2 * cluster <= min(want, largest):
+        cluster *= 2
+    return cluster
+
+
+@functools.lru_cache(maxsize=64)
+def _wb_tables_card(index: int):
+    """The SM count of CUDA device `index`, and kernel M's largest resident
+    learned cluster there."""
+    largest = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = kernels.LIBRARY.get().isp_wb_tables_limits(ctypes.byref(largest))
+    if err != 0:
+        raise RuntimeError(f"{kernels.WB_TABLES.name}: CUDA error {err} querying its limits")
+    return torch.cuda.get_device_properties(index).multi_processor_count, largest.value
+
+
 def wb_tables_cuda(record: torch.Tensor, method: str, param: Optional[float], npix: int,
                    hist: Optional[torch.Tensor] = None, *,
-                   features: Optional[torch.Tensor] = None) -> WbTables:
+                   features: Optional[torch.Tensor] = None,
+                   cluster: Optional[int] = None) -> WbTables:
     """Kernel M: wb_tables_plain for a CUDA record (and learned's
-    histogram), one launch, a block a frame. For learned, `features`, a
-    [B, 4, 2] f32 CUDA tensor, also receives the four features."""
+    histogram), one launch, a block a frame; learned a thread-block cluster
+    of wb_tables_cluster's blocks a frame (`cluster` forces a size: 1, 2,
+    4, 8 or 16), one launch per run of kernels.batch_runs. For learned,
+    `features`, a [B, 4, 2] f32 CUDA tensor, also receives the four
+    features."""
     method = _method(method)
     dev = record.device
     shape, dtype = RECORD[method]
@@ -480,17 +512,27 @@ def wb_tables_cuda(record: torch.Tensor, method: str, param: Optional[float], np
             raise ValueError("kernel M: learned needs the 64^3 histogram (hist)")
         kernels.check_cuda(hist, "hist", torch.int32, (bsz, learned_wb.N_BINS))
         fi, tv, lv = learned_wb.model_tensors_card(dev)
-        ptr.update(hist=hist.data_ptr(), fi=fi.data_ptr(), tv=tv.data_ptr(), lv=lv.data_ptr())
+        ptr.update(fi=fi.data_ptr(), tv=tv.data_ptr(), lv=lv.data_ptr())
         if features is not None:
             kernels.check_cuda(features, "features", torch.float32, (bsz, 4, 2))
-            ptr["features"] = features.data_ptr()
+        if cluster is not None and cluster not in (1, 2, 4, 8, 16):
+            raise ValueError(f"kernel M: cluster {cluster} is not 1, 2, 4, 8 or 16")
     target = simple_target(param, npix) if method == "simple" else 0.0
+    stream = kernels.stream_handle(record)
     with torch.cuda.device(dev):
-        kernels.WB_TABLES.launch(
-            METHODS.index(method), record.data_ptr(), ptr.get("hist"), bsz, npix, target,
-            ptr.get("alpha"), ptr.get("beta"), ptr.get("fi"), ptr.get("tv"), ptr.get("lv"),
-            tables.data_ptr(), None if nan is None else nan.data_ptr(), ptr.get("features"),
-            kernels.stream_handle(record))
+        if method != "learned":
+            kernels.WB_TABLES.launch(
+                METHODS.index(method), record.data_ptr(), None, bsz, npix, target,
+                ptr.get("alpha"), ptr.get("beta"), None, None, None, tables.data_ptr(),
+                None if nan is None else nan.data_ptr(), None, 1, stream)
+            return WbTables(tables, nan)
+        sms, largest = _wb_tables_card(torch.device(dev).index)
+        for f0, n in kernels.batch_runs(bsz):
+            c = cluster or wb_tables_cluster(n, sms, largest)
+            kernels.WB_TABLES.launch(
+                METHODS.index(method), record[f0].data_ptr(), hist[f0].data_ptr(), n, npix,
+                target, None, None, ptr["fi"], ptr["tv"], ptr["lv"], tables[f0].data_ptr(), None,
+                None if features is None else features[f0].data_ptr(), c, stream)
     return WbTables(tables, nan)
 
 

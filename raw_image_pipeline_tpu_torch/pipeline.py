@@ -53,8 +53,8 @@ from raw_image_pipeline_tpu_torch.ops.debayer import (
     debayer_planes,
     phase_for_encoding,
 )
-from raw_image_pipeline_tpu_torch.ops.flip import flip as flip_op
-from raw_image_pipeline_tpu_torch.ops.flip import flipped_bayer_encoding
+from raw_image_pipeline_tpu_torch.ops.flip import flip_rows, flipped_bayer_encoding
+from raw_image_pipeline_tpu_torch.ops.flip import flipped_shape as _post_flip_shape
 from raw_image_pipeline_tpu_torch.ops.gamma import apply_lut, build_bt709_lut, build_gamma_lut
 from raw_image_pipeline_tpu_torch.ops.resize import resize_planes
 from raw_image_pipeline_tpu_torch.ops.undistortion import (
@@ -106,10 +106,6 @@ class IspParams:
     # the source rows [start, stop) remap_base indexes (a slab of the
     # spatial split: its map rebased to its window; None: the whole frame)
     remap_window: Optional[Tuple[int, int]] = None
-
-
-def _post_flip_shape(h: int, w: int, angle: int) -> Tuple[int, int]:
-    return (w, h) if angle in (90, 270) else (h, w)
 
 
 def _runs_undistortion(config: PipelineConfig) -> bool:
@@ -485,14 +481,15 @@ def make_isp_chain(
 
     def flipped_rows(tensors, have, h, angle, want):
         """Rows `want` of the flip of the frame whose rows `have` are
-        `tensors` (the 180 rule, or the gather rule for 90 and 270)."""
+        `tensors` (the 180 rule, or the gather rule for 90 and 270): on the
+        card one launch of kernel N for all the tensors, which writes only
+        those rows."""
         if angle == 180:
             src = yield Fetch(tensors, have, flip180_rows(h, *want))
-            return tuple(flip_op(t, 180, spatial_axes=(1, 2)) for t in src)
+            return flip_rows(src, 180, plain=plain)
         if angle in (90, 270):
             full = yield Fetch(tensors, have, (0, h))
-            return tuple(flip_op(t, angle, spatial_axes=(1, 2))[:, want[0]:want[1]]
-                         for t in full)
+            return flip_rows(full, angle, want, plain=plain)
         return (yield Fetch(tensors, have, want))
 
     def chain(params: IspParams, pixels: torch.Tensor, state: Optional[IspState], part: Part):

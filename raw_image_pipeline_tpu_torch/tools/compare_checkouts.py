@@ -33,6 +33,9 @@ checkout, through functions every version of the port has:
     "J_cameras" the flagship's default "cameras" mode, four tracks of one
     frame, kalman_update before kernel J) and the chain's whole CCC
     range, H to J, on A's planes ("CCC"; "CCC64" at B=64, seeded planes),
+    and the flip of a mosaic, ops.flip.flip (N since kernel N, torch.flip
+    before): the flagship's, 180 at B=4 ("N"), 90 at B=4 ("N_90") and the
+    wb_* chains', 90 at B=64 ("N64"),
     each with every stream operation its call makes:
     device ms (measure.device_ms) and ms per call, the host's launches
     included (measure.call_ms);
@@ -121,7 +124,7 @@ def _worker(root: str, out: str) -> dict:
 
     import raw_image_pipeline_tpu_torch as tp
     from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
-    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, undistortion
+    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, flip, undistortion
     from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
 
     if not os.path.abspath(tp.__file__).startswith(os.path.join(root, "")):
@@ -264,6 +267,9 @@ def _worker(root: str, out: str) -> dict:
              "J512": lambda: track(uv[512]),
              "CCC": lambda: ccc_range(planes),
              "CCC64": lambda: ccc_range(big),
+             "N": lambda: flip.flip(bayer, 180, (1, 2)),
+             "N_90": lambda: flip.flip(bayer, 90, (1, 2)),
+             "N64": lambda: flip.flip(big[0], 90, (1, 2)),
              **wb_calls}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},

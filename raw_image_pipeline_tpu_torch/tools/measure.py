@@ -167,6 +167,14 @@ def wb_tables_work(batch: int, method: str, palettes=()) -> dict:
             "ops": sum(8 * n * n for n in palettes)}
 
 
+def flip_work(batch: int, rows: int, width: int, pixel_bytes: int = 1, planes: int = 1) -> dict:
+    """The work of kernel N writing `rows` rows of `width` pixels of
+    `pixel_bytes` bytes of a flipped frame, for `planes` planes of `batch`
+    frames: "bytes", the input bytes that land in those rows read once and
+    the output written once; no operations."""
+    return {"bytes": 2 * planes * batch * rows * width * pixel_bytes, "ops": 0}
+
+
 def ccc_response_work(batch: int, n: int = 256) -> dict:
     """The work of kernel C's function, resp = Re(IDFT2(DFT2(X) * W)) / n^2
     + bias, on `batch` real [n, n] f32 histograms:

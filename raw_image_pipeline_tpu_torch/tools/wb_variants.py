@@ -1,10 +1,11 @@
-"""What limits kernels K and L on a CUDA card: variants of their sources,
+"""What limits kernels K, L and M on a CUDA card: variants of their sources,
 built apart and timed beside the kernels as they are.
 
     python -m raw_image_pipeline_tpu_torch.tools.wb_variants [--out FILE]
 
 Run from the root of a checkout on the machine with the card. Each variant
-(VARIANTS) is a copy of csrc/wb_stats.cu (K) or csrc/wb_hist64.cu (L) with
+(VARIANTS) is a copy of csrc/wb_stats.cu (K), csrc/wb_hist64.cu (L) or
+csrc/wb_tables.cu (M, learned's mode) with
 named text replacements, or a source of its own, built by nvcc into
 build/wb_variants/<name>/ and called through ctypes by the kernel's own C
 entry. Inputs: card_frames' colour frames ("card", seeded) and the
@@ -29,6 +30,15 @@ Alphasense fixture's ("fixture", workloads.fixture_colour), B = 1, 4, 16 at
     "L_count" and "L_4096_count" count the runs added in the block, those
     spilled to device memory, the slots flushed and the kept pixels
     (__device__ counters read back by an added C function).
+
+  * M ("M", as built: a thread-block cluster a frame) at wb_tables_cluster's
+    size and at each size forced (M_CLUSTERS; 1 is a block a frame),
+    "M_loads1" (one int4 load in flight a thread in each pass, not four),
+    "M_first_walk" (the radix select's first digit counted in a walk of
+    its own, not in pass 1),
+    on the record and histogram of each learned input above; "M_stamps"
+    reads %globaltimer at the phases of frame 0's rank-0 block (M_PHASES)
+    back through an added C function, in microseconds.
 
 Each time is measure.device_ms (L's adds pile up over the timed calls, as
 they do in chip_smoke.py). A variant that computes the kernel's function
@@ -166,6 +176,47 @@ extern "C" int wb_variant_counts(unsigned long long* out) {
   const unsigned long long zero[4] = {0, 0, 0, 0};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));
   return (int)e;
+}
+"""
+
+
+def _stamp(k: int) -> str:
+    return ("  if (t == 0 && f == 0 && rank == 0) {\n"
+            "    unsigned long long g;\n"
+            "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g));\n"
+            f"    g_stamps[{k}] = g;\n"
+            "  }\n")
+
+
+# M's phases for frame 0's rank-0 block: %globaltimer at its start (0),
+# after pass 1 (1), after the radix select (2), after the blocks' counts
+# above T and at T are summed (3), after the collection (4), after the
+# sort and the cluster's density rows (5) and at its end (6), read back by
+# an added C function
+M_PHASES = ("pass 1", "radix select", "counts above and at T", "collection",
+            "sort and density", "trees and tables")
+_H4 = "  const int4* h4 = reinterpret_cast<const int4*>(p.hist + (long long)f * HIST64 + base);\n"
+_STAMPS = [
+    ("namespace {\n\nconstexpr int THREADS", "__device__ unsigned long long g_stamps[7];\n\n"
+                                            "namespace {\n\nconstexpr int THREADS"),
+    (_H4, _H4 + _stamp(0)),
+    ("  __syncthreads();\n\n  // the radix select of T",
+     "  __syncthreads();\n" + _stamp(1) + "\n  // the radix select of T"),
+    ("  cluster.sync();  // every block's bins above T and at T are in",
+     _stamp(2) + "  cluster.sync();  // every block's bins above T and at T are in"),
+    ("  const unsigned T = s.prefix, need = s.need, n_gt = s.n_gt, gt_before = s.gt_before;",
+     _stamp(3) + "  const unsigned T = s.prefix, need = s.need, n_gt = s.n_gt, "
+                 "gt_before = s.gt_before;"),
+    ("  cluster.sync();  // the palette is whole in rank 0's shared memory\n",
+     "  cluster.sync();  // the palette is whole in rank 0's shared memory\n" + _stamp(4)),
+    ("  if (rank != 0) return;\n", "  if (rank != 0) return;\n" + _stamp(5)),
+    ("  gains_table(p.tables + (long long)f * 768, gain, t);\n}\n\ntemplate <int MODE>",
+     "  gains_table(p.tables + (long long)f * 768, gain, t);\n" + _stamp(6)
+     + "}\n\ntemplate <int MODE>"),
+]
+_STAMPS_READ = """
+extern "C" int wb_variant_stamps(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
 }
 """
 
@@ -329,7 +380,20 @@ VARIANTS = {
     "L_dsmem": ("L", DSMEM_SOURCE, [], True),
     "L_count": ("L", "wb_hist64.cu", _counting(), True),
     "L_4096_count": ("L", "wb_hist64.cu", _counting(_SLOTS_4096), True),
+    "M": ("M", "wb_tables.cu", [], True),
+    "M_loads1": ("M", "wb_tables.cu", [("constexpr int LOADS = 4;", "constexpr int LOADS = 1;")],
+                 True),
+    "M_stamps": ("M", "wb_tables.cu", _STAMPS, True),
+    "M_first_walk": ("M", "wb_tables.cu", [
+        ("      if (c4[j] > 0 && c4[j] < (1 << FIRST_HI)) {",
+         "      if (false) {"),
+        ("      s.counted = bits > DIGIT_BITS && bits <= FIRST_HI;", "      s.counted = false;"),
+        ("      s.shift = s.counted ? FIRST_SHIFT : bits > DIGIT_BITS ? bits - DIGIT_BITS : 0;",
+         "      s.shift = bits > DIGIT_BITS ? bits - DIGIT_BITS : 0;")], True),
 }
+ENTRIES = {"K": ("isp_wb_stats", "isp_wb_stats_limits"), "L": ("isp_wb_hist64",),
+           "M": ("isp_wb_tables", "isp_wb_tables_limits")}
+M_CLUSTERS = (1, 2, 4, 8, 16)  # kernel M's learned cluster sizes, each forced on "M"
 
 
 def variant_source(name: str, csrc: str) -> str:
@@ -344,7 +408,8 @@ def variant_source(name: str, csrc: str) -> str:
         if old not in text:
             raise ValueError(f"variant {name}: no {old[:60]!r} in its source")
         text = text.replace(old, new)
-    return text + (_COUNTS_READ if name.endswith("_count") else "")
+    return (text + (_COUNTS_READ if name.endswith("_count") else "")
+            + (_STAMPS_READ if name.endswith("_stamps") else ""))
 
 
 def _build(names, csrc: str, out_dir: str, kernels) -> dict:
@@ -372,11 +437,8 @@ def _build(names, csrc: str, out_dir: str, kernels) -> dict:
         if p.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log[-3000:]}")
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
-        if VARIANTS[name][0] == "K":
-            lib.isp_wb_stats.argtypes = kernels._SIGNATURES["isp_wb_stats"]
-            lib.isp_wb_stats_limits.argtypes = kernels._SIGNATURES["isp_wb_stats_limits"]
-        else:
-            lib.isp_wb_hist64.argtypes = kernels._SIGNATURES["isp_wb_hist64"]
+        for entry in ENTRIES[VARIANTS[name][0]]:
+            getattr(lib, entry).argtypes = kernels._SIGNATURES[entry]
         libs[name] = lib
     return libs
 
@@ -429,6 +491,29 @@ def _l_call(torch, lib, pl, record, t255):
     return fn, hist
 
 
+def _m_call(torch, wb, learned_wb, lib, record, hist, npix, sms, cluster=None):
+    """(fn, tables) of an M variant in learned's mode on the card's record
+    and histogram, at wb_tables_cluster's size or `cluster`."""
+    b = record.shape[0]
+    largest = ctypes.c_int(0)
+    if lib.isp_wb_tables_limits(ctypes.byref(largest)):
+        raise RuntimeError("isp_wb_tables_limits failed")
+    c = cluster or wb.wb_tables_cluster(b, sms, largest.value)
+    tables = torch.empty((b, 3, 256), dtype=torch.uint8, device="cuda")
+    fi, tv, lv = learned_wb.model_tensors_card(record.device)
+    args = (wb.METHODS.index("learned"), record.data_ptr(), hist.data_ptr(), b, npix, 0.0, None,
+            None, fi.data_ptr(), tv.data_ptr(), lv.data_ptr(), tables.data_ptr(), None, None, c,
+            torch.cuda.current_stream().cuda_stream)
+
+    def fn():
+        err = lib.isp_wb_tables(*args)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return tables
+
+    return fn, tables
+
+
 def measure_all(torch, libs, smi: str) -> dict:
     from raw_image_pipeline_tpu_torch.ops import learned_wb
     from raw_image_pipeline_tpu_torch.ops import white_balance as wb
@@ -438,7 +523,8 @@ def measure_all(torch, libs, smi: str) -> dict:
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     bgr = image_io.imread(os.path.join(root, "tests", "fixtures", "alphasense.png"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    res = {"card": smi, "K": {}, "L": {}, "grid": {}, "spill": {}, "differs": []}
+    res = {"card": smi, "K": {}, "L": {}, "M": {}, "M_phases": {}, "grid": {}, "spill": {},
+           "differs": []}
 
     def record(table, key, ms):
         res[table][key] = ms
@@ -453,14 +539,14 @@ def measure_all(torch, libs, smi: str) -> dict:
             for method, param in PARAMS.items():
                 want = wb.wb_stats_plain(pl, method, param)
                 for name, (kern, _, _, exact) in VARIANTS.items():
-                    if kern != "K" or (name != "K" and method != "simple"):
+                    if name not in libs or kern != "K" or (name != "K" and method != "simple"):
                         continue
                     fn, rec = _k_call(torch, wb, learned_wb, libs[name], pl, method, param, sms)
                     fn()
                     if exact and not torch.equal(rec, want):
                         res["differs"].append(f"{name} {method} {family} B={b}")
                     record("K", f"{name} {method} {family} B={b}", measure.device_ms(fn))
-                if family == "card" and b < 64:
+                if family == "card" and b < 64 and "K" in libs:
                     for grid in GRIDS:
                         if grid[0] * grid[1] * b <= 4 * sms and method in ("simple", "grey_world"):
                             fn, _ = _k_call(torch, wb, learned_wb, libs["K"], pl, method, param,
@@ -472,7 +558,7 @@ def measure_all(torch, libs, smi: str) -> dict:
                 t255 = learned_wb.learned_t255(param)
                 want_hist = learned_wb.hist64_plain(pl, want, t255)
                 for name, (kern, _, _, exact) in VARIANTS.items():
-                    if kern != "L":
+                    if name not in libs or kern != "L":
                         continue
                     fn, hist = _l_call(torch, libs[name], pl, want, t255)
                     fn()
@@ -492,7 +578,29 @@ def measure_all(torch, libs, smi: str) -> dict:
                               f"{flushed} slots flushed", flush=True)
                         continue
                     record("L", f"{name} {family} B={b}", measure.device_ms(fn))
-                del want_hist
+                want_tables = learned_wb.learned_tables_plain(want, want_hist)
+                for name, (kern, _, _, exact) in VARIANTS.items():
+                    if name not in libs or kern != "M":
+                        continue
+                    for cluster in (None,) + (M_CLUSTERS if name == "M" else ()):
+                        fn, tables = _m_call(torch, wb, learned_wb, libs[name], want, want_hist,
+                                             h * w, sms, cluster)
+                        fn()
+                        torch.cuda.synchronize()
+                        key = f"{name}{'' if cluster is None else f' cluster {cluster}'}"
+                        if exact and not torch.equal(tables, want_tables):
+                            res["differs"].append(f"{key} {family} B={b}")
+                        if name.endswith("_stamps"):  # frame 0's phases in one call
+                            stamps = (ctypes.c_ulonglong * (len(M_PHASES) + 1))()
+                            libs[name].wb_variant_stamps(stamps)
+                            us = {ph: (stamps[i + 1] - stamps[i]) / 1e3
+                                  for i, ph in enumerate(M_PHASES)}
+                            res["M_phases"][f"{family} B={b}"] = us
+                            print(f"M phases {family} B={b} (frame 0's rank-0 block, us): "
+                                  + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
+                            continue
+                        record("M", f"{key} {family} B={b}", measure.device_ms(fn))
+                del want_hist, want_tables
             del pl
             torch.cuda.empty_cache()
     return res
@@ -501,6 +609,8 @@ def measure_all(torch, libs, smi: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
+    ap.add_argument("--kernels", default="KLM",
+                    help="the kernels whose variants run, of K, L and M (default all)")
     args = ap.parse_args(argv)
     import torch
 
@@ -514,7 +624,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     kernels.LIBRARY.get()
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    libs = _build(VARIANTS, kernels.CSRC_DIR, os.path.join(root, "build", "wb_variants"), kernels)
+    names = [n for n, v in VARIANTS.items() if v[0] in args.kernels]
+    libs = _build(names, kernels.CSRC_DIR, os.path.join(root, "build", "wb_variants"), kernels)
     res = measure_all(torch, libs, smi)
     line = json.dumps(res)
     if args.out:

@@ -98,22 +98,24 @@ def chains(tp) -> dict:
         return c.replace(debayer=dataclasses.replace(c.debayer, bayer16="scale8"))
 
     full = ((1080, 1920), (1080, 1440))
-    # the CCC range's kernels (H, B, C, I, J), and the pointwise stretch (G)
-    # before the remap
+    # the flip (N) before the debayer, the CCC range's kernels (H, B, C, I,
+    # J), and the pointwise stretch (G) before the remap
     ccc = CCC_KERNELS + ("pointwise",)
     table = {
-        "flagship": Chain(tp.flagship_config, full, ("debayer_bilinear",) + ccc + ("remap_lerp",)),
-        "gpu_parity": Chain(gpu_parity, full, ("debayer_mht",) + ccc + ("remap_lerp",)),
-        "float": Chain(remap("float"), full[:1], ("debayer_bilinear",) + ccc + ("remap_float",)),
+        "flagship": Chain(tp.flagship_config, full,
+                          ("flip", "debayer_bilinear") + ccc + ("remap_lerp",)),
+        "gpu_parity": Chain(gpu_parity, full, ("flip", "debayer_mht") + ccc + ("remap_lerp",)),
+        "float": Chain(remap("float"), full[:1],
+                       ("flip", "debayer_bilinear") + ccc + ("remap_float",)),
         "fixed32": Chain(remap("fixed32"), full[:1],
-                         ("debayer_bilinear",) + ccc + ("remap_lerp",)),
+                         ("flip", "debayer_bilinear") + ccc + ("remap_lerp",)),
     }
-    # the statistical white balances: the statistics (K), learned's
-    # histogram (L), the tables (M), G's table step
+    # the flip of the planes (N), the statistical white balances: the
+    # statistics (K), learned's histogram (L), the tables (M), G's table step
     for method in ("simple", "grey_world", "pca", "learned"):
         wb = ("wb_stats",) + (("wb_hist64",) if method == "learned" else ()) + ("wb_tables",)
         table[f"wb_{method}"] = Chain(config2(method), full[:1],
-                                      ("debayer_bilinear",) + wb + ("pointwise",),
+                                      ("debayer_bilinear", "flip") + wb + ("pointwise",),
                                       frames=128, calls=2, reps=3, cpu_frames=3)
     table["pointwise_bgr8"] = Chain(config4, full[:1], ("pointwise",), encoding="bgr8",
                                     kind="color",
@@ -146,10 +148,10 @@ def multicam_chains(tp) -> dict:
     ccc = CCC_KERNELS + ("pointwise",)
     return {
         "multicam4": Chain(table["flagship"].config, ((1080, 1920),),
-                           ("debayer_bilinear",) + ccc + ("remap_lerp",),
+                           ("flip", "debayer_bilinear") + ccc + ("remap_lerp",),
                            frames=MULTICAM_BATCH * MULTICAM_CALLS, calls=MULTICAM_CALLS, reps=3),
         "multicam4_float": Chain(table["float"].config, ((1080, 1920),),
-                                 ("debayer_bilinear",) + ccc + ("remap_float",),
+                                 ("flip", "debayer_bilinear") + ccc + ("remap_float",),
                                  frames=MULTICAM_BATCH * MULTICAM_CALLS, calls=MULTICAM_CALLS,
                                  reps=3),
     }
@@ -458,3 +460,66 @@ def argmax_across_slices(seed: int, batch: int) -> np.ndarray:
         for at, v in trap.items():
             r[i, at] = v
     return r.reshape(batch, 256, 256)
+
+
+LEARNED_BINS = 64 ** 3  # learned's 64^3 histogram
+M_BLOCK_BINS = 16384  # the bins a block of kernel M walks in a cluster of 16 (of 8: twice, ...)
+
+
+def learned_histograms(torch, seed: int = SEED, device="cuda"):
+    """(labels, record [B, 7] int64, hist [B, 64^3] int32): kernel M's
+    learned cases as synthetic histograms, numpy-seeded: ties at T (the
+    300th largest count) on both sides of every block boundary of every
+    cluster size, T's bins only in the last block, 299, 300 and 301
+    occupied bins (301 equal), one occupied bin, every count equal, a max
+    count of 2^21 - 1 (two digit passes of the radix select), counts below
+    2^11 (one pass), 400 bins at the max, dense small counts (ties spread
+    over every block) and an empty histogram. The records are plausible
+    (kept = the histogram's sum, seeded sums and brightest pixel)."""
+    rng = np.random.default_rng(seed)
+    n = LEARNED_BINS
+    cases = {}
+
+    def occupied(k, lo, hi, where=None):
+        h = np.zeros(n, np.int64)
+        at = rng.choice(n if where is None else where, k, replace=False)
+        h[at] = rng.integers(lo, hi, k)
+        return h
+
+    h = occupied(250, 600, 5000)
+    edges = np.concatenate([np.arange(k * M_BLOCK_BINS - 4, k * M_BLOCK_BINS + 4)
+                            for k in range(1, n // M_BLOCK_BINS)])
+    h[edges[h[edges] == 0]] = 500  # 250 above T = 500, the first 50 of its bins taken
+    cases["ties_across_blocks"] = h
+    h = occupied(100, 1000, 2000, n - M_BLOCK_BINS)
+    h[n - M_BLOCK_BINS + rng.choice(M_BLOCK_BINS, 400, replace=False)] = 300
+    cases["ties_in_the_last_block"] = h
+    cases["nnz_299"] = occupied(299, 1, 100)
+    cases["nnz_300"] = occupied(300, 1, 100)
+    h = np.zeros(n, np.int64)
+    h[rng.choice(n, 301, replace=False)] = 3
+    cases["nnz_301_equal"] = h
+    h = np.zeros(n, np.int64)
+    h[123456] = 2_000_000
+    cases["one_bin"] = h
+    cases["all_equal"] = np.full(n, 7, np.int64)
+    h = occupied(1000, 1, 1 << 20)
+    h[200000] = (1 << 21) - 1
+    cases["max_2e21"] = h
+    cases["one_digit"] = occupied(2000, 1, 1 << 11)
+    h = np.zeros(n, np.int64)
+    h[rng.choice(n, 400, replace=False)] = (1 << 21) - 1
+    cases["ties_at_the_max"] = h
+    cases["dense"] = rng.poisson(1.5, n).astype(np.int64)
+    cases["empty"] = np.zeros(n, np.int64)
+    labels = list(cases)
+    hist = np.stack([cases[k] for k in labels]).astype(np.int32)
+    b = len(labels)
+    record = np.zeros((b, 7), np.int64)
+    record[:, 0] = hist.sum(1, dtype=np.int64)  # kept
+    record[:, 1:4] = rng.integers(0, 200, (b, 3)) * np.maximum(record[:, :1], 1)  # sums
+    record[:, 4] = 254  # the largest channel value
+    record[:, 5] = rng.integers(1, 1 << 40, b)  # the brightest pixel's key
+    record[:, 6] = rng.integers(0, 1 << 24, b)  # its b | g << 8 | r << 16
+    return (labels, torch.as_tensor(record, device=device),
+            torch.as_tensor(hist, device=device))

@@ -21,6 +21,7 @@ from raw_image_pipeline_tpu_torch.ops import gamma as pgamma
 from raw_image_pipeline_tpu_torch.ops import learned_wb as plearned
 from raw_image_pipeline_tpu_torch.ops import pointwise as ppw
 from raw_image_pipeline_tpu_torch.ops import white_balance as pwb
+from raw_image_pipeline_tpu_torch.tools import workloads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(17, 31), (45, 61), (48, 64), (3, 3)]
@@ -293,6 +294,7 @@ def _source_constant(name, source):
 def test_host_constants_equal_the_kernels():
     assert pwb.WB_STATS_THREADS == _source_constant("THREADS", "wb_stats.cu")
     assert pwb.MAX_WB_CLUSTER == _source_constant("MAX_CLUSTER", "wb_stats.cu")
+    assert pwb.MAX_WB_CLUSTER == _source_constant("MAX_CLUSTER", "wb_tables.cu")
     assert pwb.WB_CHUNK == _source_constant("kChunk", "wb_planes.cuh")
     for method, (size, dtype) in pwb.WB_PARTIAL.items():
         # a cluster's partial: the counts of the record (simple), else the
@@ -322,6 +324,25 @@ def test_wb_stats_grid_fills_the_card_twice(sms, resident):
     assert grid == {1: (16, 4), 4: (16, 4), 16: (16, 2), 64: (8, 1), 265: (1, 1)}
 
 
+@pytest.mark.parametrize("sms", [132, 114])
+def test_wb_tables_cluster_takes_a_block_an_sm(sms):
+    # kernel M's learned blocks a frame: a power of two of at most the
+    # largest resident cluster, batch x cluster within one block an SM but
+    # above half of it (else 1), fewer as the batch grows
+    for largest in (16, 8, 1):
+        last = largest
+        for b in range(1, 65536):
+            c = pwb.wb_tables_cluster(b, sms, largest)
+            assert c & (c - 1) == 0 and 1 <= c <= largest and c <= last, (b, c)
+            assert c == 1 or b * c <= sms, (b, c)
+            assert c == largest or b * 2 * c > sms, (b, c)  # the next size would pass them
+            last = c
+    # an H100's 132 SMs: 16 blocks a frame up to B=8, 8 at B=16, 2 at the
+    # wb_* chains' B=64
+    rule = {b: pwb.wb_tables_cluster(b, 132) for b in (1, 4, 8, 9, 16, 33, 64, 66, 67)}
+    assert rule == {1: 16, 4: 16, 8: 16, 9: 8, 16: 8, 33: 4, 64: 2, 66: 2, 67: 1}
+
+
 def chunk_runs(chunks, blocks):
     """The [c0, c1) run of a frame's chunks that each of kernel K's blocks
     takes, as the kernel splits them: ceil(chunks / blocks) each in order,
@@ -349,7 +370,7 @@ def test_wb_variants_apply_to_the_sources():
 
     for name, (kern, src, repl, _) in wb_variants.VARIANTS.items():
         text = wb_variants.variant_source(name, kernels.CSRC_DIR)
-        assert ("isp_wb_stats(" if kern == "K" else "isp_wb_hist64(") in text, name
+        assert wb_variants.ENTRIES[kern][0] + "(" in text, name
         if repl:
             with open(os.path.join(REPO, "raw_image_pipeline_tpu_torch", "csrc", src)) as f:
                 assert text != f.read(), name
@@ -426,7 +447,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_kernels_are_bound():
-    for k, n_args in ((kernels.WB_STATS, 18), (kernels.WB_HIST64, 13), (kernels.WB_TABLES, 15)):
+    for k, n_args in ((kernels.WB_STATS, 18), (kernels.WB_HIST64, 13), (kernels.WB_TABLES, 16)):
         assert k in kernels.ALL and len(kernels._SIGNATURES[k.entry]) == n_args
         assert os.path.basename(k.source) in kernels.SOURCES
         assert os.path.exists(os.path.join(REPO, k.source))
@@ -502,6 +523,24 @@ def test_kernels_k_l_m_equal_plain_on_card(card, method, param):
         a = pwb.balance_white_planes(planes, method, param)
         b = pwb.balance_white_planes(planes, method, param, plain=True)
         assert all(torch.equal(x, y) for x, y in zip(a, b)), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
+def test_kernel_m_learned_equals_plain_on_synthetic_histograms_on_card(card, cluster):
+    # ties at T across block boundaries, 299-301 occupied bins, one bin, all
+    # counts equal, one and two digit passes, an empty histogram
+    labels, record, hist = workloads.learned_histograms(torch, device=card)
+    want = plearned.learned_tables_plain(record, hist)
+    want_f = plearned.features_plain(record, hist)
+    feats = torch.empty((len(labels), 4, 2), dtype=torch.float32, device=card)
+    before = kernels.WB_TABLES.launches
+    got = pwb.wb_tables_cuda(record, "learned", 0.8, 1, hist, features=feats, cluster=cluster)
+    assert kernels.WB_TABLES.launches == before + 1
+    for i, label in enumerate(labels):
+        assert torch.equal(got.tables[i], want[i]), (label, cluster)
+        assert torch.equal(feats[i].view(torch.int32), want_f[i].view(torch.int32)), (label,
+                                                                                       cluster)
 
 
 @pytest.mark.cuda

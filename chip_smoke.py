@@ -77,7 +77,7 @@ per source, into build/kernels/), then:
                        1081x1920, 17x31, 1x5, 5x1), u16, [..., 3] u8 and
                        f32 frames and f64 pairs, each call's launches
                        counted (check_flip); timed at B=4 (each angle) and
-                       B=64 (90, 180) beside the plain version, the bound
+                       B=64 (90, 270, 180) beside the plain version, the bound
                        and torch.flip alone (library_ms);
      then the ccc_range phase (check_ccc_range): the CCC range's own
      kernels against their plain versions, at the shapes the chain gives
@@ -138,8 +138,7 @@ per source, into build/kernels/), then:
                      occupied bins, one bin, all counts equal, a max count
                      of 2^21 - 1, an empty one) at the rule's cluster and
                      each size forced (M_CLUSTERS);
-                     the mono chain's LUT (G's table step on one plane)
-                     against the plain gather; each timed at B=4 and B=64
+                     each timed at B=4 and B=64
                      beside its plain version and its bound, torch.bincount
                      of the same bins as K's (simple) and L's library time,
                      M's learned mode also at each cluster size forced;
@@ -147,6 +146,16 @@ per source, into build/kernels/), then:
                      its flip (N) once a call, and its profiled isp_white_balance range holds at
                      most 3 kernels (4 for learned) and no bincount, topk or
                      sort, copy, set or synchronising API call;
+       O LUT         — (check_lut, in the same phase) 0 mismatching bytes
+                     against the plain gather with a seeded table: mono
+                     planes at B=4 1080x1920, B=64 1920x1080, 1079x1439,
+                     17x31 and 3x5, whole, in row slabs, cropped, every
+                     other frame, 1 and 8 bytes off a 16-byte boundary,
+                     [..., H, W, 3] frames, an interleaved channel, 1-d,
+                     0-d and empty tensors, one launch of O a call and none
+                     of G; timed at B=4 and B=64 (the mono chain's call)
+                     beside its bound, the gather and one torch.gather
+                     (library_ms, the int64 index cast apart);
      then the ops phase (check_ops): the reference package's entry points
      that reach a kernel, on [..., H, W(, 3)] CUDA frames at 1080x1920
      (leading dims (4,)) and at a random odd crop (leading dims (2, 3)):
@@ -157,7 +166,7 @@ per source, into build/kernels/), then:
      remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with
      one map and with per-camera maps, color_correct, vignetting.correct
      and enhance (G), balance_white_simple, _grey_world, _pca and
-     balance_white_learned_model (K, M, L, G), apply_lut (G) and flip at
+     balance_white_learned_model (K, M, L, G), apply_lut (O) and flip at
      90, 180 and 270 (N); each
      against plain=True on the card and the planar
      path of the chain, 0 mismatching bytes, with its device time; then
@@ -188,6 +197,9 @@ per source, into build/kernels/), then:
                     and the HSV enhancer on 512 bgr8 frames in one call
                     with microbatch=128 (G), its peak device memory
                     printed;
+       mono8      — the flagship configuration on mono8 frames, 8 in 2
+                    calls: the flip 180 (N), the gamma table (O) and the
+                    lerp remap of the one plane (F);
      the launch counts are set to 0 just before each chain's 1920x1080 run
      and read just after, and each kernel of that chain must have launched
      in each of its calls;
@@ -1489,6 +1501,104 @@ def _wb_edge_frames(torch, h: int, w: int, dev):
     return torch.as_tensor(x, device=dev)
 
 
+# kernel O's cases: (label, shape of the frames made, view of them); timed
+# at B=4 1080x1920 and B=64 1920x1080 mono planes (the mono chain's call,
+# the wb_* chains' size)
+LUT_SHAPES = ((4, 1080, 1920), (64, 1920, 1080), (3, 1079, 1439), (3, 17, 31), (3, 3, 5))
+LUT_TIMED = (("b4", (4, 1080, 1920)), ("b64", (64, 1920, 1080)))
+
+
+def check_lut(torch, seed: int, smi_line):
+    """Kernel O (ops/gamma.lut_cuda, apply_lut's path on the card) against
+    the plain gather, bit for bit, with a seeded table: mono planes at
+    LUT_SHAPES whole, the mesh's row slabs of them (a view at the frame
+    stride), a crop of columns (a view at the row stride), every other
+    frame, views 1 and 8 bytes off a 16-byte boundary, [..., H, W, 3]
+    frames (4 x 1080 x 1920 and 2 x 45 x 61), 1-d, 0-d and empty tensors,
+    and an interleaved channel (copied first); each call one launch of O
+    (none for the empty) and none of G. Then O timed at LUT_TIMED beside
+    its bound (measure.lut_work), the plain gather and one torch.gather of
+    the same lookup on int64 indices (the cast timed apart), and on a slab
+    and a view 1 byte off. Returns O's row, its main numbers at B=64."""
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.ops import gamma
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, device_ms, lut_work
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lut = torch.randint(0, 256, (256,), generator=g, dtype=torch.uint8, device=dev)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8, device=dev)
+
+    def held(label, v):
+        before, g_before = kernels.LUT.launches, kernels.POINTWISE.launches
+        got = gamma.apply_lut(v, lut)
+        made = kernels.LUT.launches - before
+        want = gamma.apply_lut(v, lut, plain=True)
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        print(f"kernel O {label} {tuple(v.shape)}: {bad} mismatching bytes, {made} launch")
+        if (bad or made != (1 if v.numel() else 0) or not got.is_contiguous()
+                or kernels.POINTWISE.launches != g_before):
+            raise AssertionError(f"kernel O {label} {tuple(v.shape)}: {bad} mismatching bytes, "
+                                 f"{made} launches")
+
+    for b, h, w in LUT_SHAPES:
+        x = u8(b, h, w)
+        held("planes", x)
+        held("row slab", x[:, h // 4:h // 2 + 3])
+        held("crop of columns", x[:, :, 1:w - 2])
+        held("every other frame", x[::2])
+        rows = (x.numel() - 16) // w  # room for 16 bytes off
+        for off in (1, 8):
+            flat = x.reshape(-1)[off:off + rows * w]
+            held(f"{off} bytes off", flat.view(rows, w)[:, :w - 1])
+            held(f"flat, {off} bytes off", flat)
+        del x
+    c3 = u8(4, 1080, 1920, 3)
+    held("frames", c3)
+    held("interleaved channel", c3[..., 1])
+    del c3
+    held("frames", u8(2, 45, 61, 3))
+    held("1-d", u8(5))
+    held("0-d", u8(1)[0])
+    held("empty", u8(3, 0, 7))
+    torch.cuda.empty_cache()
+
+    row = {}
+    for size, (b, h, w) in LUT_TIMED:
+        x = u8(b, h, w)
+        ms = device_ms(lambda: gamma.apply_lut(x, lut))
+        plain = device_ms(lambda: gamma.apply_lut(x, lut, plain=True), n=2 if b == 64 else 5)
+        idx = x.reshape(1, -1).long()
+        cast = device_ms(lambda: x.reshape(1, -1).long())
+        library = device_ms(lambda: torch.gather(lut[None], 1, idx))
+        del idx
+        bd = bound(**{"bytes_": lut_work(x.numel())["bytes"], "ops": 0})
+        slab = x[:, h // 4:h // 2]
+        ms_slab = device_ms(lambda: gamma.apply_lut(slab, lut))
+        bd_slab = bound(**{"bytes_": lut_work(slab.numel())["bytes"], "ops": 0})["bound_ms"]
+        off = x.reshape(-1)[1:1 + x.numel() - 16]
+        ms_off = device_ms(lambda: gamma.apply_lut(off, lut))
+        row.update({f"ms_{size}": ms, f"plain_ms_{size}": plain, f"library_ms_{size}": library,
+                    f"index_cast_ms_{size}": cast, f"bound_ms_{size}": bd["bound_ms"],
+                    f"bound_by_{size}": bd["bound_by"], f"ms_{size}_slab": ms_slab,
+                    f"bound_ms_{size}_slab": bd_slab, f"ms_{size}_off1": ms_off})
+        print(f"kernel O time {size} ({b}x{h}x{w} u8): {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {100 * bd['bound_ms'] / ms:.1f}%), "
+              f"one torch.gather {library:.4f} ms (the int64 index cast {cast:.4f} ms apart); "
+              f"rows {h // 4}-{h // 2} {ms_slab:.4f} ms (bound {bd_slab:.4f}, "
+              f"{100 * bd_slab / ms_slab:.1f}%), 1 byte off {ms_off:.4f} ms [{smi_line}]")
+        del x, slab, off
+        torch.cuda.empty_cache()
+    main = "b64"
+    return dict(max_abs_err=0.0, ms=row[f"ms_{main}"], plain_ms=row[f"plain_ms_{main}"],
+                bound_ms=row[f"bound_ms_{main}"], bound_by=row[f"bound_by_{main}"],
+                share=row[f"bound_ms_{main}"] / row[f"ms_{main}"],
+                library_ms=row[f"library_ms_{main}"], **row)
+
+
 def check_wb_range(tp, torch, rng, smi_line):
     """Phase wb_range: the statistical white balances' kernels K (the
     statistics), L (learned's 64^3 histogram) and M (the per-frame tables)
@@ -1501,8 +1611,8 @@ def check_wb_range(tp, torch, rng, smi_line):
     45x61 and 1079x1439, and on the frame families of
     workloads.wb_frames at 1080x1920 (learned also at a threshold of 1.0,
     where all_bins keeps every bin; big_bin and constant put more than
-    65 535 pixels in one bin); then the mono chain's LUT (G's table step on
-    one plane) against the plain gather; then K's four modes and L timed at
+    65 535 pixels in one bin); then kernel O (check_lut); then K's four
+    modes and L timed at
     B = 1, 4, 16 (1080x1920) and 64 (1920x1080) on card_frames and on the
     fixture's frames, M and G's table step at B=4 and 64 on card_frames,
     each beside its plain version and its bound, with torch.bincount of the
@@ -1512,14 +1622,14 @@ def check_wb_range(tp, torch, rng, smi_line):
     holding at most 3
     kernels (4 for learned: K, L, M, G) and no bincount, topk or sort, no
     copy, set or synchronising API call (up to 3 profiles until a trace
-    shows the range). Returns the kernels' rows (K, L, M) and G's table
+    shows the range). Returns the kernels' rows (K, L, M, O) and G's table
     step's keys."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
 
     from raw_image_pipeline_tpu_torch import kernels
-    from raw_image_pipeline_tpu_torch.ops import gamma, learned_wb, pointwise
+    from raw_image_pipeline_tpu_torch.ops import learned_wb, pointwise
     from raw_image_pipeline_tpu_torch.ops import white_balance as wb
     from raw_image_pipeline_tpu_torch.tools import workloads
     from raw_image_pipeline_tpu_torch.tools.measure import (bound, device_ms, pointwise_work,
@@ -1616,25 +1726,23 @@ def check_wb_range(tp, torch, rng, smi_line):
             raise AssertionError(f"wb_range M learned on synthetic histograms, cluster "
                                  f"{cluster}: {bad}")
     del record, hist, want_t, want_f
-    # the mono chain's LUT: G's table step on one plane
-    lut = torch.as_tensor(gamma.build_gamma_lut(0.7), device=dev)
-    for shape in ((4, 1080, 1920), (3, 1079, 1439), (3, 17, 31)):
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev)
-        off = x.reshape(-1)[1:1 + x.numel() - shape[-1]].view(-1, shape[-1])  # 1 byte off
-        for label, v in (("", x), (", 1 byte off", off)):
-            before = kernels.POINTWISE.launches
-            got = gamma.apply_lut(v, lut)
-            bad = int((got != gamma.apply_lut(v, lut, plain=True)).sum())
-            print(f"wb_range mono LUT {tuple(v.shape)}{label}: {bad} mismatching bytes, "
-                  f"{kernels.POINTWISE.launches - before} launch of G")
-            if bad or kernels.POINTWISE.launches != before + 1:
-                raise AssertionError(f"wb_range mono LUT {tuple(v.shape)}{label}")
+    lut_row = check_lut(torch, int(rng.integers(1 << 31)), smi_line)  # kernel O
     torch.cuda.empty_cache()
 
     # --- times beside the bounds: K and L at B = 1, 4, 16 (1080x1920) and 64
     # (1920x1080) on card_frames and the fixture's frames; M and G on card_frames
     # at B=4 and 64 ---
     rows = {"K": {}, "L": {}, "M": {}, "G": {}}
+    lib, stream = kernels.LIBRARY.get(), torch.cuda.current_stream(dev).cuda_stream
+
+    def empty_launch():  # a block that only waits: a launch's floor on the device
+        err = lib.isp_ccc_track_empty(stream)
+        if err:
+            raise RuntimeError(f"empty launch: CUDA error {err} "
+                               f"({lib.isp_error_string(err).decode()})")
+
+    empty_ms = device_ms(empty_launch)
+    rows["M"]["empty_launch_ms"] = empty_ms
 
     def timed(name, label, ms, plain, work, library=None, library_call="torch.bincount of the "
               "same bins"):
@@ -1723,6 +1831,10 @@ def check_wb_range(tp, torch, rng, smi_line):
                         print(f"wb_range time M {label} by cluster size: "
                               + ", ".join(f"{c}: {v:.4f} ms" for c, v in sweep.items())
                               + f" [{smi_line}]")
+                if main and method != "learned":  # M's small modes beside a launch's floor
+                    ms = rows["M"][f"ms_{label}"]
+                    print(f"wb_range time M {label}: {ms:.5f} ms against an empty launch's "
+                          f"{empty_ms:.5f} ms ({100 * empty_ms / ms:.1f}%) [{smi_line}]")
                 if main and method == "pca":  # G's table step, with PCA's NaN flags read
                     t = wb.wb_tables(pl, method, param)
                     library = lookup_ms(
@@ -1736,14 +1848,6 @@ def check_wb_range(tp, torch, rng, smi_line):
                           pointwise_work(b, h, w, ("table",)), library, "one torch.gather")
                 del rec, hist, want, want_hist
                 torch.cuda.empty_cache()
-            if main:
-                mono = pl[0]
-                library = lookup_ms(lut[None], lambda: mono.reshape(1, -1).long(),
-                                    f"mono_lut_{size}")
-                timed("G", f"mono_lut_{size}", device_ms(lambda: gamma.apply_lut(mono, lut)),
-                      device_ms(lambda: gamma.apply_lut(mono, lut, plain=True), n=n),
-                      {"bytes": 2 * mono.numel() + 256, "ops": 0}, library, "one torch.gather")
-                del mono
             del pl
             torch.cuda.empty_cache()
 
@@ -1798,7 +1902,7 @@ def check_wb_range(tp, torch, rng, smi_line):
     kernels.reset_launch_counts()  # the comparisons above are not the main path's
     # each row's main numbers at the wb_* chains' call (B=64 1920x1080): K in
     # simple's mode (torch.bincount of its bins beside it), M in learned's
-    out = {"G_table": rows["G"], "wb_busy_ms_b64": busy}
+    out = {"G_table": rows["G"], "O": lut_row, "wb_busy_ms_b64": busy}
     for name, label in (("K", "simple_b64"), ("L", "b64"), ("M", "learned_b64")):
         r = rows[name]
         out[name] = dict(max_abs_err=0.0, ms=r[f"ms_{label}"], plain_ms=r[f"plain_ms_{label}"],
@@ -1920,7 +2024,7 @@ def check_kernels(tp, torch, rng):
 # (flip 90, hoisted; 1920x1080 after it) and 180 at B=64
 FLIP_TIMED = (("b4_90", 4, 1080, 1920, 90), ("b4_180", 4, 1080, 1920, 180),
               ("b4_270", 4, 1080, 1920, 270), ("b64_90", 64, 1080, 1920, 90),
-              ("b64_180", 64, 1080, 1920, 180))
+              ("b64_270", 64, 1080, 1920, 270), ("b64_180", 64, 1080, 1920, 180))
 FLIP_ODD = ((3, 1079, 1439), (3, 1081, 1920), (3, 17, 31), (2, 1, 5), (2, 5, 1))
 
 
@@ -2496,7 +2600,8 @@ def check_chains(tp, torch, rng):
                     per_flagship_call = {k.name: k.launches * k.grids / ch.calls
                                          for k in kernels.ALL}
             ref, ref_state = _run_chain(plain, frames, tp.init_state((), device="cuda"), ch.calls)
-            want = (ch.frames // ch.calls, *_out_hw(config, h, w), 3)
+            want = (ch.frames // ch.calls, *_out_hw(config, h, w)) + (
+                () if ch.kind == "mono" else (3,))
             for o in outs:
                 if tuple(o.shape) != want or o.dtype != torch.uint8:
                     raise AssertionError(f"{label} processed: shape {tuple(o.shape)} {o.dtype}, "
@@ -3484,7 +3589,7 @@ def main() -> int:
                           np.random.default_rng(workloads.SEED + 2), root, smi_line))
         wb = phase("wb_range", check_wb_range, tp, torch,
                    np.random.default_rng(workloads.SEED + 3), smi_line)
-        rows.update({k: wb[k] for k in ("K", "L", "M")})
+        rows.update({k: wb[k] for k in ("K", "L", "M", "O")})
         rows["G"].update(wb["G_table"])
         # its own generator: the later phases' inputs stay what they were
         ops_launches = phase("ops", check_ops, tp, torch,
@@ -3508,7 +3613,8 @@ def main() -> int:
              "C": kernels.CCC_RESPONSE, "D": kernels.DEBAYER_MHT, "E": kernels.REMAP_FLOAT,
              "F": kernels.REMAP_LERP, "G": kernels.POINTWISE, "H": kernels.CCC_RESIZE,
              "I": kernels.CCC_ARGMAX, "J": kernels.CCC_TRACK, "K": kernels.WB_STATS,
-             "L": kernels.WB_HIST64, "M": kernels.WB_TABLES, "N": kernels.FLIP}
+             "L": kernels.WB_HIST64, "M": kernels.WB_TABLES, "N": kernels.FLIP,
+             "O": kernels.LUT}
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],
@@ -3524,7 +3630,7 @@ def main() -> int:
                       "note": "logical shards on one card, not a scaling figure"}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
     # that runs the kernel (A, B, C, F-J: flagship; D: gpu_parity; E: float;
-    # K, M: wb_simple; L: wb_learned; N: flagship);
+    # K, M: wb_simple; L: wb_learned; N: flagship; O: mono8);
     # launches_per_flagship_call: the grids it put on the device per call
     print(f"bound_ms against the H100 SXM's published peaks "
           f"({measure.PEAK_BYTES_PER_S / 1e12} TB/s, {measure.PEAK_F32_FLOP_PER_S / 1e12} "

@@ -5,9 +5,7 @@
 //   -. a per-frame table a channel: [B, 3, 256] u8, v -> table[f, c, v],
 //      the statistical white balances' last step (ops/white_balance
 //      .apply_tables_plain), with PCA's NaN channels, which become 255
-//      before a flat position of the frame and 0 from it; with a table
-//      shared by every frame and one plane, the mono chain's gamma LUT
-//      (ops/gamma.apply_lut);
+//      before a flat position of the frame and 0 from it;
 //   0. the CCC gains: cv::multiply by per-frame [B, 3] gains, one f32
 //      product, round half to even, saturate (ops/ccc.apply_gains_planes);
 //   1. colour calibration: rn(rn(rn(b*m0) + rn(g*m1)) + rn(r*m2)), then
@@ -29,7 +27,7 @@
 // `balance_white_simple` (line 75), `balance_white_grey_world` (109),
 // `balance_white_pca` (425) and ops/learned_wb.py
 // `balance_white_learned_model` (364), whose per-frame tables kernel M
-// makes (csrc/wb_tables.cu), and ops/gamma.py `apply_lut` (221). The port's
+// makes (csrc/wb_tables.cu). The port's
 // plain versions run it as a few hundred eager passes over [B, H, W] tensors,
 // with int32 and f32 temporaries of every intermediate.
 //
@@ -68,12 +66,11 @@
 // - The Lab coefficients are immediates (kLabCoef, kLab2Coef; ops/colorspace
 //   _LAB_COEF and _LAB2_COEF, held equal by tests/test_torch_pointwise.py).
 // - The chains' step sets (the flagship's, config 4's, the table step
-//   alone: config 2's white balance and the mono LUT) have instantiations
-//   of their own in the word layouts, whose steps are known at compile
-//   time: no step's branch splits a pixel's code. A thread loads the next
-//   frame's words before it computes a frame. The plane count (1 or 3) is
-//   read only where the table step is on: the other sets keep three planes
-//   as compile-time constants, so the flagship's code is what it was.
+//   alone: config 2's white balance) have instantiations of their own in
+//   the word layouts, whose steps are known at compile time: no step's
+//   branch splits a pixel's code. A thread loads the next frame's words
+//   before it computes a frame. Every set takes three planes (the mono
+//   chain's LUT is kernel O, csrc/lut.cu).
 // - The table step reads its frame's tables through the read-only cache
 //   (768 bytes a frame; a warp's 32 lookups fall in two 128-byte lines a
 //   plane), and a frame's NaN flags once a frame.
@@ -101,6 +98,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 5;  // resident blocks an SM: measured faster than 3, 4 and 6
+// the table step alone: 4 (its planar instantiation then takes 56 registers)
+// measured faster than 5 at B=4 and B=64 1080p, planar and interleaved out
+constexpr int kTableMinBlocks = 4;
 constexpr int kPx = 4;  // consecutive pixels of a thread
 
 // ops/pointwise.const_tables' layout, in bytes: [kYIfy, kSdiv) is staged as
@@ -144,7 +144,7 @@ enum Layout { kBytes = 0, kPlanar = 1, kInterleaved = 2 };
 // steps; kAnySteps reads them from the pointers
 enum Step { kGains = 1, kMatrix = 2, kLut = 4, kMask = 8, kEnh = 16, kTable = 32 };
 constexpr int kAnySteps = 0;
-constexpr int kTableSteps = kTable;  // config 2's white balance, the mono LUT
+constexpr int kTableSteps = kTable;  // config 2's white balance
 constexpr int kFlagshipSteps = kGains | kMatrix | kMask | kEnh;  // the chains' call
 constexpr int kConfig4Steps = kMatrix | kMask | kEnh;            // config 4's
 
@@ -162,12 +162,9 @@ struct Params {
   const float* mask;    // [h, w] or null (no vignetting)
   const int* lab;       // [256] linearize table, with mask
   const uint8_t* enh;   // [3, 256] (H, S, V) gain tables, or null
-  const uint8_t* wb;    // the table step's tables, frame f's channel c at f * wb_sf + c * wb_sc
-  long long wb_sf;      // 768, or 0 for a table shared by every frame
-  int wb_sc;            // 256, or 0 for one table for every plane
+  const uint8_t* wb;    // the table step's [batch, 3, 256] tables, or null
   const uint8_t* wb_nan;  // [batch, 3] NaN flags, or null
   long long nan_limit;  // a NaN channel's pixels before this flat position are 255, else 0
-  int nplanes;          // 3, or 1 with the table step alone
   const uint8_t* tables;  // const_tables
 };
 
@@ -229,15 +226,12 @@ struct Px {
 
 // a group's bytes as three words: one a plane (kPlanar, and kBytes
 // assembled so, pixel j in byte j) or the interleaved layout's three
-// (planes past np are not read: their words are 0)
 template <int L>
 __device__ __forceinline__ void load_words(uint32_t (&wd)[3], const uint8_t* const (&src)[3],
-                                           int off, int sx, int left, int np) {
+                                           int off, int sx, int left) {
   if constexpr (L == kPlanar) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      wd[k] = k < np ? *reinterpret_cast<const uint32_t*>(src[k] + off) : 0u;
-    }
+    for (int k = 0; k < 3; ++k) wd[k] = *reinterpret_cast<const uint32_t*>(src[k] + off);
   } else if constexpr (L == kInterleaved) {
     const uint32_t* q = reinterpret_cast<const uint32_t*>(src[0] + off);
     wd[0] = q[0], wd[1] = q[1], wd[2] = q[2];
@@ -247,7 +241,7 @@ __device__ __forceinline__ void load_words(uint32_t (&wd)[3], const uint8_t* con
       wd[k] = 0;
 #pragma unroll
       for (int j = 0; j < kPx; ++j) {
-        if (k < np && j < left) wd[k] |= (uint32_t)src[k][off + j * sx] << (8 * j);
+        if (j < left) wd[k] |= (uint32_t)src[k][off + j * sx] << (8 * j);
       }
     }
   }
@@ -271,13 +265,11 @@ __device__ __forceinline__ void unpack_words(Px& px, const uint32_t (&wd)[3]) {
 
 template <int L>
 __device__ __forceinline__ void store_group(const Px& px, uint8_t* const (&dst)[3], int off,
-                                            int sx, int left, int np) {
+                                            int sx, int left) {
   if constexpr (L == kPlanar) {
     *reinterpret_cast<uint32_t*>(dst[0] + off) = pack4(px.b[0], px.b[1], px.b[2], px.b[3]);
-    if (np == 3) {
-      *reinterpret_cast<uint32_t*>(dst[1] + off) = pack4(px.g[0], px.g[1], px.g[2], px.g[3]);
-      *reinterpret_cast<uint32_t*>(dst[2] + off) = pack4(px.r[0], px.r[1], px.r[2], px.r[3]);
-    }
+    *reinterpret_cast<uint32_t*>(dst[1] + off) = pack4(px.g[0], px.g[1], px.g[2], px.g[3]);
+    *reinterpret_cast<uint32_t*>(dst[2] + off) = pack4(px.r[0], px.r[1], px.r[2], px.r[3]);
   } else if constexpr (L == kInterleaved) {
     uint32_t* q = reinterpret_cast<uint32_t*>(dst[0] + off);
     q[0] = pack4(px.b[0], px.g[0], px.r[0], px.b[1]);
@@ -288,17 +280,16 @@ __device__ __forceinline__ void store_group(const Px& px, uint8_t* const (&dst)[
     for (int j = 0; j < kPx; ++j) {
       if (j < left) {
         dst[0][off + j * sx] = (uint8_t)px.b[j];
-        if (np == 3) {
-          dst[1][off + j * sx] = (uint8_t)px.g[j];
-          dst[2][off + j * sx] = (uint8_t)px.r[j];
-        }
+        dst[1][off + j * sx] = (uint8_t)px.g[j];
+        dst[2][off + j * sx] = (uint8_t)px.r[j];
       }
     }
   }
 }
 
 template <int IN, int OUT, int STEPS>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, STEPS == kTableSteps ? kTableMinBlocks : kMinBlocks)
+    pointwise_kernel(const Params p) {
   __shared__ Shared s;
   const int t0 = threadIdx.x;
   const bool gains = STEPS ? (STEPS & kGains) != 0 : p.gains != nullptr;
@@ -307,8 +298,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const P
   const bool mask = STEPS ? (STEPS & kMask) != 0 : p.mask != nullptr;
   const bool enh = STEPS ? (STEPS & kEnh) != 0 : p.enh != nullptr;
   const bool table = STEPS ? (STEPS & kTable) != 0 : p.wb != nullptr;
-  // the plane count: a compile-time 3 unless the table step may run alone
-  const int np = (STEPS == kAnySteps || (STEPS & kTable)) ? p.nplanes : 3;
   // the constant tables the steps read, as 16-byte words
   const int4* ct = reinterpret_cast<const int4*>(p.tables);
   int4* st = reinterpret_cast<int4*>(&s);
@@ -366,18 +355,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const P
 #pragma unroll
     for (int k = 0; k < 3; ++k) src[k] = p.in[k] + f0 * p.in_sb, dst[k] = p.out[k] + f0 * p.out_sb;
     uint32_t next[3];  // the next frame's words, loaded a frame ahead
-    load_words<IN>(next, src, io, p.in_sx, left, np);
+    load_words<IN>(next, src, io, p.in_sx, left);
 #pragma unroll 1
     for (int f = f0; f < f1; ++f) {
       Px px;
       unpack_words<IN>(px, next);
 #pragma unroll
       for (int k = 0; k < 3; ++k) src[k] += p.in_sb;
-      if (f + 1 < f1) load_words<IN>(next, src, io, p.in_sx, left, np);
+      if (f + 1 < f1) load_words<IN>(next, src, io, p.in_sx, left);
       const uint8_t* tab = nullptr;  // frame f's tables
       uint32_t nanc = 0;             // its NaN channels' bits (b 1, g 2, r 4)
       if (table) {
-        tab = p.wb + f * p.wb_sf;
+        tab = p.wb + 768LL * f;
         if (p.wb_nan) {
           nanc = (__ldg(p.wb_nan + 3 * f) ? 1u : 0u) | (__ldg(p.wb_nan + 3 * f + 1) ? 2u : 0u) |
                 (__ldg(p.wb_nan + 3 * f + 2) ? 4u : 0u);
@@ -393,10 +382,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const P
         uint32_t b = px.b[j], g = px.g[j], r = px.r[j];
         if (table) {
           b = __ldg(tab + (b & 255u));
-          if (np == 3) {
-            g = __ldg(tab + p.wb_sc + (g & 255u));
-            r = __ldg(tab + 2 * p.wb_sc + (r & 255u));
-          }
+          g = __ldg(tab + 256 + (g & 255u));
+          r = __ldg(tab + 512 + (r & 255u));
           if (nanc) {  // PCA's constant channels: by the pixel's flat position
             const uint32_t pat = (long long)y * p.w + x + j < p.nan_limit ? 255u : 0u;
             if (nanc & 1u) b = pat;
@@ -484,7 +471,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pointwise_kernel(const P
         }
         px.b[j] = b, px.g[j] = g, px.r[j] = r;
       }
-      store_group<OUT>(px, dst, oo, p.out_sx, left, np);
+      store_group<OUT>(px, dst, oo, p.out_sx, left);
 #pragma unroll
       for (int k = 0; k < 3; ++k) dst[k] += p.out_sb;
     }
@@ -549,10 +536,9 @@ int layout_of(const void* const (&ptr)[3], long long sb, long long sy, long long
 // Three [batch, h, w] u8 planes (in0..2, shared strides in bytes: frame,
 // row, column) to three (out0..2, likewise); gains, matrix (with bias),
 // lut, mask, enh and wb switch their steps on (null: off); lab is the
-// linearize table of the vignetting step; wb the table step's tables (frame
-// stride wb_sf, channel stride wb_sc), wb_nan its [batch, 3] NaN flags (or
-// null) and nan_limit their flat position; nplanes 1 (the table step alone:
-// plane 0 of in and out) or 3; tables is ops/pointwise.const_tables. A
+// linearize table of the vignetting step; wb the table step's [batch, 3,
+// 256] tables, wb_nan their [batch, 3] NaN flags (or null) and nan_limit
+// their flat position; tables is ops/pointwise.const_tables. A
 // frame's offsets, (h - 1) * sy + (w - 1) * sx + 3 for in and out, must fit
 // an int and so must h * ceil(w / 4) (the wrapper checks). Launches on
 // `stream` and returns cudaGetLastError().
@@ -562,15 +548,11 @@ extern "C" int isp_pointwise(const void* in0, const void* in1, const void* in2, 
                              long long out_sx, int batch, int h, int w, const void* gains,
                              const void* matrix, const void* bias, const void* lut,
                              const void* mask, const void* lab, const void* enh,
-                             const void* wb, long long wb_sf, int wb_sc, const void* wb_nan,
-                             long long nan_limit, int nplanes, const void* tables,
-                             void* stream) {
+                             const void* wb, const void* wb_nan, long long nan_limit,
+                             const void* tables, void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0) return (int)cudaSuccess;
   if (!tables || (mask && !lab) || (matrix && !bias) || (wb_nan && !wb)) {
     return (int)cudaErrorInvalidValue;
-  }
-  if (nplanes != 3 && (nplanes != 1 || !wb || gains || matrix || lut || mask || enh)) {
-    return (int)cudaErrorInvalidValue;  // one plane: the table step alone
   }
   const long long groups = (w + kPx - 1) / kPx;
   if ((long long)h * groups >= (1LL << 31) || (h - 1) * in_sy + (w - 1) * in_sx + 3 >= (1LL << 31) ||
@@ -586,8 +568,8 @@ extern "C" int isp_pointwise(const void* in0, const void* in1, const void* in2, 
   p.gains = (const float*)gains, p.matrix = (const float*)matrix, p.bias = (const float*)bias;
   p.lut = (const uint8_t*)lut;
   p.mask = (const float*)mask, p.lab = (const int*)lab, p.enh = (const uint8_t*)enh;
-  p.wb = (const uint8_t*)wb, p.wb_sf = wb_sf, p.wb_sc = wb_sc;
-  p.wb_nan = (const uint8_t*)wb_nan, p.nan_limit = nan_limit, p.nplanes = nplanes;
+  p.wb = (const uint8_t*)wb;
+  p.wb_nan = (const uint8_t*)wb_nan, p.nan_limit = nan_limit;
   p.tables = (const uint8_t*)tables;
   p.mask16 = w % kPx == 0 && (uintptr_t)mask % 16 == 0;
   const void* ins[3] = {in0, in1, in2};

@@ -33,7 +33,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
            "remap_float.cu", "remap_lerp.cu", "pointwise.cu", "ccc_resize.cu", "ccc_argmax.cu",
-           "ccc_track.cu", "wb_stats.cu", "wb_hist64.cu", "wb_tables.cu", "flip.cu")
+           "ccc_track.cu", "wb_stats.cu", "wb_hist64.cu", "wb_tables.cu", "flip.cu",
+           "lut.cu")
 HEADERS = ("debayer_strip.cuh", "remap_tile.cuh", "wb_planes.cuh")  # included by the sources; in the hash too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,7 +56,7 @@ _SIGNATURES = {
     "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "isp_remap_lerp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "isp_pointwise": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _L, _I, _P, _P),
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P),
     "isp_ccc_resize": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _P),
     "isp_ccc_argmax": (_P, _P, _I, _I, _I, _P),
@@ -68,6 +69,7 @@ _SIGNATURES = {
     "isp_wb_tables": (_I, _P, _P, _I, _L, _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "isp_wb_tables_limits": (_IP,),
     "isp_flip": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _P),
+    "isp_lut": (_P, _P, _P, _L, _L, _L, _L, _L, _P),
 }
 
 
@@ -247,8 +249,15 @@ FLIP = Kernel(
     "raw_image_pipeline_tpu_torch/csrc/flip.cu",
     "raw_image_pipeline_tpu/ops/flip.py:48 flip",
 )
+# the u8 lookup table (the mono chain's gamma, the op layer's apply_lut),
+# which the reference package leaves to XLA
+LUT = Kernel(
+    "lut", "isp_lut",
+    "raw_image_pipeline_tpu_torch/csrc/lut.cu",
+    "raw_image_pipeline_tpu/ops/gamma.py:221 apply_lut",
+)
 ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT, REMAP_LERP,
-       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK, WB_STATS, WB_HIST64, WB_TABLES, FLIP)
+       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK, WB_STATS, WB_HIST64, WB_TABLES, FLIP, LUT)
 
 
 def reset_launch_counts() -> None:

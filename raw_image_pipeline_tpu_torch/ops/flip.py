@@ -107,16 +107,19 @@ def _alignment(*values: int) -> int:
 
 def flip_route(elem: int, w: int, angle: int, in_align: int, out_align: int) -> Tuple[int, int]:
     """Kernel N's (route, word) for pixels of `elem` bytes, w wide, whose
-    input bases and strides are multiples of in_align bytes and output ones
-    of out_align (powers of two, at most 16): route 1 (180 over 16-byte
-    chunks) for 1-byte pixels in rows of whole chunks, all 16-byte aligned;
-    route 2 (90 / 270 over 64 x 64 byte tiles of words) for 1-byte pixels
-    whose input is 4-byte aligned; else route 0 over words of the largest
-    power of two dividing the pixel and both alignments."""
+    input bases and strides (and, at 90 / 270, first column: r0 at 90, w -
+    r0 at 270) are multiples of in_align bytes and output ones of out_align
+    (powers of two, at most 16): route 1 (180 over 16-byte chunks) for
+    1-byte pixels in rows of whole chunks, all 16-byte aligned; route 2 (90
+    / 270 over tiles placed on the output's 32-byte sectors, whatever its
+    alignment) for 1-byte pixels whose input is 4-byte aligned, loading 16
+    bytes at once where the input is 16-byte aligned (word 16), else 4
+    (word 4); else route 0 over words of the largest power of two dividing
+    the pixel and both alignments."""
     if elem == 1 and angle == 180 and w % 16 == 0 and min(in_align, out_align) == 16:
         return 1, 1
     if elem == 1 and angle in (90, 270) and in_align >= 4:
-        return 2, 1
+        return 2, 16 if in_align >= 16 else 4
     return 0, _alignment(elem, in_align, out_align)
 
 
@@ -205,7 +208,9 @@ def flip_cuda(tensors: Sequence[torch.Tensor], angle: int, rows=None, *,
         ins = [t.data_ptr() for t in tensors]
         base = out.data_ptr()
         outs = [base + i * b * ob for i in range(n)]
-        route, word = flip_route(elem, w, angle, _alignment(sb, sy, *ins),
+        col0 = (r0 if angle == 90 else w - r0) * elem  # the first input column's bytes
+        route, word = flip_route(elem, w, angle,
+                                 _alignment(sb, sy, *ins, *((col0,) if angle != 180 else ())),
                                  _alignment(ob, *outs))
         pad = (None,) * (3 - n)
         dev = t0.device

@@ -2,8 +2,8 @@
 csrc/pointwise.cu): a statistical white balance's per-frame tables, the
 CCC gains, colour calibration, a u8 LUT, vignetting through the exact Lab
 roundtrip and the HSV enhancer, each optional, in the chain's order,
-planes in and planes out; with the tables step alone, also one plane (the
-mono chain's gamma LUT, `lut_cuda`).
+planes in and planes out (the mono chain's gamma LUT is kernel O,
+ops/gamma.lut_cuda).
 
 It composes the JAX package's stage functions, which it leaves to XLA:
 the statistical white balances' per-pixel maps (ops/white_balance.py,
@@ -199,11 +199,10 @@ def pointwise_cuda(planes, *, wb_tables=None, wb_nan=None, nan_limit=None, gains
     return out
 
 
-def _launch(planes, out, args: dict, nan_limit: int, batch_limit: int, shared_table=False):
-    """Kernel G's launches over planes and out (one or three [B, h, W] u8
-    CUDA planes each, of equal strides) with the steps' device tensors
-    `args`; with shared_table, args["wb"] is one [256] table for every
-    frame and plane."""
+def _launch(planes, out, args: dict, nan_limit: int, batch_limit: int):
+    """Kernel G's launches over planes and out (three [B, h, W] u8 CUDA
+    planes each, of equal strides) with the steps' device tensors
+    `args`."""
     bsz, h, w = planes[0].shape
     if h * -(-w // PIXELS_PER_THREAD) >= 2**31:
         raise ValueError(f"kernel G: {h} rows of {w} pixels exceed its task count")
@@ -212,40 +211,17 @@ def _launch(planes, out, args: dict, nan_limit: int, batch_limit: int, shared_ta
             raise ValueError(f"kernel G: a frame of {name} spans 2^31 bytes or more")
     tables = _const_tables_on(str(planes[0].device))
     ptr = {k: v.data_ptr() for k, v in args.items()}
-    wb_sf, wb_sc = (0, 0) if shared_table else (768, 256)
-    n_planes = len(planes)
-    ins, outs = list(planes) * (3 // n_planes), list(out) * (3 // n_planes)
     with torch.cuda.device(planes[0].device):
         for f0, n in kernels.batch_runs(bsz, batch_limit):
             kernels.POINTWISE.launch(
-                *(p[f0].data_ptr() for p in ins), *(o[f0].data_ptr() for o in outs),
+                *(p[f0].data_ptr() for p in planes), *(o[f0].data_ptr() for o in out),
                 *planes[0].stride(), *out[0].stride(), n, h, w,
                 ptr["gains"] + 12 * f0 if "gains" in ptr else None, ptr.get("matrix"),
                 ptr.get("bias"), ptr.get("lut"), ptr.get("mask"), ptr.get("lab"), ptr.get("enh"),
-                ptr["wb"] + wb_sf * f0 if "wb" in ptr else None, wb_sf, wb_sc,
-                ptr["wb_nan"] + 3 * f0 if "wb_nan" in ptr else None, nan_limit, n_planes,
+                ptr["wb"] + 768 * f0 if "wb" in ptr else None,
+                ptr["wb_nan"] + 3 * f0 if "wb_nan" in ptr else None, nan_limit,
                 tables.data_ptr(), kernels.stream_handle(out[0]),
             )
-
-
-def lut_cuda(x: torch.Tensor, lut, *, batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
-    """Kernel G's table step alone on one plane: lut[x] for a u8 CUDA
-    tensor of any shape and a [256] u8 table (ops/gamma.apply_lut's path on
-    the card), into a new tensor of x's shape."""
-    table = as_tensor_on(lut, x.device).contiguous()
-    if x.device.type != "cuda" or x.dtype != torch.uint8:
-        raise ValueError(f"kernel G's LUT: expected a uint8 CUDA tensor, got {x.dtype} on "
-                         f"{x.device}")
-    kernels.check_cuda(table, "lut", torch.uint8, (256,))
-    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-    if x.numel() == 0:
-        return out
-    # frames [N, H, W] of the last two dims (a row of a 0- or 1-d tensor)
-    lead = (-1,) + tuple(x.shape[-2:]) if x.dim() >= 2 else (1, 1, -1)
-    plane = x.reshape(lead)
-    _launch((plane,), (out.view(plane.shape),), {"wb": table}, 0, batch_limit,
-            shared_table=True)
-    return out
 
 
 def pointwise_planes(b: torch.Tensor, g: torch.Tensor, r: torch.Tensor, *, wb_tables=None,

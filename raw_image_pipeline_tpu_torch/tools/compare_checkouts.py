@@ -34,8 +34,11 @@ checkout, through functions every version of the port has:
     frame, kalman_update before kernel J) and the chain's whole CCC
     range, H to J, on A's planes ("CCC"; "CCC64" at B=64, seeded planes),
     and the flip of a mosaic, ops.flip.flip (N since kernel N, torch.flip
-    before): the flagship's, 180 at B=4 ("N"), 90 at B=4 ("N_90") and the
-    wb_* chains', 90 at B=64 ("N64"),
+    before): the flagship's, 180 at B=4 ("N"), 90 at B=4 ("N_90"), 270 at
+    B=4 ("N_270") and the wb_* chains', 90 at B=64 ("N64"; "N64_270" at
+    270), and the mono chain's gamma table on a mono plane, ops.gamma
+    .apply_lut with the 0.9 table (O since kernel O, G's table step on one
+    plane before): B=4 1080x1920 ("O") and B=64 1920x1080 ("O64"),
     each with every stream operation its call makes:
     device ms (measure.device_ms) and ms per call, the host's launches
     included (measure.call_ms);
@@ -56,7 +59,9 @@ checkout, through functions every version of the port has:
     1920x1080 mosaic, then the statistical white balance, kernels K, L, M
     and G's table step since they exist): frames/s and one profiled call,
     whose "CCC range" fields hold its isp_white_balance range, the
-    statistical white balance.
+    statistical white balance;
+  * the mono8 chain (the flagship on mono frames: the flip, the gamma
+    table, the lerp remap): frames/s and one profiled call.
 
 Prints one line per turn, then per version the median and range over its
 turns of each kernel's times, each chain's frames/s and its profile's
@@ -79,6 +84,7 @@ _TOOLS_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_DIR = os.path.dirname(os.path.dirname(_TOOLS_DIR))
 FLAGSHIP_FAMILY = ("flagship", "gpu_parity", "float", "fixed32")
 WB_CHAINS = ("wb_simple", "wb_grey_world", "wb_pca", "wb_learned")
+MONO_CHAINS = ("mono8",)
 CCC_RANGE = "isp_white_balance"
 FPS_REPS = 7
 TURNS = ("old", "new", "new", "old") * 2  # each build meets the card's drift alike
@@ -124,7 +130,7 @@ def _worker(root: str, out: str) -> dict:
 
     import raw_image_pipeline_tpu_torch as tp
     from raw_image_pipeline_tpu_torch.models.ccc_model import load_ccc_model
-    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, flip, undistortion
+    from raw_image_pipeline_tpu_torch.ops import ccc, debayer, flip, gamma, undistortion
     from raw_image_pipeline_tpu_torch.ops.resize import resize_linear_u8_plane
 
     if not os.path.abspath(tp.__file__).startswith(os.path.join(root, "")):
@@ -154,6 +160,8 @@ def _worker(root: str, out: str) -> dict:
     big = [torch.randint(0, 256, (64, 1080, 1920), generator=g, device="cuda", dtype=torch.uint8)
            for _ in range(3)]
 
+    gamma_lut = torch.as_tensor(gamma.build_gamma_lut(0.9), device="cuda")
+    mono64 = big[0].view(64, 1920, 1080)  # the wb_* chains' size as mono planes
     lerp_maps = {mode: tp.make_params(workloads.chains(tp)[name].config(1080, 1920),
                                       (1080, 1920), device="cuda")
                  for mode, name in (("lerp", "flagship"), ("fixed32", "fixed32"))}
@@ -269,14 +277,18 @@ def _worker(root: str, out: str) -> dict:
              "CCC64": lambda: ccc_range(big),
              "N": lambda: flip.flip(bayer, 180, (1, 2)),
              "N_90": lambda: flip.flip(bayer, 90, (1, 2)),
+             "N_270": lambda: flip.flip(bayer, 270, (1, 2)),
              "N64": lambda: flip.flip(big[0], 90, (1, 2)),
+             "N64_270": lambda: flip.flip(big[0], 270, (1, 2)),
+             "O": lambda: gamma.apply_lut(bayer, gamma_lut),
+             "O64": lambda: gamma.apply_lut(mono64, gamma_lut),
              **wb_calls}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},
            "frames_per_s": {}, "profiles": {}}
-    del big, unaligned, calls, wb_calls
+    del big, mono64, unaligned, calls, wb_calls
     torch.cuda.empty_cache()
-    for name in FLAGSHIP_FAMILY + WB_CHAINS:
+    for name in FLAGSHIP_FAMILY + WB_CHAINS + MONO_CHAINS:
         ch = workloads.chains(tp)[name]
         for h, w in ch.sizes:
             res["frames_per_s"][f"{name} {w}x{h}"] = _fps(tp, torch, workloads, name, h, w)

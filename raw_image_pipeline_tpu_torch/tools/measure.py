@@ -175,6 +175,13 @@ def flip_work(batch: int, rows: int, width: int, pixel_bytes: int = 1, planes: i
     return {"bytes": 2 * planes * batch * rows * width * pixel_bytes, "ops": 0}
 
 
+def lut_work(numel: int) -> dict:
+    """The work of kernel O on `numel` u8 bytes: "bytes", each read once and
+    written once, and the 256-byte table read once; no operations (a
+    lookup is a gather)."""
+    return {"bytes": 2 * numel + 256, "ops": 0}
+
+
 def ccc_response_work(batch: int, n: int = 256) -> dict:
     """The work of kernel C's function, resp = Re(IDFT2(DFT2(X) * W)) / n^2
     + bias, on `batch` real [n, n] f32 histograms:

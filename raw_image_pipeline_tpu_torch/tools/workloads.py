@@ -121,9 +121,13 @@ def chains(tp) -> dict:
                                     kind="color",
                                     frames=512, calls=1, microbatch=128, reps=3,
                                     cpu_frames=128)
+    # the flagship configuration on mono frames (a mono camera head): its
+    # flip (N, 180 of the one plane), the gamma table (O) and the lerp remap
+    # (F, one plane); the white balance and the colour stages skip mono
+    table["mono8"] = Chain(tp.flagship_config, full[:1], ("flip", "lut", "remap_lerp"),
+                           encoding="mono8", kind="mono")
     # small size only: the other inputs on the flagship configuration (mono
-    # frames run its flip, gamma (G's table step on one plane) and remap,
-    # here the float remap = E on one plane), 16-bit Bayer
+    # frames through the float remap = E on one plane), 16-bit Bayer
     table["mono8_float"] = Chain(remap("float"), (), (), encoding="mono8", kind="mono",
                                  small_only=True)
     table["rgb8_float"] = Chain(remap("float"), (), (), encoding="rgb8", kind="color",
@@ -292,8 +296,8 @@ def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int, device="cud
     """n seeded [h, w] frames made on the card (or `device`), each with its
     own colour cast (a per-frame, per-channel gain), so that every
     white-balance method finds different gains per frame: "color"
-    [n, h, w, 3] BGR, "bayer" [n, h, w] bayer_gbrg8 mosaics of such
-    frames."""
+    [n, h, w, 3] BGR, "bayer" (or "mono", the same bytes as mono8 frames)
+    [n, h, w] bayer_gbrg8 mosaics of such frames."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     yy = torch.linspace(0, 1, h, device=device)[:, None]

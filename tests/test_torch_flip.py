@@ -55,13 +55,22 @@ def test_flip_rows_plain_equals_jax_flip_then_rows(angle, dtype, channels, hw):
 
 def test_flip_route_rule():
     # 1-byte pixels: 180 over 16-byte chunks where rows are whole chunks and
-    # everything is 16-byte aligned; 90 / 270 over byte tiles where the input
-    # is 4-byte aligned; else words of what divides the pixel and both sides
+    # everything is 16-byte aligned; 90 / 270 over tiles on the output's
+    # sectors where the input is 4-byte aligned, whatever the output's
+    # alignment, with loads of 16 bytes where the input is 16-byte aligned,
+    # else of 4; else words of what divides the pixel and both sides
     assert pflip.flip_route(1, 1920, 180, 16, 16) == (1, 1)
     assert pflip.flip_route(1, 1921, 180, 16, 16) == (0, 1)
     assert pflip.flip_route(1, 1920, 180, 16, 8) == (0, 1)
-    assert pflip.flip_route(1, 1080, 90, 4, 8) == (2, 1)
-    assert pflip.flip_route(1, 1080, 270, 16, 1) == (2, 1)
+    assert pflip.flip_route(1, 1080, 90, 4, 8) == (2, 4)
+    assert pflip.flip_route(1, 1080, 270, 16, 1) == (2, 16)
+    # the wb_* chains' call: 1920-byte mosaic rows in, 1080-byte rows out
+    # (every other row 8 bytes off a 16-byte boundary, out_align 8)
+    assert pflip.flip_route(1, 1920, 90, 16, 8) == (2, 16)
+    assert pflip.flip_route(1, 1920, 270, 16, 8) == (2, 16)
+    assert pflip.flip_route(1, 1920, 90, 8, 8) == (2, 4)  # input 8-byte aligned
+    assert pflip.flip_route(1, 1439, 90, 4, 16) == (2, 4)  # input aligned to 4
+    assert pflip.flip_route(1, 1439, 270, 1, 16) == (0, 1)  # to 1: route 0, bytes
     assert pflip.flip_route(1, 1080, 90, 2, 16) == (0, 1)
     assert pflip.flip_route(3, 1920, 180, 16, 16) == (0, 1)
     assert pflip.flip_route(12, 45, 90, 16, 16) == (0, 4)
@@ -172,4 +181,7 @@ def test_kernel_n_equals_plain_on_card(card, angle):
     assert _held(tuple(planes[:, c] for c in range(3)), angle, (100, 612), (1, 2)) == 1
     off = planes.reshape(-1)[1:1 + 5 * 1079 * 1919].view(5, 1079, 1919)
     assert _held((off,), angle, None, (1, 2)) == 1
+    off4 = planes.reshape(-1)[4:4 + 5 * 1080 * 1920].view(5, 1080, 1920)  # 4-byte loads
+    assert _held((off4,), angle, None, (1, 2)) == 1
+    assert _held((off4,), angle, (36, 1000), (1, 2)) == 1
     assert _held((planes[:, 0],), angle, None, (1, 2), batch_limit=2) == 3

@@ -441,7 +441,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="needs wb_tables"):
         ppw.pointwise_planes(*planes, wb_nan=torch.zeros((1, 3), dtype=torch.uint8))
     with pytest.raises(ValueError, match="CUDA"):
-        ppw.lut_cuda(planes[0], torch.zeros(256, dtype=torch.uint8))
+        pgamma.lut_cuda(planes[0], torch.zeros(256, dtype=torch.uint8))
     with pytest.raises(ValueError, match="histogram"):
         pwb.wb_tables_plain(torch.zeros((1, 7), dtype=torch.int64), "learned", 0.8, 6)
 
@@ -564,9 +564,9 @@ def test_mono_lut_on_card_equals_plain(card):
     lut = torch.as_tensor(pgamma.build_gamma_lut(0.7), device=card)
     for shape in ((3, 17, 31), (2, 45, 61), (5,), (2, 3, 64, 96)):
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device=card)
-        before = kernels.POINTWISE.launches
+        before = kernels.LUT.launches
         got = pgamma.apply_lut(x, lut)
-        assert kernels.POINTWISE.launches == before + 1
+        assert kernels.LUT.launches == before + 1
         assert torch.equal(got, pgamma.apply_lut(x, lut, plain=True)), shape
     x = torch.randint(0, 256, (4, 45, 64), dtype=torch.uint8, device=card)
     assert torch.equal(pgamma.apply_lut(x[:, :, 1:], lut), lut[x[:, :, 1:].long()])

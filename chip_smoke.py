@@ -54,8 +54,13 @@ per source, into build/kernels/), then:
                        1439x1079 and 117x91, on 4 cameras x B=4 1920x1080
                        through four distinct maps in one launch, at B=64
                        and on 2 cameras x 10 frames past a batch limit
-                       lowered to 7 (four launches); timed at B=4 and B=64
-                       beside the plain version and the bound, and 4
+                       lowered to 7 (four launches), fixed32 through its
+                       compact map (remap_fixed32_code) and through the
+                       weights alone (the op layer's call), also on the
+                       fixed32 chain's own params at B=4 and B=64; timed at
+                       B=4 and B=64 beside the plain version and the bound
+                       (fixed32's with its compact map's bytes, and through
+                       the weights alone under *_wide_fixed32), and 4
                        cameras x B=4 (lerp under the row's main keys,
                        fixed32 under *_fixed32);
        G pointwise stretch — 0 mismatching bytes against
@@ -566,12 +571,18 @@ def check_remap_lerp(tp, torch, rng, planes):
     cameras x B=4 1080x1920 through the four distinct fisheye maps of the
     multicam4 chain in one launch, B=64 1080x1920, and REMAP_LERP_LIMIT's 2
     cameras x 10 frames past a batch limit lowered to 7 (four launches).
-    Each line names the store width V of its launch. Then the flagship
+    Fixed32 runs each case twice, through the compact map
+    (undistortion.remap_fixed32_code of the case's weights) and without it
+    (the op layer's call, every pixel's weights read), and also on the
+    fixed32 chain's own params (remap_code) at B=4 and B=64. Each line names
+    the store width V of its launch. Then the flagship
     map's tiles by that host model, on a line of their own, and the device
     times at B=4 1080x1920 on `planes` (kernel D's output) and on the
     fixture frames (_fixture_planes), at REMAP_B64, and the plain versions'
-    at both, beside each bound. Returns F's row: lerp, the
-    main path's mode, under the main keys, fixed32 under *_fixed32."""
+    at both, beside each bound (fixed32's with its compact map's bytes,
+    measure.remap_lerp_work(explicit=), and the 20-byte map's beside it).
+    Returns F's row: lerp, the main path's mode, under the main keys,
+    fixed32 under *_fixed32."""
     import dataclasses
 
     import numpy as np
@@ -654,23 +665,42 @@ def check_remap_lerp(tp, torch, rng, planes):
                     frames(4 * len(cams), *hw), mp.remap_base, mp.remap_weights, hw)
         cases.append(cameras4)
         cases.append((f"fisheye B={REMAP_B64[0]} 1080x1920", big, base, weights, hw))
+        if mode == "fixed32":  # the fixed32 chain's own params, with their code
+            cp = tp.make_params(workloads.chains(tp)["fixed32"].config(*hw), hw, device=dev)
+            cases += [(f"fixed32 chain's map B={len(pl[0])} 1080x1920", pl, cp.remap_base,
+                       cp.remap_weights, hw) for pl in (frames(4, *hw), big)]
+            del cp
         for label, pl, b_, w_, out_hw in cases:
-            got = undistortion.remap_lerp_cuda(pl, b_, w_, out_hw, mode=mode)
-            bad = int((got != undistortion.remap_planes(pl, b_, w_, out_hw, mode,
-                                                        plain=True)).sum())
-            v = undistortion.remap_run_width(out_hw[1], got.data_ptr(), b_.data_ptr(),
-                                             w_.data_ptr())
-            print(f"kernel F {mode} remap {label} (V={v}): {bad} mismatching bytes")
-            if bad:
-                raise AssertionError(f"kernel F {mode}: {bad} mismatching bytes at {label}")
+            want = undistortion.remap_planes(pl, b_, w_, out_hw, mode, plain=True)
+            codes = [None]
+            if mode == "fixed32":  # the compact map first, then the op layer's call
+                codes.insert(0, torch.as_tensor(undistortion.remap_fixed32_code(w_.cpu().numpy()),
+                                                device=dev))
+            for code in codes:
+                got = undistortion.remap_lerp_cuda(pl, b_, w_, out_hw, mode=mode, code=code)
+                bad = int((got != want).sum())
+                v = undistortion.remap_run_width(out_hw[1], got.data_ptr(), b_.data_ptr(),
+                                                 w_.data_ptr(),
+                                                 0 if code is None else code.data_ptr())
+                form = ("" if mode != "fixed32" else ", the weights (no code)" if code is None
+                        else f", compact map ({int((code == undistortion.FIXED32_EXPLICIT).sum())}"
+                             f" explicit pixels)")
+                print(f"kernel F {mode} remap {label}{form} (V={v}): {bad} mismatching bytes")
+                if bad:
+                    raise AssertionError(f"kernel F {mode}: {bad} mismatching bytes at {label}"
+                                         f"{form}")
+            del want
         del cases, flat, shifted, got
         cam, per, limit = REMAP_LERP_LIMIT
         lm = [undistortion.remap_precompute(*workloads.lerp_hostile_maps((91, 117), (91, 117), s),
                                             (91, 117), mode=mode) for s in range(cam)]
         lb, lw = (torch.as_tensor(np.stack([m[i] for m in lm]), device=dev) for i in (0, 1))
         pl = frames(cam * per, 91, 117)
+        lc = (torch.as_tensor(undistortion.remap_fixed32_code(lw.cpu().numpy()), device=dev)
+              if mode == "fixed32" else None)
         before = kernels.REMAP_LERP.launches
-        got = undistortion.remap_lerp_cuda(pl, lb, lw, (91, 117), mode=mode, batch_limit=limit)
+        got = undistortion.remap_lerp_cuda(pl, lb, lw, (91, 117), mode=mode, batch_limit=limit,
+                                           code=lc)
         made = kernels.REMAP_LERP.launches - before
         bad = int((got != undistortion.remap_planes(pl, lb, lw, (91, 117), mode,
                                                     plain=True)).sum())
@@ -679,8 +709,11 @@ def check_remap_lerp(tp, torch, rng, planes):
         if bad or made != cam * -(-per // limit):
             raise AssertionError(f"kernel F {mode}: the lowered batch limit's run is wrong")
 
-        def fn(pl_, b_=base, w_=weights):
-            return lambda: undistortion.remap_lerp_cuda(pl_, b_, w_, hw, mode=mode)
+        code = (torch.as_tensor(undistortion.remap_fixed32_code(weights.cpu().numpy()),
+                                device=dev) if mode == "fixed32" else None)
+
+        def fn(pl_, b_=base, w_=weights, c_=code):
+            return lambda: undistortion.remap_lerp_cuda(pl_, b_, w_, hw, mode=mode, code=c_)
 
         def plain(pl_):
             return lambda: undistortion.remap_planes(pl_, base, weights, hw, mode, plain=True)
@@ -690,21 +723,47 @@ def check_remap_lerp(tp, torch, rng, planes):
               f"(workloads.remap_tile_census, not counted on the card): {census}")
         fixture = [p.contiguous() for p in _fixture_planes(torch, 4, *hw)]
         live = int((weights[undistortion.REMAP_WEIGHT_ROWS[mode] - 4:] != 0).any(0).sum())
-        work = remap_lerp_work(planes[0].shape[0], *hw, base.numel(), 3, mode, live)
-        work64 = remap_lerp_work(REMAP_B64[0], *hw, base.numel(), 3, mode, live)
         _, _, cb, cw, _ = cameras4
+        cc = (torch.as_tensor(undistortion.remap_fixed32_code(cw.cpu().numpy()), device=dev)
+              if mode == "fixed32" else None)
+
+        def explicit(c):  # the compact map's explicit pixels (fixed32), else None
+            return None if c is None else int((c == undistortion.FIXED32_EXPLICIT).sum())
+
+        work = remap_lerp_work(planes[0].shape[0], *hw, base.numel(), 3, mode, live,
+                               explicit=explicit(code))
+        work64 = remap_lerp_work(REMAP_B64[0], *hw, base.numel(), 3, mode, live,
+                                 explicit=explicit(code))
         cam_live = int((cw[:, undistortion.REMAP_WEIGHT_ROWS[mode] - 4:] != 0).any(1).sum())
         work_cams = remap_lerp_work(4 * len(cams), *hw, base.numel(), 3, mode, cam_live,
-                                    maps=len(cams))
+                                    maps=len(cams), explicit=explicit(cc))
         cam_planes = cameras4[1]
         times = dict(ms=device_ms(fn(planes)), ms_fixture=device_ms(fn(fixture)),
                      plain_ms=device_ms(plain(planes), n=5),
                      **bound(bytes_=work["bytes"], ops=work["ops"]),
                      ms_b64=device_ms(fn(big)), plain_ms_b64=device_ms(plain(big), n=3),
                      bound_ms_b64=bound(bytes_=work64["bytes"], ops=work64["ops"])["bound_ms"],
-                     ms_cameras4=device_ms(fn(cam_planes, cb, cw)),
+                     ms_cameras4=device_ms(fn(cam_planes, cb, cw, cc)),
                      bound_ms_cameras4=bound(bytes_=work_cams["bytes"],
                                              ops=work_cams["ops"])["bound_ms"])
+        if mode == "fixed32":  # the op layer's call (no code), and the 20-byte map's bound
+            wide = {b: remap_lerp_work(b, *hw, base.numel(), 3, mode, live)
+                    for b in (planes[0].shape[0], REMAP_B64[0])}
+            times.update(ms_wide=device_ms(fn(planes, c_=None)),
+                         ms_b64_wide=device_ms(fn(big, c_=None)),
+                         bound_ms_wide=bound(wide[planes[0].shape[0]]["bytes"],
+                                             wide[planes[0].shape[0]]["ops"])["bound_ms"],
+                         bound_ms_b64_wide=bound(wide[REMAP_B64[0]]["bytes"],
+                                                 wide[REMAP_B64[0]]["ops"])["bound_ms"],
+                         explicit=explicit(code))
+            print(f"kernel F fixed32 time through the weights (no code, the op layer's call): "
+                  f"B=4 {times['ms_wide']:.4f} ms, B={REMAP_B64[0]} {times['ms_b64_wide']:.4f} "
+                  f"ms; compact map B=4 {times['ms']:.4f} ms "
+                  f"({100 * times['bound_ms'] / times['ms']:.1f}% of its bound "
+                  f"{times['bound_ms']:.4f}), B={REMAP_B64[0]} {times['ms_b64']:.4f} ms "
+                  f"({100 * times['bound_ms_b64'] / times['ms_b64']:.1f}% of "
+                  f"{times['bound_ms_b64']:.4f}); the 20-byte map's bound "
+                  f"{times['bound_ms_wide']:.4f} / {times['bound_ms_b64_wide']:.4f} ms")
         del cameras4, cam_planes, mp, fixture
         print(f"kernel F {mode} time B=4 1080x1920: {times['ms']:.4f} ms (bound "
               f"{times['bound_ms']:.4f}, {times['bound_by']}; fixture frames "
@@ -1604,8 +1663,10 @@ def check_wb_range(tp, torch, rng, smi_line):
     statistics), L (learned's 64^3 histogram) and M (the per-frame tables)
     and G's table step against their plain versions on the card: equal
     records, histograms, tables, NaN flags and learned's features (bit for
-    bit), and 0 mismatching bytes out of G, for each method (and simple at
-    p 2 and 35, grey-world at 1.2 where the u16 wrap rule applies) at
+    bit), and 0 mismatching bytes out of G, and out of K, M (L) and G
+    launched back to back as the chain launches them (balance_white_planes),
+    for each method (and simple at p 2
+    and 35, grey-world at 1.2 where the u16 wrap rule applies) at
     WB_SHAPES, on planes 1 byte off a 16-byte boundary, on interleaved
     planes (column stride 3) and on the edge frames (_wb_edge_frames) at
     45x61 and 1079x1439, and on the frame families of
@@ -1615,7 +1676,9 @@ def check_wb_range(tp, torch, rng, smi_line):
     modes and L timed at
     B = 1, 4, 16 (1080x1920) and 64 (1920x1080) on card_frames and on the
     fixture's frames, M and G's table step at B=4 and 64 on card_frames,
-    each beside its plain version and its bound, with torch.bincount of the
+    each beside its plain version and its bound (M's simple, grey-world and
+    PCA modes also beside their floor, an empty launch of their grid
+    launched as M's: isp_wb_tables_empty), with torch.bincount of the
     same bins as K's (simple) and L's library time and one indexing call of
     the same lookup as G's; then each wb_* chain at B=64 1920x1080: K, M
     (and L) launched in its call, and its profiled isp_white_balance range
@@ -1684,6 +1747,9 @@ def check_wb_range(tp, torch, rng, smi_line):
         out = pointwise.pointwise_cuda(pl, wb_tables=p.tables, wb_nan=p.nan)
         ref = pointwise.pointwise_plain(*pl, wb_tables=p.tables, wb_nan=p.nan)
         bad["G bytes"] = sum(int((a != b).sum()) for a, b in zip(out, ref))
+        # K, L, M and G back to back as the chain launches them
+        chained = wb.balance_white_planes(pl, method, param)
+        bad["K-M-G chain bytes"] = sum(int((a != b).sum()) for a, b in zip(chained, ref))
         print(f"wb_range {method}{'' if param is None else f' {param}'} {label}: "
               + ", ".join(f"{v} mismatching {k}" for k, v in bad.items()))
         if any(bad.values()):
@@ -1735,14 +1801,19 @@ def check_wb_range(tp, torch, rng, smi_line):
     rows = {"K": {}, "L": {}, "M": {}, "G": {}}
     lib, stream = kernels.LIBRARY.get(), torch.cuda.current_stream(dev).cuda_stream
 
-    def empty_launch():  # a block that only waits: a launch's floor on the device
-        err = lib.isp_ccc_track_empty(stream)
-        if err:
-            raise RuntimeError(f"empty launch: CUDA error {err} "
-                               f"({lib.isp_error_string(err).decode()})")
+    def m_floor(method, b):
+        """M's latency floor in a small mode, device ms: b empty blocks of
+        the mode's threads, launched as M launches it (each mode reads a few
+        hundred bytes a frame: its least time is the launch)."""
+        mode = wb.METHODS.index(method)
 
-    empty_ms = device_ms(empty_launch)
-    rows["M"]["empty_launch_ms"] = empty_ms
+        def empty():
+            err = lib.isp_wb_tables_empty(mode, b, stream)
+            if err:
+                raise RuntimeError(f"empty launch: CUDA error {err} "
+                                   f"({lib.isp_error_string(err).decode()})")
+
+        return device_ms(empty)
 
     def timed(name, label, ms, plain, work, library=None, library_call="torch.bincount of the "
               "same bins"):
@@ -1831,10 +1902,12 @@ def check_wb_range(tp, torch, rng, smi_line):
                         print(f"wb_range time M {label} by cluster size: "
                               + ", ".join(f"{c}: {v:.4f} ms" for c, v in sweep.items())
                               + f" [{smi_line}]")
-                if main and method != "learned":  # M's small modes beside a launch's floor
-                    ms = rows["M"][f"ms_{label}"]
-                    print(f"wb_range time M {label}: {ms:.5f} ms against an empty launch's "
-                          f"{empty_ms:.5f} ms ({100 * empty_ms / ms:.1f}%) [{smi_line}]")
+                if main and method != "learned":  # M's small modes beside their floor
+                    ms, floor = rows["M"][f"ms_{label}"], m_floor(method, b)
+                    rows["M"][f"floor_ms_{label}"] = floor
+                    print(f"wb_range time M {label}: {ms:.5f} ms against its floor, an empty "
+                          f"launch of its grid as M's, {floor:.5f} ms ({ms / floor:.2f}x the "
+                          f"floor, {100 * floor / ms:.1f}%) [{smi_line}]")
                 if main and method == "pca":  # G's table step, with PCA's NaN flags read
                     t = wb.wb_tables(pl, method, param)
                     library = lookup_ms(

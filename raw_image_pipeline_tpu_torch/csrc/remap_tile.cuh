@@ -1,13 +1,15 @@
 // Output tiles of the fisheye remap, shared by kernel E (remap_float.cu,
-// "float") and kernel F (remap_lerp.cu): cv::remap (INTER_LINEAR,
-// BORDER_CONSTANT=0) over remap_precompute's factors, one anchor index and
-// a few weights per output pixel. remap_kernel runs the modes whose taps
-// sit at base + {0, 1, w, w + 1} (float, fixed32), which differ only in how
-// the four taps are blended: a Mode (below) says so. F's lerp kernel holds
-// its map in a form of its own and calls the same pieces: a thread's run
-// (run_of), the block's source box (block_box), the staged frames
-// (staged_frames), the word stores (put_byte, store_words) and the C
-// entry's checks and launch (dispatch).
+// "float") and kernel F (remap_lerp.cu: "lerp" and "fixed32"): cv::remap
+// (INTER_LINEAR, BORDER_CONSTANT=0) over remap_precompute's factors, one
+// anchor index and a few weights per output pixel. remap_kernel runs kernel
+// E's float mode, whose taps sit at base + {0, 1, w, w + 1} and whose blend
+// a Mode (below) says. F's two modes each have a kernel of their own that
+// holds its map in a form of its own (remap_lerp_kernel: fx, fy and four
+// mask bits; remap_fixed32_kernel: an anchor and a compact weight code) and
+// call the same pieces: a thread's run (run_of), the block's source box
+// (block_box), the staged frames (staged_frames), the word stores
+// (put_byte, store_words) and the C entry's checks and launch (dispatch,
+// which passes a kernel's own trailing arguments on).
 //
 // Design:
 // - A block of 128 threads owns a tile of 8 x 64 output pixels and a
@@ -42,8 +44,8 @@
 //   whole tile rows, through shared memory, were measured and were no
 //   faster (kernel E, PERF.md section 6).
 //
-// A Mode (AnchorTaps<Blend>: the taps at base + {0, 1, w, w + 1}) is a
-// struct of:
+// A Mode of remap_kernel (AnchorTaps<Blend>: the taps at base + {0, 1, w,
+// w + 1}) is a struct of:
 //   kRows       weight rows a pixel (4);
 //   kMinBlocks  resident blocks an SM (the registers a thread may hold);
 //   blend(u0, u1, u2, u3, wt, j)  the output byte (in the low bits of the
@@ -242,7 +244,7 @@ __device__ __forceinline__ void staged_frames(uint8_t (&stage)[kStages][C][kStag
 }
 
 // The modes whose taps sit at base + {0, 1, w, w+1}, a tap outside the
-// frame reading 0 (float and fixed32: 4 weight rows, 72 registers):
+// frame reading 0 (float: 4 weight rows, 72 registers):
 // everything but Blend::blend, which gather reaches through the derived
 // mode.
 template <class Blend>
@@ -368,9 +370,11 @@ __global__ void __launch_bounds__(kBlock, Mode::kMinBlocks)
   });
 }
 
-// a kernel of remap_kernel's signature
-using Kernel = void (*)(const uint8_t*, const uint8_t*, const uint8_t*, const int32_t*,
-                        const float*, uint8_t*, int, int, int, int, int, int, bool);
+// a kernel of remap_kernel's signature, followed by a kernel's own arguments
+template <class... Extra>
+using KernelOf = void (*)(const uint8_t*, const uint8_t*, const uint8_t*, const int32_t*,
+                          const float*, uint8_t*, int, int, int, int, int, int, bool, Extra...);
+using Kernel = KernelOf<>;
 
 // remap_kernel of a Mode, as dispatch takes it
 template <class Mode>
@@ -383,11 +387,11 @@ struct Tiles {
 
 // The C entry's checks and launch: channels 1 (p0 only) or 3 (p0, p1, p2
 // interleaved into the output), v 4 (word stores) or 1 (byte stores), each
-// through K::kernel<C, WORDS>().
-template <class K>
+// through K::kernel<C, WORDS>(), which takes `extra` after planes16.
+template <class K, class... Extra>
 int dispatch(const void* p0, const void* p1, const void* p2, const void* base,
              const void* weights, void* out, int cameras, int batch, int h, int w, int ho, int wo,
-             int channels, int v, int chunk, int planes16, void* stream) {
+             int channels, int v, int chunk, int planes16, void* stream, Extra... extra) {
   if (chunk < 1 || cameras < 1 || cameras > 65535 || (v != 1 && v != 4) ||
       (v == 4 && wo % 4 != 0) || (channels != 1 && channels != 3)) {
     return (int)cudaErrorInvalidValue;
@@ -396,12 +400,12 @@ int dispatch(const void* p0, const void* p1, const void* p2, const void* base,
       (long long)((ho + kTileH - 1) / kTileH) * ((wo + kTileW - 1) / kTileW);
   if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)tiles, (unsigned)((batch + chunk - 1) / chunk), (unsigned)cameras);
-  const Kernel kernel =
+  const KernelOf<Extra...> kernel =
       channels == 1 ? (v == 4 ? K::template kernel<1, true>() : K::template kernel<1, false>())
                     : (v == 4 ? K::template kernel<3, true>() : K::template kernel<3, false>());
   kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)p0, (const uint8_t*)p1, (const uint8_t*)p2, (const int32_t*)base,
-      (const float*)weights, (uint8_t*)out, batch, h, w, ho, wo, chunk, planes16 != 0);
+      (const float*)weights, (uint8_t*)out, batch, h, w, ho, wo, chunk, planes16 != 0, extra...);
   return (int)cudaGetLastError();
 }
 

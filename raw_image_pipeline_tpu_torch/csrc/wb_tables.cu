@@ -5,9 +5,11 @@
 // to ops/white_balance.wb_tables_plain and ops/learned_wb.features_plain:
 //
 //   simple      each channel's two walks of the cumulative counts, as f32,
-//               against the f32 target (p * n) / 100, the host's alpha and
-//               beta tables (ops/white_balance._SIMPLE_ALPHA32, _BETA32)
-//               and cvRound(fma(v, alpha, beta)) with one rounding;
+//               against the f32 target (p * n) / 100, alpha = f32(255 /
+//               span) and beta = f32(-p1 * (255 / span)) in f64 (the
+//               host's tables ops/white_balance._SIMPLE_ALPHA32, _BETA32,
+//               computed as they are) and cvRound(fma(v, alpha, beta)) with
+//               one rounding;
 //   grey_world  rint(f32(smin) / f32(s) * 256), 0 for a zero sum, as
 //               (v * gain) >> 8 saturated;
 //   pca         Eigen's 2x2 inverse op for op in f32, then the exact table
@@ -32,10 +34,22 @@
 // operations, but for learned, 1 MB of counts a frame read in a few
 // dependent passes (the first maximal bin and the occupied count, the
 // radix select of the 300th count, the ordered collection), then the
-// palette's density, 300 x 300 f32 divisions.
+// palette's density, 300 x 300 f32 divisions. Simple, grey-world and PCA
+// read a few hundred bytes a frame: their time is a launch and a chain of
+// dependent reads (kernel K's record, then, in the first form, simple's
+// alpha and beta from a [256, 257] table at the walk's result), and the
+// table step of kernel G that follows them waits for their end.
 //
-// Design: simple, grey-world and PCA a block a frame. Every f32 and f64
-// chain is written in __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn (and
+// Design: simple, grey-world and PCA a block a frame (small_threads: a
+// warp a channel for simple, 256 threads for grey-world, 512 for PCA's
+// tables), a plain launch. Simple computes alpha and beta from its walk in
+// two f64 operations, with no table read. Timed as variants
+// (tools/wb_variants.py, PERF.md): launched as programmatic dependents of
+// K (and G's table step of M), they took about 1 us less device time a
+// call, but cudaLaunchKernelEx costs the host more than <<<>>> and the
+// wb_* chains' frames/s fell, so they launch plainly; the table read cost
+// 0.1 us.
+// Every f32 and f64 chain is written in __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn (and
 // their f64 forms), so nvcc contracts nothing into an fma; counts narrow
 // with __ll2float_rn and __ll2double_rn, as the plain version's casts do.
 // Learned: a thread-block cluster a frame (grid (cluster, B); the size from
@@ -74,11 +88,19 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int THREADS = 512;  // learned's threads a block
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_CLUSTER = 16;  // learned's blocks a frame (above 8 a non-portable size)
 constexpr int LOADS = 4;         // int4 loads a thread issues at once in learned's passes
 enum Mode { kSimple = 0, kGreyWorld = 1, kPca = 2, kLearned = 3 };
+// simple's, grey-world's and PCA's threads a block: a warp a channel for
+// simple's walks, 256 for grey-world's gains table, a thread a table
+// entry for PCA's f64 tail, THREADS (the fastest of 96 / 256 / 512 timed)
+constexpr int SIMPLE_THREADS = 96;
+constexpr int GREY_THREADS = 256;
+__host__ __device__ constexpr int small_threads(int mode) {
+  return mode == kSimple ? SIMPLE_THREADS : mode == kGreyWorld ? GREY_THREADS : THREADS;
+}
 
 // ops/learned_wb's constants
 constexpr int HIST64 = 64 * 64 * 64;
@@ -104,8 +126,6 @@ struct Params {
   const int* hist;
   long long npix;
   float target;
-  const float* alpha;  // simple: [257]
-  const float* beta;   // simple: [256, 257]
   const int* fi;       // learned: the trees' feature index [160, 15]
   const float* tv;     // thresholds [160, 15]
   const float* lv;     // leaves [160, 16]
@@ -118,10 +138,11 @@ __device__ __forceinline__ uint8_t round_u8(float x) {  // cvRound, saturated
   return (uint8_t)fminf(fmaxf(rintf(x), 0.0f), 255.0f);
 }
 
-// (v * gain) >> 8 saturated; thread t writes entries t, t + THREADS, ...
-// (entry i: channel i / 256's v = i % 256)
-__device__ __forceinline__ void gains_table(uint8_t* tab, const int (&gain)[3], int t) {
-  for (int i = t; i < 768; i += THREADS) {
+// (v * gain) >> 8 saturated; thread t of `threads` writes entries t,
+// t + threads, ... (entry i: channel i / 256's v = i % 256)
+__device__ __forceinline__ void gains_table(uint8_t* tab, const int (&gain)[3], int t,
+                                            int threads) {
+  for (int i = t; i < 768; i += threads) {
     const int v = i & 255;
     tab[i] = (uint8_t)min(max((v * gain[i >> 8]) >> 8, 0), 255);
   }
@@ -160,7 +181,9 @@ __device__ void simple_tables(const Params& p, int f, int t) {
   }
   const int p1 = min(max(below, 0), 255), p2 = min(max(255 - below_top, 0), 255);
   const int span = max(p2 + 1 - p1, 1);
-  const float alpha = __ldg(p.alpha + span), beta = __ldg(p.beta + p1 * 257 + span);
+  const double alpha64 = __ddiv_rn(255.0, (double)span);
+  const float alpha = __double2float_rn(alpha64);
+  const float beta = __double2float_rn(__dmul_rn(-(double)p1, alpha64));
   uint8_t* tab = p.tables + (long long)f * 768 + c * 256;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -185,7 +208,7 @@ __device__ void grey_world_tables(const Params& p, int f, int t) {
                                                            __ll2float_rn(sums[c])), 256.0f))
                           : 0;
   }
-  gains_table(p.tables + (long long)f * 768, gain, t);
+  gains_table(p.tables + (long long)f * 768, gain, t, small_threads(kGreyWorld));
 }
 
 // --- pca ----------------------------------------------------------------------
@@ -703,11 +726,12 @@ __device__ void learned_tables(const Params& p, int f, int t, LearnedShared& s) 
   const float lo = fminf(fminf(illum[0], illum[1]), illum[2]);
   int gain[3];
   for (int c = 0; c < 3; ++c) gain[c] = (int)rintf(__fmul_rn(__fdiv_rn(lo, illum[c]), 256.0f));
-  gains_table(p.tables + (long long)f * 768, gain, t);
+  gains_table(p.tables + (long long)f * 768, gain, t, THREADS);
 }
 
+// simple, grey-world and PCA: a block of small_threads(MODE) a frame
 template <int MODE>
-__global__ void __launch_bounds__(THREADS) wb_tables_kernel(const Params p) {
+__global__ void __launch_bounds__(small_threads(MODE)) wb_tables_kernel(const Params p) {
   const int f = blockIdx.x, t = threadIdx.x;
   if constexpr (MODE == kSimple) {
     simple_tables(p, f, t);
@@ -735,6 +759,18 @@ cudaError_t configure_learned() {
   return err;
 }
 
+// simple's, grey-world's or PCA's kernel (or, empty, the floor's) on
+// `batch` blocks of `threads`: one launch form for the modes and their floor
+template <class... Args>
+cudaError_t launch_small(void (*kernel)(Args...), int threads, int batch, cudaStream_t stream,
+                         Args... args) {
+  kernel<<<batch, threads, 0, stream>>>(args...);
+  return cudaSuccess;
+}
+
+// an empty block of simple's, grey-world's or PCA's threads
+__global__ void __launch_bounds__(THREADS) wb_tables_empty_kernel() {}
+
 cudaLaunchConfig_t learned_config(int cluster, int batch, cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -755,19 +791,18 @@ cudaLaunchConfig_t learned_config(int cluster, int batch, cudaStream_t stream,
 // mode: 0 simple, 1 grey_world, 2 pca, 3 learned (ops/white_balance.METHODS);
 // record: kernel K's [batch, ...] record; hist: learned's [batch, 64^3]
 // int32 histogram (kernel L's), 16-byte aligned; npix: a frame's pixels;
-// target: simple's f32 walk target; alpha, beta: simple's host tables on the
-// card; fi, tv, lv: learned's model on the card (int32 [2400], f32 [2400],
+// target: simple's f32 walk target; fi, tv, lv: learned's model on the card (int32 [2400], f32 [2400],
 // f32 [2560]); tables: [batch, 3, 256] u8 out; nan: pca's [batch, 3] u8
 // out; features: learned's [batch, 4, 2] f32 out, or null; cluster:
 // learned's blocks a frame (1, 2, 4, 8 or 16; ops/white_balance
 // .wb_tables_cluster), ignored by the other modes. Launches on `stream` and
 // returns the launch's error.
 extern "C" int isp_wb_tables(int mode, const void* record, const void* hist, int batch,
-                             long long npix, float target, const void* alpha, const void* beta,
-                             const void* fi, const void* tv, const void* lv, void* tables,
-                             void* nan, void* features, int cluster, void* stream) {
+                             long long npix, float target, const void* fi, const void* tv,
+                             const void* lv, void* tables, void* nan, void* features, int cluster,
+                             void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
-  if (!record || !tables || (mode == kSimple && (!alpha || !beta)) || (mode == kPca && !nan) ||
+  if (!record || !tables || (mode == kPca && !nan) ||
       (mode == kLearned && (!hist || (uintptr_t)hist % 16 || !fi || !tv || !lv || cluster < 1 ||
                             cluster > MAX_CLUSTER || (cluster & (cluster - 1)) ||
                             batch > 65535))) {
@@ -775,25 +810,42 @@ extern "C" int isp_wb_tables(int mode, const void* record, const void* hist, int
   }
   Params p;
   p.record = record, p.hist = (const int*)hist, p.npix = npix, p.target = target;
-  p.alpha = (const float*)alpha, p.beta = (const float*)beta;
   p.fi = (const int*)fi, p.tv = (const float*)tv, p.lv = (const float*)lv;
   p.tables = (uint8_t*)tables, p.nan = (uint8_t*)nan, p.features = (float*)features;
   const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
   switch (mode) {
-    case kSimple: wb_tables_kernel<kSimple><<<batch, THREADS, 0, s>>>(p); break;
-    case kGreyWorld: wb_tables_kernel<kGreyWorld><<<batch, THREADS, 0, s>>>(p); break;
-    case kPca: wb_tables_kernel<kPca><<<batch, THREADS, 0, s>>>(p); break;
+    case kSimple:
+      err = launch_small(wb_tables_kernel<kSimple>, small_threads(kSimple), batch, s, p);
+      break;
+    case kGreyWorld:
+      err = launch_small(wb_tables_kernel<kGreyWorld>, small_threads(kGreyWorld), batch, s, p);
+      break;
+    case kPca: err = launch_small(wb_tables_kernel<kPca>, small_threads(kPca), batch, s, p); break;
     case kLearned: {
-      cudaError_t err = configure_learned();
+      err = configure_learned();
       if (err != cudaSuccess) return (int)err;
       cudaLaunchAttribute attr[1];
       const cudaLaunchConfig_t cfg = learned_config(cluster, batch, s, attr);
       err = cudaLaunchKernelEx(&cfg, wb_learned_kernel, p);
-      if (err != cudaSuccess) return (int)err;
       break;
     }
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// `batch` empty blocks of mode's (0 simple, 1 grey_world, 2 pca) threads,
+// launched as isp_wb_tables launches that mode: their device time is the
+// latency floor of kernel M's small modes (tools/wb_variants.py,
+// chip_smoke.py).
+// It is not kernel M and no launch of it. Returns the launch's error.
+extern "C" int isp_wb_tables_empty(int mode, int batch, void* stream) {
+  if (mode < kSimple || mode > kPca || batch <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_small(wb_tables_empty_kernel, small_threads(mode), batch,
+                                       (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

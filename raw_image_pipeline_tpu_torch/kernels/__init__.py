@@ -54,7 +54,8 @@ _SIGNATURES = {
     "isp_ccc_response": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "isp_debayer_mht": (_P, _P, _I, _I, _I, _I, _I, _P),
     "isp_remap_float": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "isp_remap_lerp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "isp_remap_lerp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                       _P),
     "isp_pointwise": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P),
     "isp_ccc_resize": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
@@ -66,7 +67,8 @@ _SIGNATURES = {
     "isp_wb_stats": (_I, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P),
     "isp_wb_stats_limits": (_I, _IP, _IP),
     "isp_wb_hist64": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _P),
-    "isp_wb_tables": (_I, _P, _P, _I, _L, _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "isp_wb_tables": (_I, _P, _P, _I, _L, _F, _P, _P, _P, _P, _P, _P, _I, _P),
+    "isp_wb_tables_empty": (_I, _I, _P),
     "isp_wb_tables_limits": (_IP,),
     "isp_flip": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _P),
     "isp_lut": (_P, _P, _P, _L, _L, _L, _L, _L, _P),

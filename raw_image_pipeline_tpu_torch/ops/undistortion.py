@@ -19,7 +19,9 @@ from the planes (`remap_planes` picks by mode):
   ((t0*w0 + t1*w1) + t2*w2) + t3*w3, then rint; on a CUDA tensor kernel E
   (csrc/remap_float.cu) computes it;
 - `remap_fixed32_planes`, "fixed32": the 2^15-scaled integer blend, exact
-  in f32; on a CUDA tensor kernel F computes it.
+  in f32; on a CUDA tensor kernel F computes it, from a compact map where
+  the caller gives one (`remap_fixed32_code`: an int16 code a pixel beside
+  the anchor, the chains' params carry it) and from the weights otherwise.
 
 Per-camera maps (the camera-blocked multicamera chain): `remap_planes`
 also takes base [C, N] and weights [C, k, N] stacked over C cameras, with
@@ -37,7 +39,7 @@ tensor.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -538,19 +540,76 @@ def remap_fixed32_planes(planes, base: torch.Tensor, weights: torch.Tensor,
     return out.reshape(out.shape[0], *out_hw, out.shape[-1])
 
 
+FIXED32_ROWS = _INTER_TAB_SIZE * _INTER_TAB_SIZE  # codes [0, 1024): the weight table's rows
+FIXED32_DEAD = FIXED32_ROWS  # code of a pixel whose four weights are 0
+FIXED32_EXPLICIT = FIXED32_ROWS + 1  # code of a pixel whose weights are read from `weights`
+
+
+def fixed32_table_rows() -> np.ndarray:
+    """The rows of _bilinear_fixed_wtab as kernel F computes them from a
+    code r = 32 * ay + ax: w00 = (32 - ay) * (32 - ax) * 32, w01 =
+    (32 - ay) * ax * 32, w10 = ay * (32 - ax) * 32, w11 = ay * ax * 32
+    (every entry of the table is that exact product: at 5 interpolation bits
+    its rounding residual is 0). [1024, 4] int32."""
+    ay, ax = np.divmod(np.arange(FIXED32_ROWS, dtype=np.int64), _INTER_TAB_SIZE)
+    top, bottom = (_INTER_TAB_SIZE - ay) * 32, ay * 32
+    return np.stack([top * (_INTER_TAB_SIZE - ax), top * ax, bottom * (_INTER_TAB_SIZE - ax),
+                     bottom * ax], axis=1).astype(np.int32)
+
+
+def remap_fixed32_code(weights: np.ndarray) -> np.ndarray:
+    """Kernel F's compact fixed32 map: remap_precompute(..., mode="fixed32")'s
+    weights [..., 4, N] (flat or stacked per camera) -> an int16 code [..., N]
+    a pixel, the anchor staying in `base`. The code is the row r = 32 * ay +
+    ax of cv::remap's weight table where the pixel's four weights are that
+    row exactly (fixed32_table_rows), FIXED32_DEAD where they are all 0, and
+    FIXED32_EXPLICIT for any other pixel (its anchor clipped at the border,
+    or weights of no map of remap_precompute's): the kernel reads those
+    pixels' weights from `weights`. remap_fixed32_decode inverts it."""
+    wt = np.asarray(weights)
+    if wt.ndim < 2 or wt.shape[-2] != 4:
+        raise ValueError(f"weights: expected [..., 4, N], got {wt.shape}")
+    w = np.moveaxis(wt, -2, -1).astype(np.float64)  # [..., N, 4]
+
+    def index(s):  # ay from w10 + w11 = ay * 1024, ax from w01 + w11
+        return np.clip(np.rint(np.nan_to_num(s / 1024, nan=0.0, posinf=0.0, neginf=0.0)), 0,
+                       _INTER_TAB_SIZE - 1)
+
+    ay, ax = index(w[..., 2] + w[..., 3]), index(w[..., 1] + w[..., 3])
+    row = (ay * _INTER_TAB_SIZE + ax).astype(np.int64)
+    exact = (fixed32_table_rows()[row] == w).all(axis=-1)
+    dead = (w == 0).all(axis=-1)
+    return np.where(exact, row, np.where(dead, FIXED32_DEAD, FIXED32_EXPLICIT)).astype(np.int16)
+
+
+def remap_fixed32_decode(code: np.ndarray, weights: np.ndarray) -> np.ndarray:
+    """The weights [..., 4, N] f32 kernel F reads from a compact fixed32 map:
+    a table row's computed entries, 0 for FIXED32_DEAD, the pixel's own
+    column of `weights` for FIXED32_EXPLICIT. Equal to the weights that
+    remap_fixed32_code coded."""
+    code = np.asarray(code).astype(np.int64)
+    rows = fixed32_table_rows()[np.minimum(code, FIXED32_ROWS - 1)]  # [..., N, 4]
+    rows = np.moveaxis(rows, -1, -2).astype(np.float32)
+    out = np.where((code < FIXED32_ROWS)[..., None, :], rows, np.asarray(weights, np.float32))
+    return np.where((code == FIXED32_DEAD)[..., None, :], np.float32(0), out)
+
+
 REMAP_TILE = (8, 64)  # E's and F's output tile (rows, columns): a block of REMAP_BLOCK threads
 REMAP_BLOCK = 128  # kBlock in csrc/remap_tile.cuh
-REMAP_MIN_BLOCKS = 7  # kMinBlocks of csrc/remap_tile.cuh (E, fixed32; F's lerp: 9): blocks an SM
+REMAP_MIN_BLOCKS = 7  # kMinBlocks of csrc/remap_tile.cuh (E; F's lerp 9, fixed32 8): blocks an SM
 REMAP_WEIGHT_ROWS = {"float": 4, "lerp": 6, "fixed32": 4}  # weight rows a pixel, by mode
 
 
-def remap_run_width(wo: int, out_ptr: int, base_ptr: int, weights_ptr: int) -> int:
+def remap_run_width(wo: int, out_ptr: int, base_ptr: int, weights_ptr: int,
+                    code_ptr: int = 0) -> int:
     """Kernels E's and F's store width V for an output Wo pixels wide: 4
     where Wo and the output's address are multiples of 4 and the map (base
-    and weights) is 16-byte aligned, so that each thread loads the map of
-    its run of 4 pixels as 16-byte words and stores the run's 4C bytes as C
-    aligned 4-byte words in every frame; else 1 (byte stores)."""
-    if wo % 4 == 0 and out_ptr % 4 == 0 and base_ptr % 16 == 0 and weights_ptr % 16 == 0:
+    and weights 16-byte aligned, a fixed32 code 8-byte aligned) allows it,
+    so that each thread loads the map of its run of 4 pixels as vector words
+    and stores the run's 4C bytes as C aligned 4-byte words in every frame;
+    else 1 (byte stores)."""
+    if (wo % 4 == 0 and out_ptr % 4 == 0 and base_ptr % 16 == 0 and weights_ptr % 16 == 0
+            and code_ptr % 8 == 0):
         return 4
     return 1
 
@@ -582,12 +641,14 @@ def remap_blocks(batch: int, cameras: int, chunk: int, n: int, rows: int = 4):
 
 
 def _remap_cuda(kernel, mode: str, planes, base, weights, out_hw, batch_limit: int,
-                *mode_args) -> torch.Tensor:
+                mode_args=(), code=None) -> torch.Tensor:
     """Check the arguments of kernel E or F and launch it (remap_launches):
     one or three contiguous [B, H, W] u8 CUDA planes, base [Ho*Wo] int32 and
     weights [k, Ho*Wo] f32 (k = REMAP_WEIGHT_ROWS[mode]) on the same card,
-    or per-camera maps [C, Ho*Wo] and [C, k, Ho*Wo]; mode_args end the C
-    entry's arguments before the stream."""
+    or per-camera maps [C, Ho*Wo] and [C, k, Ho*Wo], and in fixed32 mode
+    the compact code [(C,) Ho*Wo] int16 or None; mode_args (and the code's
+    address, where the mode takes one) end the C entry's arguments before
+    the stream."""
     if len(planes) not in (1, 3):
         raise ValueError(f"planes: expected 1 or 3, got {len(planes)}")
     shape = tuple(planes[0].shape)
@@ -603,6 +664,8 @@ def _remap_cuda(kernel, mode: str, planes, base, weights, out_hw, batch_limit: i
     lead = (cameras,) if base.dim() == 2 else ()
     kernels.check_cuda(base, "base", torch.int32, lead + (n,))
     kernels.check_cuda(weights, "weights", torch.float32, lead + (REMAP_WEIGHT_ROWS[mode], n))
+    if code is not None:
+        kernels.check_cuda(code, "code", torch.int16, lead + (n,))
     if b % cameras:
         raise ValueError(f"planes: batch {b} is not a multiple of the {cameras} cameras' maps")
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=planes[0].device)
@@ -613,15 +676,18 @@ def _remap_cuda(kernel, mode: str, planes, base, weights, out_hw, batch_limit: i
     with torch.cuda.device(out.device):
         for f0, nf, cams, z in remap_launches(b, cameras, batch_limit):
             zb, zw = (base, weights) if z is None else (base[z], weights[z])
+            zc = code if code is None or z is None else code[z]
+            code_ptr = () if mode == "float" else (None if zc is None else zc.data_ptr(),)
             ptrs = [p[f0].data_ptr() for p in planes]
             dst = out[f0]
             planes16 = w % 16 == 0 and all(p % 16 == 0 for p in ptrs)
             kernel.launch(
                 *ptrs * (3 // c), zb.data_ptr(), zw.data_ptr(), dst.data_ptr(), cams,
                 nf // cams, h, w, ho, wo, c,
-                remap_run_width(wo, dst.data_ptr(), zb.data_ptr(), zw.data_ptr()),
+                remap_run_width(wo, dst.data_ptr(), zb.data_ptr(), zw.data_ptr(),
+                                zc.data_ptr() if zc is not None else 0),
                 remap_frame_chunk(nf // cams, REMAP_BLOCK * tiles * cams, sms),
-                int(planes16), *mode_args, kernels.stream_handle(out),
+                int(planes16), *mode_args, *code_ptr, kernels.stream_handle(out),
             )
     return out
 
@@ -641,16 +707,23 @@ def remap_float_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
 
 def remap_lerp_cuda(planes, base: torch.Tensor, weights: torch.Tensor,
                     out_hw: Tuple[int, int], *, mode: str,
-                    batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
+                    batch_limit: int = kernels.MAX_BATCH,
+                    code: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel F: remap_lerp_planes (mode="lerp", weights [6, Ho*Wo]) or
     remap_fixed32_planes (mode="fixed32", weights [4, Ho*Wo]) for one or
     three contiguous [B, H, W] u8 CUDA planes, with the map flat or stacked
-    per camera and the launches as remap_float_cuda's (kernel E's). Raises
-    on CPU tensors: there the plain versions are the port's path."""
+    per camera and the launches as remap_float_cuda's (kernel E's). In
+    fixed32 mode `code` ([Ho*Wo] or [C, Ho*Wo] int16 on the card,
+    remap_fixed32_code of these weights) gives the compact map the kernel
+    reads in place of the weights; without it the kernel reads every
+    pixel's weights. Raises on CPU tensors: there the plain versions are
+    the port's path."""
     if mode not in ("lerp", "fixed32"):
         raise ValueError(f"kernel F remaps in lerp or fixed32 mode, not [{mode}]")
+    if code is not None and mode != "fixed32":
+        raise ValueError("kernel F takes a compact code in fixed32 mode only")
     return _remap_cuda(kernels.REMAP_LERP, mode, planes, base, weights, out_hw, batch_limit,
-                       0 if mode == "lerp" else 1)
+                       (0 if mode == "lerp" else 1,), code)
 
 
 def remap_launches(batch: int, cameras: int, limit: int = kernels.MAX_BATCH):
@@ -685,13 +758,16 @@ def remap_channel_groups(planes, remap_fn) -> torch.Tensor:
 
 
 def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
-                 out_hw: Tuple[int, int], mode: str, plain: bool = False) -> torch.Tensor:
+                 out_hw: Tuple[int, int], mode: str, plain: bool = False, *,
+                 code: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The remap stage in `mode` ("lerp" | "float" | "fixed32"; base and
     weights from remap_precompute in the same mode, flat or stacked per
-    camera, see the module's docstring). On CUDA planes float mode goes
-    through kernel E, lerp and fixed32 through kernel F (any number of
-    planes, remap_channel_groups); on CPU planes, or with plain=True, each
-    mode through its plain version."""
+    camera, see the module's docstring; in fixed32 mode `code`, the compact
+    map remap_fixed32_code makes of these weights, or None). On CUDA planes
+    float mode goes through kernel E, lerp and fixed32 through kernel F
+    (any number of planes, remap_channel_groups); on CPU planes, or with
+    plain=True, each mode through its plain version (which reads the
+    weights: the code is their shorthand)."""
     fns = {"lerp": remap_lerp_planes, "float": remap_float_planes,
            "fixed32": remap_fixed32_planes}
     if mode not in fns:
@@ -702,7 +778,7 @@ def remap_planes(planes, base: torch.Tensor, weights: torch.Tensor,
                 return remap_float_cuda(group, base, weights, out_hw)
         else:
             def kernel(group):
-                return remap_lerp_cuda(group, base, weights, out_hw, mode=mode)
+                return remap_lerp_cuda(group, base, weights, out_hw, mode=mode, code=code)
         return remap_channel_groups(tuple(p.contiguous() for p in planes), kernel)
     if base.dim() == 1:
         return fns[mode](planes, base, weights, out_hw)

@@ -504,9 +504,6 @@ def wb_tables_cuda(record: torch.Tensor, method: str, param: Optional[float], np
     tables = torch.empty((bsz, 3, 256), dtype=torch.uint8, device=dev)
     nan = torch.empty((bsz, 3), dtype=torch.uint8, device=dev) if method == "pca" else None
     ptr = {}
-    if method == "simple":
-        alpha, beta = _simple_tables(dev)
-        ptr.update(alpha=alpha.data_ptr(), beta=beta.data_ptr())
     if method == "learned":
         if hist is None:
             raise ValueError("kernel M: learned needs the 64^3 histogram (hist)")
@@ -522,16 +519,15 @@ def wb_tables_cuda(record: torch.Tensor, method: str, param: Optional[float], np
     with torch.cuda.device(dev):
         if method != "learned":
             kernels.WB_TABLES.launch(
-                METHODS.index(method), record.data_ptr(), None, bsz, npix, target,
-                ptr.get("alpha"), ptr.get("beta"), None, None, None, tables.data_ptr(),
-                None if nan is None else nan.data_ptr(), None, 1, stream)
+                METHODS.index(method), record.data_ptr(), None, bsz, npix, target, None, None,
+                None, tables.data_ptr(), None if nan is None else nan.data_ptr(), None, 1, stream)
             return WbTables(tables, nan)
         sms, largest = _wb_tables_card(torch.device(dev).index)
         for f0, n in kernels.batch_runs(bsz):
             c = cluster or wb_tables_cluster(n, sms, largest)
             kernels.WB_TABLES.launch(
                 METHODS.index(method), record[f0].data_ptr(), hist[f0].data_ptr(), n, npix,
-                target, None, None, ptr["fi"], ptr["tv"], ptr["lv"], tables[f0].data_ptr(), None,
+                target, ptr["fi"], ptr["tv"], ptr["lv"], tables[f0].data_ptr(), None,
                 None if features is None else features[f0].data_ptr(), c, stream)
     return WbTables(tables, nan)
 

@@ -73,6 +73,7 @@ from raw_image_pipeline_tpu_torch.pipeline import (
     _map_state,
     _runs_undistortion,
     params_from_numpy,
+    remap_code_of,
 )
 
 # rows a slab of the mosaic takes from each neighbour for the debayer: the
@@ -511,7 +512,8 @@ def shard_params(config: PipelineConfig, fields: Dict[str, np.ndarray], mesh,
                             config.calibration.image_width, split_rows(out_h, space)[s])
                         repl.update(remap_base=torch.as_tensor(base, device=dev),
                                     remap_weights=torch.as_tensor(weights, device=dev),
-                                    remap_window=window)
+                                    remap_window=window,
+                                    remap_code=remap_code_of(weights, config, dev))
                     p = dataclasses.replace(p, **repl)
                 cache[key] = p
             out[(d, s)] = cache[key]

@@ -60,6 +60,7 @@ from raw_image_pipeline_tpu_torch.ops.resize import resize_planes
 from raw_image_pipeline_tpu_torch.ops.undistortion import (
     estimate_new_camera_matrix,
     init_undistort_rectify_map,
+    remap_fixed32_code,
     remap_planes,
     remap_precompute,
 )
@@ -106,6 +107,10 @@ class IspParams:
     # the source rows [start, stop) remap_base indexes (a slab of the
     # spatial split: its map rebased to its window; None: the whole frame)
     remap_window: Optional[Tuple[int, int]] = None
+    # fixed32 mode: kernel F's compact map of remap_weights, int16 [Ho*Wo]
+    # (stacked [n_cameras, Ho*Wo] as the maps), undistortion.remap_fixed32_code;
+    # None in the other modes
+    remap_code: Optional[torch.Tensor] = None
 
 
 def _runs_undistortion(config: PipelineConfig) -> bool:
@@ -310,7 +315,17 @@ def params_from_numpy(fields, config: PipelineConfig, device="cuda") -> IspParam
         ccc_bright_cut=float(np.float32(fields["ccc_bright_cut"])) if use_ccc else 0.0,
         ccc_dark_cut=float(np.float32(fields["ccc_dark_cut"])) if use_ccc else 0.0,
         ccc_uv0=uv0,
+        remap_code=remap_code_of(fields["remap_weights"], config, dev) if undist else None,
     )
+
+
+def remap_code_of(weights, config: PipelineConfig, device) -> Optional[torch.Tensor]:
+    """The chain's compact fixed32 map (undistortion.remap_fixed32_code) of
+    the remap weights `weights` (host array, [4, N] or stacked per camera)
+    on `device` in fixed32 mode; None in the other modes."""
+    if config.undistortion.interpolation != "fixed32":
+        return None
+    return torch.as_tensor(remap_fixed32_code(np.asarray(weights)), device=device).contiguous()
 
 
 def make_params(config: PipelineConfig, frame_hw: Tuple[int, int],
@@ -699,7 +714,7 @@ def make_isp_chain(
                 o0, o1 = part.rows(ho)
                 img = remap_planes(
                     window, params.remap_base, params.remap_weights, (o1 - o0, wo),
-                    config.undistortion.interpolation, plain=plain,
+                    config.undistortion.interpolation, plain=plain, code=params.remap_code,
                 )
                 if not is_color:
                     img = img[..., 0]

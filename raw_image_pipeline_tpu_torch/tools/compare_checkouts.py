@@ -18,8 +18,11 @@ checkout, through functions every version of the port has:
     planes through the float chain's fisheye maps (E; "E_off1" the same
     on copies of the planes 1 byte past a 16-byte boundary; "E64" the same
     at B=64, seeded planes) and remap_planes(..., "lerp") through the
-    flagship's maps (F; "F_fixed32" through the fixed32 chain's, "F64" at
-    B=64; a checkout before kernel F runs the plain versions there) and
+    flagship's maps (F; "F_fixed32" through the fixed32 chain's, with its
+    compact map where the checkout's params carry one, "F_fixed32_wide"
+    through its weights alone, as an op-layer call; "F64", "F64_fixed32"
+    and "F64_fixed32_wide" at B=64; a checkout before kernel F runs the
+    plain versions there) and
     the flagship's pointwise stretch on A's planes with seeded per-frame
     gains (G: ops.pointwise.pointwise_planes with the flagship's
     parameters; "G64" at B=64; a checkout before kernel G runs the stage
@@ -47,7 +50,8 @@ checkout, through functions every version of the port has:
     has them: ops.white_balance.wb_stats_cuda in each method's mode
     ("K_simple", "K_grey_world", "K_pca", "K_learned"), learned's
     ops.learned_wb.hist64_cuda into K's histogram ("L"), wb_tables_cuda in
-    learned's mode ("M") and G's table step of PCA's tables
+    learned's mode ("M") and in the small modes on K's record of the mode
+    ("M_simple", "M_grey_world", "M_pca") and G's table step of PCA's tables
     (ops.pointwise.pointwise_cuda, "G_table");
   * each chain of the flagship family in tools/workloads.py (flagship,
     gpu_parity, float, fixed32): frames/s at each of its sizes (its frames
@@ -222,9 +226,13 @@ def _worker(root: str, out: str) -> dict:
         h = ccc.log_chroma_histogram_planes(*resize(pl), *cuts)
         return track(ccc.response_argmax(ccc.ccc_response(h, wr, wi, bias)))
 
-    def remap(pl, mode="float"):
+    def remap(pl, mode="float", code=True):
         m = maps if mode == "float" else lerp_maps[mode]
-        return undistortion.remap_planes(pl, m.remap_base, m.remap_weights, (1080, 1920), mode)
+        # the chain's compact fixed32 map, where the checkout has one
+        kw = ({"code": m.remap_code} if code and getattr(m, "remap_code", None) is not None
+              else {})
+        return undistortion.remap_planes(pl, m.remap_base, m.remap_weights, (1080, 1920), mode,
+                                         **kw)
 
     wb_calls = {}
     try:
@@ -250,6 +258,10 @@ def _worker(root: str, out: str) -> dict:
                                    learned_wb.hist64_cuda(pl, rec, t255, acc))
             wb_calls[f"M{sfx}"] = (lambda rec=rec, lhist=lhist, n=h * w:
                                    wbal.wb_tables_cuda(rec, "learned", 0.8, n, lhist))
+            for method, param in (("simple", 20.0), ("grey_world", 0.8), ("pca", None)):
+                wb_calls[f"M_{method}{sfx}"] = (
+                    lambda m=method, p=param, r=wbal.wb_stats_cuda(pl, method, param), n=h * w:
+                    wbal.wb_tables_cuda(r, m, p, n))
             wb_calls[f"G_table{sfx}"] = (lambda pl=pl, t=tabs: pointwise.pointwise_cuda(
                 pl, wb_tables=t.tables, wb_nan=t.nan))
 
@@ -263,6 +275,9 @@ def _worker(root: str, out: str) -> dict:
              "F": lambda: remap(planes, "lerp"),
              "F_fixed32": lambda: remap(planes, "fixed32"),
              "F64": lambda: remap(big, "lerp"),
+             "F64_fixed32": lambda: remap(big, "fixed32"),
+             "F_fixed32_wide": lambda: remap(planes, "fixed32", code=False),
+             "F64_fixed32_wide": lambda: remap(big, "fixed32", code=False),
              "G": lambda: stretch(planes),
              "G64": lambda: stretch(big),
              "H": lambda: resize(planes),

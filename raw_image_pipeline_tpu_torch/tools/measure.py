@@ -75,17 +75,25 @@ REMAP_LERP_OPS_PER_VALUE = {"lerp": 13, "fixed32": 9}
 
 
 def remap_lerp_work(batch: int, h: int, w: int, n: int, channels: int, mode: str,
-                    live: Optional[int] = None, maps: int = 1) -> dict:
+                    live: Optional[int] = None, maps: int = 1,
+                    explicit: Optional[int] = None) -> dict:
     """The work of kernel F in `mode` ("lerp" or "fixed32") on `batch`
     frames of `channels` [h, w] u8 planes remapped to n output pixels
     through `maps` maps, as remap_float_work counts kernel E's: "bytes", the
     planes read, the output written and each map read once (a 4-byte base
-    and six 4-byte weights a pixel in lerp mode, four in fixed32);
-    "ops", REMAP_LERP_OPS_PER_VALUE[mode] for each output value of the
-    `live` pixels (a nonzero tap weight; default n a map)."""
+    and six 4-byte weights a pixel in lerp mode, four in fixed32; with
+    `explicit` given, fixed32's compact map: a 4-byte base and a 2-byte
+    code a pixel, and the four weights of the `explicit` pixels of all the
+    maps together, ops/undistortion.remap_fixed32_code, the weight table's
+    rows being computed, not read); "ops", REMAP_LERP_OPS_PER_VALUE[mode] for
+    each output value of the `live` pixels (a nonzero tap weight; default n
+    a map)."""
     live = n * maps if live is None else live
-    rows = 6 if mode == "lerp" else 4
-    return {"bytes": batch * channels * (h * w + n) + (4 + 4 * rows) * n * maps,
+    if mode == "fixed32" and explicit is not None:
+        map_bytes = 6 * n * maps + 16 * explicit
+    else:
+        map_bytes = (4 + 4 * (6 if mode == "lerp" else 4)) * n * maps
+    return {"bytes": batch * channels * (h * w + n) + map_bytes,
             "ops": batch // maps * channels * live * REMAP_LERP_OPS_PER_VALUE[mode]}
 
 

@@ -5,7 +5,7 @@ built apart and timed beside the kernels as they are.
 
 Run from the root of a checkout on the machine with the card. Each variant
 (VARIANTS) is a copy of csrc/wb_stats.cu (K), csrc/wb_hist64.cu (L) or
-csrc/wb_tables.cu (M, learned's mode) with
+csrc/wb_tables.cu (M: learned's mode, and S, its small modes) with
 named text replacements, or a source of its own, built by nvcc into
 build/wb_variants/<name>/ and called through ctypes by the kernel's own C
 entry. Inputs: card_frames' colour frames ("card", seeded) and the
@@ -39,6 +39,26 @@ Alphasense fixture's ("fixture", workloads.fixture_colour), B = 1, 4, 16 at
     on the record and histogram of each learned input above; "M_stamps"
     reads %globaltimer at the phases of frame 0's rank-0 block (M_PHASES)
     back through an added C function, in microseconds.
+  * M's small modes ("S", as built: simple, grey-world and PCA a plain
+    launch, simple's alpha and beta computed in f64, blocks of 96 / 256 /
+    512 threads), "S_threads512" (simple's and grey-world's blocks of
+    512), "S_table" (alpha and beta read from
+    the host's tables in device memory), "S_ex" (cudaLaunchKernelEx with
+    no attribute set), "S_pdl" (each a programmatic dependent of the
+    kernel before it: cudaLaunchKernelEx with programmatic stream
+    serialization, griddepcontrol.wait before K's record), "S_trigger"
+    ("S_pdl", and M lets G launch at its start,
+    griddepcontrol.launch_dependents), "S_first" (512 threads, the tables:
+    the first form), each alone on K's record at SMALL_SIZES, beside M's
+    floor (the empty launch of "S"; of "S_pdl" for the PDL form); the
+    chains KMG of K ("K", or "K_trigger": K lets M launch at its start),
+    an S variant and G's table step (the port's pointwise_cuda), as config
+    2's white balance runs them; the host's cost of each launch form
+    (measure_launch_host: host-clock microseconds a call of the empty
+    launch and of each small mode, "S", "S_ex", "S_pdl"); and the wb_*
+    chains whole (measure_chains) with M's small modes and G's table step
+    launched as built or as programmatic dependents ("S_pdl", "G_pdl", a
+    copy of csrc/pointwise.cu).
 
 Each time is measure.device_ms (L's adds pile up over the timed calls, as
 they do in chip_smoke.py). A variant that computes the kernel's function
@@ -210,9 +230,8 @@ _STAMPS = [
     ("  cluster.sync();  // the palette is whole in rank 0's shared memory\n",
      "  cluster.sync();  // the palette is whole in rank 0's shared memory\n" + _stamp(4)),
     ("  if (rank != 0) return;\n", "  if (rank != 0) return;\n" + _stamp(5)),
-    ("  gains_table(p.tables + (long long)f * 768, gain, t);\n}\n\ntemplate <int MODE>",
-     "  gains_table(p.tables + (long long)f * 768, gain, t);\n" + _stamp(6)
-     + "}\n\ntemplate <int MODE>"),
+    ("  gains_table(p.tables + (long long)f * 768, gain, t, THREADS);\n}\n",
+     "  gains_table(p.tables + (long long)f * 768, gain, t, THREADS);\n" + _stamp(6) + "}\n"),
 ]
 _STAMPS_READ = """
 extern "C" int wb_variant_stamps(unsigned long long* out) {
@@ -354,13 +373,96 @@ extern "C" int isp_wb_hist64(const void* b, const void* g, const void* r, long l
 }
 """
 
-# name -> (kernel "K" or "L", source file or a source of its own, replacements, exact)
+# kernel M's small modes (simple, grey-world, PCA): the first form's pieces
+_SMALL_THREADS512 = [("constexpr int SIMPLE_THREADS = 96;", "constexpr int SIMPLE_THREADS = 512;"),
+                     ("constexpr int GREY_THREADS = 256;", "constexpr int GREY_THREADS = 512;")]
+
+def _small_launch(pdl: bool):
+    """M's small modes (and their empty floor) launched by cudaLaunchKernelEx,
+    as programmatic dependents of the kernel before them (pdl: waiting with
+    griddepcontrol.wait before K's record) or with no attribute set."""
+    return [("""  kernel<<<batch, threads, 0, stream>>>(args...);
+  return cudaSuccess;""", f"""  cudaLaunchConfig_t cfg = {{}};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = {int(pdl)};
+  cfg.gridDim = dim3((unsigned)batch, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);""")] + ([
+        ("""  const int f = blockIdx.x, t = threadIdx.x;
+  if constexpr (MODE == kSimple) {""", """  const int f = blockIdx.x, t = threadIdx.x;
+  asm volatile("griddepcontrol.wait;\\n" ::: "memory");  // K's record from here on
+  if constexpr (MODE == kSimple) {"""),
+        ("wb_tables_empty_kernel() {}",
+         'wb_tables_empty_kernel() { asm volatile("griddepcontrol.wait;\\n" ::: "memory"); }'),
+    ] if pdl else [])
+
+
+_SMALL_EX = _small_launch(False)
+_SMALL_PDL = _small_launch(True)
+_SMALL_TRIGGER = [("""  asm volatile("griddepcontrol.wait;\\n" ::: "memory");  // K's record from here on""",
+                   """  asm volatile("griddepcontrol.launch_dependents;\\n" ::);  // G may launch now
+  asm volatile("griddepcontrol.wait;\\n" ::: "memory");  // K's record from here on""")]
+# simple's alpha and beta read from the host's tables in device memory
+# (filled once by the C entry, from the same f64 formulas), not computed
+_SMALL_TABLE = [
+    ("namespace {\n\nconstexpr int THREADS",
+     "__device__ float g_alpha[257];\n__device__ float g_beta[256 * 257];\n\n"
+     "namespace {\n\nconstexpr int THREADS"),
+    ("""  const double alpha64 = __ddiv_rn(255.0, (double)span);
+  const float alpha = __double2float_rn(alpha64);
+  const float beta = __double2float_rn(__dmul_rn(-(double)p1, alpha64));""",
+     "  const float alpha = __ldg(g_alpha + span), beta = __ldg(g_beta + p1 * 257 + span);"),
+    ("""  cudaError_t err = cudaSuccess;
+  switch (mode) {""", """  static bool filled = false;
+  if (!filled) {
+    static float a[257], bt[256 * 257];
+    for (int sp = 0; sp < 257; ++sp) {
+      const double a64 = 255.0 / (double)(sp ? sp : 1);
+      a[sp] = (float)a64;
+      for (int p1 = 0; p1 < 256; ++p1) bt[p1 * 257 + sp] = (float)(-(double)p1 * a64);
+    }
+    cudaMemcpyToSymbol(g_alpha, a, sizeof(a));
+    cudaMemcpyToSymbol(g_beta, bt, sizeof(bt));
+    filled = true;
+  }
+  cudaError_t err = cudaSuccess;
+  switch (mode) {"""),
+]
+# G's table step launched as a programmatic dependent of M, waiting for
+# M's tables
+_G_PDL = [("  const bool table = STEPS ? (STEPS & kTable) != 0 : p.wb != nullptr;\n",
+           "  const bool table = STEPS ? (STEPS & kTable) != 0 : p.wb != nullptr;\n"
+           '  if (table) asm volatile("griddepcontrol.wait;\\n" ::: "memory");\n'),
+          ("  pointwise_kernel<IN, OUT, STEPS><<<blocks, kThreads, 0, stream>>>(q);", """  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = p.wb != nullptr;
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, pointwise_kernel<IN, OUT, STEPS>, q);
+  if (err != cudaSuccess) return (int)err;""")]
+# kernel K lets its dependent (M) launch at its start
+_K_TRIGGER = [("""  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const wbp::Frame fr""", """  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  asm volatile("griddepcontrol.launch_dependents;\\n" ::);
+  const wbp::Frame fr""")]
+
+# name -> (kernel "K", "L", "M" (learned), "S" (M's small modes) or "G"
+# (G's table step), source file or a source of its own, replacements, exact)
 VARIANTS = {
     "K": ("K", "wb_stats.cu", [], True),
     "K_loads": ("K", "wb_stats.cu", [(_SIMPLE, _SIMPLE_LOADS)], False),
     "K_runs": ("K", "wb_stats.cu", [(_SIMPLE, _SIMPLE_RUNS)], True),
     "K_copies8": ("K", "wb_stats.cu", [("constexpr int COPIES = 16;",
                                         "constexpr int COPIES = 8;")], True),
+    "K_trigger": ("K", "wb_stats.cu", _K_TRIGGER, True),
     "L": ("L", "wb_hist64.cu", [], True),
     "L_4096": ("L", "wb_hist64.cu", _SLOTS_4096, True),
     "L_16384": ("L", "wb_hist64.cu", _SLOTS_16384, True),
@@ -390,9 +492,29 @@ VARIANTS = {
         ("      s.counted = bits > DIGIT_BITS && bits <= FIRST_HI;", "      s.counted = false;"),
         ("      s.shift = s.counted ? FIRST_SHIFT : bits > DIGIT_BITS ? bits - DIGIT_BITS : 0;",
          "      s.shift = bits > DIGIT_BITS ? bits - DIGIT_BITS : 0;")], True),
+    "S": ("S", "wb_tables.cu", [], True),
+    "S_threads512": ("S", "wb_tables.cu", _SMALL_THREADS512, True),
+    "S_table": ("S", "wb_tables.cu", _SMALL_TABLE, True),
+    "S_ex": ("S", "wb_tables.cu", _SMALL_EX, True),
+    "S_pdl": ("S", "wb_tables.cu", _SMALL_PDL, True),
+    "S_trigger": ("S", "wb_tables.cu", _SMALL_PDL + _SMALL_TRIGGER, True),
+    "S_first": ("S", "wb_tables.cu", _SMALL_THREADS512 + _SMALL_TABLE, True),
+    "G_pdl": ("G", "pointwise.cu", _G_PDL, True),
 }
 ENTRIES = {"K": ("isp_wb_stats", "isp_wb_stats_limits"), "L": ("isp_wb_hist64",),
-           "M": ("isp_wb_tables", "isp_wb_tables_limits")}
+           "M": ("isp_wb_tables", "isp_wb_tables_limits"),
+           "S": ("isp_wb_tables", "isp_wb_tables_limits", "isp_wb_tables_empty"),
+           "G": ("isp_pointwise",)}
+# the wb_* chains' launch forms timed whole (measure_chains): the library's
+# entries replaced by these variants' (M's small modes, G's table step)
+CHAIN_FORMS = {"built": (), "M_pdl": ("S_pdl",), "G_pdl": ("G_pdl",),
+               "both_pdl": ("S_pdl", "G_pdl")}
+WB_CHAINS = ("wb_simple", "wb_grey_world", "wb_pca", "wb_learned")
+SMALL = ("simple", "grey_world", "pca")  # kernel M's small modes
+SMALL_SIZES = ((4, 1080, 1920), (64, 1080, 1920))
+# (K's library, M's library) of the chains K -> M -> G's table step timed
+KMG = (("K", "S"), ("K", "S_first"), ("K", "S_threads512"), ("K", "S_table"),
+       ("K", "S_ex"), ("K", "S_pdl"), ("K", "S_trigger"), ("K_trigger", "S_pdl"))
 M_CLUSTERS = (1, 2, 4, 8, 16)  # kernel M's learned cluster sizes, each forced on "M"
 
 
@@ -501,8 +623,8 @@ def _m_call(torch, wb, learned_wb, lib, record, hist, npix, sms, cluster=None):
     c = cluster or wb.wb_tables_cluster(b, sms, largest.value)
     tables = torch.empty((b, 3, 256), dtype=torch.uint8, device="cuda")
     fi, tv, lv = learned_wb.model_tensors_card(record.device)
-    args = (wb.METHODS.index("learned"), record.data_ptr(), hist.data_ptr(), b, npix, 0.0, None,
-            None, fi.data_ptr(), tv.data_ptr(), lv.data_ptr(), tables.data_ptr(), None, None, c,
+    args = (wb.METHODS.index("learned"), record.data_ptr(), hist.data_ptr(), b, npix, 0.0,
+            fi.data_ptr(), tv.data_ptr(), lv.data_ptr(), tables.data_ptr(), None, None, c,
             torch.cuda.current_stream().cuda_stream)
 
     def fn():
@@ -512,6 +634,206 @@ def _m_call(torch, wb, learned_wb, lib, record, hist, npix, sms, cluster=None):
         return tables
 
     return fn, tables
+
+
+def _s_call(torch, wb, lib, record, method, param, npix):
+    """(fn, tables, nan) of an M variant in a small mode on a record."""
+    b = record.shape[0]
+    tables = torch.empty((b, 3, 256), dtype=torch.uint8, device="cuda")
+    nan = torch.empty((b, 3), dtype=torch.uint8, device="cuda") if method == "pca" else None
+    target = wb.simple_target(param, npix) if method == "simple" else 0.0
+    args = (wb.METHODS.index(method), record.data_ptr(), None, b, npix, target, None, None, None,
+            tables.data_ptr(), None if nan is None else nan.data_ptr(), None, 1,
+            torch.cuda.current_stream().cuda_stream)
+
+    def fn():
+        err = lib.isp_wb_tables(*args)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return tables
+
+    return fn, tables, nan
+
+
+def _empty_call(torch, wb, lib, method, b):
+    """fn of the empty launch of an S variant: b blocks of method's threads."""
+    args = (wb.METHODS.index(method), b, torch.cuda.current_stream().cuda_stream)
+
+    def fn():
+        if lib.isp_wb_tables_empty(*args):
+            raise RuntimeError("isp_wb_tables_empty failed")
+
+    return fn
+
+
+def measure_launch_host(torch, libs, smi: str, res: dict, calls: int = 500,
+                        turns: int = 6) -> None:
+    """The host's cost of M's launch forms: host-clock microseconds a call of
+    `calls` back-to-back calls (through ctypes, not synchronised; fewer than
+    the launch queue holds, so the host never waits for the device) of the
+    empty launch and of each small mode on a seeded K record at B=4, for
+    "S" (<<<>>>), "S_ex" (cudaLaunchKernelEx, no
+    attribute) and "S_pdl" (with programmatic stream serialization), in
+    `turns` turns forwards then backwards; the median into
+    res["launch_host_us"]."""
+    import statistics
+    import time
+
+    from raw_image_pipeline_tpu_torch.ops import white_balance as wb
+    from raw_image_pipeline_tpu_torch.tools import workloads
+
+    names = [n for n in ("S", "S_ex", "S_pdl") if n in libs]
+    b, h, w = SMALL_SIZES[0]
+    x = workloads.card_frames(torch, "color", b, h, w, workloads.SEED + 23)
+    pl = tuple(x[..., c].contiguous() for c in range(3))
+    del x
+    recs = {m: wb.wb_stats_plain(pl, m, PARAMS[m]) for m in SMALL}
+    del pl
+    fns = {}
+    for name in names:
+        for m in SMALL:
+            fns[f"{name} empty {m}"] = _empty_call(torch, wb, libs[name], m, b)
+            fns[f"{name} {m}"] = _s_call(torch, wb, libs[name], recs[m], m, PARAMS[m], h * w)[0]
+    got = {}
+    for turn in range(turns):
+        for key in fns if turn % 2 == 0 else list(fns)[::-1]:
+            fn = fns[key]
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            got.setdefault(key, []).append((t1 - t0) / calls * 1e6)
+    res["launch_host_us"] = {k: statistics.median(v) for k, v in got.items()}
+    for k, v in got.items():
+        print(f"launch_host {k}: {statistics.median(v):.3f} us a call, median of {turns} "
+              f"({min(v):.3f}-{max(v):.3f}) [{smi}]", flush=True)
+
+
+def measure_small(torch, libs, smi: str, res: dict) -> None:
+    """M's small modes: each S variant alone on K's record (held to
+    wb_tables_plain first), their floors (the empty launch of "S" and of
+    "S_pdl"), and the chains KMG (K, M, then G's table step on the planes)
+    on card_frames' colour frames at SMALL_SIZES, into res["S"],
+    res["S_floor"] and res["KMG"]."""
+    from raw_image_pipeline_tpu_torch.ops import learned_wb
+    from raw_image_pipeline_tpu_torch.ops import white_balance as wb
+    from raw_image_pipeline_tpu_torch.ops.pointwise import pointwise_cuda
+    from raw_image_pipeline_tpu_torch.tools import measure, workloads
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key in ("S", "S_floor", "KMG"):
+        res.setdefault(key, {})
+
+    def record(table, key, ms):
+        res[table][key] = ms
+        print(f"{table} {key}: {ms:.5f} ms [{smi}]", flush=True)
+
+    for b, h, w in SMALL_SIZES:
+        x = workloads.card_frames(torch, "color", b, h, w, workloads.SEED + 23 + b)
+        pl = tuple(x[..., c].contiguous() for c in range(3))
+        out = tuple(torch.empty_like(p) for p in pl)
+        del x
+        for method in SMALL:
+            param = PARAMS[method]
+            rec = wb.wb_stats_plain(pl, method, param)
+            want = wb.wb_tables_plain(rec, method, param, h * w)
+            for name in (n for n in libs if VARIANTS[n][0] == "S"):
+                fn, tables, nan = _s_call(torch, wb, libs[name], rec, method, param, h * w)
+                fn()
+                torch.cuda.synchronize()
+                if not (torch.equal(tables, want.tables)
+                        and (nan is None or torch.equal(nan, want.nan))):
+                    res["differs"].append(f"{name} {method} B={b}")
+                record("S", f"{name} {method} B={b}", measure.device_ms(fn))
+            for name in (n for n in ("S", "S_pdl") if n in libs):
+                empty = _empty_call(torch, wb, libs[name], method, b)
+                record("S_floor", f"{name} {method} B={b}", measure.device_ms(empty))
+            for kname, mname in KMG:
+                if kname not in libs or mname not in libs:
+                    continue
+                kfn, krec = _k_call(torch, wb, learned_wb, libs[kname], pl, method, param, sms)
+                mfn, tables, nan = _s_call(torch, wb, libs[mname], krec, method, param, h * w)
+
+                def chain():
+                    kfn()
+                    mfn()
+                    pointwise_cuda(pl, wb_tables=tables, wb_nan=nan, out=out)
+
+                chain()
+                torch.cuda.synchronize()
+                if not torch.equal(tables, want.tables):
+                    res["differs"].append(f"KMG {kname} {mname} {method} B={b}")
+                record("KMG", f"{kname} {mname} {method} B={b}", measure.device_ms(chain))
+        del pl, out
+        torch.cuda.empty_cache()
+
+
+def measure_chains(torch, libs, smi: str, res: dict) -> None:
+    """The wb_* chains (BASELINE config 2, B=64 1920x1080, 2 calls) whole,
+    in each of CHAIN_FORMS (the built library with M's small modes' and G's
+    table step's entries replaced by their programmatic-dependent
+    variants), in 2 turns forwards then backwards: device ms of one call
+    (measure.device_ms) and frames/s (host clock around both calls and a
+    synchronize, the median of 9), into res["chains"]."""
+    import statistics
+    import time
+    import types
+
+    import raw_image_pipeline_tpu_torch as tp
+    from raw_image_pipeline_tpu_torch import kernels
+    from raw_image_pipeline_tpu_torch.tools import measure, workloads
+
+    main = kernels.LIBRARY.get()
+
+    def library(names):  # the built library, these variants' entries swapped in
+        over = {}
+        for n in names:
+            entry = ENTRIES[VARIANTS[n][0]][0]
+            over[entry] = getattr(libs[n], entry)
+        return types.SimpleNamespace(**{e: over.get(e) or getattr(main, e)
+                                        for e in kernels._SIGNATURES},
+                                     isp_error_string=main.isp_error_string)
+
+    pipes = {}
+    for name in WB_CHAINS:
+        ch = workloads.chains(tp)[name]
+        pipe = tp.build_pipeline(ch.config(1080, 1920), ch.encoding, frame_hw=(1080, 1920),
+                                 with_state=True, temporal_mode="sequence", device="cuda")
+        frames = workloads.card_frames(torch, ch.kind, ch.frames, 1080, 1920,
+                                       workloads.SEED + len(name))
+        pipes[name] = (pipe, frames, ch)
+    res.setdefault("chains", {})
+    forms = [f for f, need in CHAIN_FORMS.items() if all(n in libs for n in need)]
+    try:
+        for turn in range(2):
+            for form in forms if turn == 0 else forms[::-1]:
+                kernels.LIBRARY._lib = library(CHAIN_FORMS[form])
+                for name, (pipe, frames, ch) in pipes.items():
+                    per = ch.frames // ch.calls
+
+                    def run():
+                        state = tp.init_state((), device="cuda")
+                        for c in range(ch.calls):
+                            _, state = pipe(frames[c * per:(c + 1) * per], state)
+                        torch.cuda.synchronize()
+
+                    run()
+                    walls = []
+                    for _ in range(9):
+                        t0 = time.perf_counter()
+                        run()
+                        walls.append(time.perf_counter() - t0)
+                    state0 = tp.init_state((), device="cuda")
+                    r = res["chains"].setdefault(f"{name} {form}", {"fps": [], "device_ms": []})
+                    r["fps"].append(ch.frames / statistics.median(walls))
+                    r["device_ms"].append(measure.device_ms(lambda: pipe(frames[:per], state0)))
+                    print(f"chains turn {turn} {name} {form}: {r['fps'][-1]:.1f} frames/s, "
+                          f"{r['device_ms'][-1]:.5f} device ms a call [{smi}]", flush=True)
+    finally:
+        kernels.LIBRARY._lib = main
 
 
 def measure_all(torch, libs, smi: str) -> dict:
@@ -609,8 +931,9 @@ def measure_all(torch, libs, smi: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
-    ap.add_argument("--kernels", default="KLM",
-                    help="the kernels whose variants run, of K, L and M (default all)")
+    ap.add_argument("--kernels", default="KLMS",
+                    help="the kernels whose variants run, of K, L, M (learned) and S (M's small "
+                         "modes; with K, also the chains K -> M -> G) (default all)")
     args = ap.parse_args(argv)
     import torch
 
@@ -624,9 +947,15 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     kernels.LIBRARY.get()
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    names = [n for n, v in VARIANTS.items() if v[0] in args.kernels]
+    # G's variant (its table step as a programmatic dependent) goes with M's small modes
+    names = [n for n, v in VARIANTS.items()
+             if v[0] in args.kernels or (v[0] == "G" and "S" in args.kernels)]
     libs = _build(names, kernels.CSRC_DIR, os.path.join(root, "build", "wb_variants"), kernels)
     res = measure_all(torch, libs, smi)
+    if "S" in args.kernels:
+        measure_small(torch, libs, smi, res)
+        measure_launch_host(torch, libs, smi, res)
+        measure_chains(torch, libs, smi, res)
     line = json.dumps(res)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

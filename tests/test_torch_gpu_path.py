@@ -586,6 +586,35 @@ def test_kernel_f_border_map_on_card(hw, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fisheye", "hostile", "border"])
+@pytest.mark.parametrize("hw", [(91, 117), (96, 128)])  # byte stores (V=1), word stores (V=4)
+def test_kernel_f_fixed32_compact_map_on_card(hw, kind):
+    # kernel F's fixed32 kernel through its compact map (remap_fixed32_code)
+    # and through the weights alone, B=4, B=1 and one mono plane, one map
+    # and 2 cameras' stacked maps, against the plain version
+    dev = _cuda()
+    if kind == "border":
+        mx, my = workloads.border_maps(hw, hw, 4)
+    else:
+        mx, my = _maps(hw, kind)
+    base, weights = pund.remap_precompute(mx, my, hw, mode="fixed32")
+    stacked = [pund.remap_precompute(*workloads.hostile_maps(hw, hw, 9), hw, mode="fixed32"),
+               (base, weights)]
+    maps = [(base, weights), tuple(np.stack([m[i] for m in stacked]) for i in (0, 1))]
+    planes = tuple(torch.as_tensor(p, device=dev) for p in
+                   np.random.default_rng(8).integers(0, 256, (3, 4) + hw, dtype=np.uint8))
+    for b_, w_ in maps:
+        b_, c_, w_ = (torch.as_tensor(b_, device=dev),
+                      torch.as_tensor(pund.remap_fixed32_code(w_), device=dev),
+                      torch.as_tensor(w_, device=dev))
+        for pl in (planes, tuple(p[:2] for p in planes), planes[:1]):
+            want = pund.remap_planes(pl, b_, w_, hw, "fixed32", plain=True)
+            for code in (c_, None):
+                got = pund.remap_lerp_cuda(pl, b_, w_, hw, mode="fixed32", code=code)
+                assert torch.equal(got, want), (b_.dim(), len(pl), code is None)
+
+
+@pytest.mark.cuda
 def test_kernel_g_writes_config4_output_on_card():
     # config 4's chain (no remap) runs its stretch as one launch of G, which
     # writes the [B, H, W, 3] output itself, equal to the plain-op chain

@@ -254,6 +254,26 @@ def test_remap_lerp_work(mode, map_bytes, ops, batch):
     assert cams["ops"] == ops * 4 * 3 * n
 
 
+@pytest.mark.parametrize("batch", [4, 64])
+def test_remap_lerp_work_fixed32_compact_map(batch):
+    # fixed32 through its compact map: a 4-byte anchor and a 2-byte code a
+    # pixel, and the four f32 weights of the explicit pixels; the fixed32
+    # chain's 1080p map (3264 explicit pixels) bounds B=4 at 0.0186 ms and
+    # B=64 at 0.2414 ms
+    n = 1080 * 1920
+    w = remap_lerp_work(batch, 1080, 1920, n, 3, "fixed32", explicit=3264)
+    assert w["bytes"] == 2 * batch * 3 * n + 6 * n + 16 * 3264
+    assert w["ops"] == remap_lerp_work(batch, 1080, 1920, n, 3, "fixed32")["ops"]
+    got = bound(w["bytes"], w["ops"])
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx({4: 0.0186, 64: 0.2414}[batch], abs=5e-5)
+    cams = remap_lerp_work(16, 1080, 1920, n, 3, "fixed32", maps=4, explicit=4 * 3264)
+    assert cams["bytes"] == 2 * 16 * 3 * n + 4 * (6 * n + 16 * 3264)
+    # the lerp's map is not coded
+    assert (remap_lerp_work(4, 1080, 1920, n, 3, "lerp", explicit=3264)
+            == remap_lerp_work(4, 1080, 1920, n, 3, "lerp"))
+
+
 def test_remap_float_work_per_camera_maps():
     # 4 cameras x B=4 at 1080x1920, a map each: four maps of 20 bytes a
     # pixel read once, each camera's live pixels blended in its 4 frames

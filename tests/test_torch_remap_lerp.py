@@ -425,3 +425,244 @@ def test_plain_remaps_equal_reference_on_lerp_hostile_maps(mode):
     got = pund.remap_planes(tuple(torch.as_tensor(p) for p in planes), torch.as_tensor(base),
                             torch.as_tensor(weights), hw, mode)
     np.testing.assert_array_equal(got.numpy(), np.moveaxis(want, -1, 0))
+
+
+# --- (f) fixed32's compact map and integer blend (remap_fixed32_kernel) ------
+
+
+def _fixed32_shipped(name, out_hw):
+    """remap_precompute(..., "fixed32") of a shipped calibration's fisheye
+    map, rendered at a small output size over the calibration's source."""
+    from raw_image_pipeline_tpu_torch.config import load_camera_calibration
+
+    calib = load_camera_calibration(os.path.join(REPO, "configs", name))
+    size = (calib.image_width, calib.image_height)
+    new_k = pund.estimate_new_camera_matrix(calib.K(), calib.D(), size, calib.R(), 0.0,
+                                            (out_hw[1], out_hw[0]), 1.0)
+    mx, my = pund.init_undistort_rectify_map(calib.K(), calib.D(), calib.R(), new_k,
+                                             (out_hw[1], out_hw[0]))
+    return pund.remap_precompute(mx, my, (calib.image_height, calib.image_width),
+                                 mode="fixed32")
+
+
+def _fixed32_rows_at_borders(hw):
+    """A map through every row (ay, ax) of the weight table at anchors
+    inside the source and one pixel past and on each border and corner
+    (every slot pattern remap_precompute's clipping makes), and a few pixels
+    far outside: [len, 1] maps of a source of hw."""
+    h, w = hw
+    ys, xs = (-1, 0, 1, h - 2, h - 1, h + 3), (-1, 0, 1, w - 2, w - 1, w + 3)
+    ay, ax, iy, ix = (a.reshape(-1) for a in np.meshgrid(np.arange(32), np.arange(32), ys, xs,
+                                                         indexing="ij"))
+    mx = (ix + ax / 32).astype(np.float32)[:, None]
+    my = (iy + ay / 32).astype(np.float32)[:, None]
+    return mx, my
+
+
+def _fixed32_maps(kind):
+    """(base, weights, source hw, out hw) in fixed32 mode for `kind`."""
+    if kind.startswith("shipped"):
+        name = {"shipped": "alphasense_calib_example.yaml",
+                "shipped_1.6mp": "alphasense_calib_1.6mp_example.yaml"}[kind]
+        base, weights = _fixed32_shipped(name, (24, 32))
+        from raw_image_pipeline_tpu_torch.config import load_camera_calibration
+
+        calib = load_camera_calibration(os.path.join(REPO, "configs", name))
+        return base, weights, (calib.image_height, calib.image_width), (24, 32)
+    hw = (23, 29)
+    if kind == "rows_at_borders":
+        mx, my = _fixed32_rows_at_borders(hw)
+    else:
+        fn = {"hostile": workloads.hostile_maps, "border": workloads.border_maps}[kind]
+        mx, my = fn(hw, hw, 41)
+    base, weights = pund.remap_precompute(mx, my, hw, mode="fixed32")
+    return base, weights, hw, mx.shape
+
+
+def _fixed32_model(planes, base, code, weights, hw):
+    """remap_fixed32_kernel in numpy: the map decoded from the code (or read
+    from the weights without one), each pixel's weights taken by the
+    integer blend where they are integers in [0, 2^15] summing to at most
+    2^15 (two __dp2a_lo over u16 pairs and the taps' byte pairs, then
+    (acc + 2^14) >> 15, at most 255 there), else the plain f32 blend; taps
+    outside the source read 0. planes [C, B, H, W] u8 -> [B, N, C] u8."""
+    h, w = hw
+    wt = weights if code is None else pund.remap_fixed32_decode(code, weights)
+    wt = np.asarray(wt, np.float32)
+    flat = planes.reshape(planes.shape[0], planes.shape[1], h * w).astype(np.int64)
+    taps = []
+    for off in (0, 1, w, w + 1):
+        i = base.astype(np.int64) + off
+        inside = (i >= 0) & (i < h * w)
+        taps.append(np.where(inside, flat[..., np.clip(i, 0, h * w - 1)], 0))  # [C, B, N]
+    whole = ((wt >= 0) & (wt <= 32768) & (wt == np.trunc(wt))).all(0)
+    whole &= np.where(whole, wt, 0).sum(0) <= 32768
+    wi = np.where(whole, wt, 0).astype(np.int64)
+    lo, hi = wi[0] | wi[1] << 16, wi[2] | wi[3] << 16
+
+    def dp2a_lo(a, b, c):  # a's u16 halves times b's bytes 0 and 1, plus c
+        return c + (a & 0xFFFF) * (b & 0xFF) + (a >> 16) * ((b >> 8) & 0xFF)
+
+    acc = dp2a_lo(lo, taps[0] | taps[1] << 8, dp2a_lo(hi, taps[2] | taps[3] << 8, 16384))
+    integer = acc >> 15
+    assert (np.where(whole, integer, 0) <= 255).all()
+    t = [x.astype(np.float32) for x in taps]
+    with np.errstate(invalid="ignore", over="ignore"):
+        f = (t[0] * wt[0] + t[1] * wt[1]) + t[2] * wt[2]
+        f = f + t[3] * wt[3]
+        f = np.floor((f + np.float32(16384)) * np.float32(2.0**-15))
+        f32 = np.clip(np.nan_to_num(f, nan=0.0), 0, 255).astype(np.int64)
+    out = np.where(whole, integer, f32)
+    return np.moveaxis(out, 0, -1).astype(np.uint8)
+
+
+def test_fixed32_table_rows_are_the_weight_table():
+    # the kernel computes a row from its code: every entry of cv::remap's
+    # 32 x 32 table is the exact product the closed form gives
+    np.testing.assert_array_equal(pund.fixed32_table_rows(),
+                                  pund._bilinear_fixed_wtab().reshape(1024, 4))
+    np.testing.assert_array_equal(pund.fixed32_table_rows(),
+                                  jund._bilinear_fixed_wtab().reshape(1024, 4))
+    with open(os.path.join(REPO, "raw_image_pipeline_tpu_torch", "csrc", "remap_lerp.cu")) as f:
+        assert (f"constexpr int kCodeDead = {pund.FIXED32_DEAD}, "
+                f"kCodeExplicit = {pund.FIXED32_EXPLICIT};") in f.read()
+
+
+@pytest.mark.parametrize("kind", ["shipped", "shipped_1.6mp", "hostile", "border",
+                                  "rows_at_borders"])
+def test_fixed32_code_decodes_to_the_weights(kind):
+    # the compact map gives back remap_precompute's fixed32 weights exactly,
+    # every pixel: a table row, dead or explicit
+    base, weights, _, _ = _fixed32_maps(kind)
+    code = pund.remap_fixed32_code(weights)
+    assert code.dtype == np.int16 and code.shape == base.shape
+    np.testing.assert_array_equal(pund.remap_fixed32_decode(code, weights), weights)
+    rows = code < pund.FIXED32_ROWS
+    assert (code[~rows] >= pund.FIXED32_DEAD).all() and (code <= pund.FIXED32_EXPLICIT).all()
+    np.testing.assert_array_equal(code == pund.FIXED32_DEAD, (weights == 0).all(0))
+    if kind.startswith("shipped"):  # a fisheye map: almost every pixel a table row
+        assert rows.mean() > 0.8 and (code == pund.FIXED32_EXPLICIT).mean() < 0.01
+
+
+def test_fixed32_code_of_a_random_map_against_the_reference():
+    # a seeded random map: the JAX package's remap_precompute, coded and
+    # decoded, and the per-camera stack of two such maps
+    hw = (19, 27)
+    rng = np.random.default_rng(43)
+    maps = [((rng.random(hw) * (hw[1] + 4) - 2).astype(np.float32),
+             (rng.random(hw) * (hw[0] + 4) - 2).astype(np.float32)) for _ in range(2)]
+    ref = [np.asarray(jund.remap_precompute(mx, my, hw, mode="fixed32")[1]) for mx, my in maps]
+    for wt in ref:
+        np.testing.assert_array_equal(pund.remap_fixed32_decode(pund.remap_fixed32_code(wt), wt),
+                                      wt)
+    stacked = np.stack(ref)
+    code = pund.remap_fixed32_code(stacked)
+    assert code.shape == (2, hw[0] * hw[1])
+    np.testing.assert_array_equal(code[1], pund.remap_fixed32_code(ref[1]))
+    np.testing.assert_array_equal(pund.remap_fixed32_decode(code, stacked), stacked)
+
+
+@pytest.mark.parametrize("kind", ["rows_at_borders", "hostile", "border", "shipped"])
+@pytest.mark.parametrize("coded", [True, False])
+def test_fixed32_integer_blend_model_equals_plain(kind, coded):
+    # all 1024 table rows at every border-slot pattern, and hostile and
+    # border maps: the kernel's integer blend (the __dp2a sums and the
+    # shift), from the compact code or from the weights, equals
+    # remap_fixed32_planes on seeded taps
+    base, weights, src_hw, out_hw = _fixed32_maps(kind)
+    planes = np.random.default_rng(44).integers(0, 256, (3, 2) + tuple(src_hw), dtype=np.uint8)
+    if kind == "shipped":
+        planes[:, 1] = 255  # the largest products and sums
+    code = pund.remap_fixed32_code(weights) if coded else None
+    got = _fixed32_model(planes, base, code, weights, src_hw)
+    want = pund.remap_fixed32_planes(tuple(torch.as_tensor(p) for p in planes),
+                                     torch.as_tensor(base), torch.as_tensor(weights),
+                                     (int(np.prod(out_hw)), 1))
+    np.testing.assert_array_equal(got, want.numpy().reshape(got.shape))
+
+
+def test_fixed32_blend_rule_on_op_layer_weights():
+    # weights no map of remap_precompute's gives: integers up to 2^15 whose
+    # sums reach 2^15 and pass it (to 2^16 and past), negative, fractional,
+    # NaN: the kernel's rule (integer blend where exact, the plain f32 blend
+    # elsewhere) equals the plain version on every pixel
+    hw = (9, 11)
+    n = 4000
+    rng = np.random.default_rng(45)
+    base = rng.integers(-3, hw[0] * hw[1] + 3, n).astype(np.int32)
+    weights = rng.integers(0, 32769, (4, n)).astype(np.float32)
+    weights[:, :250] = 8192  # sums of 2^15 exactly: the integer blend
+    weights[:, 250:500] = 16384  # 2^16: the f32 blend
+    weights[:, 500:700] = 32768  # past 2^16: the f32 blend, sums past 2^24
+    weights[0, 700:800] = -1.0
+    weights[1, 800:900] += 0.5
+    weights[2, 900:950] = np.nan
+    weights[:, 950:1000] = 0.0
+    planes = rng.integers(0, 256, (3, 2) + hw, dtype=np.uint8)
+    planes[:, 1] = 255
+    got = _fixed32_model(planes, base, None, weights, hw)
+    want = pund.remap_fixed32_planes(tuple(torch.as_tensor(p) for p in planes),
+                                     torch.as_tensor(base), torch.as_tensor(weights), (n, 1))
+    want = want.numpy().reshape(got.shape)
+    ok = ~np.isnan(weights).any(0)  # a NaN's cast to u8 is the platform's
+    np.testing.assert_array_equal(got[:, ok], want[:, ok])
+
+
+def test_fixed32_chain_params_carry_the_code():
+    # the fixed32 chain's params hold the compact map of their weights, the
+    # other modes none; the multicamera stack holds one a camera
+    import raw_image_pipeline_tpu_torch as tp
+    from raw_image_pipeline_tpu_torch.parallel import build_multicamera_pipeline
+
+    hw = (48, 64)
+    config = workloads.chains(tp)["fixed32"].config(*hw)
+    p = tp.make_params(config, hw, device="cpu")
+    assert p.remap_code.dtype == torch.int16
+    np.testing.assert_array_equal(p.remap_code.numpy(),
+                                  pund.remap_fixed32_code(p.remap_weights.numpy()))
+    assert tp.make_params(workloads.chains(tp)["float"].config(*hw), hw,
+                          device="cpu").remap_code is None
+    cams = workloads.multicam_calibrations(config.calibration)
+    mp = build_multicamera_pipeline(config, cams, "bayer_gbrg8", hw, device="cpu").params
+    assert tuple(mp.remap_code.shape) == tuple(mp.remap_base.shape)
+    np.testing.assert_array_equal(mp.remap_code.numpy(),
+                                  pund.remap_fixed32_code(mp.remap_weights.numpy()))
+
+
+def test_remap_lerp_cuda_takes_a_code_in_fixed32_mode_only():
+    planes = tuple(torch.zeros((2, 4, 6), dtype=torch.uint8) for _ in range(3))
+    base, code = torch.zeros(24, dtype=torch.int32), torch.zeros(24, dtype=torch.int16)
+    with pytest.raises(ValueError, match="fixed32"):
+        pund.remap_lerp_cuda(planes, base, torch.zeros((6, 24)), (4, 6), mode="lerp", code=code)
+    with pytest.raises(ValueError, match="CUDA"):
+        pund.remap_lerp_cuda(planes, base, torch.zeros((4, 24)), (4, 6), mode="fixed32",
+                             code=code)
+    # the code is the weights' shorthand: the plain version reads the weights
+    wt = torch.full((4, 24), 8192.0)
+    assert torch.equal(pund.remap_planes(planes, base, wt, (4, 6), "fixed32", code=code),
+                       pund.remap_fixed32_planes(planes, base, wt, (4, 6)))
+
+
+@pytest.mark.parametrize("offset", [0, 2, 4, 8])
+def test_remap_run_width_needs_an_8_byte_aligned_code(offset):
+    # the fixed32 kernel loads a run's four codes as one 8-byte word
+    want = 4 if offset % 8 == 0 else 1
+    assert pund.remap_run_width(1920, 4096, 8192, 8192, 16384 + offset) == want
+    assert pund.remap_run_width(1920, 4096, 8192, 8192) == 4  # no code
+
+
+def test_remap_variants_apply_to_the_sources():
+    # tools/remap_variants.py builds its variants of kernel F's fixed32 mode
+    # (and of its first form) from the sources by text replacements, each of
+    # which must still apply once
+    from raw_image_pipeline_tpu_torch.tools import remap_variants as rv
+
+    assert rv.ENTRY in kernels._SIGNATURES and set(rv.FILES) <= set(kernels.SOURCES
+                                                                      + kernels.HEADERS)
+    for name, (repl, _) in rv.VARIANTS.items():
+        texts = rv.variant_files(name, kernels.CSRC_DIR)
+        assert f'extern "C" int {rv.ENTRY}(' in texts["remap_lerp.cu"], name
+        for f, _, new in repl:
+            assert new in texts[f], name
+    first = rv.variant_files("F32_first", kernels.CSRC_DIR)["remap_lerp.cu"]
+    assert "dispatch<isp_remap::Tiles<Fixed32Mode>>" in first

@@ -446,8 +446,34 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         pwb.wb_tables_plain(torch.zeros((1, 7), dtype=torch.int64), "learned", 0.8, 6)
 
 
+def test_simple_alpha_beta_as_the_card_computes_them_equal_the_host_tables():
+    # kernel M's simple mode computes alpha = f32(255 / span) and beta =
+    # f32(-p1 * (255 / span)) in f64 (__ddiv_rn, __dmul_rn,
+    # __double2float_rn) in place of reading the host's tables: the same
+    # operations in torch f64 give the tables' bits over all 256 x 257
+    # (p1, span) pairs, span 0 taken as 1
+    span = torch.arange(257, dtype=torch.float64).clamp(min=1)
+    p1 = torch.arange(256, dtype=torch.float64)
+    alpha64 = torch.full_like(span, 255.0) / span
+    alpha = alpha64.to(torch.float32)
+    beta = (-p1[:, None] * alpha64[None, :]).to(torch.float32)
+    assert torch.equal(alpha.view(torch.int32),
+                       torch.as_tensor(pwb._SIMPLE_ALPHA32).view(torch.int32))
+    assert torch.equal(beta.view(torch.int32),
+                       torch.as_tensor(pwb._SIMPLE_BETA32).view(torch.int32))
+
+
+def test_small_modes_thread_counts_and_floor():
+    # the block sizes of simple (a warp a channel), grey-world and PCA in
+    # wb_tables.cu, and the C entry of their floor (an empty launch)
+    assert _source_constant("SIMPLE_THREADS", "wb_tables.cu") == 96
+    assert _source_constant("GREY_THREADS", "wb_tables.cu") % 32 == 0
+    assert _source_constant("THREADS", "wb_tables.cu") == 512  # PCA's: a thread a table entry
+    assert len(kernels._SIGNATURES["isp_wb_tables_empty"]) == 3  # mode, batch, stream
+
+
 def test_kernels_are_bound():
-    for k, n_args in ((kernels.WB_STATS, 18), (kernels.WB_HIST64, 13), (kernels.WB_TABLES, 16)):
+    for k, n_args in ((kernels.WB_STATS, 18), (kernels.WB_HIST64, 13), (kernels.WB_TABLES, 14)):
         assert k in kernels.ALL and len(kernels._SIGNATURES[k.entry]) == n_args
         assert os.path.basename(k.source) in kernels.SOURCES
         assert os.path.exists(os.path.join(REPO, k.source))

@@ -84,6 +84,16 @@ per source, into build/kernels/), then:
                        counted (check_flip); timed at B=4 (each angle) and
                        B=64 (90, 270, 180) beside the plain version, the bound
                        and torch.flip alone (library_ms);
+       P 16-bit debayer — in u8 mode (each value >> 8, the chain's) and u16
+                       mode (the op layer's), 0 mismatching values against
+                       its plain version in the four phases at A's shapes
+                       at B=4 and B=1 (each frame holding 0 and 65535), on
+                       B=4 1080x1920 frames of 0 and 65535 only, frames[1:]
+                       of a 1079x1439 batch and views 2 and 8 bytes past a
+                       16-byte boundary, each line with its strip widths V
+                       (check_debayer16); both modes timed at B=4 and B=64
+                       1920x1080 beside the bound (tools/measure
+                       .debayer16_work), the plain versions at B=4;
      then the ccc_range phase (check_ccc_range): the CCC range's own
      kernels against their plain versions, at the shapes the chain gives
      them:
@@ -164,10 +174,11 @@ per source, into build/kernels/), then:
      then the ops phase (check_ops): the reference package's entry points
      that reach a kernel, on [..., H, W(, 3)] CUDA frames at 1080x1920
      (leading dims (4,)) and at a random odd crop (leading dims (2, 3)):
-     debayer bilinear (A) and MHT (D) in the four encodings,
-     resize_linear_u8 (H), log_chroma_histogram and _rt (B) on the 270x360
-     resize, ccc_response (C), response_argmax (I), estimate_illuminant (H,
-     B, C, I), ccc_balance_white (and J, two calls with the state carried),
+     debayer bilinear (A) and MHT (D) in the four encodings, debayer of
+     the four 16-bit encodings (P), resize_linear_u8 (H),
+     log_chroma_histogram and _rt (B) on the 270x360 resize, ccc_response
+     (C), response_argmax (I), estimate_illuminant (H, B, C, I),
+     ccc_balance_white (and J, two calls with the state carried),
      remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with
      one map and with per-camera maps, color_correct, vignetting.correct
      and enhance (G), balance_white_simple, _grey_world, _pca and
@@ -205,6 +216,11 @@ per source, into build/kernels/), then:
        mono8      — the flagship configuration on mono8 frames, 8 in 2
                     calls: the flip 180 (N), the gamma table (O) and the
                     lerp remap of the one plane (F);
+       bayer16    — the flagship configuration on bayer_gbrg16 frames
+                    (bayer16 "scale8"), also at 1440x1080, 8 in 2 calls:
+                    P in u8 mode, the planes' flip 180 (N), the CCC range
+                    (H, B, C, I, J), G and F; its peak device memory
+                    printed with the others;
      the launch counts are set to 0 just before each chain's 1920x1080 run
      and read just after, and each kernel of that chain must have launched
      in each of its calls;
@@ -327,6 +343,10 @@ DEBAYER_SHAPES = {
 }
 DEBAYER_B64 = (64, 1920, 1080)  # the wb_* chains' call: ten times the L2 cache
 PHASES = ("rggb", "grbg", "gbrg", "bggr")
+# kernel P: A's shapes (every strip width; a height or a width of 2), and
+# the bayer16 chain's call at B=4 and B=64 where it is timed
+DEBAYER16_SHAPES = DEBAYER_SHAPES["A"]
+DEBAYER16_TIMED = ((4, 1080, 1920), (64, 1080, 1920))
 
 
 def _fixture_planes(torch, n: int, h: int, w: int):
@@ -390,6 +410,79 @@ def check_debayer(torch, rng, key, algorithm, cuda_fn, plain_fn, phase):
           f"{DEBAYER_B64[1]}x{DEBAYER_B64[2]}: {ms_b64:.4f} ms (bound {b64['bound_ms']:.4f}, "
           f"{b64['bound_by']})")
     return cuda_fn(bayer, phase), row
+
+
+def check_debayer16(torch, rng):
+    """Phase 1: kernel P against its plain version in both modes (u8, each
+    value >> 8, and u16), 0 mismatching values in all four phases, at each
+    of DEBAYER16_SHAPES at B=4 and B=1 (every frame with 0 and 65535 in it),
+    on B=4 1080x1920 frames of 0 and 65535 only, on frames[1:] of a B=4
+    1079x1439 batch, and on B=2 1080x1920 views 2 and 8 bytes past a
+    16-byte boundary; each line names the strip widths V of its launches.
+    Then the device times of both modes at DEBAYER16_TIMED and the plain
+    versions' at B=4, beside the bound. Returns the kernel's row (u8 mode,
+    the chain's, under the main keys)."""
+    from raw_image_pipeline_tpu_torch.ops import debayer
+    from raw_image_pipeline_tpu_torch.tools.measure import bound, debayer16_work, device_ms
+
+    modes = {"u8": torch.uint8, "u16": torch.uint16}
+
+    def frames(*shape, values=None):
+        x = (rng.integers(0, 65536, shape) if values is None else rng.choice(values, shape))
+        x = x.astype("uint16")
+        if x.ndim > 1:
+            x[..., 0, 0], x[..., -1, -1] = 0, 65535
+        return torch.as_tensor(x, device="cuda")
+
+    def values(t):  # u16 compared through an int16 view: few ops take uint16 on the card
+        return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+    cases = [(f"B={b} {h}x{w}", frames(b, h, w)) for (h, w) in DEBAYER16_SHAPES for b in (4, 1)]
+    cases.append(("B=4 1080x1920 of 0 and 65535 only", frames(4, 1080, 1920, values=[0, 65535])))
+    cases.append(("frames[1:] of B=4 1079x1439", frames(4, 1079, 1439)[1:]))
+    flat = frames(8 + 2 * 1080 * 1920)
+    cases += [(f"B=2 1080x1920 at {2 * off} bytes past a 16-byte boundary",
+               flat[off:off + 2 * 1080 * 1920].view(2, 1080, 1920)) for off in (1, 4)]
+    for label, bayer in cases:
+        for mode, dtype in modes.items():
+            bad, widths = 0, set()
+            for ph in PHASES:
+                got = debayer.debayer_bilinear16_cuda(bayer, ph, out_dtype=dtype)
+                want = debayer.debayer_bilinear16_plain(bayer, ph, out_dtype=dtype)
+                if got.dtype != dtype or got.shape != want.shape:
+                    raise AssertionError(f"kernel P {mode} {label}: {got.dtype} "
+                                         f"{tuple(got.shape)}, expected {dtype}")
+                bad += int((values(got) != values(want)).sum())
+                widths.add(debayer.strip_width(bayer.shape[2], bayer.data_ptr(), got.data_ptr(),
+                                               2, got.element_size()))
+            print(f"kernel P {mode} {label} (V={sorted(widths)}): {bad} mismatching values in "
+                  f"{len(PHASES)} phases")
+            if bad:
+                raise AssertionError(f"kernel P: {bad} mismatching values in {mode} mode at "
+                                     f"{label}")
+    del cases, flat
+    phase = debayer.phase_for_encoding("bayer_gbrg16")  # the bayer16 chain's
+    row = dict(max_abs_err=0.0, library_ms=None)
+    for b, h, w in DEBAYER16_TIMED:
+        bayer = frames(b, h, w)
+        for mode, dtype in modes.items():
+            ms = device_ms(lambda: debayer.debayer_bilinear16_cuda(bayer, phase, out_dtype=dtype))
+            work = debayer16_work(bayer.numel(), dtype.itemsize)
+            bd = bound(bytes_=work["bytes"], ops=work["ops"])
+            line = (f"kernel P time {mode} B={b} {w}x{h}: {ms:.4f} ms (bound {bd['bound_ms']:.4f}, "
+                    f"{bd['bound_by']}, {100 * bd['bound_ms'] / ms:.1f}%)")
+            key = ("" if mode == "u8" else "_u16") + ("" if b == 4 else f"_b{b}")
+            if b == 4:
+                plain_ms = device_ms(lambda: debayer.debayer_bilinear16_plain(bayer, phase,
+                                                                              out_dtype=dtype))
+                row[f"plain_ms{key}"] = plain_ms
+                line += f", plain {plain_ms:.4f} ms"
+            row[f"ms{key}"] = ms
+            row.update({f"bound_ms{key}": bd["bound_ms"], f"bound_by{key}": bd["bound_by"]})
+            print(line)
+        del bayer
+    torch.cuda.empty_cache()
+    return row
 
 
 REMAP_B64 = (64, 1080, 1920)  # kernel E past the L2 cache: 837.7 MB moved
@@ -2087,6 +2180,8 @@ def check_kernels(tp, torch, rng):
     rows["F"] = check_remap_lerp(tp, torch, rng, planes)
     rows["G"] = check_pointwise(tp, torch, rng)
     rows["N"] = check_flip(torch, rng)
+    # its own generator: the later phases' inputs stay what they were
+    rows["P"] = check_debayer16(torch, np.random.default_rng(workloads.SEED + 4))
     for k in kernels.ALL:
         k.launches = 0  # the comparisons above are not the main path's
     return rows
@@ -2358,9 +2453,10 @@ def check_ops(tp, torch, rng, smi_line):
     called as its users call them on [..., H, W(, 3)] CUDA frames, at
     1080x1920 with leading dims (4,) and at a random odd crop with leading
     dims OPS_CROP_LEAD: debayer bilinear (A) and MHT (D) in the four
-    encodings, resize_linear_u8 (H) to 270x360, log_chroma_histogram and
-    log_chroma_histogram_rt (B) on that resize, ccc_response (C) on those
-    histograms, response_argmax (I) of the responses, estimate_illuminant
+    encodings and of the four 16-bit encodings (P; its planar path the
+    chain's u8 planes, each value >> 8), resize_linear_u8 (H) to 270x360,
+    log_chroma_histogram and log_chroma_histogram_rt (B) on that resize,
+    ccc_response (C) on those histograms, response_argmax (I) of the responses, estimate_illuminant
     (H, B, C, I) and ccc_balance_white (and J; two calls, the state
     carried: bytes and state against plain=True), and
     remap_bilinear_u8 in float (E), lerp and fixed32 mode (F) with one map
@@ -2413,6 +2509,8 @@ def check_ops(tp, torch, rng, smi_line):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(int(rng.integers(1 << 31)))
+    g16 = torch.Generator(device=dev)
+    g16.manual_seed(workloads.SEED + 16)
     cc = tuple(torch.as_tensor(a.astype("float32"), device=dev)
                for a in (rng.uniform(-0.6, 1.6, (3, 3)), rng.uniform(-20, 20, 3)))
     enh_gains = (1.1, 1.2, 0.9)
@@ -2480,6 +2578,21 @@ def check_ops(tp, torch, rng, smi_line):
                 bad += int((got != planar.reshape(got.shape)).sum())
             ms = device_ms(lambda: debayer.debayer(bayer, "bayer_gbrg8", algorithm))
             report(f"debayer {algorithm} {size} in 4 encodings", bad, ms)
+        # the 16-bit encodings (P in u16 mode; the planar path, the chain's,
+        # in u8 mode: the values >> 8), from a generator of their own
+        bayer16 = torch.randint(0, 65536, lead + hw, generator=g16, device=dev,
+                                dtype=torch.int32).to(torch.int16).view(torch.uint16)
+        bad = 0
+        for enc in debayer.BAYER16_ENCODINGS:
+            got = counted(lambda: debayer.debayer(bayer16, enc))
+            want = debayer.debayer(bayer16, enc, plain=True)
+            bad += int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            planar = torch.stack(debayer.debayer16_planes(bayer16.reshape((-1,) + hw), enc), -1)
+            high = (got.view(torch.int16).to(torch.int32) & 0xffff) >> 8
+            bad += int((high != planar.reshape(got.shape)).sum())
+        report(f"debayer bilinear16 {size} in 4 encodings", bad,
+               device_ms(lambda: debayer.debayer(bayer16, "bayer_gbrg16")))
+        del bayer16
         bgr = debayer.debayer(bayer, "bayer_gbrg8")
         small = counted(lambda: resize_linear_u8(bgr, ccc.SMALL_H, ccc.SMALL_W))
         bad = int((small != resize_linear_u8(bgr, ccc.SMALL_H, ccc.SMALL_W, plain=True)).sum())
@@ -3687,7 +3800,7 @@ def main() -> int:
              "F": kernels.REMAP_LERP, "G": kernels.POINTWISE, "H": kernels.CCC_RESIZE,
              "I": kernels.CCC_ARGMAX, "J": kernels.CCC_TRACK, "K": kernels.WB_STATS,
              "L": kernels.WB_HIST64, "M": kernels.WB_TABLES, "N": kernels.FLIP,
-             "O": kernels.LUT}
+             "O": kernels.LUT, "P": kernels.DEBAYER_BILINEAR16}
     print(json.dumps({"chain_frames_per_s": [
         {"chain": name, "size": size, "kernels": a, "plain": b}
         for (name, size), (a, b) in fps.items()],
@@ -3703,7 +3816,7 @@ def main() -> int:
                       "note": "logical shards on one card, not a scaling figure"}))
     # launches: the wrapper's count in the 1920x1080 run of the first chain
     # that runs the kernel (A, B, C, F-J: flagship; D: gpu_parity; E: float;
-    # K, M: wb_simple; L: wb_learned; N: flagship; O: mono8);
+    # K, M: wb_simple; L: wb_learned; N: flagship; O: mono8; P: bayer16);
     # launches_per_flagship_call: the grids it put on the device per call
     print(f"bound_ms against the H100 SXM's published peaks "
           f"({measure.PEAK_BYTES_PER_S / 1e12} TB/s, {measure.PEAK_F32_FLOP_PER_S / 1e12} "

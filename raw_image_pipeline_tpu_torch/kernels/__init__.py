@@ -34,7 +34,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("debayer.cu", "ccc_histogram.cu", "ccc_response.cu", "debayer_mht.cu",
            "remap_float.cu", "remap_lerp.cu", "pointwise.cu", "ccc_resize.cu", "ccc_argmax.cu",
            "ccc_track.cu", "wb_stats.cu", "wb_hist64.cu", "wb_tables.cu", "flip.cu",
-           "lut.cu")
+           "lut.cu", "debayer16.cu")
 HEADERS = ("debayer_strip.cuh", "remap_tile.cuh", "wb_planes.cuh")  # included by the sources; in the hash too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,6 +72,7 @@ _SIGNATURES = {
     "isp_wb_tables_limits": (_IP,),
     "isp_flip": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _I, _P),
     "isp_lut": (_P, _P, _P, _L, _L, _L, _L, _L, _P),
+    "isp_debayer_bilinear16": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -258,8 +259,16 @@ LUT = Kernel(
     "raw_image_pipeline_tpu_torch/csrc/lut.cu",
     "raw_image_pipeline_tpu/ops/gamma.py:221 apply_lut",
 )
+# the 16-bit bilinear demosaic (u16, or >> 8 into the chain's 8-bit
+# stages), which the reference package leaves to XLA
+DEBAYER_BILINEAR16 = Kernel(
+    "debayer_bilinear16", "isp_debayer_bilinear16",
+    "raw_image_pipeline_tpu_torch/csrc/debayer16.cu",
+    "raw_image_pipeline_tpu/ops/debayer.py:327 debayer_bilinear16",
+)
 ALL = (DEBAYER_BILINEAR, CCC_HISTOGRAM, CCC_RESPONSE, DEBAYER_MHT, REMAP_FLOAT, REMAP_LERP,
-       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK, WB_STATS, WB_HIST64, WB_TABLES, FLIP, LUT)
+       POINTWISE, CCC_RESIZE, CCC_ARGMAX, CCC_TRACK, WB_STATS, WB_HIST64, WB_TABLES, FLIP, LUT,
+       DEBAYER_BILINEAR16)
 
 
 def reset_launch_counts() -> None:

@@ -11,17 +11,20 @@ kernel:
   (cv::cuda::demosaicing): `debayer_mht_planar`, the full stencil over a
   clamp-to-edge mosaic; kernel D (csrc/debayer_mht.cu).
 
-Both plain versions and both kernels write planar [B, 3, H, W];
+16-bit frames (an extension of the reference) are always bilinear:
+`debayer_bilinear16_plain` (the same stencil in int32) and kernel P
+(csrc/debayer16.cu) write the values as u16, or >> 8 as u8 for the
+chain's 8-bit stages.
+
+All plain versions and kernels write planar [B, 3, H, W];
 `debayer_bilinear`, `debayer_mht` and `debayer_bilinear16` are the
 reference package's functions of a phase ([..., H, W] in, [..., H, W, 3]
 out), on the kernel for a CUDA tensor.
 
-`debayer_planes` is what the pipeline calls: on a CUDA tensor it launches
-the algorithm's kernel, on a CPU tensor it runs the plain version.
-`debayer` is the reference package's entry point over [..., H, W] frames,
-[..., H, W, 3] out, through the same dispatch. 16-bit
-frames (an extension of the reference) go through `debayer_bilinear16_planar`,
-plain int32 ops on any device.
+`debayer_planes` and `debayer16_planes` are what the pipeline calls: on a
+CUDA tensor they launch the kernel, on a CPU tensor they run the plain
+version. `debayer` is the reference package's entry point over
+[..., H, W] frames, [..., H, W, 3] out, through the same dispatch.
 
 Phase convention: OpenCV's COLOR_BayerXX2BGR codes define the CFA phase from
 pixel (1,1), so e.g. ``bayer_bggr8`` (ROS: top-left pixel Blue) maps to a
@@ -59,8 +62,8 @@ ENCODING_TO_CV_CODE = {
 BAYER_ENCODINGS = tuple(ENCODING_TO_CV_CODE)
 
 # 16-bit patterns: listed by the reference but unimplemented there (it
-# throws); demosaiced by debayer_bilinear16_planar when DebayerConfig.bayer16 is
-# "scale8"
+# throws); demosaiced bilinearly (kernel P on the card) when
+# DebayerConfig.bayer16 is "scale8"
 BAYER16_ENCODINGS = ("bayer_bggr16", "bayer_gbrg16", "bayer_grbg16", "bayer_rggb16")
 
 # Which parity cell holds (R site, G in an R row, G in a B row, B site),
@@ -145,47 +148,74 @@ def debayer_bilinear_planar(bayer: torch.Tensor, phase: str) -> torch.Tensor:
     return _bilinear_stencil(p, phase, 255).to(torch.uint8)
 
 
-def debayer_bilinear16_planar(bayer: torch.Tensor, phase: str) -> torch.Tensor:
-    """Bilinear demosaic of 16-bit frames (the reference package's
-    debayer_bilinear16, an extension: the reference lists these patterns
-    and throws): [B, H, W] uint16 (or any integer dtype holding 16-bit
-    values) -> [B, 3, H, W] int32 BGR in [0, 65535], the 8-bit stencil
-    and rounding in int32. The frame is widened to int32 first: uint16
-    tensors support few ops."""
-    p = F.pad(bayer.to(torch.int32), (1, 1, 1, 1))
-    return _bilinear_stencil(p, phase, 65535)
+def debayer_bilinear16_plain(bayer: torch.Tensor, phase: str, *,
+                             out_dtype: torch.dtype) -> torch.Tensor:
+    """Bilinear demosaic of 16-bit frames (kernel P's plain version; the
+    reference package's debayer_bilinear16, an extension: the reference
+    lists these patterns and throws): [B, H, W] uint16 (or any integer
+    dtype holding 16-bit values) -> [B, 3, H, W] planar BGR, uint16 or
+    uint8 (each value >> 8, the chain's scale into its 8-bit stages). The
+    8-bit stencil and rounding in int32: the frame is widened first, as
+    uint16 tensors support few ops."""
+    full = _bilinear_stencil(F.pad(bayer.to(torch.int32), (1, 1, 1, 1)), phase, 65535)
+    if out_dtype == torch.uint8:
+        return (full >> 8).to(torch.uint8)
+    if out_dtype == torch.uint16:
+        return full.to(torch.uint16)
+    raise ValueError(f"out_dtype: expected torch.uint8 or torch.uint16, got {out_dtype}")
 
 
-def strip_width(w: int, in_ptr: int, out_ptr: int) -> int:
-    """Kernels A's and D's strip width V: the widest of 16, 8 and 4 bytes
-    that divides the row width and both addresses, so that every row of the
-    mosaic and of each output plane starts on a V-byte boundary and a
-    thread reads and writes its 2 x V strip as V-byte words; else 1 (strips
-    of 2 columns, byte by byte)."""
+def strip_width(w: int, in_ptr: int, out_ptr: int, in_bytes: int = 1,
+                out_bytes: int = 1) -> int:
+    """Kernels A's, D's and P's strip width V: the widest of 16, 8 and 4
+    columns whose strip row of the mosaic (in_bytes a sample) is one word
+    of at most 16 bytes, that divides the row width, and whose rows of the
+    mosaic and of each output plane (out_bytes a value, written in words
+    of at most 16 bytes) start on their words' boundaries, given both
+    addresses; else 1 (strips of 2 columns, sample by sample). So u8
+    mosaics take up to 16 columns and u16 ones up to 8: kernel P with 16
+    (two 16-byte loads a row) was slower at 1920x1080 (PERF.md section 6)."""
     for v in (16, 8, 4):
-        if w % v == 0 and in_ptr % v == 0 and out_ptr % v == 0:
+        if (v * in_bytes <= 16 and w % v == 0 and in_ptr % (v * in_bytes) == 0
+                and out_ptr % min(v * out_bytes, 16) == 0):
             return v
     return 1
 
 
 def _launch_debayer(kernel: kernels.Kernel, bayer: torch.Tensor, phase: str,
-                    min_hw: int, batch_limit: int) -> torch.Tensor:
-    """Check a [B, H, W] uint8 CUDA mosaic, allocate [B, 3, H, W] and launch
-    kernel A or D on each run of at most batch_limit frames
-    (kernels.batch_runs) at the strip width strip_width picks for it."""
-    kernels.check_cuda(bayer, "bayer", torch.uint8)
+                    min_hw: int, batch_limit: int, in_dtype: torch.dtype = torch.uint8,
+                    out_dtype: torch.dtype = torch.uint8, extra: tuple = ()) -> torch.Tensor:
+    """Check a [B, H, W] CUDA mosaic of in_dtype, allocate [B, 3, H, W] of
+    out_dtype and launch kernel A, D or P on each run of at most
+    batch_limit frames (kernels.batch_runs) at the strip width strip_width
+    picks for it; `extra`, the C entry's arguments before the stream (P's
+    output bytes a value)."""
+    kernels.check_cuda(bayer, "bayer", in_dtype)
     if bayer.dim() != 3 or bayer.shape[1] < min_hw or bayer.shape[2] < min_hw:
         raise ValueError(f"bayer: expected [B, H, W] with H, W >= {min_hw}, "
                          f"got {tuple(bayer.shape)}")
     b, h, w = bayer.shape
-    out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=bayer.device)
+    out = torch.empty((b, 3, h, w), dtype=out_dtype, device=bayer.device)
+    sizes = (bayer.element_size(), out.element_size())
     with torch.cuda.device(bayer.device):
         for s, n in kernels.batch_runs(b, batch_limit):
             src, dst = bayer[s:s + n], out[s:s + n]
             kernel.launch(src.data_ptr(), dst.data_ptr(), n, h, w, phase_kinds(phase),
-                          strip_width(w, src.data_ptr(), dst.data_ptr()),
+                          strip_width(w, src.data_ptr(), dst.data_ptr(), *sizes), *extra,
                           kernels.stream_handle(bayer))
     return out
+
+
+def debayer_bilinear16_cuda(bayer: torch.Tensor, phase: str, *, out_dtype: torch.dtype,
+                            batch_limit: int = kernels.MAX_BATCH) -> torch.Tensor:
+    """Kernel P: [B, H, W] uint16 CUDA -> [B, 3, H, W] planar BGR of
+    out_dtype (uint16, or uint8 for each value >> 8), equal to
+    debayer_bilinear16_plain for any H, W >= 2 and any B (one launch per
+    batch_limit frames)."""
+    if out_dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"out_dtype: expected torch.uint8 or torch.uint16, got {out_dtype}")
+    return _launch_debayer(kernels.DEBAYER_BILINEAR16, bayer, phase, 2, batch_limit,
+                           torch.uint16, out_dtype, (out_dtype.itemsize,))
 
 
 def debayer_bilinear_cuda(bayer: torch.Tensor, phase: str, *,
@@ -287,11 +317,22 @@ def debayer_mht(bayer: torch.Tensor, phase: str, *, plain: bool = False) -> torc
     return _nhwc(_dispatch("mht", _flat(bayer), phase, plain), bayer.shape[:-2])
 
 
-def debayer_bilinear16(bayer: torch.Tensor, phase: str) -> torch.Tensor:
+def _debayer16(bayer: torch.Tensor, phase: str, out_dtype: torch.dtype,
+               plain: bool) -> torch.Tensor:
+    """[N, H, W] u16 -> [N, 3, H, W] of out_dtype: kernel P on a CUDA
+    tensor, its plain version on a CPU tensor or with plain=True."""
+    if plain or bayer.device.type == "cpu":
+        return debayer_bilinear16_plain(bayer, phase, out_dtype=out_dtype)
+    return debayer_bilinear16_cuda(bayer.contiguous(), phase, out_dtype=out_dtype)
+
+
+def debayer_bilinear16(bayer: torch.Tensor, phase: str, *, plain: bool = False) -> torch.Tensor:
     """Bilinear demosaic of 16-bit frames: [..., H, W] uint16 ->
-    [..., H, W, 3] uint16 BGR (plain int32 ops on any device)."""
-    return _nhwc(debayer_bilinear16_planar(_flat(bayer), phase).to(torch.uint16),
-                 bayer.shape[:-2])
+    [..., H, W, 3] uint16 BGR, kernel P on a CUDA tensor."""
+    out = _debayer16(_flat(bayer), phase, torch.uint16, plain)
+    # interleaved through an int16 view: the bits are the same, and uint16
+    # tensors support few ops on the card
+    return _nhwc(out.view(torch.int16), bayer.shape[:-2]).view(torch.uint16)
 
 
 def _demosaic(bayer: torch.Tensor, encoding: str, algorithm: str, plain: bool) -> torch.Tensor:
@@ -308,12 +349,12 @@ def debayer(bayer: torch.Tensor, encoding: str, algorithm: str = "bilinear", *,
     """Demosaic [..., H, W] frames by ROS encoding name to [..., H, W, 3]
     BGR in cv2's channel order (before the pipeline's CPU-path R<->B swap):
     uint8 for the 8-bit encodings ("bilinear" = kernel A, "mht" = kernel D
-    on a CUDA tensor; the plain versions on a CPU tensor or with
-    plain=True), uint16 for the 16-bit ones (bilinear, plain int32 ops)."""
+    on a CUDA tensor), uint16 for the 16-bit ones (bilinear, kernel P on a
+    CUDA tensor); the plain versions on a CPU tensor or with plain=True."""
     if bayer.dim() < 2:
         raise ValueError(f"bayer: expected [..., H, W], got {tuple(bayer.shape)}")
     if encoding in BAYER16_ENCODINGS:  # whatever the algorithm, as the reference package
-        return debayer_bilinear16(bayer, phase_for_encoding(encoding))
+        return debayer_bilinear16(bayer, phase_for_encoding(encoding), plain=plain)
     return _nhwc(_demosaic(_flat(bayer), encoding, algorithm, plain), bayer.shape[:-2])
 
 
@@ -323,4 +364,16 @@ def debayer_planes(bayer: torch.Tensor, encoding: str, algorithm: str = "bilinea
     (c0, c1, c2) in cv2's BGR order: debayer(...)[..., c] without the
     interleave, as the chain calls it (8-bit encodings only)."""
     out = _demosaic(bayer, encoding, algorithm, plain)
+    return out[:, 0], out[:, 1], out[:, 2]
+
+
+def debayer16_planes(bayer: torch.Tensor, encoding: str, *, plain: bool = False):
+    """Demosaic a [B, H, W] uint16 batch of a 16-bit encoding straight to
+    three [B, H, W] uint8 planes (c0, c1, c2) in cv2's BGR order, each value
+    >> 8, as the chain scales 16-bit frames into its 8-bit stages: kernel P
+    in u8 mode on a CUDA tensor, its plain version on a CPU tensor or with
+    plain=True."""
+    if encoding not in BAYER16_ENCODINGS:
+        raise NotImplementedError(f"16-bit debayer of encoding [{encoding}]")
+    out = _debayer16(bayer, phase_for_encoding(encoding), torch.uint8, plain)
     return out[:, 0], out[:, 1], out[:, 2]

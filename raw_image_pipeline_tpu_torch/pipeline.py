@@ -49,9 +49,8 @@ from raw_image_pipeline_tpu_torch.ops.debayer import (
     _ALGORITHMS,
     BAYER16_ENCODINGS,
     BAYER_ENCODINGS,
-    debayer_bilinear16_planar,
+    debayer16_planes,
     debayer_planes,
-    phase_for_encoding,
 )
 from raw_image_pipeline_tpu_torch.ops.flip import flip_rows, flipped_bayer_encoding
 from raw_image_pipeline_tpu_torch.ops.flip import flipped_shape as _post_flip_shape
@@ -564,13 +563,16 @@ def make_isp_chain(
                     planes = planes[::-1]
             elif encoding in BAYER16_ENCODINGS:
                 # demosaic at full depth, then scale into the 8-bit chain
-                # (always the bilinear stencil, as the reference package)
-                full = debayer_bilinear16_planar(img, phase_for_encoding(encoding))
-                planes = tuple((full[:, c] >> 8).to(torch.uint8) for c in range(3))
+                # (always the bilinear stencil, as the reference package):
+                # on the card one launch of kernel P, which writes the
+                # scaled planes
+                planes = debayer16_planes(img, encoding, plain=plain)
                 if cpu_swap:
                     planes = planes[::-1]
+            elif encoding == "rgb8" and img.dim() == 4:  # the channels reversed, as views
+                planes = (img[..., 2], img[..., 1], img[..., 0])
             else:
-                if encoding == "rgb8":
+                if encoding == "rgb8":  # one channel: the JAX package's [..., ::-1] reverses W
                     img = torch.flip(img, dims=(-1,))
                 # other encodings pass through untouched (debayer.cpp:75)
                 planes = (img[..., 0], img[..., 1], img[..., 2]) if img.dim() == 4 else (img,)

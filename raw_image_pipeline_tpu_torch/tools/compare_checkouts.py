@@ -41,7 +41,11 @@ checkout, through functions every version of the port has:
     B=4 ("N_270") and the wb_* chains', 90 at B=64 ("N64"; "N64_270" at
     270), and the mono chain's gamma table on a mono plane, ops.gamma
     .apply_lut with the 0.9 table (O since kernel O, G's table step on one
-    plane before): B=4 1080x1920 ("O") and B=64 1920x1080 ("O64"),
+    plane before): B=4 1080x1920 ("O") and B=64 1920x1080 ("O64"), and
+    the bayer16 chain's debayer of card_frames' 16-bit mosaics to its u8
+    planes, ops.debayer.debayer16_planes (P since kernel P, the eager
+    int32 stencil and a shift and cast a plane before): B=4 ("P") and B=64
+    ("P64") at 1080x1920,
     each with every stream operation its call makes:
     device ms (measure.device_ms) and ms per call, the host's launches
     included (measure.call_ms);
@@ -55,7 +59,8 @@ checkout, through functions every version of the port has:
     (ops.pointwise.pointwise_cuda, "G_table");
   * each chain of the flagship family in tools/workloads.py (flagship,
     gpu_parity, float, fixed32): frames/s at each of its sizes (its frames
-    in its calls, the Kalman state carried; the median of 7), and one
+    in its calls, the Kalman state carried; the median of 7) and the peak
+    device bytes of one such run, and one
     profiled call at 1920x1080 (profile_chains.profile_chain): wall, device
     busy time, and per isp_* range its GPU span, busy time, host time and
     CUDA API calls;
@@ -65,7 +70,9 @@ checkout, through functions every version of the port has:
     whose "CCC range" fields hold its isp_white_balance range, the
     statistical white balance;
   * the mono8 chain (the flagship on mono frames: the flip, the gamma
-    table, the lerp remap): frames/s and one profiled call.
+    table, the lerp remap) and the bayer16 chain (the flagship on 16-bit
+    Bayer frames, at 1920x1080 and 1440x1080): frames/s and one profiled
+    call.
 
 Prints one line per turn, then per version the median and range over its
 turns of each kernel's times, each chain's frames/s and its profile's
@@ -89,14 +96,19 @@ _REPO_DIR = os.path.dirname(os.path.dirname(_TOOLS_DIR))
 FLAGSHIP_FAMILY = ("flagship", "gpu_parity", "float", "fixed32")
 WB_CHAINS = ("wb_simple", "wb_grey_world", "wb_pca", "wb_learned")
 MONO_CHAINS = ("mono8",)
+BAYER16_CHAINS = ("bayer16",)
 CCC_RANGE = "isp_white_balance"
 FPS_REPS = 7
 TURNS = ("old", "new", "new", "old") * 2  # each build meets the card's drift alike
 
 
-def _fps(tp, torch, workloads, name: str, h: int, w: int) -> float:
-    """frames/s of a chain at h x w: its frames in its calls, the state
-    carried, host clock around the calls; the median of FPS_REPS."""
+def _fps(tp, torch, workloads, name: str, h: int, w: int):
+    """(frames/s, peak device bytes) of a chain at h x w: its frames in its
+    calls, the state carried, host clock around the calls, the median of
+    FPS_REPS; the peak of one run after the warm-up, as chip_smoke.py's
+    chains phase reads it (max_memory_allocated after
+    reset_peak_memory_stats: the frames and the worker's other tensors
+    count, so compare a chain with another chain of the same turn)."""
     import time
 
     ch = workloads.chains(tp)[name]
@@ -112,12 +124,15 @@ def _fps(tp, torch, workloads, name: str, h: int, w: int) -> float:
         torch.cuda.synchronize()
 
     run()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    peak = torch.cuda.max_memory_allocated()
     walls = []
     for _ in range(FPS_REPS):
         t0 = time.perf_counter()
         run()
         walls.append(time.perf_counter() - t0)
-    return ch.frames / statistics.median(walls)
+    return ch.frames / statistics.median(walls), peak
 
 
 def _worker(root: str, out: str) -> dict:
@@ -234,6 +249,15 @@ def _worker(root: str, out: str) -> dict:
         return undistortion.remap_planes(pl, m.remap_base, m.remap_weights, (1080, 1920), mode,
                                          **kw)
 
+    mosaic16 = {b: workloads.card_frames(torch, "bayer16", b, 1080, 1920, workloads.SEED + b)
+                for b in (4, 64)}
+    try:
+        debayer16 = debayer.debayer16_planes
+    except AttributeError:  # a checkout before kernel P: the chain's eager route
+        def debayer16(x, enc):
+            full = debayer.debayer_bilinear16_planar(x, debayer.phase_for_encoding(enc))
+            return tuple((full[:, c] >> 8).to(torch.uint8) for c in range(3))
+
     wb_calls = {}
     try:
         from raw_image_pipeline_tpu_torch.ops import learned_wb, pointwise
@@ -297,16 +321,20 @@ def _worker(root: str, out: str) -> dict:
              "N64_270": lambda: flip.flip(big[0], 270, (1, 2)),
              "O": lambda: gamma.apply_lut(bayer, gamma_lut),
              "O64": lambda: gamma.apply_lut(mono64, gamma_lut),
+             "P": lambda: debayer16(mosaic16[4], "bayer_gbrg16"),
+             "P64": lambda: debayer16(mosaic16[64], "bayer_gbrg16"),
              **wb_calls}
     res = {"kernels": {k: {"device_ms": measure.device_ms(f), "call_ms": measure.call_ms(f)}
                        for k, f in calls.items()},
-           "frames_per_s": {}, "profiles": {}}
-    del big, mono64, unaligned, calls, wb_calls
+           "frames_per_s": {}, "peak_bytes": {}, "profiles": {}}
+    del big, mono64, unaligned, calls, wb_calls, mosaic16
     torch.cuda.empty_cache()
-    for name in FLAGSHIP_FAMILY + WB_CHAINS + MONO_CHAINS:
+    for name in FLAGSHIP_FAMILY + WB_CHAINS + MONO_CHAINS + BAYER16_CHAINS:
         ch = workloads.chains(tp)[name]
         for h, w in ch.sizes:
-            res["frames_per_s"][f"{name} {w}x{h}"] = _fps(tp, torch, workloads, name, h, w)
+            key = f"{name} {w}x{h}"
+            res["frames_per_s"][key], res["peak_bytes"][key] = _fps(tp, torch, workloads,
+                                                                   name, h, w)
         res["profiles"][name] = profile_chains.profile_chain(tp, torch, workloads, name, out)
         torch.cuda.empty_cache()
     return res
@@ -362,7 +390,8 @@ def medians(turns) -> dict:
     {"wall_ms" | "busy_ms" | "idle_share" | stage: [median, min, max]}}}}
     over each version's turns; a profile's stage is its busy ms, over the
     turns whose trace shows it, and "profiles" is there where the turns
-    carry them (compare.json's do)."""
+    carry them (compare.json's do), "peak_bytes" ({chain: [median, min,
+    max]}) where they carry it."""
     def spread(values):
         return [statistics.median(values), min(values), max(values)]
 
@@ -375,6 +404,9 @@ def medians(turns) -> dict:
             "frames_per_s": {c: spread([t["frames_per_s"][c] for t in mine])
                              for c in mine[0]["frames_per_s"]},
         }
+        if "peak_bytes" in mine[0]:
+            out[version]["peak_bytes"] = {c: spread([t["peak_bytes"][c] for t in mine])
+                                          for c in mine[0]["peak_bytes"]}
         if "profiles" in mine[0]:
             out[version]["profiles"] = {
                 c: {"wall_ms": spread([t["profiles"][c]["wall_ms"] for t in mine]),
@@ -396,7 +428,9 @@ def _print_medians(turns) -> None:
                   f" / {v['call_ms'][0]:.5f} ({v['call_ms'][1]:.5f}-{v['call_ms'][2]:.5f})"
                   for k, v in m["kernels"].items())
               + "; frames/s " + ", ".join(f"{c} {a:.2f} ({lo:.2f}-{hi:.2f})"
-                                          for c, (a, lo, hi) in m["frames_per_s"].items()),
+                                          for c, (a, lo, hi) in m["frames_per_s"].items())
+              + "".join(f"; peak device bytes {c} {a} ({lo}-{hi})"
+                        for c, (a, lo, hi) in m.get("peak_bytes", {}).items()),
               flush=True)
         for c, p in m.get("profiles", {}).items():
             print(f"{version} {c} profile, median (range) ms: " + ", ".join(

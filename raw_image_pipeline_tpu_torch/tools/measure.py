@@ -48,6 +48,15 @@ def debayer_work(pixels: int, algorithm: str) -> dict:
     return {"bytes": 4 * pixels, "ops": pixels * DEBAYER_OPS_PER_PIXEL[algorithm]}
 
 
+def debayer16_work(pixels: int, out_bytes: int) -> dict:
+    """The work of kernel P on `pixels` 16-bit mosaic pixels: "bytes", two
+    bytes read and three values of out_bytes (1 in u8 mode, 2 in u16 mode)
+    written per pixel; "ops", the bilinear stencil's integer operations
+    (DEBAYER_OPS_PER_PIXEL, the shift of u8 mode not counted)."""
+    return {"bytes": (2 + 3 * out_bytes) * pixels,
+            "ops": pixels * DEBAYER_OPS_PER_PIXEL["bilinear"]}
+
+
 # f32 operations an output value of kernel E's blend: four products and
 # three sums (the rounding and the clamp are not counted)
 REMAP_FLOAT_OPS_PER_VALUE = 7

@@ -126,14 +126,17 @@ def chains(tp) -> dict:
     # (F, one plane); the white balance and the colour stages skip mono
     table["mono8"] = Chain(tp.flagship_config, full[:1], ("flip", "lut", "remap_lerp"),
                            encoding="mono8", kind="mono")
+    # the flagship configuration on 16-bit Bayer frames: the debayer (P,
+    # straight to the 8-bit planes), then the planes' flip (N), the CCC
+    # range, G and the lerp remap
+    table["bayer16"] = Chain(bayer16, full, ("debayer_bilinear16", "flip") + ccc
+                             + ("remap_lerp",), encoding="bayer_gbrg16", kind="bayer16")
     # small size only: the other inputs on the flagship configuration (mono
-    # frames through the float remap = E on one plane), 16-bit Bayer
+    # frames through the float remap = E on one plane)
     table["mono8_float"] = Chain(remap("float"), (), (), encoding="mono8", kind="mono",
                                  small_only=True)
     table["rgb8_float"] = Chain(remap("float"), (), (), encoding="rgb8", kind="color",
                                 small_only=True)
-    table["bayer16"] = Chain(bayer16, (), (), encoding="bayer_gbrg16", kind="bayer16",
-                             small_only=True)
     return table
 
 
@@ -297,7 +300,9 @@ def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int, device="cud
     own colour cast (a per-frame, per-channel gain), so that every
     white-balance method finds different gains per frame: "color"
     [n, h, w, 3] BGR, "bayer" (or "mono", the same bytes as mono8 frames)
-    [n, h, w] bayer_gbrg8 mosaics of such frames."""
+    [n, h, w] bayer_gbrg8 mosaics of such frames, "bayer16" [n, h, w]
+    uint16 bayer_gbrg16 mosaics: the "bayer" mosaic's values as the high
+    byte, seeded low bytes."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     yy = torch.linspace(0, 1, h, device=device)[:, None]
@@ -312,6 +317,9 @@ def card_frames(torch, kind: str, n: int, h: int, w: int, seed: int, device="cud
         noise = 0.8 + 0.4 * torch.rand((m, h, w, 3), generator=g, device=device)
         img = (base[..., None] * cast * noise).clamp(0, 255).to(torch.uint8)
         out[s:s + m] = img if kind == "color" else mosaic_gbrg(img)
+    if kind == "bayer16":  # made in int32 and cast through int16: the bits of uint16
+        low = torch.randint(0, 256, out.shape, generator=g, device=device, dtype=torch.int32)
+        return (out.to(torch.int32) * 256 + low).to(torch.int16).view(torch.uint16)
     return out
 
 

@@ -319,13 +319,21 @@ def test_rgb8_chain_equals_reference(mode):
     assert_equal_outputs(jo, po)
 
 
+def bayer16_case(hw, seed=14, **fields):
+    """The flagship configuration with bayer16 "scale8" (and the given
+    config fields replaced) and two bayer_gbrg16 frames of hw: u8 cast
+    frames' green scaled to 16 bits with seeded low bits."""
+    c = tp.flagship_config(*hw)
+    c = c.replace(debayer=dataclasses.replace(c.debayer, bayer16="scale8"), **fields)
+    frames = (cast_frames(seed, 2, *hw)[..., 1].astype(np.uint16) * 257
+              + np.random.default_rng(seed - 14).integers(0, 257, (2, *hw))).astype(np.uint16)
+    return c, frames
+
+
 def test_bayer16_chain_equals_reference():
     hw = (24, 32)
-    c = tp.flagship_config(*hw)
-    c = c.replace(debayer=dataclasses.replace(c.debayer, bayer16="scale8"),
-                  white_balance=dataclasses.replace(c.white_balance, method="grey_world"))
-    frames = (cast_frames(14, 2, *hw)[..., 1].astype(np.uint16) * 257
-              + np.random.default_rng(0).integers(0, 257, (2, *hw))).astype(np.uint16)
+    c, frames = bayer16_case(hw, white_balance=dataclasses.replace(
+        tp.flagship_config(*hw).white_balance, method="grey_world"))
     jo, po, _, _ = run_both(c, "bayer_gbrg16", frames)
     assert_equal_outputs(jo, po)
 

@@ -401,7 +401,7 @@ def test_kernel_f_is_registered():
     path, line = kernels.REMAP_LERP.replaces.split(":")
     with open(os.path.join(REPO, path)) as f:
         assert f.readlines()[int(line) - 1].startswith("def _remap_rows(")
-    assert len({k.name for k in kernels.ALL}) == len(kernels.ALL) == 15  # A-O
+    assert len({k.name for k in kernels.ALL}) == len(kernels.ALL) == 16  # A-P
 
 
 # --- (e) the plain versions against the JAX package ---------------------------

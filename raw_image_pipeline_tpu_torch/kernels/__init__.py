@@ -13,7 +13,8 @@ kernel.
 Each kernel is a `Kernel` object: its C entry, the TPU kernel it replaces,
 the grids one call of its entry puts on the device, and `launches`, a count
 that its wrapper (in ops/) raises by one where it launches the kernel and
-nowhere else.
+nowhere else. Inside a recorded call (utils/profiling.span) a launch also
+books its C entry's host seconds to the innermost open span.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import time
 from typing import Optional
 
 import torch
+
+from raw_image_pipeline_tpu_torch.utils import profiling
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -156,7 +159,13 @@ class Kernel:
         """Call the C entry (which launches on the given stream and returns
         cudaGetLastError()); raise if the launch failed."""
         lib = LIBRARY.get()
-        err = getattr(lib, self.entry)(*args)
+        entry = getattr(lib, self.entry)
+        if profiling.OPEN.spans:  # inside a recorded call: time the C entry alone
+            t0 = time.perf_counter()
+            err = entry(*args)
+            profiling.launched(time.perf_counter() - t0)
+        else:
+            err = entry(*args)
         if err != 0:
             msg = lib.isp_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")

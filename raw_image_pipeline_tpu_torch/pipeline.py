@@ -37,7 +37,6 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function as stage
 
 from raw_image_pipeline_tpu_torch.config import PipelineConfig
 from raw_image_pipeline_tpu_torch.models.ccc_model import CCCModel, load_ccc_model
@@ -69,6 +68,7 @@ from raw_image_pipeline_tpu_torch.ops.vignetting import (
     composed_gamma_lab_table,
 )
 from raw_image_pipeline_tpu_torch.ops.white_balance import METHODS, pca_nan_limit, wb_tables
+from raw_image_pipeline_tpu_torch.utils.profiling import CALL_SPAN, span
 
 # Cross-frame state: the CCC Kalman illuminant track.
 IspState = ccc_ops.KalmanState
@@ -531,7 +531,10 @@ def make_isp_chain(
         rows = part.rows(h)
 
         def pack(planes):
-            return torch.stack(planes, dim=-1) if len(planes) == 3 else planes[0]
+            if len(planes) != 3:
+                return planes[0]
+            with span("isp_pack"):
+                return torch.stack(planes, dim=-1)
 
         def keep(name, planes, height):
             outputs[name] = pack(planes)
@@ -544,7 +547,7 @@ def make_isp_chain(
 
         # each stage is a profiler range (torch.profiler attributes time per
         # ISP stage, as the reference package's jax.named_scope do)
-        with stage("isp_debayer"):
+        with span("isp_debayer"):
             hoist = hoist_enc is not None and w % 2 == 0 and h % 2 == 0
             if hoist:
                 # the flipped mosaic's slab and its debayer halo
@@ -581,8 +584,8 @@ def make_isp_chain(
         dump("00_debayer", planes)
         is_color = len(planes) == 3
 
-        with stage("isp_flip"):
-            if config.flip.enabled and not hoist:
+        if config.flip.enabled and not hoist:
+            with span("isp_flip"):
                 fh, fw = _post_flip_shape(h, w, config.flip.angle)
                 mine = part.rows(fh)
                 planes = yield from flipped_rows(planes, rows, h, config.flip.angle, mine)
@@ -604,7 +607,7 @@ def make_isp_chain(
         # the statistical methods, colour calibration, vignetting and the
         # enhancer are skipped for mono frames (white_balance.hpp:50-52)
         if wb.enabled and is_color:
-            with stage("isp_white_balance"):
+            with span("isp_white_balance"):
                 if use_ccc:
                     # on the card kernels H, B, C, I and J, one launch each
                     # (C four grids), no copy and no sync
@@ -687,7 +690,7 @@ def make_isp_chain(
         for i, (name, stage_range, point) in enumerate(STRETCH[1:], start=1):
             launch = last.get(name)
             if launch is not None:
-                with stage(stage_range if len(launch) == 1 else "isp_pointwise"):
+                with span(stage_range if len(launch) == 1 else "isp_pointwise"):
                     if launch == final:
                         packed = torch.empty(tuple(planes[0].shape) + (3,), dtype=torch.uint8,
                                              device=planes[0].device)
@@ -696,15 +699,15 @@ def make_isp_chain(
                                               **_step_args(launch, params, gains), **wb_args)
                     wb_args = {}
             elif name == "lut" and gc.enabled and not is_color:
-                with stage("isp_gamma"):  # on the card G's table step on one plane
+                with span("isp_gamma"):  # on the card G's table step on one plane
                     planes = tuple(apply_lut(p, params.gamma_lut, plain=plain) for p in planes)
             if i + 1 == len(STRETCH) or STRETCH[i + 1][2] != point:
                 dump(point, planes)
 
         if keep_intermediates:
             keep("dist_color", planes, h)
-        with stage("isp_undistortion"):
-            if run_undist:
+        if run_undist:
+            with span("isp_undistortion"):
                 if remap_src_hw is not None and (h, w) != tuple(remap_src_hw):
                     raise ValueError(
                         f"remap precomputed for source {tuple(remap_src_hw)} but got "
@@ -721,8 +724,8 @@ def make_isp_chain(
                 if not is_color:
                     img = img[..., 0]
                 h = ho
-            else:
-                img = packed if packed is not None else pack(planes)
+        else:
+            img = packed if packed is not None else pack(planes)
         if debug:
             outputs["debug/07_undistortion"] = img
             heights["debug/07_undistortion"] = h
@@ -759,7 +762,8 @@ def _chunked_fn(inner_fn, microbatch: int):
         for start in range(0, pixels.shape[0], microbatch):
             out, state = inner_fn(params, pixels[start:start + microbatch], state)
             chunks.append(out)
-        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}, state
+        with span("isp_pack"):
+            return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}, state
 
     return fn
 
@@ -799,9 +803,10 @@ class BuiltPipeline:
         self.selected_impls = selected_impls or impls_for_devices([params.color_matrix.device])
 
     def __call__(self, pixels, state: Optional[IspState] = None):
-        if self.mesh is not None:
-            return self.fn(pixels, state)
-        return self.fn(self.params, pixels, state)
+        with span(CALL_SPAN):  # the root of the stages' spans
+            if self.mesh is not None:
+                return self.fn(pixels, state)
+            return self.fn(self.params, pixels, state)
 
 
 def build_pipeline(
